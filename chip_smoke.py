@@ -23,16 +23,40 @@ Phases, each fatal on failure (no fallback to the CPU):
    held against each other;
 4. launch counts: every kernel must have launched on the main path; the
    hash join is checked bitwise once more on the main path's own caches,
-   at the slot counts they reached.
+   at the slot counts they reached; the main path once more under
+   ``torch.profiler`` (the card's busy share);
+5. the cluster on the card: the same deployment on ``ConcurrentCluster``
+   (5 workers, one CUDA stream each, the four views attached, 200 records
+   per partition per fetch). (a) Pre-extracted stream: facts
+   byte-identical to the sequential card run and to the CPU run, the
+   running KPI aggregate within 1e-2 of the card's full rescan
+   (``kpi_rollup``, the segment_rollup kernel), then the 412-query
+   dashboard burst through the batched front — every kernel must have
+   launched in this run. (b) Live feed: 2 of 5 workers killed mid-stream,
+   then scaled to 4: nothing lost, no buffer drop, identity columns equal
+   to the sequential run's. Records/s, freshness and report staleness
+   p50/p95, and the card's busy share of a profiled run of (a);
+6. segment_rollup against its plain version, bitwise, on the cluster's
+   own fact table and on a 2^20-row table from the seed with invalid,
+   out-of-range, negative and fractional units; its device time, issue
+   time, bound and ``index_add_``'s time over the pre-masked KPI lanes;
+7. durability on the card: the cluster journaling to a checkpoint
+   directory, crashed at ``commit.post``, recovered with
+   ``recover_pipeline(device="cuda")`` and run to the end — facts
+   byte-identical to the uninterrupted run, the rescan bitwise its plain
+   version.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
 the JAX package.
 """
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -445,25 +469,27 @@ def compare_main_path(gpu, cpu) -> None:
         fail("fact table is not finite [n, 10]")
 
 
-def profile_main_path(card: str) -> None:
-    """Run the card's main path once more under ``torch.profiler`` and
-    print each CUDA kernel's count and mean device time, plus the share of
-    the run's wall time in which the card was busy (union of kernel and
-    copy intervals; the profiler's own host overhead lengthens the wall
-    time, so the share is a lower bound)."""
+def profile_run(label: str, run, card: str) -> None:
+    """Run ``run()`` once under ``torch.profiler`` and print each CUDA
+    kernel's count and mean device time, plus the share of the run's wall
+    time in which the card was busy (union of kernel and copy intervals
+    over all streams; the profiler's own host overhead lengthens the wall
+    time, so the share is a lower bound), and the host side: the torch
+    ops' and CUDA runtime calls' self time summed over all threads, with
+    the largest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_main_path("cuda")
+        run()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = [(e.name, e.time_range.start, e.time_range.end)
              for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:
-        print("device time under the profiler: not measured (no CUDA "
-              "events recorded)")
+        print(f"device time under the profiler ({label}): not measured (no "
+              "CUDA events recorded)")
         return
     per = {}
     for name, lo, hi in spans:
@@ -473,10 +499,348 @@ def profile_main_path(card: str) -> None:
     for _, lo, hi in sorted(spans, key=lambda s: s[1]):
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
-    print(f"profiled main path [{card}]: card busy {busy:.0f} us of "
+    print(f"profiled {label} [{card}]: card busy {busy:.0f} us of "
           f"{wall_us:.0f} us wall ({100 * busy / wall_us:.2f}%)")
     for name, (c, t) in sorted(per.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {c:5d} x {t / c:8.2f} us  {name[:90]}")
+    host = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            c, t = host.get(e.name, (0, 0.0))
+            host[e.name] = (c + 1, t + e.self_cpu_time_total)
+    total = sum(t for _, t in host.values())
+    print(f"  host: torch ops and CUDA runtime calls, self time summed over "
+          f"threads {total / 1e6:.3f} s; largest:")
+    for name, (c, t) in sorted(host.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"  {c:5d} x {t / c:8.2f} us  {name[:90]}")
+
+
+# ------------------------------------------------------------------ phase 5
+CLUSTER_RECORDS = 20_000
+CLUSTER_CAP = 200                  # records per partition per fetch
+DEVICE = "cuda"                    # where the cluster phases run
+
+
+def steelworks_deployment(device: str, fault=None, tracer=None):
+    """The steelworks deployment of phase 3 (same seed, so the same
+    records), unextracted: (cfg, source, sampler, pipeline)."""
+    from repro_torch.configs.dod_etl import steelworks_config
+    from repro_torch.core import DODETLPipeline, SourceDatabase
+    from repro_torch.data.sampler import SamplerConfig, SteelworksSampler
+    cfg = steelworks_config(n_partitions=N_UNITS)
+    src = SourceDatabase()
+    sampler = SteelworksSampler(cfg, SamplerConfig(
+        records_per_table=CLUSTER_RECORDS, n_equipment=N_UNITS, seed=0))
+    pipe = DODETLPipeline(cfg, src, n_workers=5, device=device, fault=fault,
+                          tracer=tracer)
+    return cfg, src, sampler, pipe
+
+
+def views_for(backend):
+    from repro_torch.serving import MaterializedViewEngine, steelworks_views
+    return MaterializedViewEngine(steelworks_views(N_UNITS), backend=backend)
+
+
+def dashboard_burst(engine):
+    """The example's dashboard refresh: 412 queries through the batched
+    front (its own stream), every answer awaited."""
+    from repro_torch.serving import (BatchedReportServer, ReportQuery,
+                                     ReportServer)
+    front = BatchedReportServer(ReportServer(engine), max_batch=4096,
+                                max_wait_ms=2.0)
+    front.start()
+    burst = [ReportQuery("oee", unit=u) for u in range(N_UNITS)] * 20 \
+        + [ReportQuery("top_downtime", k=3), ReportQuery("shift_report"),
+           ReportQuery("production_rate")] * 4
+    try:
+        answers = [t.result(timeout=30.0)
+                   for t in [front.submit(q) for q in burst]]
+    finally:
+        front.stop()
+    return answers, front.stats()
+
+
+def run_cluster_pre_extracted():
+    """(a): the whole stream published before the cluster starts, then
+    the full rescan and the dashboard burst. Returns (pipeline, engine,
+    report, rescan, answers, stage spans)."""
+    from repro_torch.observability.tracer import StageTracer
+    from repro_torch.runtime.cluster import ConcurrentCluster
+    tracer = StageTracer()
+    _, src, sampler, pipe = steelworks_deployment(DEVICE, tracer=tracer)
+    sampler.generate(src)
+    pipe.extract()
+    engine = views_for(pipe.backend)
+    cluster = ConcurrentCluster(pipe, max_records_per_partition=CLUSTER_CAP,
+                                poll_cdc=False, serving=engine)
+    cluster.start()
+    done = cluster.run_until_idle(timeout=300)
+    cluster.stop_all()
+    if done != CLUSTER_RECORDS:
+        fail(f"pre-extracted cluster loaded {done} of {CLUSTER_RECORDS}")
+    report = cluster.report()
+    spans = stage_spans(tracer, cluster._t_start)
+    rescan = pipe.warehouse.kpi_rollup(N_UNITS)     # segment_rollup kernel
+    answers, _ = dashboard_burst(engine)
+    return pipe, engine, report, rescan, answers, spans
+
+
+def stage_spans(tracer, t_start: float) -> dict:
+    """Where the cluster run's wall time went, from the pipeline's own
+    stage spans: per span name its count and summed seconds (over all
+    threads), and per worker the seconds from start to its first fetch
+    and to its last commit."""
+    per_name, first, last = {}, {}, {}
+    for ph, name, lane, t0, dur, _ in tracer.events():
+        if ph != "X":
+            continue
+        c, t = per_name.get(name, (0, 0.0))
+        per_name[name] = (c + 1, t + dur)
+        worker = lane.split(".")[0]
+        if name == "ingest.fetch":
+            first[worker] = min(first.get(worker, t0), t0)
+        if name == "load.commit":
+            last[worker] = max(last.get(worker, t0 + dur), t0 + dur)
+    return {"per_name": per_name,
+            "workers": {w: (first[w] - t_start, last.get(w, first[w])
+                            - t_start) for w in sorted(first)}}
+
+
+def print_cluster_report(label: str, rep: dict, card: str) -> None:
+    sv = rep["serving"]
+    print(f"cluster {label} [{card}]: {rep['records']} records in "
+          f"{rep['wall_s']} s = {rep['records_s']} records/s on "
+          f"{rep['n_workers']} workers; freshness p50/p95 "
+          f"{rep['p50_ms']:.3f}/{rep['p95_ms']:.3f} ms; report staleness "
+          f"p50/p95 {sv['staleness_p50_ms']:.3f}/"
+          f"{sv['staleness_p95_ms']:.3f} ms; views at epoch {sv['epoch']}")
+
+
+def check_cluster_pre_extracted(clu, gpu, cpu, card: str) -> None:
+    import numpy as np
+    pipe, engine, rep, rescan, answers, spans = clu
+    facts = pipe.warehouse.canonical_fact_table().tobytes()
+    for other, what in ((gpu[0], "sequential card run"),
+                        (cpu[0], "CPU run")):
+        if facts != other.warehouse.canonical_fact_table().tobytes():
+            fail(f"cluster facts are not byte-identical to the {what}")
+    running = pipe.warehouse.kpi_running()
+    if running is None:
+        fail("kpi_running() is None after the cluster run")
+    diff = float(np.abs(running - rescan).max())
+    if not diff <= 1e-2:
+        fail(f"kpi_running vs the card's rescan: max diff {diff} > 1e-2")
+    if len(answers) != 412 or any(a is None for a in answers):
+        fail("dashboard burst did not answer every query")
+    if engine.snapshot().rows_folded != CLUSTER_RECORDS:
+        fail("views do not cover every loaded fact")
+    print(f"cluster (a) pre-extracted: {pipe.warehouse.rows_loaded} facts "
+          f"byte-identical to the sequential card run and to the CPU run; "
+          f"kpi_running vs the card's full rescan: max diff {diff:.6g} "
+          f"(tol 1e-2); 412 dashboard answers")
+    print_cluster_report("(a) pre-extracted", rep, card)
+    print("  stage spans (count, summed s over all threads): " + ", ".join(
+        f"{k} {c} / {t:.3f}" for k, (c, t) in sorted(
+            spans["per_name"].items())))
+    print("  per worker, s from start to first fetch / last commit: "
+          + ", ".join(f"{w} {a:.3f}/{b:.3f}"
+                      for w, (a, b) in spans["workers"].items()))
+
+
+def run_cluster_live(gpu, card: str) -> None:
+    """(b): the feed publishes while the cluster extracts (poll_cdc);
+    w1 and w3 die after a quarter of the stream, the cluster scales back
+    to 4 after half."""
+    import numpy as np
+    from repro_torch.runtime.cluster import ConcurrentCluster
+    _, src, sampler, pipe = steelworks_deployment(DEVICE)
+    engine = views_for(pipe.backend)
+    cluster = ConcurrentCluster(pipe, max_records_per_partition=CLUSTER_CAP,
+                                serving=engine)
+    feeder = threading.Thread(target=lambda: sampler.generate(src))
+    cluster.start()
+    feeder.start()
+
+    def wait_done(n):
+        t0 = time.perf_counter()
+        while cluster.records_done() < n:
+            if time.perf_counter() - t0 > 120:
+                fail(f"live cluster stalled at {cluster.records_done()}")
+            time.sleep(0.002)
+
+    wait_done(CLUSTER_RECORDS // 4)
+    redump = cluster.fail_workers(["w1", "w3"])
+    at_fail = cluster.records_done()
+    wait_done(CLUSTER_RECORDS // 2)
+    cluster.scale_to(4)
+    feeder.join(120)
+    if feeder.is_alive():
+        fail("feeder did not finish")
+    done = cluster.run_until_idle(timeout=300)
+    cluster.stop_all()
+    rep = cluster.report()
+    drops = sum(rt.worker.buffer.dropped for rt in cluster.runtimes.values())
+    wh = pipe.warehouse
+    if done != CLUSTER_RECORDS or wh.rows_loaded != CLUSTER_RECORDS:
+        fail(f"live cluster lost records: {wh.rows_loaded} loaded of "
+             f"{CLUSTER_RECORDS}")
+    if drops:
+        fail(f"live cluster dropped {drops} buffered records")
+    a = wh.canonical_fact_table()
+    b = gpu[0].warehouse.canonical_fact_table()
+    order = lambda t: t[np.lexsort((t[:, 2], t[:, 1], t[:, 0]))]
+    if a.shape != b.shape or not np.array_equal(order(a)[:, :3],
+                                                order(b)[:, :3]):
+        fail("live cluster identity columns differ from the sequential run")
+    if not (a[:, -1] > 0.5).all() or not np.isfinite(a).all():
+        fail("live cluster facts are not all valid and finite")
+    print(f"cluster (b) live feed: w1, w3 failed after {at_fail} records "
+          f"(caches re-dumped in {redump * 1e3:.1f} ms), scaled to 4; "
+          f"{wh.rows_loaded} loaded, 0 lost, 0 buffer drops, identity "
+          f"columns equal to the sequential run; workers alive "
+          f"{sorted(cluster.alive_workers())}")
+    print_cluster_report("(b) live feed", rep, card)
+
+
+# ------------------------------------------------------------------ phase 6
+def rescan_table(rng, n: int, n_units: int):
+    """``n`` fact rows from the seed: units in [-3, n_units + 3) with
+    fractional parts (some truncate into range, some out of it), 20%
+    invalid rows, finite KPI lanes in [0, 1)."""
+    import numpy as np
+    f = rng.random((n, 10), dtype=np.float32)
+    f[:, 0] = (rng.integers(-3, n_units + 3, n)
+               + rng.choice(np.float32([0.0, 0.25, -0.5, 0.75]), n))
+    f[:, 9] = (rng.random(n) > 0.2).astype(np.float32)
+    return f
+
+
+def rollup_bitwise(t, n_units: int, what: str):
+    import torch
+    from repro_torch.kernels.segment_kpi.ops import segment_rollup
+    from repro_torch.kernels.segment_kpi.ref import segment_rollup_ref
+    got = segment_rollup(t, n_units)
+    want = segment_rollup_ref(t, n_units)
+    torch.cuda.synchronize()
+    if not same_bits(got, want):
+        fail(f"segment_rollup differs from the plain version ({what})")
+    return got
+
+
+def check_segment_rollup(rng, dev, pipe) -> dict:
+    import torch
+    from repro_torch.kernels.segment_kpi.ops import segment_rollup
+    from repro_torch.kernels.segment_kpi.ref import segment_rollup_ref
+    warehouse = torch.tensor(pipe.warehouse.fact_table(), device=dev)
+    rollup_bitwise(warehouse, N_UNITS, f"the cluster's "
+                   f"{warehouse.shape[0]} facts")
+    n = 1 << 20
+    big = torch.tensor(rescan_table(rng, n, N_UNITS), device=dev)
+    agg = rollup_bitwise(big, N_UNITS, f"{n} rows")
+    print(f"segment_rollup: bitwise equal to the plain version on the "
+          f"cluster's {warehouse.shape[0]} facts and on {n} seeded rows "
+          f"({int(agg[:, 4].sum())} counted)")
+    unit = big[:, 0].to(torch.int64)
+    keep = (big[:, 9] > 0.5) & (unit >= 0) & (unit < N_UNITS)
+    lanes = torch.cat([big[keep, 3:7], torch.ones(
+        (int(keep.sum()), 1), dtype=torch.float32, device=dev)], dim=1)
+    idx = unit[keep].contiguous()
+
+    def library():
+        return torch.zeros((N_UNITS, 5), dtype=torch.float32,
+                           device=dev).index_add_(0, idx, lanes)
+    lib = library()
+    print(f"  index_add_ over the pre-masked lanes: max diff "
+          f"{float((lib - agg).abs().max()):.3g} from the kernel (not "
+          f"bitwise: atomic order)")
+    b_ms, b_by = bound(n * 40 + N_UNITS * 5 * 4, n * 5)
+    small = {"ms": graph_ms(lambda: segment_rollup(warehouse, N_UNITS)),
+             "issue_ms": issue_ms(lambda: segment_rollup(warehouse,
+                                                         N_UNITS))}
+    print(f"  at the cluster's {warehouse.shape[0]} facts: "
+          f"{small['ms']:.5f} ms kernel (device, CUDA graph), "
+          f"{small['issue_ms']:.5f} ms per host-issued call")
+    return {"name": "segment_rollup", "max_abs_err": 0.0,
+            "ms": graph_ms(lambda: segment_rollup(big, N_UNITS)),
+            "plain_ms": graph_ms(lambda: segment_rollup_ref(big, N_UNITS),
+                                 reps=2, rounds=3),
+            "issue_ms": issue_ms(lambda: segment_rollup(big, N_UNITS)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": graph_ms(library),
+            "shape": f"[{n}, 10] -> [{N_UNITS}, 5]"}
+
+
+# ------------------------------------------------------------------ phase 7
+def check_durability(clu) -> None:
+    """Crash the journaling cluster at commit.post, recover on the card,
+    finish the stream: the facts must be the uninterrupted run's bytes."""
+    from repro_torch.durability import (DurabilityJournal, FaultInjector,
+                                        RecoveryCoordinator,
+                                        recover_pipeline)
+    from repro_torch.durability.faults import COMMIT_POST
+    from repro_torch.runtime.cluster import ConcurrentCluster
+    # the crash comes at the 20th load (a load holds 150-800 records, so
+    # 15-80% through), after the explicit checkpoint below journaled the
+    # first tenth of the stream; the periodic checkpointer runs besides
+    fault = FaultInjector({COMMIT_POST: CLUSTER_RECORDS // 1000})
+    cfg, src, sampler, pipe = steelworks_deployment(DEVICE, fault=fault)
+    sampler.generate(src)
+    pipe.extract()
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_journal-", dir=scratch)
+    try:
+        cluster = ConcurrentCluster(
+            pipe, max_records_per_partition=CLUSTER_CAP, poll_cdc=False,
+            serving=views_for(pipe.backend),
+            recovery=RecoveryCoordinator(DurabilityJournal(root)),
+            checkpoint_every_s=0.05)
+        cluster.checkpoint()
+        cluster.start()
+        t0 = time.perf_counter()
+        while pipe.warehouse.rows_loaded < CLUSTER_RECORDS // 10:
+            if time.perf_counter() - t0 > 120:
+                fail("the journaling cluster stalled")
+            time.sleep(0.001)
+        cluster.checkpoint()
+        if not fault.tripped.wait(120):
+            fail("the commit.post crash point was never reached")
+        cluster.abandon()
+        crashed_at = pipe.warehouse.rows_loaded
+        engine2 = views_for(pipe.backend)
+        pipe2, coord2, info = recover_pipeline(
+            cfg, src, DurabilityJournal(root), engine=engine2,
+            device=DEVICE)
+        if info is None or info["commit_seq"] == 0:
+            fail("the journal held no loaded state at the crash")
+        cluster2 = ConcurrentCluster(
+            pipe2, max_records_per_partition=CLUSTER_CAP, poll_cdc=False,
+            serving=engine2, recovery=coord2, checkpoint_every_s=0.05)
+        cluster2.start()
+        cluster2.run_until_idle(timeout=300)
+        cluster2.stop_all()
+        steps = len(DurabilityJournal(root).steps())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wh = pipe2.warehouse
+    if wh.rows_loaded != CLUSTER_RECORDS:
+        fail(f"recovered run loaded {wh.rows_loaded} of {CLUSTER_RECORDS}")
+    if wh.canonical_fact_table().tobytes() != \
+            clu[0].warehouse.canonical_fact_table().tobytes():
+        fail("recovered facts are not byte-identical to the uninterrupted "
+             "run")
+    import torch
+    rollup_bitwise(torch.tensor(wh.fact_table(), device=DEVICE), N_UNITS,
+                   "the recovered warehouse")
+    if engine2.snapshot().rows_folded != CLUSTER_RECORDS:
+        fail("recovered views do not cover every fact")
+    print(f"durability: crashed at commit.post with {crashed_at} rows "
+          f"loaded, recovered journal step {info['step']} (commit seq "
+          f"{info['commit_seq']}, {info['replayed_chunks']} chunks "
+          f"replayed into the views), finished: {wh.rows_loaded} facts "
+          f"byte-identical to the uninterrupted run; rescan bitwise its "
+          f"plain version; {steps} journal steps")
+
 
 
 def main() -> None:
@@ -496,9 +860,10 @@ def main() -> None:
               f"host-issued wrapper call, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']}) [{card}]")
 
+    # the sequential main path (phase 3/4)
     reset_launch_counts()
     gpu = run_main_path("cuda")
-    counts = launch_counts()
+    seq_counts = launch_counts()
     rows = gpu[0].warehouse.rows_loaded
     print(f"main path on the card: {rows} records loaded in "
           f"{gpu[3]:.3f} s of streaming = {rows / gpu[3]:.1f} records/s "
@@ -508,32 +873,52 @@ def main() -> None:
     print(f"the same path with the plain versions on this machine's CPU: "
           f"{rows / cpu[3]:.1f} records/s (host CPU, not a card number)")
     compare_main_path(gpu, cpu)
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k in ("hash_join", "segment_kpi", "fold_segments",
+                           "gather_stats") if seq_counts[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     check_main_path_caches(gpu[0], rng)
-    profile_main_path(card)
+    profile_run("main path", lambda: run_main_path("cuda"), card)
+
+    # the cluster path (phase 5): every kernel must launch in it
+    reset_launch_counts()
+    clu = run_cluster_pre_extracted()
+    cluster_counts = launch_counts()
+    missing = [k for k, v in cluster_counts.items() if v <= 0]
+    if missing:
+        fail(f"kernels never launched on the cluster path: {missing}")
+    print(f"cluster path launches: {cluster_counts}")
+    check_cluster_pre_extracted(clu, gpu, cpu, card)
+    run_cluster_live(gpu, card)
+    profile_run("cluster (a)", run_cluster_pre_extracted, card)
+
+    results.append(check_segment_rollup(rng, dev, clu[0]))     # phase 6
+    r = results[-1]
+    print(f"  segment_rollup: {r['ms']:.5f} ms kernel, {r['plain_ms']:.5f} "
+          f"ms plain (device, CUDA graph), {r['issue_ms']:.5f} ms per "
+          f"host-issued call, index_add_ {r['library_ms']:.5f} ms, bound "
+          f"{r['bound_ms']:.6f} ms ({r['bound_by']}) at {r['shape']} "
+          f"[{card}]")
+    check_durability(clu)                                      # phase 7
+
+    src = "src/repro_torch/kernels/segment_kpi/csrc/segment_kpi.cu"
+    tpu = "src/repro/kernels/segment_kpi/segment_kpi.py"
     sources = {"hash_join": ("src/repro_torch/kernels/hash_join/csrc/"
                              "hash_join.cu",
                              "src/repro/kernels/hash_join/hash_join.py:73"),
-               "segment_kpi": ("src/repro_torch/kernels/segment_kpi/csrc/"
-                               "segment_kpi.cu",
-                               "src/repro/kernels/segment_kpi/"
-                               "segment_kpi.py:226"),
-               "fold_segments": ("src/repro_torch/kernels/segment_kpi/csrc/"
-                                 "segment_kpi.cu",
-                                 "src/repro/kernels/segment_kpi/"
-                                 "segment_kpi.py:180"),
-               "gather_stats": ("src/repro_torch/kernels/segment_kpi/csrc/"
-                                "segment_kpi.cu",
-                                "src/repro/kernels/segment_kpi/"
-                                "segment_kpi.py:152")}
+               "segment_kpi": (src, f"{tpu}:226"),
+               "fold_segments": (src, f"{tpu}:180"),
+               "gather_stats": (src, f"{tpu}:152"),
+               "segment_rollup": (src, f"{tpu}:205")}
     kernels = []
     for r in results:
-        src, replaces = sources[r["name"]]
-        kernels.append({"name": r["name"], "route": "cuda", "source": src,
+        path, replaces = sources[r["name"]]
+        kernels.append({"name": r["name"], "route": "cuda", "source": path,
                         "replaces": replaces,
-                        "launches": counts[r["name"]],
+                        "launches": cluster_counts[r["name"]],
+                        "launches_by_path": {
+                            "sequential": seq_counts[r["name"]],
+                            "cluster": cluster_counts[r["name"]]},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "issue_ms": r["issue_ms"],
                         "bound_ms": r["bound_ms"],

@@ -3,7 +3,7 @@
 Change Tracker (cdc + listener) -> Message Queue (partitioned topics with
 compaction) -> Stream Processor (In-memory Table Updater = cache, Data
 Transformer = transformer + buffer, Target Database Updater = loader),
-wired by pipeline.
+wired by pipeline; baseline is the unmodified-framework comparison point.
 """
 from repro_torch.core.records import RecordBatch, make_batch, PAYLOAD_WIDTH  # noqa: F401
 from repro_torch.core.backend import (  # noqa: F401
@@ -22,6 +22,7 @@ from repro_torch.core.transformer import DataTransformer, FACT_COLUMNS  # noqa: 
 from repro_torch.core.loader import StarSchemaWarehouse, WarehouseView  # noqa: F401
 from repro_torch.core.metrics import LatencyRecorder, percentiles_ms  # noqa: F401
 from repro_torch.core.pipeline import DODETLPipeline, StreamProcessorWorker  # noqa: F401
+from repro_torch.core.baseline import BaselineStreamProcessor  # noqa: F401
 from repro_torch.core.partitioning import (  # noqa: F401
     PartitionAssignment,
     PartitionStrategy,

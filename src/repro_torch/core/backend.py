@@ -61,8 +61,7 @@ import torch
 
 from repro_torch.kernels.hash_join import ops as hash_join_ops
 from repro_torch.kernels.segment_kpi import ops as segment_kpi_ops
-from repro_torch.kernels.segment_kpi.ref import (np_maximum, np_minimum,
-                                                 unit_rollup_ref)
+from repro_torch.kernels.segment_kpi.ref import np_maximum, np_minimum
 from repro_torch.observability.registry import global_registry
 
 EPS = 1e-6
@@ -631,6 +630,24 @@ def resolve_device(device: Union[str, torch.device, None] = None
     return dev
 
 
+def new_stream(backend: ComputeBackend) -> Optional[torch.cuda.Stream]:
+    """A CUDA stream of its own on ``backend``'s card, for the threads of
+    one worker (or one serving thread) to enter with
+    ``torch.cuda.stream(...)``; None where the backend has no card (numpy,
+    or torch on the CPU), and ``torch.cuda.stream(None)`` enters nothing.
+
+    Each concurrent actor gets its own stream so that one worker's
+    launches never queue behind another's, and so that whatever a worker
+    uploads (cache mirrors) and launches stays on one stream: an upload
+    and the kernels that read it are ordered, and the caching allocator,
+    which hands a freed block out again only on the stream it was
+    allocated on, cannot reuse it while another stream still reads it."""
+    dev = getattr(backend, "torch_device", None)
+    if dev is None or dev.type != "cuda":
+        return None
+    return torch.cuda.Stream(device=dev)
+
+
 def get_backend(name: Union[str, ComputeBackend, None] = None,
                 device: Union[str, torch.device, None] = DEFAULT_DEVICE
                 ) -> ComputeBackend:
@@ -858,11 +875,12 @@ class TorchBackend(ComputeBackend):
     probes (a third, flattened hop probe when ``join_depth > 1``) and the
     fused ``segment_kpi`` kernel, whose epilogue is the per-unit rollup;
     the block stays on the device with zero host syncs until
-    ``to_host()``. ``fold_segments`` runs the fold kernel once per
-    compacted row block, ``batch_gather_stats`` the gather kernel once per
-    batch. ``fold_segments_scan`` and ``prefix_fold`` are structural scans
-    (XLA ops in the reference, not Pallas kernels) and run as plain torch
-    on the device.
+    ``to_host()``. ``segment_reduce`` (the warehouse's full rescan) is one
+    ``segment_rollup`` launch and one sync. ``fold_segments`` runs the
+    fold kernel once per compacted row block, ``batch_gather_stats`` the
+    gather kernel once per batch. ``fold_segments_scan`` and
+    ``prefix_fold`` are structural scans (XLA ops in the reference, not
+    Pallas kernels) and run as plain torch on the device.
 
     On ``device="cpu"`` the kernel wrappers run their plain versions;
     ``op_dispatches``/``host_syncs`` count the same on either device."""
@@ -923,16 +941,13 @@ class TorchBackend(ComputeBackend):
         return FactBlock(self, facts, found, n, agg if n_units else None)
 
     def segment_reduce(self, facts, n_units):
-        if self.torch_device.type == "cuda":
-            raise NotImplementedError(
-                "segment_reduce needs segment_rollup_kernel, which is not "
-                "ported yet (ROADMAP queue B, item 5)")
         facts = np.asarray(facts, np.float32)
         if not len(facts):
             return np.zeros((n_units, KPI_LANES), np.float32)
         self.op_dispatches += 1
         self.host_syncs += 1
-        return unit_rollup_ref(self._tensor(facts), n_units).numpy()
+        return segment_kpi_ops.segment_rollup(self._tensor(facts),
+                                              n_units).cpu().numpy()
 
     def fold_segments(self, seg_ids, values, n_segments):
         def tree(s, v, ns):
@@ -981,7 +996,7 @@ class TorchBackend(ComputeBackend):
 __all__ = [
     "ComputeBackend", "FactBlock", "NumpyBackend", "TorchBackend",
     "register_backend", "get_backend", "available_backends",
-    "resolve_backend_name", "resolve_device", "DEFAULT_BACKEND",
+    "resolve_backend_name", "resolve_device", "new_stream", "DEFAULT_BACKEND",
     "DEFAULT_DEVICE", "KPI_LANES", "FOLD_BLOCK", "fold_width",
     "gather_width", "empty_fold_state", "combine_fold",
     "bitrev_permutation", "prefix_fold_reference",

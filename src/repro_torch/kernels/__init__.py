@@ -6,6 +6,8 @@ plain PyTorch version). ``_build`` compiles the sources with ``nvcc`` at
 first CUDA use and loads them through ``ctypes``."""
 from typing import Dict
 
+from repro_torch.kernels._build import COUNT_LOCK
+
 
 def _ops_modules():
     from repro_torch.kernels.hash_join import ops as hash_join_ops
@@ -17,12 +19,14 @@ def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset (CPU calls of the
     plain versions never count)."""
     out: Dict[str, int] = {}
-    for mod in _ops_modules():
-        out.update(mod.launches)
+    with COUNT_LOCK:
+        for mod in _ops_modules():
+            out.update(mod.launches)
     return out
 
 
 def reset_launch_counts() -> None:
-    for mod in _ops_modules():
-        for name in mod.launches:
-            mod.launches[name] = 0
+    with COUNT_LOCK:
+        for mod in _ops_modules():
+            for name in mod.launches:
+                mod.launches[name] = 0

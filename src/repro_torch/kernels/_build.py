@@ -11,7 +11,9 @@ at once, one ``nvcc`` process each.
 
 Nothing here runs at import time; the first CUDA launch of a wrapper in
 ``ops.py`` calls ``library``. ``on_cuda``, ``check`` and ``raise_on`` are
-the argument and error checks every wrapper shares.
+the argument and error checks every wrapper shares; ``count_launch`` is the
+one place a wrapper's launch counter moves, under a lock (the concurrent
+runtime's stage threads launch at the same time).
 """
 from __future__ import annotations
 
@@ -139,3 +141,15 @@ def raise_on(err: int, op: str) -> None:
     """Raise on the non-zero ``cudaError_t`` a launch function returned."""
     if err:
         raise RuntimeError(f"{op} kernel launch failed: cudaError {err}")
+
+
+# guards every read-modify-write of the wrappers' ``launches`` dicts: a
+# bare ``+= 1`` from two stage threads can lose a count
+COUNT_LOCK = threading.Lock()
+
+
+def count_launch(launches: Dict[str, int], op: str) -> None:
+    """Add one to ``launches[op]`` (called right after a launch
+    succeeded)."""
+    with COUNT_LOCK:
+        launches[op] += 1

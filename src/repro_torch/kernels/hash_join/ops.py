@@ -12,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._build import check, on_cuda, raise_on
+from repro_torch.kernels._build import check, count_launch, on_cuda, raise_on
 from repro_torch.kernels.hash_join.ref import hash_join_ref
 
 launches = {"hash_join": 0}
@@ -63,7 +63,7 @@ def hash_join(query_keys: torch.Tensor, keys_tbl: torch.Tensor,
                  out_vals.data_ptr(), out_found.data_ptr(),
                  out_txn.data_ptr(), stream)
     raise_on(err, "hash_join")
-    launches["hash_join"] += 1
+    count_launch(launches, "hash_join")
     return out_vals, out_found, out_txn
 
 

@@ -16,7 +16,20 @@
 //    launch adds the block partials in block order. No float atomics, so
 //    two runs give the same bits.
 //
-// 2. fold_segments_launch <- fold_segments_kernel (body _fold_kernel).
+// 2. segment_rollup_launch <- segment_rollup_kernel (body _rollup_kernel).
+//    The per-unit KPI rollup of already-built fact rows: the warehouse's
+//    full rescan (Warehouse.kpi_rollup), O(history) rows per call. Bound:
+//    bytes — every 40 B fact row is read once (2^20 rows: 40 MiB, ~12.5 us
+//    of HBM time). Design: the KPI kernel's rollup without its fact build,
+//    so the sums come out bitwise the plain version's: one block per
+//    256-row block stages the rows' units and KPI lanes in shared memory
+//    and one thread per (unit, lane) adds them in row order into a
+//    partials buffer; kpi_block_sum_kernel adds the partials in block
+//    order. Any N, no padding; row offsets are 64-bit. The unit is col 0
+//    truncated toward zero (numpy's astype); a NaN unit is dropped
+//    explicitly, because the conversion would make it unit 0.
+//
+// 3. fold_segments_launch <- fold_segments_kernel (body _fold_kernel).
 //    Serving-view delta fold: per segment, count + sum/min/max of every
 //    value lane. Bound: launch latency at the main path's shapes (B <=
 //    2048 rows, S <= 60 compacted segments, L <= 4 lanes: < 50 KB moved).
@@ -27,7 +40,7 @@
 //    only ~1e-5). Sums are one-hot * v as a float multiply (0 * -3 is
 //    -0.0, as in numpy), min/max lanes are hit ? v : +-inf.
 //
-// 3. gather_stats_launch  <- gather_stats_kernel (body _gather_kernel).
+// 4. gather_stats_launch  <- gather_stats_kernel (body _gather_kernel).
 //    Batched point read: row idx of the packed [S, 1 + 3L] table plus
 //    means = sums / count (NaN at count 0). Bound: bytes / launch latency
 //    (a 4096-query batch moves ~280 KB). Design: one thread per output
@@ -58,6 +71,29 @@ __device__ __forceinline__ float np_max(float a, float b) {
 
 __device__ __forceinline__ float np_clip01(float x) {
   return np_min(np_max(x, 0.0f), 1.0f);
+}
+
+// The unit a fact row adds to, or -1: col 0 truncated toward zero
+// (saturating, like numpy's astype), NaN and out-of-range units dropped.
+__device__ __forceinline__ int rollup_unit(float unit, bool valid,
+                                           int n_units) {
+  const int u = __float2int_rz(unit);
+  return (valid && !isnan(unit) && u >= 0 && u < n_units) ? u : -1;
+}
+
+// Deterministic per-block rollup: output (u, c) sums the block's rows of
+// unit u in row order into part[u * KPI_LANES + c].
+__device__ __forceinline__ void block_rollup(const int* s_unit,
+                                             const float (*s_kpi)[KPI_LANES],
+                                             int n_units, float* part) {
+  const int n_out = n_units * KPI_LANES;
+  for (int o = threadIdx.x; o < n_out; o += KPI_BLOCK) {
+    const int u = o / KPI_LANES, c = o % KPI_LANES;
+    float acc = 0.0f;
+    for (int r = 0; r < KPI_BLOCK; ++r)
+      if (s_unit[r] == u) acc = __fadd_rn(acc, s_kpi[r][c]);
+    part[o] = acc;
+  }
 }
 
 // ------------------------------------------------------------------ KPI
@@ -110,8 +146,7 @@ __global__ void kpi_facts_kernel(const float* __restrict__ prod,
     f[8] = seg_off;
     f[9] = valid ? 1.0f : 0.0f;
 
-    const int u = (int)p[1];
-    if (valid && u >= 0 && u < n_units) unit = u;
+    unit = rollup_unit(p[1], valid, n_units);
     s_kpi[tid][0] = availability;
     s_kpi[tid][1] = performance;
     s_kpi[tid][2] = quality;
@@ -120,26 +155,32 @@ __global__ void kpi_facts_kernel(const float* __restrict__ prod,
   }
   s_unit[tid] = unit;
   __syncthreads();
-  // deterministic per-block rollup: output (u, c) sums its block's rows
-  // in row order
-  const int n_out = n_units * KPI_LANES;
-  float* part = partials + (int64_t)blockIdx.x * n_out;
-  for (int o = tid; o < n_out; o += KPI_BLOCK) {
-    const int u = o / KPI_LANES, c = o % KPI_LANES;
-    float acc = 0.0f;
-    for (int r = 0; r < KPI_BLOCK; ++r)
-      if (s_unit[r] == u) acc = __fadd_rn(acc, s_kpi[r][c]);
-    part[o] = acc;
-  }
+  block_rollup(s_unit, s_kpi, n_units,
+               partials + (int64_t)blockIdx.x * n_units * KPI_LANES);
 }
 
+#define SUM_UNROLL 32
+
+// agg[o] = (((0 + partials[0][o]) + partials[1][o]) + ...) in block order.
+// The adds form one dependent chain; the loads of SUM_UNROLL blocks are
+// issued together ahead of their adds, so a long chain (a full rescan has
+// thousands of blocks) waits on memory once per SUM_UNROLL blocks.
 __global__ void kpi_block_sum_kernel(const float* __restrict__ partials,
                                      int n_blocks, int n_out,
                                      float* __restrict__ agg) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= n_out) return;
   float acc = 0.0f;
-  for (int b = 0; b < n_blocks; ++b)
+  int b = 0;
+  for (; b + SUM_UNROLL <= n_blocks; b += SUM_UNROLL) {
+    float v[SUM_UNROLL];
+#pragma unroll
+    for (int k = 0; k < SUM_UNROLL; ++k)
+      v[k] = partials[(int64_t)(b + k) * n_out + o];
+#pragma unroll
+    for (int k = 0; k < SUM_UNROLL; ++k) acc = __fadd_rn(acc, v[k]);
+  }
+  for (; b < n_blocks; ++b)
     acc = __fadd_rn(acc, partials[(int64_t)b * n_out + o]);
   agg[o] = acc;
 }
@@ -163,6 +204,51 @@ extern "C" int segment_kpi_launch(const void* prod, const void* eq,
   }
   kpi_block_sum_kernel<<<(n_out + 127) / 128, 128, 0, s>>>(
       (const float*)partials, n_blocks, n_out, (float*)agg);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------- rollup
+__global__ void rollup_rows_kernel(const float* __restrict__ facts,
+                                   int64_t n, int n_units,
+                                   float* __restrict__ partials) {
+  __shared__ int s_unit[KPI_BLOCK];
+  __shared__ float s_kpi[KPI_BLOCK][KPI_LANES];
+  const int tid = threadIdx.x;
+  const int64_t i = (int64_t)blockIdx.x * KPI_BLOCK + tid;
+  int unit = -1;
+  if (i < n) {
+    const float* f = facts + i * N_FACT;
+    unit = rollup_unit(f[0], f[9] > 0.5f, n_units);
+    s_kpi[tid][0] = f[3];
+    s_kpi[tid][1] = f[4];
+    s_kpi[tid][2] = f[5];
+    s_kpi[tid][3] = f[6];
+    s_kpi[tid][4] = 1.0f;
+  }
+  s_unit[tid] = unit;
+  __syncthreads();
+  block_rollup(s_unit, s_kpi, n_units,
+               partials + (int64_t)blockIdx.x * n_units * KPI_LANES);
+}
+
+// facts [n, 10] f32 -> agg [n_units, 5] f32 (sums of cols 3-6 and a count
+// over valid rows of each unit); partials is caller-allocated scratch of
+// ceil(n / 256) * n_units * 5 floats.
+extern "C" int segment_rollup_launch(const void* facts, int64_t n,
+                                     int n_units, void* partials, void* agg,
+                                     void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n_out = n_units * KPI_LANES;
+  const int64_t n_blocks = (n + KPI_BLOCK - 1) / KPI_BLOCK;
+  if (n_blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (n_blocks > 0) {
+    rollup_rows_kernel<<<(unsigned)n_blocks, KPI_BLOCK, 0, s>>>(
+        (const float*)facts, n, n_units, (float*)partials);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  kpi_block_sum_kernel<<<(n_out + 127) / 128, 128, 0, s>>>(
+      (const float*)partials, (int)n_blocks, n_out, (float*)agg);
   return (int)cudaGetLastError();
 }
 

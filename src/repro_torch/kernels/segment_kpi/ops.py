@@ -1,6 +1,7 @@
 """Wrappers of the ``segment_kpi`` CUDA kernels (``csrc/segment_kpi.cu``):
-the fused fact build + per-unit rollup, the serving-view delta fold and
-the batched point-query gather.
+the fused fact build + per-unit rollup, the per-unit rollup of built facts
+(the warehouse's full rescan), the serving-view delta fold and the batched
+point-query gather.
 
 For CPU tensors each wrapper runs its plain version (``ref.py``); for
 CUDA tensors it launches its kernel on the current stream or raises.
@@ -14,21 +15,26 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._build import check, on_cuda, raise_on
+from repro_torch.kernels._build import (check, count_launch, on_cuda,
+                                        raise_on)
 from repro_torch.kernels.segment_kpi.ref import (KPI_BLOCK, KPI_LANES,
                                                  fold_segments_ref,
                                                  gather_stats_ref,
-                                                 segment_kpi_ref)
+                                                 segment_kpi_ref,
+                                                 segment_rollup_ref)
 
 N_FACT = 10
 MAX_FOLD_ROWS = 2048  # the fold tree keeps 4 * B floats in shared memory
 
-launches = {"segment_kpi": 0, "fold_segments": 0, "gather_stats": 0}
+launches = {"segment_kpi": 0, "segment_rollup": 0, "fold_segments": 0,
+            "gather_stats": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _SIGNATURES = {
     "segment_kpi_launch": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "segment_rollup_launch": [_P, _L, _I, _P, _P, _P],
     "fold_segments_launch": [_P, _P, _I, _I, _I, _P, _P],
     "gather_stats_launch": [_P, _I, _P, _I, _P, _P],
 }
@@ -68,8 +74,33 @@ def segment_kpi(prod: torch.Tensor, eq_rows: torch.Tensor,
         facts.data_ptr(), partials.data_ptr(), agg.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "segment_kpi")
-    launches["segment_kpi"] += 1
+    count_launch(launches, "segment_kpi")
     return facts, agg
+
+
+def segment_rollup(facts: torch.Tensor, n_units: int) -> torch.Tensor:
+    """Per-unit KPI rollup of built fact rows: facts [N, 10] f32 (any N, no
+    padding) -> [n_units, 5] f32, the sums of fact columns 3-6 and a count
+    over rows with col 9 > 0.5 whose unit (col 0, truncated toward zero;
+    NaN counts nowhere) lies in [0, n_units). Bitwise ``segment_rollup_ref``:
+    rows added in order within 256-row blocks, block partials in block
+    order."""
+    if n_units < 1:
+        raise ValueError(f"n_units must be >= 1, got {n_units}")
+    if not on_cuda(facts, "segment_rollup"):
+        return segment_rollup_ref(facts, n_units)
+    dev = facts.device
+    check(facts, "facts", torch.float32, (None, N_FACT), dev)
+    n = facts.shape[0]
+    partials = torch.empty((-(-n // KPI_BLOCK), n_units, KPI_LANES),
+                           dtype=torch.float32, device=dev)
+    agg = torch.empty((n_units, KPI_LANES), dtype=torch.float32, device=dev)
+    err = _fn("segment_rollup_launch")(
+        facts.data_ptr(), n, n_units, partials.data_ptr(), agg.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(err, "segment_rollup")
+    count_launch(launches, "segment_rollup")
+    return agg
 
 
 def fold_segments(seg: torch.Tensor, vals: torch.Tensor,
@@ -98,7 +129,7 @@ def fold_segments(seg: torch.Tensor, vals: torch.Tensor,
         seg.data_ptr(), vals.data_ptr(), B, L, n_segments, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "fold_segments")
-    launches["fold_segments"] += 1
+    count_launch(launches, "fold_segments")
     return out
 
 
@@ -123,8 +154,9 @@ def gather_stats(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         table.data_ptr(), L, idx.data_ptr(), n, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "gather_stats")
-    launches["gather_stats"] += 1
+    count_launch(launches, "gather_stats")
     return out
 
 
-__all__ = ["fold_segments", "gather_stats", "launches", "segment_kpi"]
+__all__ = ["fold_segments", "gather_stats", "launches", "segment_kpi",
+           "segment_rollup"]

@@ -71,13 +71,16 @@ def kpi_facts_ref(prod: torch.Tensor, eq_rows: torch.Tensor,
 
 def unit_rollup_ref(facts: torch.Tensor, n_units: int) -> torch.Tensor:
     """Per-unit [availability, performance, quality, oee, count] sums over
-    rows with col 9 > 0.5 and unit (col 0) in [0, n_units), added in the
-    KPI kernel's order: row order within each ``KPI_BLOCK``-row block,
-    then the block partials in block order. Each add is one float32 add
-    in that order, so the result is bitwise the kernel's."""
+    rows with col 9 > 0.5 and unit (col 0, truncated toward zero) in
+    [0, n_units), added in the KPI kernel's order: row order within each
+    ``KPI_BLOCK``-row block, then the block partials in block order. Each
+    add is one float32 add in that order, so the result is bitwise the
+    kernel's. A NaN unit counts nowhere, as in numpy's oracle (a CUDA
+    float-to-int conversion would make it unit 0)."""
     n = facts.shape[0]
     unit = facts[:, 0].to(torch.int64)
-    keep = (facts[:, 9] > 0.5) & (unit >= 0) & (unit < n_units)
+    keep = ((facts[:, 9] > 0.5) & ~torch.isnan(facts[:, 0]) & (unit >= 0)
+            & (unit < n_units))
     kpis = torch.cat([facts[:, 3:7],
                       torch.ones((n, 1), dtype=torch.float32,
                                  device=facts.device)], dim=1)
@@ -100,6 +103,9 @@ def unit_rollup_ref(facts: torch.Tensor, n_units: int) -> torch.Tensor:
     for b in range(n_blocks):
         agg = agg + partials[b]
     return agg
+
+
+segment_rollup_ref = unit_rollup_ref     # plain version of ops.segment_rollup
 
 
 def segment_kpi_ref(prod: torch.Tensor, eq_rows: torch.Tensor,

@@ -42,7 +42,9 @@ import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.core.backend import new_stream
 from repro_torch.serving.engine import serving_clock
 from repro_torch.serving.server import Report, ReportSnapshot, ReportServer
 
@@ -358,7 +360,10 @@ class BatchedReportServer:
         if self._thread is not None:
             return
         self._stopping = False
-        self._thread = threading.Thread(target=self._dispatch, daemon=True,
+        # its own CUDA stream (none on the CPU), as the fold thread has
+        stream = new_stream(self.engine.backend)
+        self._thread = threading.Thread(target=self._dispatch,
+                                        args=(stream,), daemon=True,
                                         name="serving.batch")
         self._thread.start()
 
@@ -397,23 +402,24 @@ class BatchedReportServer:
                     "multi_epoch_batches": self._multi_epoch_batches}
 
     # --------------------------------------------------------- dispatcher
-    def _dispatch(self) -> None:
-        while True:
-            with self._cv:
-                while not self._queue and not self._stopping:
-                    self._cv.wait()
-                if not self._queue and self._stopping:
-                    return
-                # coalesce: wait (bounded) for the batch to fill
-                deadline = serving_clock() + self.max_wait_s
-                while (len(self._queue) < self.max_batch
-                       and not self._stopping):
-                    left = deadline - serving_clock()
-                    if left <= 0 or not self._cv.wait(left):
-                        break
-                batch = self._queue[:self.max_batch]
-                del self._queue[:self.max_batch]
-            self._answer(batch)
+    def _dispatch(self, stream) -> None:
+        with torch.cuda.stream(stream):
+            while True:
+                with self._cv:
+                    while not self._queue and not self._stopping:
+                        self._cv.wait()
+                    if not self._queue and self._stopping:
+                        return
+                    # coalesce: wait (bounded) for the batch to fill
+                    deadline = serving_clock() + self.max_wait_s
+                    while (len(self._queue) < self.max_batch
+                           and not self._stopping):
+                        left = deadline - serving_clock()
+                        if left <= 0 or not self._cv.wait(left):
+                            break
+                    batch = self._queue[:self.max_batch]
+                    del self._queue[:self.max_batch]
+                self._answer(batch)
 
     def _drain(self) -> None:
         while True:

@@ -48,9 +48,10 @@ from collections import deque
 from typing import Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.backend import (combine_fold, empty_fold_state, fold_width,
-                                get_backend)
+                                get_backend, new_stream)
 from repro_torch.core.metrics import LatencyRecorder
 from repro_torch.observability.tracer import NULL_TRACER
 from repro_torch.serving.views import ViewSpec
@@ -375,14 +376,19 @@ class MaterializedViewEngine:
         if self._thread is not None:
             return
         self._stop.clear()
-        self._thread = threading.Thread(target=self._maintain, daemon=True,
+        # its own CUDA stream (none on the CPU): the folds' uploads,
+        # launches and frees never interleave with a worker's stream
+        stream = new_stream(self.backend)
+        self._thread = threading.Thread(target=self._maintain,
+                                        args=(stream,), daemon=True,
                                         name="serving.fold")
         self._thread.start()
 
-    def _maintain(self) -> None:
-        while not self._stop.is_set():
-            if self.fold_pending() == 0:
-                time.sleep(self.idle_backoff_s)
+    def _maintain(self, stream) -> None:
+        with torch.cuda.stream(stream):
+            while not self._stop.is_set():
+                if self.fold_pending() == 0:
+                    time.sleep(self.idle_backoff_s)
 
     def stop(self) -> None:
         """Stop maintenance and fold any remaining backlog (so the final

@@ -1,18 +1,22 @@
 """The port's CUDA kernels on a card: each against its plain PyTorch
-version on the same tensors, and the main path on the card against the
-same path on the CPU. Every test here is marked ``cuda`` and skips where
+version on the same tensors, the main path on the card against the same
+path on the CPU, and the concurrent cluster and its recovery drill on the
+card. Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false. The file imports neither JAX nor
 the JAX package, so it runs on a machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.backend import get_backend
 from repro_torch.core.cache import InMemoryTable
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.hash_join import ops as hj_ops
 from repro_torch.kernels.hash_join.ref import hash_join_ref
 from repro_torch.kernels.segment_kpi import ops as sk_ops
@@ -160,10 +164,36 @@ def test_backend_ops_on_card_match_cpu(dev):
         assert a.tobytes() == b.tobytes()
 
 
-def test_segment_reduce_not_ported_on_card(dev):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_backend("torch", device=dev).segment_reduce(
-            np.zeros((4, 10), np.float32), 2)
+def _rescan_facts(rng, n, units):
+    f = rng.random((n, 10), dtype=np.float32)
+    f[:, 0] = rng.integers(-3, units + 3, n) + rng.choice(
+        np.float32([0.0, 0.5, -0.5]), n)
+    f[:, 9] = (rng.random(n) > 0.2).astype(np.float32)
+    f[rng.random(n) < 0.01, 0] = np.nan          # counts nowhere
+    return f
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 1000, 4096, 20000, 1 << 20])
+@pytest.mark.parametrize("units", [20, 32])
+def test_segment_rollup_bitwise(dev, n, units):
+    t = torch.tensor(_rescan_facts(np.random.default_rng(n), n, units),
+                     device=dev)
+    before = launch_counts()["segment_rollup"]
+    got = sk_ops.segment_rollup(t, units)
+    assert launch_counts()["segment_rollup"] == before + 1
+    assert _bits(got) == _bits(sk_ref.segment_rollup_ref(t, units))
+
+
+def test_segment_reduce_on_card(dev):
+    """The warehouse rescan on the card: one launch, one sync, the CPU
+    run's bytes."""
+    facts = _rescan_facts(np.random.default_rng(3), 5000, 20)
+    gpu = get_backend("torch", device=dev)
+    gpu.reset_stats()
+    got = gpu.segment_reduce(facts, 20)
+    assert gpu.op_dispatches == 1 and gpu.host_syncs == 1
+    assert got.tobytes() == get_backend("torch", device="cpu").segment_reduce(
+        facts, 20).tobytes()
 
 
 def _run(device):
@@ -213,3 +243,125 @@ def test_main_path_on_card_matches_cpu(dev):
                 assert a.data[k] == b.data[k]
             else:
                 np.testing.assert_array_equal(a.data[k], b.data[k])
+
+
+# ------------------------------------------------------------ the cluster
+def _cluster_pipe(device, n=3000, n_workers=4, fault=None):
+    from repro_torch.configs.dod_etl import steelworks_config
+    from repro_torch.core import DODETLPipeline, SourceDatabase
+    from repro_torch.data.sampler import SamplerConfig, SteelworksSampler
+    cfg = steelworks_config(n_partitions=8)
+    cfg = dataclasses.replace(cfg, buffer_capacity=4096)
+    src = SourceDatabase()
+    SteelworksSampler(cfg, SamplerConfig(records_per_table=n, n_equipment=8,
+                                         late_master_frac=0.05,
+                                         seed=0)).generate(src)
+    pipe = DODETLPipeline(cfg, src, n_workers=n_workers, device=device,
+                          fault=fault)
+    pipe.extract()
+    return cfg, src, pipe
+
+
+def _sequential_facts(device, n=3000):
+    _, _, pipe = _cluster_pipe(device, n, n_workers=1)
+    pipe.bootstrap_caches()
+    pipe.run_to_completion()
+    return pipe.warehouse.canonical_fact_table().tobytes()
+
+
+def test_cluster_on_card_byte_identical_to_sequential(dev):
+    from repro_torch.runtime.cluster import ConcurrentCluster
+    _, _, pipe = _cluster_pipe("cuda")
+    cluster = ConcurrentCluster(pipe, poll_cdc=False,
+                                max_records_per_partition=100)
+    cluster.start()
+    done = cluster.run_until_idle(timeout=120)
+    cluster.stop_all()
+    assert done == 3000 == pipe.warehouse.rows_loaded
+    facts = pipe.warehouse.canonical_fact_table().tobytes()
+    assert facts == _sequential_facts("cuda") == _sequential_facts("cpu")
+
+
+def test_each_worker_has_its_own_stream(dev):
+    from repro_torch.runtime.cluster import ConcurrentCluster
+    _, _, pipe = _cluster_pipe("cuda", n=200)
+    cluster = ConcurrentCluster(pipe, poll_cdc=False)
+    streams = [rt.stream for rt in cluster.runtimes.values()]
+    default = torch.cuda.default_stream(dev)
+    assert all(isinstance(s, torch.cuda.Stream) for s in streams)
+    assert all(s != default for s in streams)
+    assert len({s.cuda_stream for s in streams}) == len(streams)
+
+
+def test_cluster_launch_counts_match_transforms(dev):
+    """The launch counters are exact under concurrent stage threads: one
+    segment_kpi launch and two hash_join launches per transform_block
+    call the workers made (join_depth 1, no poison records)."""
+    from repro_torch.runtime.cluster import ConcurrentCluster
+    _, _, pipe = _cluster_pipe("cuda")
+    lock = threading.Lock()
+    calls = [0]
+    for w in pipe.workers:
+        orig = w.transformer.transform_block
+
+        def counted(*a, _orig=orig, **k):
+            block = _orig(*a, **k)
+            with lock:
+                calls[0] += 1
+            return block
+        w.transformer.transform_block = counted
+    cluster = ConcurrentCluster(pipe, poll_cdc=False,
+                                max_records_per_partition=25)
+    reset_launch_counts()
+    cluster.start()
+    assert cluster.run_until_idle(timeout=120) == 3000
+    cluster.stop_all()
+    counts = launch_counts()
+    assert calls[0] > 20
+    assert counts["segment_kpi"] == calls[0]
+    assert counts["hash_join"] == 2 * calls[0]
+
+
+def _wait_for(predicate, timeout=60.0):
+    import time
+    t0 = time.perf_counter()
+    while not predicate():
+        if time.perf_counter() - t0 > timeout:
+            return False
+        time.sleep(0.001)
+    return True
+
+
+def test_commit_post_recovery_drill_on_card(dev, tmp_path):
+    from repro_torch.durability import (DurabilityJournal, FaultInjector,
+                                        RecoveryCoordinator,
+                                        recover_pipeline)
+    from repro_torch.durability.faults import COMMIT_POST
+    from repro_torch.runtime.cluster import ConcurrentCluster
+    fault = FaultInjector({COMMIT_POST: 15})      # mid-stream
+    cfg, src, pipe = _cluster_pipe("cuda", n_workers=3, fault=fault)
+    cluster = ConcurrentCluster(
+        pipe, max_records_per_partition=25, poll_cdc=False,
+        recovery=RecoveryCoordinator(DurabilityJournal(str(tmp_path))),
+        checkpoint_every_s=0.02)
+    cluster.checkpoint()
+    cluster.start()
+    assert _wait_for(lambda: pipe.warehouse.rows_loaded >= 300)
+    cluster.checkpoint()               # a step that holds loaded chunks
+    assert fault.tripped.wait(60.0)
+    cluster.abandon()
+    pipe2, coord2, info = recover_pipeline(
+        cfg, src, DurabilityJournal(str(tmp_path)), device="cuda")
+    assert info is not None and info["commit_seq"] > 0
+    cluster2 = ConcurrentCluster(pipe2, max_records_per_partition=25,
+                                 poll_cdc=False, recovery=coord2,
+                                 checkpoint_every_s=0.02)
+    cluster2.start()
+    cluster2.run_until_idle(timeout=120)
+    cluster2.stop_all()
+    assert pipe2.warehouse.rows_loaded == 3000
+    assert pipe2.warehouse.canonical_fact_table().tobytes() == \
+        _sequential_facts("cuda")
+    facts = torch.tensor(pipe2.warehouse.fact_table(), device=dev)
+    assert _bits(sk_ops.segment_rollup(facts, 8)) == \
+        _bits(sk_ref.segment_rollup_ref(facts, 8))
