@@ -44,13 +44,33 @@ Phases, each fatal on failure (no fallback to the CPU):
    directory, crashed at ``commit.post``, recovered with
    ``recover_pipeline(device="cuda")`` and run to the end — facts
    byte-identical to the uninterrupted run, the rescan bitwise its plain
-   version.
+   version;
+8. LM kernels against their plain versions on the card, at the serving
+   path's shapes and at ragged S: flash_attention in f32 (2e-5) and bf16
+   (2e-2) at internlm2's and zamba2's attention shapes, gla_chunk in both
+   regimes with and without an initial state, final state included
+   (2e-4); device, plain and issue times, ``scaled_dot_product_attention``
+   beside flash, and the bound (bytes / 3.35 TB/s or operations over the
+   input dtype's peak: 989 TFLOP/s dense bf16 tensor core, 67 TFLOP/s
+   f32);
+9. LM serving for internlm2-1.8b and zamba2-1.2b at full published width
+   and depth, bf16 weights from a seeded ``torch.Generator`` on the card:
+   prefill/decode consistency (prefill of 2044 prompt tokens, 4 decode
+   steps against one full forward of 2048, within 0.02 x max(|logits|,
+   1)); launches per prefill (internlm2: 24 flash; zamba2: 6 flash + 38
+   gla) and none in decode; the serve run (batch 4 x 2048 prompt tokens,
+   32 greedy decode steps, ``examples.serve_lm.serve``) with prefill and
+   decode tokens/s, counted as the path's launches; the same prefill in
+   f32 with the kernels against their plain versions on the card; the
+   card's busy share of a profiled serve run.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
 the JAX package.
 """
+import contextlib
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -66,7 +86,10 @@ sys.modules["repro"] = None
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12            # H100 SXM, outside the tensor cores
+BF16_FLOP_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
 N_UNITS = 20
+ETL_KERNELS = ("hash_join", "segment_kpi", "fold_segments", "gather_stats",
+               "segment_rollup")
 
 
 def fail(msg: str) -> None:
@@ -130,9 +153,9 @@ def timings(kernel, plain) -> dict:
             "issue_ms": issue_ms(kernel)}
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float, peak: float = FP32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOP_PER_S * 1e3
+    t_ops = n_flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -167,7 +190,9 @@ def phase_card():
     from repro_torch.kernels import _build
     secs = _build.build_all()
     print(f"kernel build: {secs:.2f} s ({len(_build.SOURCES)} sources, "
-          f"flags {' '.join(_build.NVCC_FLAGS)})")
+          f"one nvcc each; flags {' '.join(_build.NVCC_FLAGS)}, plus "
+          f"{' '.join(_build.BITWISE)} for "
+          f"{', '.join(sorted(_build.EXTRA_FLAGS))})")
     for name in _build.SOURCES:
         log = _build.lib_path(name).with_suffix(".log")
         if log.exists():
@@ -842,6 +867,362 @@ def check_durability(clu) -> None:
           f"plain version; {steps} journal steps")
 
 
+# ------------------------------------------------------------------ phase 8
+LM_ARCHS = ("internlm2-1.8b", "zamba2-1.2b")
+LM_BATCH, LM_PROMPT, LM_DECODE, LM_TAIL = 4, 2048, 32, 4
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
+GLA_TOL = 2e-4
+
+
+def stored_elems(t) -> int:
+    """Elements a tensor's storage holds for it: broadcast (zero-stride)
+    axes count once."""
+    return math.prod(n for n, st in zip(t.shape, t.stride()) if st != 0)
+
+
+def max_err(got, want, tol: float, what: str) -> float:
+    """Max |got - want|; fails unless every element is within tol + tol *
+    |want| (numpy's allclose with rtol = atol = tol)."""
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    if not bool(((g - w).abs() <= tol + tol * w.abs()).all()):
+        fail(f"{what}: max abs err {err} beyond rtol = atol = {tol}")
+    return err
+
+
+def lm_rand(shape, dev, dtype, gen):
+    import torch
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def flash_inputs(b, hq, hkv, s, d, dtype, dev, gen):
+    """q, k, v as the model hands them to the kernel: transposed views of
+    [B, S, H, D] activations."""
+    return tuple(lm_rand((b, s, h, d), dev, dtype, gen).transpose(1, 2)
+                 for h in (hq, hkv, hkv))
+
+
+def flash_bound(q, k, v, causal=True):
+    """Least time for one attention call: each input read once and the
+    output written once over HBM, against 2·B·Hq·S²·D flops (causal; 4·
+    for full) over the input dtype's peak."""
+    import torch
+    b, hq, s, d = q.shape
+    n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    flops = (2 if causal else 4) * b * hq * s * s * d
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    return bound(n_bytes, flops, peak)
+
+
+def check_flash(dev, gen, card) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import build_model
+    errs, row = [], None
+    for arch in LM_ARCHS:
+        cfg = build_model(arch).cfg
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            for s in (LM_PROMPT, LM_PROMPT - LM_TAIL, 1000):
+                q, k, v = flash_inputs(LM_BATCH, hq, hkv, s, d, dtype, dev,
+                                       gen)
+                got = mha(q, k, v)
+                want = attention_ref(q, k, v)
+                torch.cuda.synchronize()
+                errs.append(max_err(got, want, FLASH_TOL[name],
+                                    f"flash_attention {arch} {name} S={s}"))
+            print(f"flash_attention {arch} [B {LM_BATCH}, Hq {hq}, Hkv {hkv},"
+                  f" D {d}] {name}, S in {{{LM_PROMPT}, "
+                  f"{LM_PROMPT - LM_TAIL}, 1000}}: within "
+                  f"{FLASH_TOL[name]} of the plain version, max abs err "
+                  f"{max(errs[-3:]):.3g}")
+        q, k, v = flash_inputs(LM_BATCH, hq, hkv, LM_PROMPT, d,
+                               torch.bfloat16, dev, gen)
+        t = {"ms": graph_ms(lambda: mha(q, k, v)),
+             "issue_ms": issue_ms(lambda: mha(q, k, v), reps=10),
+             "plain_ms": graph_ms(lambda: attention_ref(q, k, v), reps=3,
+                                  rounds=3)}
+        t["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        t["bound_ms"], t["bound_by"] = flash_bound(q, k, v)
+        print(f"  flash_attention {arch} bf16 S={LM_PROMPT}: {t['ms']:.5f} ms "
+              f"kernel, {t['plain_ms']:.5f} ms plain, {t['library_ms']:.5f} "
+              f"ms scaled_dot_product_attention (device, CUDA graph), "
+              f"{t['issue_ms']:.5f} ms per host-issued call, bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}, bf16 tensor-core "
+              f"peak) [{card}]")
+        if arch == "internlm2-1.8b":
+            row = t
+    return {"name": "flash_attention", "max_abs_err": max(errs), **row}
+
+
+def gla_inputs(b, s, h, dk, dv, dtype, dev, gen, *, mamba):
+    """Mamba2's inputs as the model hands them over (q, k shared by all
+    heads, one decay per head, as zero-stride views), or RWKV6-shaped ones
+    (per-head q, k and per-channel decay)."""
+    import torch
+    if mamba:
+        q = lm_rand((b, s, 1, dk), dev, dtype, gen).expand(b, s, h, dk)
+        k = lm_rand((b, s, 1, dk), dev, dtype, gen).expand(b, s, h, dk)
+        lw = (-torch.exp(lm_rand((b, s, h, 1), dev, torch.float32, gen))
+              ).expand(b, s, h, dk)
+    else:
+        q = lm_rand((b, s, h, dk), dev, dtype, gen)
+        k = lm_rand((b, s, h, dk), dev, dtype, gen)
+        lw = -torch.exp(lm_rand((b, s, h, dk), dev, torch.float32, gen))
+    return q, k, lm_rand((b, s, h, dv), dev, dtype, gen), lw
+
+
+def gla_work(q, v, inclusive: bool) -> float:
+    """Operations of one gla_chunk call, from its shapes: per chunk and
+    head, the intra scores (5 per (t, i, d) pair: sub, exp, 2 mul, add over
+    the unmasked pairs), the intra, inter and state products (2 each per
+    multiply-add), the decays (3 per element) and the cumsum."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    c = 64
+    n = -(-s // c)
+    pairs = c * (c + 1) // 2 if inclusive else c * (c - 1) // 2
+    per_chunk = (5 * pairs * dk + 2 * pairs * dv + 2 * c * dk * dv
+                 + 2 * c * dk * dv + 6 * c * dk + 3 * dk * dv)
+    return float(b * h * n * per_chunk)
+
+
+def check_gla(dev, gen, card) -> dict:
+    import torch
+    from repro_torch.kernels.gla_chunk.ops import gla
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+    from repro_torch.models import build_model
+    cfg = build_model("zamba2-1.2b").cfg
+    h = cfg.ssm.n_ssm_heads
+    dk = cfg.ssm.state_size
+    dv = cfg.ssm.expand * cfg.d_model // h
+    errs = []
+    cases = [(True, False, True, LM_BATCH),      # Mamba2 (zamba2's shapes)
+             (False, True, False, 1)]            # RWKV6: lag-1 + bonus u
+    for inclusive, use_u, mamba, b in cases:
+        for s in (LM_PROMPT, LM_PROMPT - LM_TAIL, 1000):
+            for with_state in (False, True):
+                q, k, v, lw = gla_inputs(b, s, h, dk, dv, torch.float32, dev,
+                                         gen, mamba=mamba)
+                u = lm_rand((h, dk), dev, torch.float32, gen) if use_u \
+                    else None
+                s0 = (lm_rand((b, h, dk, dv), dev, torch.float32, gen)
+                      if with_state else None)
+                out, fin = gla(q, k, v, lw, u, inclusive=inclusive,
+                               initial_state=s0)
+                r_out, r_fin = gla_chunk_ref(q, k, v, lw, u,
+                                             inclusive=inclusive,
+                                             initial_state=s0)
+                torch.cuda.synchronize()
+                what = (f"gla_chunk {'mamba2' if mamba else 'rwkv6'} S={s} "
+                        f"state={with_state}")
+                errs.append(max(max_err(out, r_out, GLA_TOL, what),
+                                max_err(fin, r_fin, GLA_TOL,
+                                        what + " final state")))
+        print(f"gla_chunk {'Mamba2 inclusive' if mamba else 'RWKV6 lag-1 + u'}"
+              f" [B {b}, H {h}, dk {dk}, dv {dv}] f32, S in {{{LM_PROMPT}, "
+              f"{LM_PROMPT - LM_TAIL}, 1000}}, with and without an initial "
+              f"state: out and final state within {GLA_TOL} of the plain "
+              f"version, max abs err {max(errs[-6:]):.3g}")
+    q, k, v, lw = gla_inputs(LM_BATCH, LM_PROMPT, h, dk, dv, torch.bfloat16,
+                             dev, gen, mamba=True)
+    out, fin = gla(q, k, v, lw, inclusive=True)
+    r_out, r_fin = gla_chunk_ref(q, k, v, lw, inclusive=True)
+    torch.cuda.synchronize()
+    errs.append(max(max_err(out, r_out, FLASH_TOL["bfloat16"],
+                            "gla_chunk bf16 out"),
+                    max_err(fin, r_fin, GLA_TOL, "gla_chunk bf16 state")))
+    print(f"gla_chunk bf16 q, k, v (the model's dtype): out within 2e-2, "
+          f"final state within {GLA_TOL} of the plain version")
+    t = {"ms": graph_ms(lambda: gla(q, k, v, lw, inclusive=True)),
+         "issue_ms": issue_ms(lambda: gla(q, k, v, lw, inclusive=True),
+                              reps=10),
+         "plain_ms": graph_ms(lambda: gla_chunk_ref(q, k, v, lw,
+                                                    inclusive=True),
+                              reps=2, rounds=3)}
+    n_bytes = (sum(x.element_size() * stored_elems(x) for x in (q, k, v, lw))
+               + out.element_size() * out.numel() + 4 * fin.numel())
+    t["bound_ms"], t["bound_by"] = bound(n_bytes, gla_work(q, v, True),
+                                         BF16_FLOP_PER_S)
+    print(f"  gla_chunk zamba2 bf16 S={LM_PROMPT}: {t['ms']:.5f} ms kernel, "
+          f"{t['plain_ms']:.5f} ms plain (device, CUDA graph), "
+          f"{t['issue_ms']:.5f} ms per host-issued call, bound "
+          f"{t['bound_ms']:.6f} ms ({t['bound_by']}: {n_bytes} B, "
+          f"{gla_work(q, v, True):.4g} operations at the bf16 peak) [{card}]")
+    return {"name": "gla_chunk", "max_abs_err": max(errs), "library_ms": None,
+            **t}
+
+
+# ------------------------------------------------------------------ phase 9
+@contextlib.contextmanager
+def plain_versions():
+    """The model's kernel calls routed to the plain versions, on the card
+    (the wrappers themselves run their plain version only for CPU
+    tensors)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gla_chunk import ops as gl
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+    saved = fa.mha, gl.gla
+    fa.mha, gl.gla = attention_ref, gla_chunk_ref
+    try:
+        yield
+    finally:
+        fa.mha, gl.gla = saved
+
+
+def lm_expected(model) -> dict:
+    cfg = model.cfg
+    if cfg.family == "dense":
+        return {"flash_attention": cfg.n_layers, "gla_chunk": 0}
+    return {"flash_attention": model.n_shared_apps(),
+            "gla_chunk": cfg.n_layers}
+
+
+def lm_launches(counts) -> dict:
+    return {k: counts[k] for k in ("flash_attention", "gla_chunk")}
+
+
+def run_lm(arch: str, dev, card: str) -> dict:
+    """Phase 9 for one model. Returns the serve run's launch counts."""
+    import torch
+    from repro_torch.examples.serve_lm import fill_cache, serve
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models.param import count_params, tree_map
+    model = build_model(arch)
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab} (padded {cfg.padded_vocab}), "
+          f"{count_params(model.defs) / 1e9:.3f} B parameters in bf16, "
+          f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+
+    # prefill/decode consistency against one full forward
+    full, _ = model.forward(params, {"tokens": prompts}, mode="train")
+    scale = max(float(full.abs().max()), 1.0)
+    tail = full[:, -LM_TAIL:].clone()
+    if full.shape != (LM_BATCH, LM_PROMPT, cfg.vocab) or \
+            not bool(torch.isfinite(full).all()):
+        fail(f"{arch}: full-forward logits are not finite "
+             f"[{LM_BATCH}, {LM_PROMPT}, {cfg.vocab}]")
+    del full
+    p = LM_PROMPT - LM_TAIL
+    reset_launch_counts()
+    _, pre = model.forward(params, {"tokens": prompts[:, :p]},
+                           mode="prefill")
+    pre_counts = lm_launches(launch_counts())
+    if pre_counts != lm_expected(model):
+        fail(f"{arch}: prefill launched {pre_counts}, expected "
+             f"{lm_expected(model)}")
+    cache = fill_cache(model.init_cache(LM_BATCH, LM_PROMPT + LM_DECODE,
+                                        dev), pre)
+    del pre
+    reset_launch_counts()
+    errs = []
+    for t in range(p, LM_PROMPT):
+        dl, cache = model.forward(params, {"tokens": prompts[:, t:t + 1]},
+                                  mode="decode", cache=cache, cache_index=t)
+        errs.append(float((dl[:, 0] - tail[:, t - p]).abs().max()))
+    dec_counts = lm_launches(launch_counts())
+    if any(dec_counts.values()):
+        fail(f"{arch}: decode launched {dec_counts}")
+    if not max(errs) < 0.02 * scale:
+        fail(f"{arch}: decode logits differ from the full forward by "
+             f"{max(errs)} >= 0.02 x {scale}")
+    print(f"{arch} prefill/decode consistency: prefill of {p} tokens, "
+          f"{LM_TAIL} decode steps vs one full forward of {LM_PROMPT}: max "
+          f"err {max(errs):.4g} < 0.02 x max(|logits|, 1) = "
+          f"{0.02 * scale:.4g}; prefill launched {pre_counts}, decode "
+          f"{dec_counts}")
+    del cache, tail
+
+    # the serve run: warm-up, then the counted and timed run
+    serve(model, params, prompts[:, :64], gen_len=4, max_len=128)
+    reset_launch_counts()
+    out = serve(model, params, prompts, gen_len=LM_DECODE + 1,
+                max_len=LM_PROMPT + LM_DECODE)
+    counts = lm_launches(launch_counts())
+    if counts != lm_expected(model):
+        fail(f"{arch}: the serve run launched {counts}, expected "
+             f"{lm_expected(model)} (one prefill, decode none)")
+    toks = out["tokens"]
+    if toks.shape != (LM_BATCH, LM_DECODE + 1) or \
+            not bool(((toks >= 0) & (toks < cfg.vocab)).all()) or \
+            not bool(torch.isfinite(out["logits"]).all()):
+        fail(f"{arch}: serve returned bad tokens or logits")
+    pre_tps = LM_BATCH * LM_PROMPT / out["prefill_s"]
+    dec_tps = LM_BATCH * LM_DECODE / out["decode_s"]
+    print(f"{arch} serve [{card}]: prefill {LM_BATCH} x {LM_PROMPT} tokens "
+          f"in {out['prefill_s'] * 1e3:.3f} ms = {pre_tps:.1f} tokens/s; "
+          f"{LM_DECODE} decode steps x {LM_BATCH} in "
+          f"{out['decode_s'] * 1e3:.3f} ms = {dec_tps:.1f} tokens/s "
+          f"({out['decode_s'] / LM_DECODE * 1e3:.3f} ms per step); "
+          f"launches {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    profile_run(f"serve {arch}", lambda: serve(
+        model, params, prompts, gen_len=LM_DECODE + 1,
+        max_len=LM_PROMPT + LM_DECODE), card)
+
+    # the same prefill in f32, kernels against the plain versions
+    del out
+    params = tree_map(lambda t: t.float(), params)
+    torch.cuda.empty_cache()
+    got, got_cache = model.forward(params, {"tokens": prompts},
+                                   mode="prefill")
+    with plain_versions():
+        want, want_cache = model.forward(params, {"tokens": prompts},
+                                         mode="prefill")
+    torch.cuda.synchronize()
+    f_scale = max(float(want.abs().max()), 1.0)
+    err = float((got - want).abs().max())
+    if not err <= 1e-3 * f_scale:
+        fail(f"{arch}: f32 prefill with the kernels differs from the plain "
+             f"versions by {err} > 1e-3 x {f_scale}")
+    cache_err = 0.0
+    if cfg.family == "hybrid":
+        cache_err = float((got_cache["mamba"]["state"]
+                           - want_cache["mamba"]["state"]).abs().max())
+        s_scale = float(want_cache["mamba"]["state"].abs().max())
+        if not cache_err <= 1e-3 * max(s_scale, 1.0):
+            fail(f"{arch}: f32 prefill states differ by {cache_err}")
+    print(f"{arch} f32 prefill [{LM_BATCH} x {LM_PROMPT}], kernels vs plain "
+          f"versions on the card: logits max err {err:.4g} (tol 1e-3 x "
+          f"max(|logits|, 1) = {1e-3 * f_scale:.4g})"
+          + (f", final Mamba2 states max err {cache_err:.4g}"
+             if cfg.family == "hybrid" else ""))
+    del want, got_cache, want_cache
+    # the consistency check once more in f32 (the prefill logits are the
+    # full forward's): the algorithm's agreement without bf16 rounding
+    _, pre = model.forward(params, {"tokens": prompts[:, :p]},
+                           mode="prefill")
+    cache = fill_cache(model.init_cache(LM_BATCH, LM_PROMPT, dev), pre)
+    del pre
+    f_errs = []
+    for t in range(p, LM_PROMPT):
+        dl, cache = model.forward(params, {"tokens": prompts[:, t:t + 1]},
+                                  mode="decode", cache=cache, cache_index=t)
+        f_errs.append(float((dl[:, 0] - got[:, t]).abs().max()))
+    if not max(f_errs) < 0.02 * f_scale:
+        fail(f"{arch}: f32 decode logits differ from the full forward by "
+             f"{max(f_errs)} >= 0.02 x {f_scale}")
+    print(f"{arch} prefill/decode consistency in f32 (K/V cache bf16, as "
+          f"always): max err {max(f_errs):.4g} = "
+          f"{max(f_errs) / (0.02 * f_scale):.4f} of the bound (bf16: "
+          f"{max(errs) / (0.02 * scale):.4f})")
+    del params, got, cache
+    torch.cuda.empty_cache()
+    return counts
+
 
 def main() -> None:
     card = phase_card()
@@ -880,11 +1261,11 @@ def main() -> None:
     check_main_path_caches(gpu[0], rng)
     profile_run("main path", lambda: run_main_path("cuda"), card)
 
-    # the cluster path (phase 5): every kernel must launch in it
+    # the cluster path (phase 5): every ETL kernel must launch in it
     reset_launch_counts()
     clu = run_cluster_pre_extracted()
     cluster_counts = launch_counts()
-    missing = [k for k, v in cluster_counts.items() if v <= 0]
+    missing = [k for k in ETL_KERNELS if cluster_counts[k] <= 0]
     if missing:
         fail(f"kernels never launched on the cluster path: {missing}")
     print(f"cluster path launches: {cluster_counts}")
@@ -901,6 +1282,12 @@ def main() -> None:
           f"[{card}]")
     check_durability(clu)                                      # phase 7
 
+    gen = torch.Generator(device=dev).manual_seed(0)           # phase 8
+    results += [check_flash(dev, gen, card), check_gla(dev, gen, card)]
+    lm_counts = {}                                             # phase 9
+    for arch in LM_ARCHS:
+        lm_counts["lm_" + arch.split("-")[0]] = run_lm(arch, dev, card)
+
     src = "src/repro_torch/kernels/segment_kpi/csrc/segment_kpi.cu"
     tpu = "src/repro/kernels/segment_kpi/segment_kpi.py"
     sources = {"hash_join": ("src/repro_torch/kernels/hash_join/csrc/"
@@ -909,16 +1296,30 @@ def main() -> None:
                "segment_kpi": (src, f"{tpu}:226"),
                "fold_segments": (src, f"{tpu}:180"),
                "gather_stats": (src, f"{tpu}:152"),
-               "segment_rollup": (src, f"{tpu}:205")}
+               "segment_rollup": (src, f"{tpu}:205"),
+               "flash_attention": (
+                   "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+                   "src/repro/kernels/flash_attention/flash_attention.py:77"),
+               "gla_chunk": ("src/repro_torch/kernels/gla_chunk/csrc/"
+                             "gla_chunk.cu",
+                             "src/repro/kernels/gla_chunk/gla_chunk.py:82")}
     kernels = []
     for r in results:
-        path, replaces = sources[r["name"]]
-        kernels.append({"name": r["name"], "route": "cuda", "source": path,
-                        "replaces": replaces,
-                        "launches": cluster_counts[r["name"]],
-                        "launches_by_path": {
-                            "sequential": seq_counts[r["name"]],
-                            "cluster": cluster_counts[r["name"]]},
+        name = r["name"]
+        path, replaces = sources[name]
+        by_path = {"sequential": seq_counts[name],
+                   "cluster": cluster_counts[name],
+                   **{p: c.get(name, 0) for p, c in lm_counts.items()}}
+        # the ETL kernels' main path is the cluster; the LM kernels' the
+        # two serve runs
+        launches = (by_path["cluster"] if name in ETL_KERNELS
+                    else sum(c.get(name, 0) for c in lm_counts.values()))
+        if launches <= 0:
+            fail(f"{name} never launched on its path")
+        kernels.append({"name": name, "route": "cuda", "source": path,
+                        "replaces": replaces, "launches": launches,
+                        "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "issue_ms": r["issue_ms"],
                         "bound_ms": r["bound_ms"],

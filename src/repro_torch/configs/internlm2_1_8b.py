@@ -1,0 +1,37 @@
+"""internlm2-1.8b [dense]: 24L d_model=2048 16H (GQA kv=8) d_ff=8192
+vocab=92544. [arXiv:2403.17297]
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+
+def full() -> ModelConfig:
+    return ModelConfig(
+        arch="internlm2-1.8b",
+        family="dense",
+        n_layers=24,
+        d_model=2048,
+        n_heads=16,
+        n_kv_heads=8,
+        d_ff=8192,
+        vocab=92544,
+        rope_theta=1e6,
+        source="arXiv:2403.17297",
+    )
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        arch="internlm2-smoke",
+        family="dense",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=2,
+        d_ff=128,
+        vocab=256,
+        microbatches=1,
+        remat=False,
+    )
+
+
+register("internlm2-1.8b", full, smoke)

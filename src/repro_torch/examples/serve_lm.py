@@ -1,0 +1,106 @@
+"""Batched LM serving: prefill a request batch, then greedy decode against
+a cache preallocated to ``max_len`` — the counterpart of the JAX
+package's ``examples/serve_lm.py``, on the card by default (the prefill
+runs the flash_attention and gla_chunk kernels; the first launch builds
+them with nvcc). ``--device cpu`` runs every kernel's plain version:
+
+    PYTHONPATH=src python -m repro_torch.examples.serve_lm --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.examples.serve_lm --arch zamba2-1.2b
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+from repro_torch.core.backend import resolve_device
+from repro_torch.models import Model, build_model
+from repro_torch.models.param import tree_map
+from repro_torch.train.serve_step import make_decode_step, make_prefill_step
+
+
+def fill_cache(cache, prefill_cache) -> Any:
+    """Copy a prefill cache into the leading corner of each leaf of a
+    preallocated cache (the K/V of the prompt's positions; the recurrent
+    and conv states whole). Returns ``cache``."""
+    def put(dst, src):
+        dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
+        return dst
+    return tree_map(put, cache, prefill_cache)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(model: Model, params, prompts: torch.Tensor, *, gen_len: int,
+          max_len: int) -> Dict[str, Any]:
+    """Prefill ``prompts`` [B, P], then decode greedily to ``gen_len`` new
+    tokens per sequence against a cache of ``max_len`` positions. Returns
+    the tokens [B, gen_len], the decode steps' logits [B, gen_len - 1, V]
+    and the prefill and decode wall seconds."""
+    b, p = prompts.shape
+    if p + gen_len - 1 > max_len:
+        raise ValueError(f"prompt {p} + {gen_len - 1} decode steps exceed "
+                         f"max_len {max_len}")
+    device = prompts.device
+    prefill = make_prefill_step(model)
+    decode = make_decode_step(model)
+    cache = model.init_cache(b, max_len, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    tok, pre_cache = prefill(params, {"tokens": prompts})
+    cache = fill_cache(cache, pre_cache)
+    del pre_cache
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+
+    toks, logits = [tok], []
+    t0 = time.perf_counter()
+    for i in range(gen_len - 1):
+        tok, lg, cache = decode(params, cache, toks[-1][:, None], p + i)
+        toks.append(tok)
+        logits.append(lg)
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    return {"tokens": torch.stack(toks, dim=1),
+            "logits": (torch.stack(logits, dim=1) if logits else
+                       torch.empty((b, 0, model.cfg.vocab), device=device)),
+            "prefill_s": prefill_s, "decode_s": decode_s}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="internlm2-1.8b",
+                    choices=["internlm2-1.8b", "zamba2-1.2b"])
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced same-family config")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    model = build_model(args.arch, smoke=args.smoke)
+    cfg = model.cfg
+    gen = torch.Generator(device=device)
+    params = model.init(gen.manual_seed(0))
+
+    batch, prompt_len, gen_len, max_len = 4, 48, 16, 64
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
+                            generator=gen.manual_seed(1), device=device)
+    out = serve(model, params, prompts, gen_len=gen_len, max_len=max_len)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "CPU")
+    print(f"{cfg.arch} on {where}: prefill {batch} x {prompt_len} tokens in "
+          f"{out['prefill_s'] * 1e3:.0f} ms")
+    print(f"decode: {gen_len - 1} steps x {batch} seqs in "
+          f"{out['decode_s'] * 1e3:.0f} ms "
+          f"({batch * (gen_len - 1) / out['decode_s']:.0f} tok/s)")
+    print("generated token ids (seq 0):", out["tokens"][0].tolist())
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,6 @@
-"""Hand-written CUDA kernels for Hopper (sm_90a). Each package holds
+"""Hand-written CUDA kernels for Hopper (sm_90a): the ETL path's
+``hash_join`` and ``segment_kpi`` families, and the LM serving path's
+``flash_attention`` and ``gla_chunk``. Each package holds
 ``csrc/<name>.cu`` (the kernel, with a plain C launch function), ``ops.py``
 (the wrapper: checks, allocates, launches on the current stream, counts
 launches; on a CPU tensor it runs the plain version) and ``ref.py`` (the
@@ -10,9 +12,11 @@ from repro_torch.kernels._build import COUNT_LOCK
 
 
 def _ops_modules():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.gla_chunk import ops as gla_ops
     from repro_torch.kernels.hash_join import ops as hash_join_ops
     from repro_torch.kernels.segment_kpi import ops as segment_kpi_ops
-    return hash_join_ops, segment_kpi_ops
+    return hash_join_ops, segment_kpi_ops, flash_ops, gla_ops
 
 
 def launch_counts() -> Dict[str, int]:

@@ -25,24 +25,32 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 
-# sm_90a: Hopper with its architecture-specific instructions. -fmad=false
-# keeps every multiply and add separately rounded, as the reference's
-# numpy/XLA ops are; no --use_fast_math, so division stays IEEE.
+# sm_90a: Hopper with its architecture-specific instructions; no
+# --use_fast_math, so division and expf stay IEEE-accurate.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# -fmad=false keeps every multiply and add separately rounded, as the
+# reference's numpy/XLA ops are: the ETL kernels are bitwise their plain
+# versions. The LM kernels are held to a tolerance and keep FMA
+# contraction.
+BITWISE = ("-fmad=false",)
 
 SOURCES: Dict[str, Path] = {
     "hash_join": _KERNELS / "hash_join" / "csrc" / "hash_join.cu",
     "segment_kpi": _KERNELS / "segment_kpi" / "csrc" / "segment_kpi.cu",
+    "flash_attention": (_KERNELS / "flash_attention" / "csrc"
+                        / "flash_attention.cu"),
+    "gla_chunk": _KERNELS / "gla_chunk" / "csrc" / "gla_chunk.cu",
 }
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"hash_join": BITWISE,
+                                           "segment_kpi": BITWISE}
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -60,10 +68,16 @@ def _nvcc() -> str:
     return str(path)
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """The nvcc flags source ``name`` is built with."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def lib_path(name: str) -> Path:
-    """Where the library built from the current source of ``name`` lives."""
+    """Where the library built from the current source and flags of
+    ``name`` lives."""
     digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -80,7 +94,7 @@ def build_all() -> float:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(out.with_suffix(".log"), "w")
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        proc = subprocess.Popen([_nvcc(), *flags(name), "-o", str(tmp),
                                  str(src)], stdout=log,
                                 stderr=subprocess.STDOUT)
         jobs.append((name, proc, tmp, out, log))

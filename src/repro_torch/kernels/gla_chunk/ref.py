@@ -1,0 +1,78 @@
+"""Plain PyTorch version of the ``gla_chunk`` CUDA kernel: the oracle the
+card checks it against and what ``ops.gla`` runs for CPU tensors. It is
+the chunked form of the JAX package's ``models/gla.py:gla_chunk`` in
+torch, with f32 decay ratios (the Pallas kernel's precision, the
+reference's ``ratio_dtype=jnp.float32``), an optional initial state and
+the final state returned.
+
+Recurrence per head (state S in R^{dk x dv}):
+
+    S_t = diag(w_t) @ S_{t-1} + k_t v_t^T            (w_t in (0,1])
+    o_t = q_t @ (S_{t-1} + diag(u) k_t v_t^T)        lag=1 w/ bonus  (RWKV6)
+    o_t = q_t @ S_t                                  lag=0           (Mamba2)
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def gla_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  log_w: torch.Tensor, u: Optional[torch.Tensor] = None, *,
+                  inclusive: bool = False, chunk: int = 64,
+                  initial_state: Optional[torch.Tensor] = None,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k, log_w: [B, S, H, dk]; v: [B, S, H, dv]; u: [H, dk] or None;
+    initial_state: [B, H, dk, dv] or None (zeros). Returns (out [B, S, H,
+    dv] in v's dtype, final_state [B, H, dk, dv] f32)."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    s_orig = s
+    if s % chunk:
+        # pad with k=0 (no state contribution), log_w=0 (w=1: state frozen)
+        pad = chunk - s % chunk
+        q, k, v, log_w = (F.pad(x, (0, 0, 0, 0, 0, pad))
+                          for x in (q, k, v, log_w))
+        s += pad
+    n = s // chunk
+
+    def chunks(x):                                   # [n, b, h, C, d] f32
+        return x.reshape(b, n, chunk, h, -1).permute(1, 0, 3, 2, 4).float()
+
+    qc, kc, vc, lw = chunks(q), chunks(k), chunks(v), chunks(log_w)
+    lag = 0 if inclusive else 1
+    t_idx = torch.arange(chunk, device=q.device)
+    # masked (t, i) pairs: i > t - lag
+    masked = t_idx[:, None] < (t_idx[None, :] + lag)
+    S = (initial_state.float() if initial_state is not None
+         else torch.zeros((b, h, dk, dv), dtype=torch.float32,
+                          device=q.device))
+    outs = []
+    for c in range(n):
+        qb, kb, vb, lwb = qc[c], kc[c], vc[c], lw[c]          # [b,h,C,*]
+        L = torch.cumsum(lwb, dim=2)          # inclusive cumulative log-decay
+        Lq = L if inclusive else L - lwb      # L_t or L_{t-1}
+        # inter-chunk: q_t (decayed) @ S_in
+        inter = torch.einsum("bhtk,bhkv->bhtv", qb * torch.exp(Lq), S)
+        # intra-chunk: A[t,i] = sum_d q_td k_id exp(Lq_td - L_id), masked
+        # before the exp
+        diff = Lq[:, :, :, None, :] - L[:, :, None, :, :]    # [b,h,t,i,dk]
+        diff = diff.masked_fill(masked[:, :, None], NEG_INF)
+        A = (qb[:, :, :, None, :] * kb[:, :, None, :, :]
+             * torch.exp(diff)).sum(dim=-1)
+        out = inter + torch.einsum("bhti,bhiv->bhtv", A, vb)
+        if u is not None:                     # RWKV6 current-token bonus
+            dot = (qb * u.float()[None, :, None, :] * kb).sum(dim=-1)
+            out = out + dot[..., None] * vb
+        # state update: S <- diag(exp(L_C)) S + sum_i k_i exp(L_C-L_i) v_i
+        Ltot = L[:, :, -1:, :]
+        k_dec = kb * torch.exp(Ltot - L)
+        S = torch.exp(Ltot[:, :, 0])[..., None] * S + \
+            torch.einsum("bhtk,bhtv->bhkv", k_dec, vb)
+        outs.append(out)
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, s, h, dv)
+    return out[:, :s_orig].to(v.dtype), S

@@ -1,0 +1,230 @@
+"""The model API of the dense (internlm2) and hybrid (zamba2) families.
+
+``Model(cfg)`` builds a ParamDef tree once (the JAX package's tree, leaf
+for leaf); ``init`` materializes it from a ``torch.Generator`` on that
+generator's device, ``init_cache`` allocates the decode cache. ``forward``
+covers three modes, without autograd:
+
+  train   — full-sequence causal LM forward, returns logits
+  prefill — like train but also returns a populated KV/state cache
+  decode  — one token against a cache, which it updates in place
+
+The stacks loop over the stacked ``[L, ...]`` layer params (the JAX
+package scans them).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks
+from repro_torch.models.layers import embed, rmsnorm, swiglu_mlp, unembed
+from repro_torch.models.param import ParamDef, tree_init, tree_map
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked [L, ...] tree (views)."""
+    return tree_map(lambda a: a[i], tree)
+
+
+def _stack(caches):
+    """A list of per-layer cache trees -> one stacked [L, ...] tree."""
+    return tree_map(lambda *xs: torch.stack(xs), caches[0], *caches[1:])
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family not in ("dense", "hybrid") or cfg.pos_scheme != "rope":
+            raise ValueError(f"the port serves the dense and hybrid "
+                             f"families with RoPE, not {cfg.family!r} / "
+                             f"{cfg.pos_scheme!r}")
+        self.cfg = cfg
+        self.defs = self._build_defs()
+
+    # ------------------------------------------------------------------ defs
+    def _build_defs(self):
+        cfg = self.cfg
+        d = {
+            "embed": ParamDef((cfg.padded_vocab, cfg.d_model),
+                              ("vocab", "embed"), scale=1.0),
+            "final_norm": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+        }
+        if not cfg.tie_embeddings:
+            d["unembed"] = ParamDef((cfg.padded_vocab, cfg.d_model),
+                                    ("vocab", "embed"))
+        if cfg.family == "dense":
+            d["layers"] = blocks.decoder_block_defs(cfg, cfg.n_layers)
+        else:
+            d["layers"] = blocks.mamba2_block_defs(cfg, cfg.n_layers)
+            d["shared"] = {
+                "fuse": ParamDef((2 * cfg.d_model, cfg.d_model),
+                                 (None, "embed")),
+                "ln1": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+                "attn": blocks.attn_defs(cfg, None),
+                "ln2": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+                "mlp": {
+                    "w_gate": ParamDef((cfg.d_model, cfg.d_ff),
+                                       ("embed", "ff")),
+                    "w_up": ParamDef((cfg.d_model, cfg.d_ff),
+                                     ("embed", "ff")),
+                    "w_down": ParamDef((cfg.d_ff, cfg.d_model),
+                                       ("ff", "embed")),
+                },
+            }
+        return d
+
+    # -------------------------------------------------------------- params
+    def init(self, generator: torch.Generator) -> Any:
+        """Random weights on ``generator.device``."""
+        return tree_init(self.defs, generator)
+
+    # --------------------------------------------------------------- caches
+    def n_shared_apps(self) -> int:
+        cfg = self.cfg
+        if cfg.family != "hybrid" or not cfg.shared_attn_every:
+            return 0
+        return cfg.n_layers // cfg.shared_attn_every
+
+    def cache_defs(self, batch: int, seq: int) -> Any:
+        """ParamDef-shaped description of the decode cache; seq = max cache
+        length."""
+        cfg = self.cfg
+        L = cfg.n_layers
+        hd = cfg.resolved_head_dim
+
+        def kv(layers, s, h):
+            axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+            return {"k": ParamDef((layers, batch, s, h, hd), axes,
+                                  init="zeros"),
+                    "v": ParamDef((layers, batch, s, h, hd), axes,
+                                  init="zeros")}
+
+        if cfg.family == "dense":
+            return kv(L, seq, cfg.n_kv_heads)
+        d_in, nh, dv, st = blocks.mamba_dims(cfg)
+        cache = {
+            "mamba": {
+                "state": ParamDef((L, batch, nh, st, dv),
+                                  ("layers", "batch", "heads", None, None),
+                                  init="zeros", dtype=torch.float32),
+                "conv": ParamDef((L, batch, cfg.ssm.conv_kernel - 1,
+                                  d_in + 2 * st),
+                                 ("layers", "batch", None, "heads"),
+                                 init="zeros"),
+            },
+        }
+        napp = self.n_shared_apps()
+        if napp:
+            cache["shared"] = kv(napp, seq, cfg.n_kv_heads)
+        return cache
+
+    def init_cache(self, batch: int, seq: int, device=None) -> Any:
+        return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                              device=device),
+                        self.cache_defs(batch, seq))
+
+    # -------------------------------------------------------------- forward
+    @torch.no_grad()
+    def forward(self, params, batch: Dict[str, torch.Tensor], *, mode: str,
+                cache=None, cache_index: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Any]:
+        """Returns (logits f32 [B, S, vocab], new_cache). In decode mode the
+        logits cover the single new token, ``cache_index`` is the position
+        it is decoded at and ``cache`` is updated in place."""
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"unknown mode {mode!r}")
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        s = tokens.shape[1]
+        x = embed(params["embed"], tokens)
+        offset = cache_index if mode == "decode" else 0
+        positions = (offset + torch.arange(s, dtype=torch.int32,
+                                           device=tokens.device))[None]
+
+        stack = self._hybrid_stack if cfg.family == "hybrid" \
+            else self._scan_stack
+        x, new_cache = stack(params, x, mode=mode, positions=positions,
+                             cache=cache, cache_index=cache_index)
+
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        logits = unembed(table, x)
+        if cfg.padded_vocab != cfg.vocab:
+            logits = logits[..., :cfg.vocab]   # drop the padding columns
+        return logits, new_cache
+
+    # ------------------------------------------------------------ stacks
+    def _scan_stack(self, params, x, *, mode, positions, cache,
+                    cache_index):
+        """Blocks return no cache in train mode, a fresh per-layer cache in
+        prefill mode (stacked here) and the updated cache in decode
+        mode."""
+        cfg = self.cfg
+        fresh = []
+        for i in range(cfg.n_layers):
+            x, lc = blocks.decoder_block(
+                _layer(params["layers"], i), x, cfg, mode=mode,
+                positions=positions,
+                cache=None if cache is None else _layer(cache, i),
+                cache_index=cache_index)
+            fresh.append(lc)
+        if mode == "prefill":
+            return x, _stack(fresh)
+        return x, cache if mode == "decode" else None
+
+    def _hybrid_stack(self, params, x, *, mode, positions, cache,
+                      cache_index):
+        """Zamba2: Mamba2 backbone with a single *shared* attention block
+        applied after every ``shared_attn_every`` layers. The shared block
+        consumes concat(hidden, initial_embedding); the trailing
+        ``n_layers % shared_attn_every`` layers have no shared block after
+        them."""
+        cfg = self.cfg
+        k = cfg.shared_attn_every
+        napp = self.n_shared_apps()
+        x0 = x
+        shared_p = params["shared"]
+        m_cache = cache["mamba"] if cache is not None else None
+        s_cache = cache.get("shared") if cache is not None else None
+
+        def apply_shared(h, sc):
+            z = torch.cat([h, x0], dim=-1) @ shared_p["fuse"]
+            hh = rmsnorm(z, shared_p["ln1"], cfg.norm_eps)
+            a, new_sc = blocks.self_attention(
+                shared_p["attn"], hh, cfg, mode=mode, positions=positions,
+                cache=sc, cache_index=cache_index)
+            z = z + a
+            hh = rmsnorm(z, shared_p["ln2"], cfg.norm_eps)
+            z = z + swiglu_mlp(shared_p["mlp"], hh)
+            return h + z, new_sc
+
+        m_fresh, s_fresh = [], []
+        for i in range(cfg.n_layers):
+            x, lc = blocks.mamba2_block(
+                _layer(params["layers"], i), x, cfg, mode=mode,
+                cache=None if m_cache is None else _layer(m_cache, i))
+            m_fresh.append(lc)
+            g = i // k
+            if (i + 1) % k == 0 and g < napp:
+                x, sc = apply_shared(
+                    x, None if s_cache is None else _layer(s_cache, g))
+                s_fresh.append(sc)
+
+        if mode == "train":
+            return x, None
+        if mode == "decode":
+            return x, cache
+        new_cache = {"mamba": _stack(m_fresh)}
+        if s_fresh:
+            new_cache["shared"] = _stack(s_fresh)
+        return x, new_cache
+
+
+@functools.lru_cache(maxsize=32)
+def build_model(arch: str, smoke: bool = False) -> Model:
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    return Model(cfg)

@@ -1,1 +1,2 @@
-"""Checkpoint files for the durability journal (``checkpoint``)."""
+"""Checkpoint files for the durability journal (``checkpoint``) and the LM
+serving steps (``serve_step``)."""

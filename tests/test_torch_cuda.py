@@ -365,3 +365,167 @@ def test_commit_post_recovery_drill_on_card(dev, tmp_path):
     facts = torch.tensor(pipe2.warehouse.fact_table(), device=dev)
     assert _bits(sk_ops.segment_rollup(facts, 8)) == \
         _bits(sk_ref.segment_rollup_ref(facts, 8))
+
+
+# ---------------------------------------------------------------- LM path
+# flash_attention and gla_chunk against their plain versions on the card,
+# at the tolerances of tests/test_kernels.py (flash 2e-5 in f32, 2e-2 in
+# bf16; gla 2e-4): the kernels add in another order than the plain
+# versions' cuBLAS products, and bf16 outputs round once more.
+
+def _lm_rand(rng, shape, dev, dtype=torch.float32):
+    return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                        device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("s,causal", [(256, True), (77, True), (200, False)])
+def test_flash_attention_matches_plain(dev, dtype, tol, d, group, s,
+                                       causal):
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(d + s + group)
+    b, hkv = 2, 2
+    q = _lm_rand(rng, (b, hkv * group, s, d), dev, dtype)
+    k = _lm_rand(rng, (b, hkv, s, d), dev, dtype)
+    v = _lm_rand(rng, (b, hkv, s, d), dev, dtype)
+    before = launch_counts()["flash_attention"]
+    got = fa.mha(q, k, v, causal=causal)
+    assert launch_counts()["flash_attention"] == before + 1
+    want = attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_reads_the_model_layout(dev):
+    """Transposed [B, S, H, D] views in, the output in that layout out,
+    equal to the kernel on contiguous copies."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    rng = np.random.default_rng(5)
+    q, k, v = (_lm_rand(rng, (2, 300, h, 128), dev, torch.bfloat16)
+               for h in (16, 8, 8))
+    got = fa.mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert got.transpose(1, 2).is_contiguous()
+    want = fa.mha(*(t.transpose(1, 2).contiguous() for t in (q, k, v)))
+    assert _bits(got.contiguous().float()) == _bits(want.float())
+
+
+def _gla_inputs(rng, dev, b, s, h, dk, dv, *, mamba=False):
+    if mamba:          # q, k shared over heads; one decay per head
+        q = _lm_rand(rng, (b, s, 1, dk), dev).expand(b, s, h, dk)
+        k = _lm_rand(rng, (b, s, 1, dk), dev).expand(b, s, h, dk)
+        lw = (-torch.exp(_lm_rand(rng, (b, s, h, 1), dev))).expand(b, s, h,
+                                                                   dk)
+    else:
+        q = _lm_rand(rng, (b, s, h, dk), dev)
+        k = _lm_rand(rng, (b, s, h, dk), dev)
+        lw = -torch.exp(_lm_rand(rng, (b, s, h, dk), dev))
+    return q, k, _lm_rand(rng, (b, s, h, dv), dev), lw
+
+
+@pytest.mark.parametrize("s", [256, 130])
+@pytest.mark.parametrize("inclusive,use_u,mamba", [
+    (False, True, False), (True, False, False), (True, False, True)])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dk,dv", [(64, 64), (32, 128), (16, 32)])
+def test_gla_chunk_matches_plain(dev, s, inclusive, use_u, mamba,
+                                 with_state, dk, dv):
+    from repro_torch.kernels.gla_chunk import ops as gl
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+    rng = np.random.default_rng(s + dk + dv)
+    b, h = 2, 3
+    q, k, v, lw = _gla_inputs(rng, dev, b, s, h, dk, dv, mamba=mamba)
+    if mamba:                           # the model's zero-stride views
+        assert q.stride(2) == k.stride(2) == lw.stride(3) == 0
+    u = _lm_rand(rng, (h, dk), dev) if use_u else None
+    s0 = _lm_rand(rng, (b, h, dk, dv), dev) if with_state else None
+    before = launch_counts()["gla_chunk"]
+    out, final = gl.gla(q, k, v, lw, u, inclusive=inclusive,
+                        initial_state=s0)
+    assert launch_counts()["gla_chunk"] == before + 1
+    ref_out, ref_final = gla_chunk_ref(q, k, v, lw, u, inclusive=inclusive,
+                                       initial_state=s0)
+    torch.testing.assert_close(out, ref_out, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(final, ref_final, rtol=2e-4, atol=2e-4)
+
+
+def test_gla_chunk_bf16_inputs(dev):
+    """bf16 q, k, v (the model's dtype), f32 decay and state: the kernel
+    reads the same bf16 values as the plain version and rounds its output
+    to bf16 once (2e-2, the bf16 tolerance)."""
+    from repro_torch.kernels.gla_chunk import ops as gl
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+    rng = np.random.default_rng(9)
+    q, k, v, lw = _gla_inputs(rng, dev, 2, 200, 4, 64, 64, mamba=True)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    out, final = gl.gla(q, k, v, lw, inclusive=True)
+    ref_out, ref_final = gla_chunk_ref(q, k, v, lw, inclusive=True)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(final, ref_final, rtol=2e-4, atol=2e-4)
+
+
+def test_lm_wrappers_raise_instead_of_running_the_plain_version(dev):
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.gla_chunk import ops as gl
+    before = launch_counts()
+    q = torch.zeros((1, 2, 64, 64), device=dev)
+    with pytest.raises(TypeError):                       # f16
+        fa.mha(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):                       # mixed dtypes
+        fa.mha(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):                      # head_dim 48
+        fa.mha(q[..., :48], q[..., :48], q[..., :48])
+    with pytest.raises(ValueError):                      # D not contiguous
+        t = q.transpose(2, 3)
+        fa.mha(t, t, t)
+    with pytest.raises(ValueError):                      # mixed devices
+        fa.mha(q, q.cpu(), q)
+    x = torch.zeros((1, 64, 2, 64), device=dev)
+    with pytest.raises(ValueError):                      # chunk 32
+        gl.gla(x, x, x, x, chunk=32)
+    with pytest.raises(TypeError):                       # bf16 log_w
+        gl.gla(x, x, x, x.bfloat16())
+    with pytest.raises(ValueError):                      # dk 128
+        y = torch.zeros((1, 64, 2, 128), device=dev)
+        gl.gla(y, y, y, y)
+    with pytest.raises(ValueError):                      # state shape
+        gl.gla(x, x, x, x, initial_state=torch.zeros((1, 2, 64, 32),
+                                                     device=dev))
+    assert launch_counts() == before
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-1.2b"])
+def test_smoke_serve_on_card_matches_cpu(dev, arch):
+    """The smoke config's serve run (prefill + greedy decode) on the card
+    against the same run on the CPU, f32 weights drawn on the CPU: the
+    same tokens, decode logits within 1e-3 x max(|logits|, 1) (the two
+    devices' products add in other orders; f32 rounding through a few
+    layers stays orders of magnitude below that), and one kernel launch
+    per attention / Mamba2 layer of the prefill, none in decode."""
+    from repro_torch.examples.serve_lm import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_map
+    model = build_model(arch, smoke=True)
+    cfg = model.cfg
+    params = tree_map(lambda t: t.float(),
+                      model.init(torch.Generator().manual_seed(0)))
+    prompts = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 45)))
+    cpu = serve(model, params, prompts, gen_len=6, max_len=64)
+    reset_launch_counts()
+    gpu = serve(model, tree_map(lambda t: t.to(dev), params),
+                prompts.to(dev), gen_len=6, max_len=64)
+    counts = launch_counts()
+    n_attn = cfg.n_layers if cfg.family == "dense" else model.n_shared_apps()
+    n_gla = 0 if cfg.family == "dense" else cfg.n_layers
+    assert counts["flash_attention"] == n_attn
+    assert counts["gla_chunk"] == n_gla
+    assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
+    scale = max(float(cpu["logits"].abs().max()), 1.0)
+    err = float((gpu["logits"].cpu() - cpu["logits"]).abs().max())
+    assert err < 1e-3 * scale, (err, scale)
