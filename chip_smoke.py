@@ -46,23 +46,31 @@ Phases, each fatal on failure (no fallback to the CPU):
    byte-identical to the uninterrupted run, the rescan bitwise its plain
    version;
 8. LM kernels against their plain versions on the card, at the serving
-   path's shapes and at ragged S: flash_attention in f32 (2e-5) and bf16
-   (2e-2) at internlm2's and zamba2's attention shapes, gla_chunk in both
-   regimes with and without an initial state, final state included
-   (2e-4); device, plain and issue times, ``scaled_dot_product_attention``
-   beside flash, and the bound (bytes / 3.35 TB/s or operations over the
-   input dtype's peak: 989 TFLOP/s dense bf16 tensor core, 67 TFLOP/s
-   f32);
+   path's shapes and at ragged S, each in both of its designs:
+   flash_attention in f32 on the CUDA-core design (2e-5) and in bf16 on
+   the tensor-core design (wgmma + TMA, 2e-2) at internlm2's and zamba2's
+   attention shapes; gla_chunk in f32 on the serial design in both
+   regimes and zamba2's bf16 Mamba2 inputs on the SSD design (out 2e-2),
+   with and without an initial state, final state included (2e-4); each
+   call's design checked by the launch counters. Both designs of each
+   kernel then timed in turns (old, new, new, old) on the bf16 serving
+   shapes: device and issue times, the plain version,
+   ``scaled_dot_product_attention`` beside flash, and the bound (bytes /
+   3.35 TB/s or operations over the input dtype's peak: 989 TFLOP/s dense
+   bf16 tensor core, 67 TFLOP/s f32), the SSD design's chunk-state scratch
+   bytes beside it;
 9. LM serving for internlm2-1.8b and zamba2-1.2b at full published width
    and depth, bf16 weights from a seeded ``torch.Generator`` on the card:
    prefill/decode consistency (prefill of 2044 prompt tokens, 4 decode
    steps against one full forward of 2048, within 0.02 x max(|logits|,
-   1)); launches per prefill (internlm2: 24 flash; zamba2: 6 flash + 38
-   gla) and none in decode; the serve run (batch 4 x 2048 prompt tokens,
-   32 greedy decode steps, ``examples.serve_lm.serve``) with prefill and
-   decode tokens/s, counted as the path's launches; the same prefill in
-   f32 with the kernels against their plain versions on the card; the
-   card's busy share of a profiled serve run.
+   1)); launches per prefill (internlm2: 24 flash on the tensor-core
+   design; zamba2: 6 flash + 38 gla on the tensor-core and SSD designs)
+   and none in decode; the serve run (batch 4 x 2048 prompt tokens, 32
+   greedy decode steps, ``examples.serve_lm.serve``) with prefill and
+   decode tokens/s, counted as the bf16 designs' launches; the same
+   prefill in f32 (the CUDA-core and serial designs, counted as theirs)
+   with the kernels against their plain versions on the card; the card's
+   busy share of a profiled serve run.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -914,49 +922,85 @@ def flash_bound(q, k, v, causal=True):
     return bound(n_bytes, flops, peak)
 
 
-def check_flash(dev, gen, card) -> dict:
+def design_moved(before, after, key: str, n: int, what: str) -> None:
+    """Fail unless the per-design launch count ``key`` moved by ``n``."""
+    got = after[key] - before[key]
+    if got != n:
+        fail(f"{what}: {key} launched {got} times, expected {n}")
+
+
+def check_flash(dev, gen, card) -> list:
+    """Both flash_attention designs against the plain version at both
+    models' serving shapes and ragged S: f32 (the CUDA-core design, 2e-5)
+    and bf16 (the tensor-core design, 2e-2); then both designs timed side
+    by side on the bf16 shapes. Returns the two designs' records
+    (internlm2's shape)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention.ops import mha
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import build_model
-    errs, row = [], None
+    errs = {"simt": [], "tc": []}
+    rows = {}
     for arch in LM_ARCHS:
         cfg = build_model(arch).cfg
         hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
+            design = "tc" if dtype == torch.bfloat16 else "simt"
             for s in (LM_PROMPT, LM_PROMPT - LM_TAIL, 1000):
                 q, k, v = flash_inputs(LM_BATCH, hq, hkv, s, d, dtype, dev,
                                        gen)
+                before = launch_counts()
                 got = mha(q, k, v)
+                design_moved(before, launch_counts(), "flash_attention_tc",
+                             int(design == "tc"), f"flash {arch} {name}")
                 want = attention_ref(q, k, v)
                 torch.cuda.synchronize()
-                errs.append(max_err(got, want, FLASH_TOL[name],
-                                    f"flash_attention {arch} {name} S={s}"))
+                errs[design].append(max_err(
+                    got, want, FLASH_TOL[name],
+                    f"flash_attention {arch} {name} S={s}"))
             print(f"flash_attention {arch} [B {LM_BATCH}, Hq {hq}, Hkv {hkv},"
-                  f" D {d}] {name}, S in {{{LM_PROMPT}, "
-                  f"{LM_PROMPT - LM_TAIL}, 1000}}: within "
-                  f"{FLASH_TOL[name]} of the plain version, max abs err "
-                  f"{max(errs[-3:]):.3g}")
+                  f" D {d}] {name} ({'tensor-core' if design == 'tc' else 'CUDA-core'}"
+                  f" design), S in {{{LM_PROMPT}, {LM_PROMPT - LM_TAIL}, "
+                  f"1000}}: within {FLASH_TOL[name]} of the plain version, "
+                  f"max abs err {max(errs[design][-3:]):.3g}")
         q, k, v = flash_inputs(LM_BATCH, hq, hkv, LM_PROMPT, d,
                                torch.bfloat16, dev, gen)
-        t = {"ms": graph_ms(lambda: mha(q, k, v)),
-             "issue_ms": issue_ms(lambda: mha(q, k, v), reps=10),
-             "plain_ms": graph_ms(lambda: attention_ref(q, k, v), reps=3,
-                                  rounds=3)}
-        t["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+        plain_ms = graph_ms(lambda: attention_ref(q, k, v), reps=3, rounds=3)
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))
-        t["bound_ms"], t["bound_by"] = flash_bound(q, k, v)
-        print(f"  flash_attention {arch} bf16 S={LM_PROMPT}: {t['ms']:.5f} ms "
-              f"kernel, {t['plain_ms']:.5f} ms plain, {t['library_ms']:.5f} "
-              f"ms scaled_dot_product_attention (device, CUDA graph), "
-              f"{t['issue_ms']:.5f} ms per host-issued call, bound "
-              f"{t['bound_ms']:.6f} ms ({t['bound_by']}, bf16 tensor-core "
-              f"peak) [{card}]")
-        if arch == "internlm2-1.8b":
-            row = t
-    return {"name": "flash_attention", "max_abs_err": max(errs), **row}
+        b_ms, b_by = flash_bound(q, k, v)
+        want = attention_ref(q, k, v)
+        for design in ("tc", "simt"):
+            errs[design].append(max_err(
+                mha(q, k, v, design=design), want, FLASH_TOL["bfloat16"],
+                f"flash_attention {arch} bf16 pinned to {design}"))
+        del want
+        for design in ("simt", "tc", "tc", "simt"):    # in turns
+            fn = lambda: mha(q, k, v, design=design)
+            t = {"ms": graph_ms(fn), "issue_ms": issue_ms(fn, reps=10)}
+            old = rows.get((arch, design))
+            rows[(arch, design)] = t if old is None else {
+                key: min(old[key], t[key]) for key in t}
+        for design in ("tc", "simt"):
+            t = rows[(arch, design)]
+            t.update(plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                     bound_by=b_by)
+            print(f"  flash_attention {arch} bf16 S={LM_PROMPT}, "
+                  f"{'tensor-core' if design == 'tc' else 'CUDA-core'} design:"
+                  f" {t['ms']:.5f} ms kernel ({2 * LM_BATCH * hq * LM_PROMPT**2 * d / t['ms'] / 1e9:.1f} TFLOP/s), "
+                  f"{plain_ms:.5f} ms plain, {library_ms:.5f} ms "
+                  f"scaled_dot_product_attention (device, CUDA graph; the "
+                  f"better of two turns), {t['issue_ms']:.5f} ms per "
+                  f"host-issued call, bound {b_ms:.6f} ms ({b_by}, bf16 "
+                  f"tensor-core peak) [{card}]")
+    main = "internlm2-1.8b"
+    return [{"name": "flash_attention", "max_abs_err": max(errs["simt"]),
+             "zamba2": rows[("zamba2-1.2b", "simt")], **rows[(main, "simt")]},
+            {"name": "flash_attention_tc", "max_abs_err": max(errs["tc"]),
+             "zamba2": rows[("zamba2-1.2b", "tc")], **rows[(main, "tc")]}]
 
 
 def gla_inputs(b, s, h, dk, dv, dtype, dev, gen, *, mamba):
@@ -991,70 +1035,110 @@ def gla_work(q, v, inclusive: bool) -> float:
     return float(b * h * n * per_chunk)
 
 
-def check_gla(dev, gen, card) -> dict:
+def check_gla(dev, gen, card) -> list:
+    """Both gla_chunk designs against the plain version: f32 in both
+    regimes (the serial design, 2e-4), then zamba2's bf16 Mamba2 inputs
+    (the SSD design: out 2e-2, final state 2e-4) at S 2048, 2044 and 1000,
+    with and without an initial state; then both designs timed side by
+    side on zamba2's bf16 shape. Returns the two designs' records."""
     import torch
-    from repro_torch.kernels.gla_chunk.ops import gla
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.gla_chunk.ops import CHUNK, gla
     from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
     from repro_torch.models import build_model
     cfg = build_model("zamba2-1.2b").cfg
     h = cfg.ssm.n_ssm_heads
     dk = cfg.ssm.state_size
     dv = cfg.ssm.expand * cfg.d_model // h
-    errs = []
-    cases = [(True, False, True, LM_BATCH),      # Mamba2 (zamba2's shapes)
-             (False, True, False, 1)]            # RWKV6: lag-1 + bonus u
-    for inclusive, use_u, mamba, b in cases:
+    errs = {"serial": [], "ssd": []}
+    state_errs = {"serial": [], "ssd": []}
+    cases = [(True, False, True, LM_BATCH, torch.float32),   # Mamba2 f32
+             (False, True, False, 1, torch.float32),         # RWKV6
+             (True, False, True, LM_BATCH, torch.bfloat16)]  # zamba2's
+    for inclusive, use_u, mamba, b, dtype in cases:
+        design = "ssd" if dtype == torch.bfloat16 else "serial"
         for s in (LM_PROMPT, LM_PROMPT - LM_TAIL, 1000):
             for with_state in (False, True):
-                q, k, v, lw = gla_inputs(b, s, h, dk, dv, torch.float32, dev,
-                                         gen, mamba=mamba)
+                q, k, v, lw = gla_inputs(b, s, h, dk, dv, dtype, dev, gen,
+                                         mamba=mamba)
                 u = lm_rand((h, dk), dev, torch.float32, gen) if use_u \
                     else None
                 s0 = (lm_rand((b, h, dk, dv), dev, torch.float32, gen)
                       if with_state else None)
+                before = launch_counts()
                 out, fin = gla(q, k, v, lw, u, inclusive=inclusive,
                                initial_state=s0)
+                what = (f"gla_chunk {'mamba2' if mamba else 'rwkv6'} "
+                        f"{str(dtype)[6:]} S={s} state={with_state}")
+                design_moved(before, launch_counts(), "gla_chunk_ssd",
+                             int(design == "ssd"), what)
                 r_out, r_fin = gla_chunk_ref(q, k, v, lw, u,
                                              inclusive=inclusive,
                                              initial_state=s0)
                 torch.cuda.synchronize()
-                what = (f"gla_chunk {'mamba2' if mamba else 'rwkv6'} S={s} "
-                        f"state={with_state}")
-                errs.append(max(max_err(out, r_out, GLA_TOL, what),
-                                max_err(fin, r_fin, GLA_TOL,
-                                        what + " final state")))
+                out_tol = (FLASH_TOL["bfloat16"] if dtype == torch.bfloat16
+                           else GLA_TOL)
+                state_errs[design].append(
+                    max_err(fin, r_fin, GLA_TOL, what + " final state"))
+                errs[design].append(max(max_err(out, r_out, out_tol, what),
+                                        state_errs[design][-1]))
         print(f"gla_chunk {'Mamba2 inclusive' if mamba else 'RWKV6 lag-1 + u'}"
-              f" [B {b}, H {h}, dk {dk}, dv {dv}] f32, S in {{{LM_PROMPT}, "
-              f"{LM_PROMPT - LM_TAIL}, 1000}}, with and without an initial "
-              f"state: out and final state within {GLA_TOL} of the plain "
-              f"version, max abs err {max(errs[-6:]):.3g}")
+              f" [B {b}, H {h}, dk {dk}, dv {dv}] {str(dtype)[6:]} ("
+              f"{'SSD' if design == 'ssd' else 'serial'} design), S in "
+              f"{{{LM_PROMPT}, {LM_PROMPT - LM_TAIL}, 1000}}, with and "
+              f"without an initial state: out within {out_tol}, final "
+              f"state within {GLA_TOL} of the plain version, max abs err "
+              f"{max(errs[design][-6:]):.3g} (final state "
+              f"{max(state_errs[design][-6:]):.3g})")
     q, k, v, lw = gla_inputs(LM_BATCH, LM_PROMPT, h, dk, dv, torch.bfloat16,
                              dev, gen, mamba=True)
-    out, fin = gla(q, k, v, lw, inclusive=True)
     r_out, r_fin = gla_chunk_ref(q, k, v, lw, inclusive=True)
-    torch.cuda.synchronize()
-    errs.append(max(max_err(out, r_out, FLASH_TOL["bfloat16"],
-                            "gla_chunk bf16 out"),
-                    max_err(fin, r_fin, GLA_TOL, "gla_chunk bf16 state")))
-    print(f"gla_chunk bf16 q, k, v (the model's dtype): out within 2e-2, "
-          f"final state within {GLA_TOL} of the plain version")
-    t = {"ms": graph_ms(lambda: gla(q, k, v, lw, inclusive=True)),
-         "issue_ms": issue_ms(lambda: gla(q, k, v, lw, inclusive=True),
-                              reps=10),
-         "plain_ms": graph_ms(lambda: gla_chunk_ref(q, k, v, lw,
-                                                    inclusive=True),
-                              reps=2, rounds=3)}
+    for design in ("ssd", "serial"):
+        out, fin = gla(q, k, v, lw, inclusive=True, design=design)
+        errs[design].append(max(
+            max_err(out, r_out, FLASH_TOL["bfloat16"], f"gla {design} out"),
+            max_err(fin, r_fin, GLA_TOL, f"gla {design} state")))
+    del r_out, r_fin
+    plain_ms = graph_ms(lambda: gla_chunk_ref(q, k, v, lw, inclusive=True),
+                        reps=2, rounds=3)
     n_bytes = (sum(x.element_size() * stored_elems(x) for x in (q, k, v, lw))
                + out.element_size() * out.numel() + 4 * fin.numel())
-    t["bound_ms"], t["bound_by"] = bound(n_bytes, gla_work(q, v, True),
-                                         BF16_FLOP_PER_S)
-    print(f"  gla_chunk zamba2 bf16 S={LM_PROMPT}: {t['ms']:.5f} ms kernel, "
-          f"{t['plain_ms']:.5f} ms plain (device, CUDA graph), "
-          f"{t['issue_ms']:.5f} ms per host-issued call, bound "
-          f"{t['bound_ms']:.6f} ms ({t['bound_by']}: {n_bytes} B, "
-          f"{gla_work(q, v, True):.4g} operations at the bf16 peak) [{card}]")
-    return {"name": "gla_chunk", "max_abs_err": max(errs), "library_ms": None,
-            **t}
+    b_ms, b_by = bound(n_bytes, gla_work(q, v, True), BF16_FLOP_PER_S)
+    # the SSD design's f32 chunk states: written (1), read and rewritten
+    # (2), read (3) — traffic the function's bound does not count
+    n_chunks = -(-LM_PROMPT // CHUNK)
+    scratch = 4 * 4 * LM_BATCH * h * n_chunks * dk * dv
+    rows = {}
+    for design in ("serial", "ssd", "ssd", "serial"):      # in turns
+        fn = lambda: gla(q, k, v, lw, inclusive=True, design=design)
+        t = {"ms": graph_ms(fn), "issue_ms": issue_ms(fn, reps=10)}
+        old = rows.get(design)
+        rows[design] = t if old is None else {key: min(old[key], t[key])
+                                              for key in t}
+    for design in ("ssd", "serial"):
+        t = rows[design]
+        t.update(plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                 bound_by=b_by)
+        print(f"  gla_chunk zamba2 bf16 S={LM_PROMPT}, "
+              f"{'SSD' if design == 'ssd' else 'serial'} design: "
+              f"{t['ms']:.5f} ms kernel, {plain_ms:.5f} ms plain (device, "
+              f"CUDA graph; the better of two turns), {t['issue_ms']:.5f} ms "
+              f"per host-issued call, bound {b_ms:.6f} ms ({b_by}: "
+              f"{n_bytes} B, {gla_work(q, v, True):.4g} operations at the "
+              f"bf16 peak)"
+              + (f"; chunk-state scratch {scratch} B more = "
+                 f"{scratch / HBM_BYTES_PER_S * 1e3:.6f} ms at the HBM peak"
+                 if design == "ssd" else "") + f" [{card}]")
+    rows["ssd"]["scratch_bytes"] = scratch
+    def ssd_call():
+        gla(q, k, v, lw, inclusive=True, design="ssd")
+        torch.cuda.synchronize()
+    profile_run("gla_chunk SSD design, one call (its three kernels)",
+                ssd_call, card)
+    return [{"name": "gla_chunk", "max_abs_err": max(errs["serial"]),
+             **rows["serial"]},
+            {"name": "gla_chunk_ssd", "max_abs_err": max(errs["ssd"]),
+             **rows["ssd"]}]
 
 
 # ------------------------------------------------------------------ phase 9
@@ -1075,20 +1159,40 @@ def plain_versions():
         fa.mha, gl.gla = saved
 
 
-def lm_expected(model) -> dict:
+LM_KEYS = ("flash_attention", "flash_attention_tc", "gla_chunk",
+           "gla_chunk_ssd")
+
+
+def lm_expected(model, bf16: bool = True) -> dict:
+    """Launches of one prefill: every attention layer and every Mamba2
+    layer once; in bf16 on the tensor-core and SSD designs, in f32 on the
+    CUDA-core and serial ones."""
     cfg = model.cfg
-    if cfg.family == "dense":
-        return {"flash_attention": cfg.n_layers, "gla_chunk": 0}
-    return {"flash_attention": model.n_shared_apps(),
-            "gla_chunk": cfg.n_layers}
+    n_attn = (cfg.n_layers if cfg.family == "dense"
+              else model.n_shared_apps())
+    n_gla = 0 if cfg.family == "dense" else cfg.n_layers
+    return {"flash_attention": n_attn,
+            "flash_attention_tc": n_attn if bf16 else 0,
+            "gla_chunk": n_gla, "gla_chunk_ssd": n_gla if bf16 else 0}
 
 
 def lm_launches(counts) -> dict:
-    return {k: counts[k] for k in ("flash_attention", "gla_chunk")}
+    return {k: counts[k] for k in LM_KEYS}
 
 
-def run_lm(arch: str, dev, card: str) -> dict:
-    """Phase 9 for one model. Returns the serve run's launch counts."""
+def by_design(counts) -> dict:
+    """Per-design launches from the wrappers' counts (each wrapper counts
+    every launch, and the new design's under its own key as well)."""
+    return {"flash_attention": counts["flash_attention"]
+            - counts["flash_attention_tc"],
+            "flash_attention_tc": counts["flash_attention_tc"],
+            "gla_chunk": counts["gla_chunk"] - counts["gla_chunk_ssd"],
+            "gla_chunk_ssd": counts["gla_chunk_ssd"]}
+
+
+def run_lm(arch: str, dev, card: str):
+    """Phase 9 for one model. Returns the serve run's launch counts and
+    the f32 prefill's."""
     import torch
     from repro_torch.examples.serve_lm import fill_cache, serve
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1177,8 +1281,13 @@ def run_lm(arch: str, dev, card: str) -> dict:
     del out
     params = tree_map(lambda t: t.float(), params)
     torch.cuda.empty_cache()
+    reset_launch_counts()
     got, got_cache = model.forward(params, {"tokens": prompts},
                                    mode="prefill")
+    f32_counts = lm_launches(launch_counts())
+    if f32_counts != lm_expected(model, bf16=False):
+        fail(f"{arch}: the f32 prefill launched {f32_counts}, expected "
+             f"{lm_expected(model, bf16=False)}")
     with plain_versions():
         want, want_cache = model.forward(params, {"tokens": prompts},
                                          mode="prefill")
@@ -1195,7 +1304,8 @@ def run_lm(arch: str, dev, card: str) -> dict:
         s_scale = float(want_cache["mamba"]["state"].abs().max())
         if not cache_err <= 1e-3 * max(s_scale, 1.0):
             fail(f"{arch}: f32 prefill states differ by {cache_err}")
-    print(f"{arch} f32 prefill [{LM_BATCH} x {LM_PROMPT}], kernels vs plain "
+    print(f"{arch} f32 prefill [{LM_BATCH} x {LM_PROMPT}] (launched "
+          f"{f32_counts}), kernels vs plain "
           f"versions on the card: logits max err {err:.4g} (tol 1e-3 x "
           f"max(|logits|, 1) = {1e-3 * f_scale:.4g})"
           + (f", final Mamba2 states max err {cache_err:.4g}"
@@ -1221,7 +1331,7 @@ def run_lm(arch: str, dev, card: str) -> dict:
           f"{max(errs) / (0.02 * scale):.4f})")
     del params, got, cache
     torch.cuda.empty_cache()
-    return counts
+    return counts, f32_counts
 
 
 def main() -> None:
@@ -1283,10 +1393,13 @@ def main() -> None:
     check_durability(clu)                                      # phase 7
 
     gen = torch.Generator(device=dev).manual_seed(0)           # phase 8
-    results += [check_flash(dev, gen, card), check_gla(dev, gen, card)]
-    lm_counts = {}                                             # phase 9
+    results += check_flash(dev, gen, card) + check_gla(dev, gen, card)
+    lm_counts, f32_counts = {}, {}                             # phase 9
     for arch in LM_ARCHS:
-        lm_counts["lm_" + arch.split("-")[0]] = run_lm(arch, dev, card)
+        path = "lm_" + arch.split("-")[0]
+        serve_counts, f32 = run_lm(arch, dev, card)
+        lm_counts[path] = by_design(serve_counts)
+        f32_counts[path + "_f32_prefill"] = by_design(f32)
 
     src = "src/repro_torch/kernels/segment_kpi/csrc/segment_kpi.cu"
     tpu = "src/repro/kernels/segment_kpi/segment_kpi.py"
@@ -1297,24 +1410,33 @@ def main() -> None:
                "fold_segments": (src, f"{tpu}:180"),
                "gather_stats": (src, f"{tpu}:152"),
                "segment_rollup": (src, f"{tpu}:205"),
-               "flash_attention": (
-                   "src/repro_torch/kernels/flash_attention/csrc/"
-                   "flash_attention.cu",
-                   "src/repro/kernels/flash_attention/flash_attention.py:77"),
+               **{name: (f"src/repro_torch/kernels/flash_attention/csrc/"
+                         f"{name}.cu",
+                         "src/repro/kernels/flash_attention/"
+                         "flash_attention.py:77")
+                  for name in ("flash_attention", "flash_attention_tc")},
                "gla_chunk": ("src/repro_torch/kernels/gla_chunk/csrc/"
                              "gla_chunk.cu",
-                             "src/repro/kernels/gla_chunk/gla_chunk.py:82")}
+                             "src/repro/kernels/gla_chunk/gla_chunk.py:82"),
+               "gla_chunk_ssd": ("src/repro_torch/kernels/gla_chunk/csrc/"
+                                 "gla_ssd.cu",
+                                 "src/repro/kernels/gla_chunk/gla_chunk.py:82")}
     kernels = []
     for r in results:
         name = r["name"]
         path, replaces = sources[name]
-        by_path = {"sequential": seq_counts[name],
-                   "cluster": cluster_counts[name],
-                   **{p: c.get(name, 0) for p, c in lm_counts.items()}}
-        # the ETL kernels' main path is the cluster; the LM kernels' the
-        # two serve runs
-        launches = (by_path["cluster"] if name in ETL_KERNELS
-                    else sum(c.get(name, 0) for c in lm_counts.values()))
+        by_path = {"sequential": seq_counts.get(name, 0),
+                   "cluster": cluster_counts.get(name, 0),
+                   **{p: c.get(name, 0) for p, c in lm_counts.items()},
+                   **{p: c.get(name, 0) for p, c in f32_counts.items()}}
+        # the ETL kernels' main path is the cluster; the bf16 LM designs'
+        # the two serve runs; the f32 LM designs' the two f32 prefills
+        if name in ETL_KERNELS:
+            launches = by_path["cluster"]
+        elif name in ("flash_attention_tc", "gla_chunk_ssd"):
+            launches = sum(c[name] for c in lm_counts.values())
+        else:
+            launches = sum(c[name] for c in f32_counts.values())
         if launches <= 0:
             fail(f"{name} never launched on its path")
         kernels.append({"name": name, "route": "cuda", "source": path,
@@ -1324,7 +1446,9 @@ def main() -> None:
                         "plain_ms": r["plain_ms"], "issue_ms": r["issue_ms"],
                         "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        **{key: r[key] for key in ("zamba2", "scratch_bytes")
+                           if key in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

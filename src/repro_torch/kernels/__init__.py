@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a): the ETL path's
 ``hash_join`` and ``segment_kpi`` families, and the LM serving path's
-``flash_attention`` and ``gla_chunk``. Each package holds
-``csrc/<name>.cu`` (the kernel, with a plain C launch function), ``ops.py``
-(the wrapper: checks, allocates, launches on the current stream, counts
-launches; on a CPU tensor it runs the plain version) and ``ref.py`` (the
-plain PyTorch version). ``_build`` compiles the sources with ``nvcc`` at
+``flash_attention`` and ``gla_chunk`` (two designs each: a tensor-core
+one for the models' bf16, the first CUDA-core one for the rest). Each
+package holds ``csrc/`` (the kernels, each ``.cu`` with a plain C launch
+function), ``ops.py`` (the wrapper: checks, picks the design, allocates,
+launches on the current stream, counts launches; on a CPU tensor it runs
+the plain version) and ``ref.py`` (the plain PyTorch version). ``_build`` compiles the sources with ``nvcc`` at
 first CUDA use and loads them through ``ctypes``."""
 from typing import Dict
 

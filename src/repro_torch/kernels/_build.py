@@ -1,13 +1,15 @@
 """Build the CUDA sources of ``repro_torch.kernels``, load them, and check
 the wrappers' arguments and launch results.
 
-Each source under ``kernels/*/csrc/`` exposes a plain C launch function
-(pointers and sizes in, ``cudaError_t`` out), so it compiles with ``nvcc``
-alone in seconds — no PyTorch headers — and binds through ``ctypes``. The
-shared libraries land in ``build/repro_torch/`` at the repository root,
-named by a hash of the source and the flags: an edited source rebuilds, an
-unchanged one loads from the earlier build. All missing sources compile
-at once, one ``nvcc`` process each.
+Each kernel package's ``csrc/`` holds one or more ``.cu`` sources (and
+the ``.cuh`` headers they share); each source exposes a plain C launch
+function (pointers and sizes in, ``cudaError_t`` out), so it compiles with
+``nvcc`` alone in seconds — no PyTorch headers — and binds through
+``ctypes``. All ``.cu`` files of one ``csrc/`` link into that package's one
+shared library, in ``build/repro_torch/`` at the repository root, named by
+a hash of every file under ``csrc/`` and the flags: an edit to any source
+or header rebuilds, an unchanged tree loads from the earlier build. All
+missing libraries compile at once, one ``nvcc`` process each.
 
 Nothing here runs at import time; the first CUDA launch of a wrapper in
 ``ops.py`` calls ``library``. ``on_cuda``, ``check`` and ``raise_on`` are
@@ -42,13 +44,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # contraction.
 BITWISE = ("-fmad=false",)
 
-SOURCES: Dict[str, Path] = {
-    "hash_join": _KERNELS / "hash_join" / "csrc" / "hash_join.cu",
-    "segment_kpi": _KERNELS / "segment_kpi" / "csrc" / "segment_kpi.cu",
-    "flash_attention": (_KERNELS / "flash_attention" / "csrc"
-                        / "flash_attention.cu"),
-    "gla_chunk": _KERNELS / "gla_chunk" / "csrc" / "gla_chunk.cu",
-}
+# kernel package -> its csrc/ directory
+SOURCES: Dict[str, Path] = {name: _KERNELS / name / "csrc" for name in (
+    "hash_join", "segment_kpi", "flash_attention", "gla_chunk")}
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"hash_join": BITWISE,
                                            "segment_kpi": BITWISE}
 
@@ -73,12 +71,19 @@ def flags(name: str) -> Tuple[str, ...]:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
+def sources(name: str) -> Tuple[Path, ...]:
+    """The ``.cu`` files that link into the library of ``name``."""
+    return tuple(sorted(SOURCES[name].glob("*.cu")))
+
+
 def lib_path(name: str) -> Path:
-    """Where the library built from the current source and flags of
-    ``name`` lives."""
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(flags(name)).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the library built from the current ``csrc/`` tree and flags
+    of ``name`` lives."""
+    h = hashlib.sha256(" ".join(flags(name)).encode())
+    for f in sorted(p for p in SOURCES[name].rglob("*") if p.is_file()):
+        h.update(f.relative_to(SOURCES[name]).as_posix().encode() + b"\0")
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> float:
@@ -88,14 +93,14 @@ def build_all() -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for name, src in SOURCES.items():
+    for name in SOURCES:
         out = lib_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(out.with_suffix(".log"), "w")
         proc = subprocess.Popen([_nvcc(), *flags(name), "-o", str(tmp),
-                                 str(src)], stdout=log,
+                                 *map(str, sources(name))], stdout=log,
                                 stderr=subprocess.STDOUT)
         jobs.append((name, proc, tmp, out, log))
     failed = []
@@ -162,8 +167,9 @@ def raise_on(err: int, op: str) -> None:
 COUNT_LOCK = threading.Lock()
 
 
-def count_launch(launches: Dict[str, int], op: str) -> None:
-    """Add one to ``launches[op]`` (called right after a launch
-    succeeded)."""
+def count_launch(launches: Dict[str, int], *ops: str) -> None:
+    """Add one to ``launches[op]`` for each of ``ops`` (called right after
+    a launch succeeded; a design's own count moves with its wrapper's)."""
     with COUNT_LOCK:
-        launches[op] += 1
+        for op in ops:
+            launches[op] += 1

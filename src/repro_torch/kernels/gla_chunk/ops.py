@@ -1,11 +1,20 @@
-"""Wrapper of the ``gla_chunk`` CUDA kernel (``csrc/gla_chunk.cu``): the
-chunked gated linear recurrence of RWKV6 (lag-1 read + bonus ``u``) and
-Mamba2/SSD (inclusive read), with an initial state in and the final state
-out.
+"""Wrapper of the ``gla_chunk`` CUDA kernels: the chunked gated linear
+recurrence of RWKV6 (lag-1 read + bonus ``u``) and Mamba2/SSD (inclusive
+read), with an initial state in and the final state out, in two
+hand-written designs.
+
+* ``csrc/gla_ssd.cu`` — the chunk-parallel SSD form on the tensor cores
+  (chunk states, state passing, chunk scan: three launches) for the
+  regime zamba2 runs: bf16 q, k, v, inclusive, no bonus, q and k shared
+  by every head and one decay per (token, head) (``takes_ssd``);
+* ``csrc/gla_chunk.cu`` — one CTA per (batch, head) walking the chunks,
+  f32 on the CUDA cores, for every other call (RWKV6, f32 inputs).
 
 For CPU tensors ``gla`` runs the plain version (``ref.gla_chunk_ref``);
-for CUDA tensors it launches the kernel on the current stream or raises.
-``launches["gla_chunk"]`` counts kernel launches."""
+for CUDA tensors it launches one of the designs on the current stream or
+raises. ``launches["gla_chunk"]`` counts calls that launched a kernel
+(one per call, whatever the design's number of kernels);
+``launches["gla_chunk_ssd"]`` those that took the SSD design."""
 from __future__ import annotations
 
 import ctypes
@@ -20,9 +29,12 @@ from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
 CHUNK = 64            # the kernel's chunk length (the model's)
 MAX_DK = 64
 MAX_DV = 128
+SSD_DK = (16, 32, 64)
+SSD_DV = (16, 32, 64, 128)
+DESIGNS = ("auto", "ssd", "serial")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = {"gla_chunk": 0}
+launches = {"gla_chunk": 0, "gla_chunk_ssd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,17 +50,48 @@ def _fn():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _ssd_fn():
+    from repro_torch.kernels._build import library
+    fn = library("gla_chunk").gla_ssd_launch
+    fn.argtypes = [_P] * 9 + [_I] * 5 + [_L] * 16 + [_P]
+    fn.restype = _I
+    return fn
+
+
+def _shared(t: torch.Tensor, axis: int) -> bool:
+    """Whether ``t`` holds one value along ``axis`` (a zero-stride
+    broadcast view, or a single entry)."""
+    return t.shape[axis] == 1 or t.stride(axis) == 0
+
+
+def takes_ssd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              log_w: torch.Tensor, u: Optional[torch.Tensor],
+              inclusive: bool) -> bool:
+    """Whether the SSD design takes these (already checked) inputs: the
+    Mamba2 regime — bf16, inclusive, no bonus, q and k shared by every
+    head, log_w one value per (token, head) — at dk in ``SSD_DK`` and dv
+    in ``SSD_DV``."""
+    return (q.dtype == torch.bfloat16 and inclusive and u is None
+            and q.shape[3] in SSD_DK and v.shape[3] in SSD_DV
+            and _shared(q, 2) and _shared(k, 2) and _shared(log_w, 3))
+
+
 def gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         log_w: torch.Tensor, u: Optional[torch.Tensor] = None, *,
         inclusive: bool = False, chunk: int = CHUNK,
         initial_state: Optional[torch.Tensor] = None,
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        design: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """q, k, log_w: [B, S, H, dk]; v: [B, S, H, dv]; u: [H, dk] or None;
     initial_state: [B, H, dk, dv] f32 or None (zeros). Returns (out [B, S,
     H, dv] in v's dtype, final_state [B, H, dk, dv] f32). Any S. On the
     card: q, k, v f32 or bf16 (one dtype), log_w, u and the state f32,
     dk <= 64, dv <= 128, chunk 64; q, k, v and log_w may have any strides
-    (Mamba2's broadcast views are read with zero strides)."""
+    (Mamba2's broadcast views are read with zero strides). ``design``
+    ("auto", "ssd" or "serial") pins one design on the card, to time the
+    two side by side; "ssd" raises where ``takes_ssd`` is false."""
+    if design not in DESIGNS:
+        raise ValueError(f"design {design!r} not in {DESIGNS}")
     if not on_cuda(q, "gla_chunk"):
         return gla_chunk_ref(q, k, v, log_w, u, inclusive=inclusive,
                              chunk=chunk, initial_state=initial_state)
@@ -84,16 +127,35 @@ def gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               dev)
     out = torch.empty((b, s, h, dv), dtype=v.dtype, device=dev)
     final = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    s0 = None if initial_state is None else initial_state.data_ptr()
+    ssd = takes_ssd(q, k, v, log_w, u, inclusive)
+    if design == "ssd" and not ssd:
+        raise ValueError("the SSD design takes the Mamba2 regime in bf16 "
+                         f"only, at dk in {SSD_DK} and dv in {SSD_DV}")
+    if ssd and design != "serial":
+        n = -(-s // CHUNK)
+        # the chunk states (ΔS, then each chunk's start state) and each
+        # chunk's total log-decay
+        states = torch.empty((b, h, n, dk, dv), dtype=torch.float32,
+                             device=dev)
+        lc = torch.empty((b, h, n), dtype=torch.float32, device=dev)
+        err = _ssd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        log_w.data_ptr(), s0, out.data_ptr(),
+                        final.data_ptr(), states.data_ptr(), lc.data_ptr(),
+                        b, s, h, dk, dv, *q.stride(), *k.stride(),
+                        *v.stride(), *log_w.stride(), stream)
+        raise_on(err, "gla_chunk_ssd")
+        count_launch(launches, "gla_chunk", "gla_chunk_ssd")
+        return out, final
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
                 None if u is None else u.data_ptr(),
-                None if initial_state is None else initial_state.data_ptr(),
-                out.data_ptr(), final.data_ptr(), _DTYPES[q.dtype], b, s, h,
-                dk, dv, int(inclusive), *q.stride(), *k.stride(),
-                *v.stride(), *log_w.stride(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                s0, out.data_ptr(), final.data_ptr(), _DTYPES[q.dtype], b,
+                s, h, dk, dv, int(inclusive), *q.stride(), *k.stride(),
+                *v.stride(), *log_w.stride(), stream)
     raise_on(err, "gla_chunk")
     count_launch(launches, "gla_chunk")
     return out, final
 
 
-__all__ = ["gla", "gla_chunk_ref", "launches"]
+__all__ = ["gla", "gla_chunk_ref", "launches", "takes_ssd"]

@@ -1,9 +1,11 @@
-"""Plain PyTorch version of the ``gla_chunk`` CUDA kernel: the oracle the
-card checks it against and what ``ops.gla`` runs for CPU tensors. It is
-the chunked form of the JAX package's ``models/gla.py:gla_chunk`` in
-torch, with f32 decay ratios (the Pallas kernel's precision, the
-reference's ``ratio_dtype=jnp.float32``), an optional initial state and
-the final state returned.
+"""Plain PyTorch versions of the ``gla_chunk`` CUDA kernels.
+
+``gla_chunk_ref`` is the oracle the card checks both designs against and
+what ``ops.gla`` runs for CPU tensors: the chunked form of the JAX
+package's ``models/gla.py:gla_chunk`` in torch, with f32 decay ratios (the
+Pallas kernel's precision, the reference's ``ratio_dtype=jnp.float32``),
+an optional initial state and the final state returned. ``gla_ssd_ref``
+is the chunk-parallel decomposition of the SSD design, for the tests.
 
 Recurrence per head (state S in R^{dk x dv}):
 
@@ -75,4 +77,59 @@ def gla_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.einsum("bhtk,bhtv->bhkv", k_dec, vb)
         outs.append(out)
     out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, s, h, dv)
+    return out[:, :s_orig].to(v.dtype), S
+
+
+def gla_ssd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_w: torch.Tensor, *, chunk: int = 64,
+                initial_state: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunk-parallel (SSD) decomposition that ``csrc/gla_ssd.cu``
+    computes, in plain f32 torch, for the tests: the Mamba2 regime
+    (inclusive read, no bonus, one log-decay per (token, head): channel 0
+    of ``log_w`` is read). Shapes and returns as ``gla_chunk_ref``.
+
+      1. chunk states: per chunk and head, dS = Σ_i k_i exp(L_C − L_i) v_iᵀ
+         and the chunk's total log-decay L_C;
+      2. state passing: S_c = exp(L_C) S_{c-1} + dS_c from the initial
+         state, keeping each chunk's start state;
+      3. chunk scan: out_t = exp(L_t) q_t S_{c-1}
+                           + Σ_{i<=t} (q_t·k_i) exp(L_t − L_i) v_i."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    s_orig = s
+    if s % chunk:
+        pad = chunk - s % chunk
+        q, k, v, log_w = (F.pad(x, (0, 0, 0, 0, 0, pad))
+                          for x in (q, k, v, log_w))
+        s += pad
+    n = s // chunk
+
+    def chunks(x):                                # [b, h, n, C, d] f32
+        return x.reshape(b, n, chunk, h, -1).permute(0, 3, 1, 2, 4).float()
+
+    qc, kc, vc = chunks(q), chunks(k), chunks(v)
+    L = torch.cumsum(chunks(log_w[..., :1])[..., 0], dim=-1)   # [b,h,n,C]
+    Lc = L[..., -1]
+    # 1. chunk states
+    d_state = torch.einsum("bhnid,bhnij->bhndj", kc,
+                           torch.exp(Lc[..., None] - L)[..., None] * vc)
+    # 2. state passing
+    S = (initial_state.float() if initial_state is not None
+         else torch.zeros((b, h, dk, dv), dtype=torch.float32,
+                          device=q.device))
+    starts = []
+    for c in range(n):
+        starts.append(S)
+        S = torch.exp(Lc[:, :, c])[..., None, None] * S + d_state[:, :, c]
+    # 3. chunk scan
+    t_idx = torch.arange(chunk, device=q.device)
+    masked = t_idx[:, None] < t_idx[None, :]
+    ratios = torch.exp((L[..., :, None] - L[..., None, :])
+                       .masked_fill(masked, NEG_INF))
+    scores = torch.einsum("bhntd,bhnid->bhnti", qc, kc) * ratios
+    out = (torch.einsum("bhnti,bhnij->bhntj", scores, vc)
+           + torch.exp(L)[..., None] * torch.einsum(
+               "bhntd,bhndj->bhntj", qc, torch.stack(starts, dim=2)))
+    out = out.permute(0, 2, 3, 1, 4).reshape(b, s, h, dv)
     return out[:, :s_orig].to(v.dtype), S

@@ -33,8 +33,9 @@ def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 def attend_prefill(q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> torch.Tensor:
     """Causal. q: [B, S, Hq, d]; k, v: [B, S, Hkv, d] -> [B, S, Hq, d],
-    through the flash_attention kernel. Unlike ``attend_full`` the
-    probabilities stay f32 through PV (as the TPU kernel keeps them)."""
+    through the flash_attention kernel. In bf16 (its tensor-core design)
+    the probabilities are rounded to bf16 before PV, as ``attend_full``
+    rounds them; in f32 they stay f32 (as the TPU kernel keeps them)."""
     out = flash_ops.mha(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=True)
     return out.transpose(1, 2)

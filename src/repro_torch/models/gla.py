@@ -13,7 +13,9 @@ the recurrence in plain torch.
 
 The JAX package's ``models/gla.py:gla_chunk`` rounds q, k and the decay
 ratios of the intra-chunk term to ``ratio_dtype`` (bf16 by default, which
-Mamba2 uses); the port computes them in f32, as the Pallas kernel does.
+Mamba2 uses); the port keeps f32 accuracy there, as the Pallas kernel
+does: the serial design computes in f32, the SSD design (Mamba2 in bf16)
+splits each f32 operand of its bf16 products into hi + lo parts.
 """
 from __future__ import annotations
 

@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.backend import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.layers import embed, rmsnorm, swiglu_mlp, unembed
 from repro_torch.models.param import ParamDef, tree_init, tree_map
@@ -122,8 +123,12 @@ class Model:
         return cache
 
     def init_cache(self, batch: int, seq: int, device=None) -> Any:
+        """The zeroed decode cache on ``device``: the card unless the
+        caller asks for the CPU (``core.backend.resolve_device``; raises
+        when CUDA is absent)."""
+        dev = resolve_device(device)
         return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
-                                              device=device),
+                                              device=dev),
                         self.cache_defs(batch, seq))
 
     # -------------------------------------------------------------- forward

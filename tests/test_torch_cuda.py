@@ -413,17 +413,87 @@ def test_flash_attention_reads_the_model_layout(dev):
     assert _bits(got.contiguous().float()) == _bits(want.float())
 
 
-def _gla_inputs(rng, dev, b, s, h, dk, dv, *, mamba=False):
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("s,causal", [(256, True), (77, True), (200, False),
+                                      (300, True), (1000, False)])
+def test_flash_attention_tc_matches_plain(dev, d, group, s, causal):
+    """bf16 on the tensor-core design (wgmma + TMA) within 2e-2 of the
+    plain version; S = 300 and 1000 run past one 128-query TMA box into
+    ragged query and key tiles."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(d + s + group + 1)
+    b, hkv = 2, 2
+    q = _lm_rand(rng, (b, hkv * group, s, d), dev, torch.bfloat16)
+    k = _lm_rand(rng, (b, hkv, s, d), dev, torch.bfloat16)
+    v = _lm_rand(rng, (b, hkv, s, d), dev, torch.bfloat16)
+    before = launch_counts()
+    got = fa.mha(q, k, v, causal=causal)
+    after = launch_counts()
+    assert after["flash_attention_tc"] == before["flash_attention_tc"] + 1
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    want = attention_ref(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("d,group", [(64, 1), (128, 2)])
+def test_flash_attention_tc_reads_the_model_layout(dev, d, group):
+    """The tensor-core design on transposed [B, S, H, D] views (4-D tensor
+    maps, the head by coordinate) equals it on contiguous copies."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    rng = np.random.default_rng(d)
+    q, k, v = (_lm_rand(rng, (2, 333, h, d), dev, torch.bfloat16)
+               for h in (4 * group, 4, 4))
+    before = launch_counts()["flash_attention_tc"]
+    got = fa.mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    want = fa.mha(*(t.transpose(1, 2).contiguous() for t in (q, k, v)))
+    assert launch_counts()["flash_attention_tc"] == before + 2
+    assert got.transpose(1, 2).is_contiguous()
+    assert _bits(got.contiguous().float()) == _bits(want.float())
+
+
+@pytest.mark.parametrize("dtype,d,offset,tc", [
+    (torch.bfloat16, 128, 0, True), (torch.bfloat16, 64, 0, True),
+    (torch.float32, 128, 0, False), (torch.float32, 64, 0, False),
+    (torch.bfloat16, 32, 0, False), (torch.bfloat16, 16, 0, False),
+    (torch.bfloat16, 64, 1, False)])
+def test_flash_attention_routes_to_a_kernel(dev, dtype, d, offset, tc):
+    """bf16 at head_dim 64/128 launches the tensor-core design; f32, head
+    dims 16/32 and views TMA cannot address (a 2-byte offset) launch the
+    f32 design; none runs the plain version on the card."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(d + offset)
+    q, k, v = (_lm_rand(rng, (1, 2, 130, d + 8), dev, dtype)
+               [..., offset:offset + d] for _ in range(3))
+    before = launch_counts()
+    got = fa.mha(q, k, v)
+    after = launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert (after["flash_attention_tc"] - before["flash_attention_tc"]
+            == int(tc))
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v).float(),
+                               rtol=tol, atol=tol)
+
+
+def _gla_inputs(rng, dev, b, s, h, dk, dv, *, mamba=False,
+                dtype=torch.float32):
+    """q, k, v in ``dtype`` (cast before any broadcast, so Mamba2's views
+    keep their zero strides) and an f32 log-decay."""
     if mamba:          # q, k shared over heads; one decay per head
-        q = _lm_rand(rng, (b, s, 1, dk), dev).expand(b, s, h, dk)
-        k = _lm_rand(rng, (b, s, 1, dk), dev).expand(b, s, h, dk)
+        q = _lm_rand(rng, (b, s, 1, dk), dev, dtype).expand(b, s, h, dk)
+        k = _lm_rand(rng, (b, s, 1, dk), dev, dtype).expand(b, s, h, dk)
         lw = (-torch.exp(_lm_rand(rng, (b, s, h, 1), dev))).expand(b, s, h,
                                                                    dk)
     else:
-        q = _lm_rand(rng, (b, s, h, dk), dev)
-        k = _lm_rand(rng, (b, s, h, dk), dev)
+        q = _lm_rand(rng, (b, s, h, dk), dev, dtype)
+        k = _lm_rand(rng, (b, s, h, dk), dev, dtype)
         lw = -torch.exp(_lm_rand(rng, (b, s, h, dk), dev))
-    return q, k, _lm_rand(rng, (b, s, h, dv), dev), lw
+    return q, k, _lm_rand(rng, (b, s, h, dv), dev, dtype), lw
 
 
 @pytest.mark.parametrize("s", [256, 130])
@@ -469,6 +539,61 @@ def test_gla_chunk_bf16_inputs(dev):
     torch.testing.assert_close(final, ref_final, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("s", [256, 130, 2048])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("h,dk,dv", [(8, 64, 64), (6, 32, 128), (3, 16, 32)])
+def test_gla_chunk_ssd_matches_plain(dev, s, with_state, h, dk, dv):
+    """bf16 Mamba2 inputs as the model passes them (zero-stride q, k and
+    decay) on the chunk-parallel SSD design: out within 2e-2 (bf16), the
+    final state within 2e-4 of the plain version."""
+    from repro_torch.kernels.gla_chunk import ops as gl
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+    rng = np.random.default_rng(s + dk + dv + h)
+    q, k, v, lw = _gla_inputs(rng, dev, 2, s, h, dk, dv, mamba=True,
+                              dtype=torch.bfloat16)
+    assert q.stride(2) == k.stride(2) == lw.stride(3) == 0
+    s0 = _lm_rand(rng, (2, h, dk, dv), dev) if with_state else None
+    before = launch_counts()
+    out, final = gl.gla(q, k, v, lw, inclusive=True, initial_state=s0)
+    after = launch_counts()
+    assert after["gla_chunk"] == before["gla_chunk"] + 1
+    assert after["gla_chunk_ssd"] == before["gla_chunk_ssd"] + 1
+    ref_out, ref_final = gla_chunk_ref(q, k, v, lw, inclusive=True,
+                                       initial_state=s0)
+    assert out.dtype == torch.bfloat16 and out.shape == ref_out.shape
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(final, ref_final, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("case,ssd", [
+    ("mamba2 bf16", True), ("mamba2 f32", False), ("rwkv6 bf16", False),
+    ("per-head q, k bf16", False), ("lag-1 bf16", False)])
+def test_gla_chunk_routes_to_a_kernel(dev, case, ssd):
+    """Only the Mamba2 regime in bf16 takes the SSD design; f32, RWKV6's
+    lag-1 + bonus regime and per-head q, k launch the f32 design; none
+    runs the plain version on the card."""
+    from repro_torch.kernels.gla_chunk import ops as gl
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+    rng = np.random.default_rng(len(case))
+    b, s, h, d = 2, 100, 4, 32
+    dtype = torch.float32 if "f32" in case else torch.bfloat16
+    q, k, v, lw = _gla_inputs(rng, dev, b, s, h, d, d,
+                              mamba=case.startswith("mamba2"), dtype=dtype)
+    inclusive = not case.startswith(("rwkv6", "lag-1"))
+    u = _lm_rand(rng, (h, d), dev) if case.startswith("rwkv6") else None
+    before = launch_counts()
+    out, final = gl.gla(q, k, v, lw, u, inclusive=inclusive)
+    after = launch_counts()
+    assert after["gla_chunk"] == before["gla_chunk"] + 1
+    assert after["gla_chunk_ssd"] - before["gla_chunk_ssd"] == int(ssd)
+    ref_out, ref_final = gla_chunk_ref(q, k, v, lw, u, inclusive=inclusive)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(final, ref_final, rtol=2e-4, atol=2e-4)
+
+
 def test_lm_wrappers_raise_instead_of_running_the_plain_version(dev):
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.gla_chunk import ops as gl
@@ -496,7 +621,69 @@ def test_lm_wrappers_raise_instead_of_running_the_plain_version(dev):
     with pytest.raises(ValueError):                      # state shape
         gl.gla(x, x, x, x, initial_state=torch.zeros((1, 2, 64, 32),
                                                      device=dev))
+    # inputs of the two new designs, bent one way each
+    qb = q.bfloat16()
+    with pytest.raises(ValueError):                      # mixed devices
+        fa.mha(qb, qb.cpu(), qb)
+    with pytest.raises(ValueError):                      # Hq % Hkv
+        fa.mha(torch.zeros((1, 3, 64, 64), device=dev).bfloat16(), qb, qb)
+    m = torch.zeros((1, 64, 1, 64), device=dev).bfloat16().expand(
+        1, 64, 2, 64)
+    lw = torch.zeros((1, 64, 2, 1), device=dev).expand(1, 64, 2, 64)
+    with pytest.raises(ValueError):                      # state shape
+        gl.gla(m, m, m, lw, inclusive=True,
+               initial_state=torch.zeros((1, 2, 64, 32), device=dev))
+    with pytest.raises(TypeError):                       # f32 v
+        gl.gla(m, m, m.float(), lw, inclusive=True)
+    with pytest.raises(TypeError):                       # bf16 state
+        gl.gla(m, m, m, lw, inclusive=True,
+               initial_state=torch.zeros((1, 2, 64, 64), device=dev,
+                                         dtype=torch.bfloat16))
+    with pytest.raises(ValueError):                      # tc pinned on f32
+        fa.mha(q, q, q, design="tc")
+    with pytest.raises(ValueError):                      # ssd pinned, f32
+        gl.gla(m.float(), m.float(), m.float(), lw, inclusive=True,
+               design="ssd")
+    with pytest.raises(ValueError):                      # no such design
+        fa.mha(qb, qb, qb, design="wgmma")
     assert launch_counts() == before
+
+
+@pytest.mark.parametrize("design", ["tc", "simt"])
+def test_flash_attention_pinned_design_matches_plain(dev, design):
+    """Either design pinned on the models' bf16 shape (how chip_smoke.py
+    times them side by side) holds the plain version and counts as its
+    own."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(23)
+    q, k, v = (_lm_rand(rng, (2, 200, h, 128), dev, torch.bfloat16)
+               .transpose(1, 2) for h in (8, 4, 4))
+    before = launch_counts()["flash_attention_tc"]
+    got = fa.mha(q, k, v, design=design)
+    assert launch_counts()["flash_attention_tc"] == before + int(
+        design == "tc")
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("design", ["ssd", "serial"])
+def test_gla_chunk_pinned_design_matches_plain(dev, design):
+    from repro_torch.kernels.gla_chunk import ops as gl
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+    rng = np.random.default_rng(29)
+    q, k, v, lw = _gla_inputs(rng, dev, 2, 200, 8, 64, 64, mamba=True,
+                              dtype=torch.bfloat16)
+    s0 = _lm_rand(rng, (2, 8, 64, 64), dev)
+    before = launch_counts()["gla_chunk_ssd"]
+    out, final = gl.gla(q, k, v, lw, inclusive=True, initial_state=s0,
+                        design=design)
+    assert launch_counts()["gla_chunk_ssd"] == before + int(design == "ssd")
+    ref_out, ref_final = gla_chunk_ref(q, k, v, lw, inclusive=True,
+                                       initial_state=s0)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(final, ref_final, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-1.2b"])

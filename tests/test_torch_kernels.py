@@ -194,3 +194,26 @@ def test_plain_versions_do_not_count_launches():
     prod, eq, qr = _kpi_inputs(np.random.default_rng(0), 16, 4)
     sk_ops.segment_kpi(_t(prod), _t(eq), _t(qr), n_units=4)
     assert launch_counts() == before
+
+
+def test_build_hashes_every_file_of_a_kernel_package(tmp_path, monkeypatch):
+    """A library is named by every file of its package's ``csrc/`` (a
+    shared header included), and links every ``.cu`` there."""
+    from repro_torch.kernels import _build
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name, text in (("a.cu", "a"), ("b.cu", "b"), ("common.cuh", "h")):
+        (src / name).write_text(text)
+    monkeypatch.setitem(_build.SOURCES, "pkg", src)
+    assert [p.name for p in _build.sources("pkg")] == ["a.cu", "b.cu"]
+    before = _build.lib_path("pkg")
+    (src / "common.cuh").write_text("h, edited")
+    assert _build.lib_path("pkg") != before
+    (src / "common.cuh").write_text("h")
+    assert _build.lib_path("pkg") == before
+    (src / "c.cu").write_text("c")
+    assert _build.lib_path("pkg") != before
+    assert [p.name for p in _build.sources("flash_attention")] == [
+        "flash_attention.cu", "flash_attention_tc.cu"]
+    assert [p.name for p in _build.sources("gla_chunk")] == [
+        "gla_chunk.cu", "gla_ssd.cu"]

@@ -30,7 +30,8 @@ from repro.train.serve_step import make_prefill_step as jax_prefill_step
 from repro_torch.examples import serve_lm
 from repro_torch.models import blocks, build_model, layers
 from repro_torch.models.convert import from_reference
-from repro_torch.models.param import ParamDef, count_params, tree_map
+from repro_torch.models.param import (ParamDef, count_params, tree_leaves,
+                                      tree_map)
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 
 ARCHS = ["internlm2-1.8b", "zamba2-1.2b"]
@@ -394,7 +395,7 @@ def test_prefill_decode_matches_full_forward(arch):
     full, _ = m.forward(params, {"tokens": toks}, mode="train")
     p = s - tail
     _, pre = m.forward(params, {"tokens": toks[:, :p]}, mode="prefill")
-    cache = serve_lm.fill_cache(m.init_cache(b, s), pre)
+    cache = serve_lm.fill_cache(m.init_cache(b, s, device="cpu"), pre)
     errs = []
     for t in range(p, s):
         dl, cache = m.forward(params, {"tokens": toks[:, t:t + 1]},
@@ -419,3 +420,23 @@ def test_serve_lm_example_needs_a_card_unless_told_cpu():
         pytest.skip("this host has a card")
     with pytest.raises(RuntimeError):
         serve_lm.main(["--smoke"])
+
+
+def test_init_cache_needs_a_card_unless_told_cpu():
+    """Like every entry point, ``init_cache`` puts its cache on the card
+    unless the caller asks for the CPU, and raises where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    with pytest.raises(RuntimeError):
+        build_model(ARCHS[0], smoke=True).init_cache(1, 8)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_cache_honours_device_cpu(arch):
+    m = build_model(arch, smoke=True)
+    cache = m.init_cache(2, 16, device="cpu")
+    got, defs = tree_leaves(cache), tree_leaves(m.cache_defs(2, 16))
+    assert len(got) == len(defs) > 0
+    for t, d in zip(got, defs):
+        assert t.device.type == "cpu" and t.dtype == d.dtype
+        assert tuple(t.shape) == tuple(d.shape) and not bool(t.any())

@@ -199,3 +199,114 @@ def test_gla_plain_reads_broadcast_views():
                        inclusive=True)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _mamba_np(rng, b, s, h, dk, dv):
+    """Mamba2-shaped inputs: q, k shared by every head, one log-decay per
+    (token, head), as [B, S, H, d] arrays (broadcast materialized)."""
+    q, k = (np.broadcast_to(rng.standard_normal((b, s, 1, dk),
+                                                dtype=np.float32),
+                            (b, s, h, dk)).copy() for _ in range(2))
+    lw = np.broadcast_to(-np.exp(rng.standard_normal(
+        (b, s, h, 1), dtype=np.float32)), (b, s, h, dk)).copy()
+    v = rng.standard_normal((b, s, h, dv), dtype=np.float32)
+    return q, k, v, lw
+
+
+@pytest.mark.parametrize("s,with_state", [(256, False), (130, True),
+                                          (100, False), (64, True)])
+def test_gla_ssd_decomposition_matches_chunk_ref_and_reference(s,
+                                                               with_state):
+    """The SSD design's chunk-parallel decomposition (chunk states ->
+    passing -> scan, ``ref.gla_ssd_ref``) in f32 against the serial
+    chunked form (``gla_chunk_ref``) and the JAX model's ``gla_chunk`` at
+    f32 ratios, final state included, at ragged S: 2e-4 (f32 sums in
+    another order, as tests/test_kernels.py)."""
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref, gla_ssd_ref
+    rng = np.random.default_rng(s + with_state)
+    b, h, dk, dv = 2, 3, 16, 32
+    q, k, v, lw = _mamba_np(rng, b, s, h, dk, dv)
+    s0 = (rng.standard_normal((b, h, dk, dv), dtype=np.float32)
+          if with_state else None)
+    t = lambda x: None if x is None else torch.from_numpy(x)
+    got, got_final = gla_ssd_ref(t(q), t(k), t(v), t(lw),
+                                 initial_state=t(s0))
+    want, want_final = gla_chunk_ref(t(q), t(k), t(v), t(lw), inclusive=True,
+                                     initial_state=t(s0))
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(got_final, want_final, rtol=2e-4, atol=2e-4)
+    j = lambda x: None if x is None else jnp.asarray(x)
+    ref, ref_final = jax_gla.gla_chunk(
+        j(q), j(k), j(v), j(lw), inclusive=True, initial_state=j(s0),
+        ratio_dtype=jnp.float32)
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(_np(got_final), _np(ref_final), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_gla_ssd_decomposition_matches_gla_step(with_state):
+    """Token by token, the JAX package's ``gla_step`` reproduces the SSD
+    decomposition's outputs and final state (3e-4, the reference's bound
+    for this comparison, tests/test_kernels.py:75)."""
+    from repro_torch.kernels.gla_chunk.ref import gla_ssd_ref
+    rng = np.random.default_rng(19 + with_state)
+    b, s, h, dk, dv = 2, 70, 2, 16, 16
+    q, k, v, lw = _mamba_np(rng, b, s, h, dk, dv)
+    state = (rng.standard_normal((b, h, dk, dv), dtype=np.float32)
+             if with_state else np.zeros((b, h, dk, dv), np.float32))
+    got, got_final = gla_ssd_ref(
+        *(torch.from_numpy(x) for x in (q, k, v, lw)),
+        initial_state=torch.from_numpy(state) if with_state else None)
+    st = jnp.asarray(state)
+    outs = []
+    for i in range(s):
+        o, st = jax_gla.gla_step(*(jnp.asarray(x[:, i]) for x in (q, k, v,
+                                                                  lw)),
+                                 st, inclusive=True)
+        outs.append(_np(o))
+    np.testing.assert_allclose(_np(got), np.stack(outs, axis=1), rtol=3e-4,
+                               atol=3e-4)
+    np.testing.assert_allclose(_np(got_final), _np(st), rtol=3e-4,
+                               atol=3e-4)
+
+
+def test_flash_routing_picks_the_tensor_core_design_for_the_models():
+    """``takes_tc`` (which design a CUDA call launches; the predicate
+    itself runs anywhere): the models' bf16 transposed [B, S, H, D] views
+    at head_dim 64 and 128 take the tensor-core design; f32, head dims
+    16/32 and a view TMA cannot address do not."""
+    def bshd(h, d, dtype=torch.bfloat16):
+        return torch.zeros((2, 40, h, d), dtype=dtype).transpose(1, 2)
+    assert flash_ops.takes_tc(bshd(16, 128), bshd(8, 128), bshd(8, 128))
+    assert flash_ops.takes_tc(bshd(32, 64), bshd(32, 64), bshd(32, 64))
+    assert not flash_ops.takes_tc(*(bshd(4, 128, torch.float32),) * 3)
+    assert not flash_ops.takes_tc(*(bshd(4, 32),) * 3)
+    assert not flash_ops.takes_tc(*(bshd(4, 16),) * 3)
+    odd = torch.zeros((2, 4, 40, 72), dtype=torch.bfloat16)[..., 1:65]
+    assert not flash_ops.takes_tc(odd, odd, odd)
+    q = bshd(4, 64)
+    with pytest.raises(ValueError):              # no such design
+        flash_ops.mha(q, q, q, design="wgmma")
+
+
+def test_gla_routing_picks_the_ssd_design_for_mamba2_only():
+    """``takes_ssd``: Mamba2's bf16 zero-stride views (as
+    ``models/blocks.py`` builds them) take the SSD design; f32, a bonus,
+    the lag-1 read, per-head q/k or per-channel decay do not."""
+    b, s, h, d = 1, 10, 4, 64
+    shared = torch.zeros((b, s, 1, d), dtype=torch.bfloat16).expand(
+        b, s, h, d)
+    lw = torch.zeros((b, s, h, 1)).expand(b, s, h, d)
+    v = torch.zeros((b, s, h, d), dtype=torch.bfloat16)
+    u = torch.zeros((h, d))
+    assert gla_ops.takes_ssd(shared, shared, v, lw, None, True)
+    assert not gla_ops.takes_ssd(shared.float(), shared.float(), v.float(),
+                                 lw, None, True)
+    assert not gla_ops.takes_ssd(shared, shared, v, lw, u, True)
+    assert not gla_ops.takes_ssd(shared, shared, v, lw, None, False)
+    assert not gla_ops.takes_ssd(v, v, v, lw, None, True)
+    assert not gla_ops.takes_ssd(shared, shared, v, lw.contiguous() + 0.0,
+                                 None, True)
+    with pytest.raises(ValueError):              # no such design
+        gla_ops.gla(shared, shared, v, lw, inclusive=True, design="chunked")
