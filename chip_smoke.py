@@ -8,9 +8,12 @@ Phases, each fatal on failure (no fallback to the CPU):
 1. card: name and power limit (nvidia-smi); build the CUDA kernels from
    the checkout's sources (nvcc, one process per source) and time it;
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the main path's shapes — hash_join, fold_segments and
-   gather_stats bitwise, segment_kpi facts within 1e-5 and its rollup
-   within 1e-4 — with each kernel's device time and its plain version's
+   the card, at the main path's shapes — hash_join, hash_join_pair (both
+   cache probes of a transform), fold_segments_many (a whole fold cycle:
+   every delta x view item, at the steelworks views' shapes and at edge
+   shapes) and gather_stats bitwise, segment_kpi facts within 1e-5 and
+   its rollup within 1e-4 — with each kernel's device time and its plain
+   version's
    (calls captured in a CUDA graph, replays timed with CUDA events), the
    wrapper's host-issued time per call, and the kernel's bound (the larger
    of the bytes this run's inputs need / 3.35 TB/s and fp32 operations /
@@ -21,10 +24,13 @@ Phases, each fatal on failure (no fallback to the CPU):
    until drained, then a dashboard batch through ``compile_queries`` —
    run on the card and again on the CPU (plain versions), the results
    held against each other;
-4. launch counts: every kernel must have launched on the main path; the
-   hash join is checked bitwise once more on the main path's own caches,
-   at the slot counts they reached; the main path once more under
-   ``torch.profiler`` (the card's busy share);
+4. launch counts: every kernel of the main path must have launched on
+   it (backend dispatches and host syncs printed); both probes are
+   checked bitwise once more on the main path's own caches, at the slot
+   counts they reached; the main path once more under ``torch.profiler``
+   (the card's busy share); then the example's ISA-95 complex model
+   (2,000 records, join depth 8: the single-table hash_join's path, its
+   flattened hop probe) on the card and on the CPU, facts byte-identical;
 5. the cluster on the card: the same deployment on ``ConcurrentCluster``
    (5 workers, one CUDA stream each, the four views attached, 200 records
    per partition per fetch). (a) Pre-extracted stream: facts
@@ -96,8 +102,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12            # H100 SXM, outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
 N_UNITS = 20
-ETL_KERNELS = ("hash_join", "segment_kpi", "fold_segments", "gather_stats",
-               "segment_rollup")
+# the ETL kernels of the cluster path (the ETL main path); the
+# single-table hash_join runs on the complex model's path (COMPLEX_PATH)
+ETL_KERNELS = ("hash_join_pair", "segment_kpi", "fold_segments_many",
+               "gather_stats", "segment_rollup")
+COMPLEX_PATH = "complex_join8"
 
 
 def fail(msg: str) -> None:
@@ -221,12 +230,10 @@ def probe_queries(rng, keys, n):
                            [-1, -2]]).astype(np.int32)
 
 
-def hash_join_bytes(q, keys, width: int):
-    """Bytes the probe of ``q`` against the slot keys ``keys`` (numpy
-    int32, -1 empty) must move: each query read once; each distinct key
-    slot the probe chains visit read once; the vals row and txn of each
-    distinct hit slot read once; the outputs written once. Returns (bytes,
-    slots visited, hit rows)."""
+def probe_footprint(q, keys):
+    """(distinct key slots, distinct hit slots) the probe chains of the
+    int32 queries ``q`` visit in a table with slot keys ``keys`` (numpy
+    int32, -1 empty)."""
     import numpy as np
     import torch
     from repro_torch.kernels.hash_join.ref import MAX_PROBES, hash32
@@ -242,7 +249,16 @@ def hash_join_bytes(q, keys, width: int):
         hit = ~done & (k == q)
         hit_rows[cand[hit]] = True
         done |= hit | (k == -1)
-    n, n_vis, n_hit = len(q), int(visited.sum()), int(hit_rows.sum())
+    return int(visited.sum()), int(hit_rows.sum())
+
+
+def hash_join_bytes(q, keys, width: int):
+    """Bytes the probe of ``q`` against the slot keys ``keys`` must move:
+    each query read once; each distinct key slot the probe chains visit
+    read once; the vals row and txn of each distinct hit slot read once;
+    the outputs written once. Returns (bytes, slots visited, hit rows)."""
+    n_vis, n_hit = probe_footprint(q, keys)
+    n = len(q)
     return (4 * n + 4 * n_vis + (4 * width + 4) * n_hit
             + n * (4 * width + 1 + 4), n_vis, n_hit)
 
@@ -286,6 +302,76 @@ def check_hash_join(rng, dev):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+def pair_rows(rng, eq_keys, q_keys, n):
+    """[n, 8] f32 production rows as a transform pads them: col 1 drawn
+    from the equipment keys, col 0 from the quality keys, a fifth of each
+    absent, some fractional (truncated toward zero), the last eighth -1.0
+    pad rows."""
+    import numpy as np
+    prod = np.abs(rng.normal(size=(n, 8))).astype(np.float32)
+    prod[:, 1] = rng.choice(eq_keys, n)
+    prod[:, 0] = rng.choice(q_keys, n)
+    prod[rng.random(n) < 0.2, 1] = 2.5e6
+    prod[rng.random(n) < 0.2, 0] = 3.5e6
+    prod[rng.random(n) < 0.1, 1] += 0.75
+    prod[n - n // 8:] = -1.0
+    return prod
+
+
+def hash_join_pair_bitwise(prod, eq_state, q_state, what: str):
+    import torch
+    from repro_torch.kernels.hash_join.ops import hash_join_pair
+    from repro_torch.kernels.hash_join.ref import hash_join_pair_ref
+    pt = torch.tensor(prod, device=eq_state[0].device)
+    got = hash_join_pair(pt, eq_state, q_state)
+    want = hash_join_pair_ref(pt, eq_state, q_state)
+    torch.cuda.synchronize()
+    for g, w, out in zip(got, want, ("eq_rows", "q_rows", "found")):
+        if not same_bits(g, w):
+            fail(f"hash_join_pair {out} differs from the plain version "
+                 f"({what})")
+    return pt, got
+
+
+def check_hash_join_pair(rng, dev):
+    """Both probes of one transform at the main path's shapes: a 1024-row
+    padded block against the two 4096-slot caches of a worker (20
+    equipment units, 2,000 products)."""
+    import numpy as np
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.cache import InMemoryTable
+    from repro_torch.kernels.hash_join.ops import hash_join_pair
+    from repro_torch.kernels.hash_join.ref import hash_join_pair_ref
+    S, n = 4096, 1024
+    be = get_backend("torch", device=dev)
+    tables, keys = [], []
+    for n_keys in (N_UNITS, 2000):
+        tbl = InMemoryTable(S, backend=be)
+        k = rng.choice(10**6, n_keys, replace=False).astype(np.int64)
+        tbl.upsert(k, rng.normal(size=(n_keys, 8)).astype(np.float32),
+                   rng.integers(0, 10**6, n_keys))
+        tables.append(tbl)
+        keys.append(k)
+    eq_state, q_state = (t.device_state() for t in tables)
+    prod = pair_rows(rng, *keys, n)
+    pt, got = hash_join_pair_bitwise(prod, eq_state, q_state,
+                                     f"{S}-slot caches")
+    n_bytes = 8 * n + n * (32 + 32 + 1)     # key cols in; rows, flag out
+    for tbl, col in zip(tables, (1, 0)):
+        n_vis, n_hit = probe_footprint(prod[:, col].astype(np.int32),
+                                       tbl.keys)
+        n_bytes += 4 * n_vis + 32 * n_hit
+    print(f"hash_join_pair N={n} (last {n // 8} pad rows) against "
+          f"{N_UNITS}- and 2000-key caches of {S} slots: bitwise equal, "
+          f"found rate {float(got[2].float().mean()):.3f}; {n_bytes} B to "
+          f"move")
+    b_ms, b_by = bound(n_bytes, 0)
+    return {"name": "hash_join_pair", "max_abs_err": 0.0,
+            **timings(lambda: hash_join_pair(pt, eq_state, q_state),
+                      lambda: hash_join_pair_ref(pt, eq_state, q_state)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 def check_main_path_caches(pipe, rng) -> None:
     """The hash join bitwise on every master cache the main path left
     behind, at the slot count each reached (``_grow`` doubles a cache
@@ -293,15 +379,20 @@ def check_main_path_caches(pipe, rng) -> None:
     import numpy as np
     sizes = []
     for w in pipe.workers:
+        live = {}
         for name in ("equipment", "quality"):
             tbl = getattr(w, name)
-            live = tbl.keys[tbl.keys != -1].astype(np.int64)
-            hash_join_bitwise(probe_queries(rng, live, 1024),
+            live[name] = tbl.keys[tbl.keys != -1].astype(np.int64)
+            hash_join_bitwise(probe_queries(rng, live[name], 1024),
                               *tbl.device_state(),
                               f"{w.name} {name} cache, {tbl.n_slots} slots")
             sizes.append(f"{w.name}.{name} {tbl.n_rows}/{tbl.n_slots}")
-    print("hash_join on the main path's caches (rows/slots): bitwise equal "
-          "for " + ", ".join(sizes))
+        hash_join_pair_bitwise(
+            pair_rows(rng, live["equipment"], live["quality"], 1024),
+            w.equipment.device_state(), w.quality.device_state(),
+            f"{w.name}'s caches")
+    print("hash_join and hash_join_pair on the main path's caches "
+          "(rows/slots): bitwise equal for " + ", ".join(sizes))
 
 
 def kpi_inputs(rng, n, units):
@@ -345,37 +436,82 @@ def check_segment_kpi(rng, dev):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+STEELWORKS_VIEWS = ((20, 4), (60, 4), (20, 2), (32, 2))   # (S, L) each
+
+
+def fold_item(rng, n, S, L, special=None):
+    """(seg, vals, S): ids in [-1, S) (-1: identity), values with signed
+    zeros and, with ``special``, that value mixed in."""
+    import numpy as np
+    seg = rng.integers(-1, S, n)
+    vals = rng.normal(size=(n, L)).astype(np.float32)
+    vals[rng.random((n, L)) < 0.05] = 0.0
+    vals[rng.random((n, L)) < 0.05] = -0.0
+    if special is not None:
+        vals[rng.random((n, L)) < 0.05] = special
+    return seg, vals, S
+
+
 def check_fold(rng, dev):
+    """fold_segments_many bitwise its plain version on fold cycles at the
+    steelworks views' shapes (1 and 5 deltas of 256 to 2048 rows, each
+    into the four views) and at edge shapes; timed at one cycle of one
+    1024-row delta into the four views."""
     import numpy as np
     import torch
-    from repro_torch.kernels.segment_kpi.ops import fold_segments
-    from repro_torch.kernels.segment_kpi.ref import fold_segments_ref
-    timed = None
-    for B in (256, 2048):
-        for S in (20, 32, 60):
-            for L in (2, 4):
-                seg = rng.integers(-1, S, B)
-                vals = rng.normal(size=(B, L)).astype(np.float32)
-                vals[rng.random((B, L)) < 0.05] = 0.0
-                vals[rng.random((B, L)) < 0.05] = -0.0
-                st = torch.tensor(seg, device=dev)
-                vt = torch.tensor(vals, device=dev)
-                got = fold_segments(st, vt, S)
-                want = fold_segments_ref(st, vt, S)
-                torch.cuda.synchronize()
-                if not same_bits(got, want):
-                    fail(f"fold_segments B={B} S={S} L={L} not bitwise")
-                if (B, S, L) == (2048, 60, 4):
-                    timed = (st, vt, S, B, L)
-    st, vt, S, B, L = timed
-    print("fold_segments B in {256, 2048} x S in {20, 32, 60} x L in "
-          "{2, 4}: bitwise equal")
-    n_bytes = B * (8 + 4 * L) + S * (1 + 3 * L) * 4
-    b_ms, b_by = bound(n_bytes, B * (1 + 3 * L))    # one lane op per row
-    return {"name": "fold_segments", "max_abs_err": 0.0,
-            **timings(lambda: fold_segments(st, vt, S),
-                      lambda: fold_segments_ref(st, vt, S)),
+    from repro_torch.kernels.segment_kpi.ops import (fold_segments_many,
+                                                     stage_fold)
+    from repro_torch.kernels.segment_kpi.ref import fold_segments_many_ref
+    cycles = {f"{d} x {B}-row deltas": [
+        fold_item(rng, B, S, L) for _ in range(d) for S, L in
+        STEELWORKS_VIEWS] for d in (1, 5) for B in (256, 1024, 2048)}
+    cycles["edges"] = (
+        [fold_item(rng, n, 20, 4) for n in (1, 9, 17, 33, 2049, 5000)]
+        + [fold_item(rng, 100, S, 2) for S in (1, 3)]
+        + [fold_item(rng, 700, 20, L) for L in (1, 5, 9)]
+        + [fold_item(rng, 1000, 60, 4, sp) for sp in (np.nan, np.inf)])
+    for what, items in cycles.items():
+        words, plan = stage_fold(items)
+        wt = words.to(dev)
+        got = fold_segments_many(wt, plan)
+        want = fold_segments_many_ref(wt, plan)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            fail(f"fold_segments_many not bitwise ({what})")
+    print(f"fold_segments_many: bitwise equal on {len(cycles)} fold cycles "
+          f"({', '.join(cycles)}; edges: 1-5000 rows, 1-3 segments, 1-9 "
+          f"lanes, NaN and +-inf lanes)")
+    items = [fold_item(rng, 1024, S, L) for S, L in STEELWORKS_VIEWS]
+    words, plan = stage_fold(items)
+    wt = words.to(dev)
+    n_bytes = 4 * plan.n_words + 4 * plan.n_out
+    b_ms, b_by = bound(n_bytes, sum(len(s) * (1 + 3 * v.shape[1])
+                                    for s, v, _ in items))
+    print(f"  timed cycle: one 1024-row delta into the 4 views, "
+          f"{plan.n_ctas} CTAs, {4 * plan.n_words} B staged, "
+          f"{4 * plan.n_out} B out")
+    return {"name": "fold_segments_many", "max_abs_err": 0.0,
+            **timings(lambda: fold_segments_many(wt, plan),
+                      lambda: fold_segments_many_ref(wt, plan)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def backend_fold_ms(dev, rng, deltas: int, reps: int = 50) -> float:
+    """Host-clock ms per ``TorchBackend.fold_segments_many`` call for one
+    fold cycle of ``deltas`` 1024-row deltas into the four views: host
+    compaction and staging, one upload, one launch, one copy back and the
+    sync, as the view-fold thread pays them."""
+    from repro_torch.core.backend import get_backend
+    be = get_backend("torch", device=dev)
+    items = [fold_item(rng, 1024, S, L) for _ in range(deltas)
+             for S, L in STEELWORKS_VIEWS]
+    be.fold_segments_many(items)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        be.fold_segments_many(items)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def check_gather(rng, dev):
@@ -430,6 +566,7 @@ def run_main_path(device: str, records: int = 20_000):
                                          n_equipment=N_UNITS,
                                          seed=0)).generate(src)
     pipe = DODETLPipeline(cfg, src, n_workers=5, device=device)
+    pipe.backend.reset_stats()    # one backend per device: count this run
     engine = MaterializedViewEngine(steelworks_views(N_UNITS),
                                     backend=pipe.backend)
     pipe.warehouse.attach_serving(engine)
@@ -546,6 +683,30 @@ def profile_run(label: str, run, card: str) -> None:
           f"threads {total / 1e6:.3f} s; largest:")
     for name, (c, t) in sorted(host.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"  {c:5d} x {t / c:8.2f} us  {name[:90]}")
+
+
+def run_complex(device: str, records: int = 2_000):
+    """The example's ISA-95 generalized model (``complex_model``, join
+    depth 8: each transform also runs the flattened hop probe through the
+    single-table hash_join), sequential to completion on ``device``.
+    Returns (pipeline, records loaded)."""
+    import torch
+    from repro_torch.configs.dod_etl import steelworks_config
+    from repro_torch.core import DODETLPipeline, SourceDatabase
+    from repro_torch.data.sampler import SamplerConfig, SteelworksSampler
+    cfg = steelworks_config(n_partitions=N_UNITS, complex_model=True)
+    src = SourceDatabase()
+    SteelworksSampler(cfg, SamplerConfig(records_per_table=records,
+                                         n_equipment=N_UNITS,
+                                         seed=0)).generate(src)
+    pipe = DODETLPipeline(cfg, src, n_workers=5, join_depth=8,
+                          device=device)
+    pipe.extract()
+    pipe.bootstrap_caches()
+    done = pipe.run_to_completion()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return pipe, done
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1343,13 +1504,19 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    results = [check_hash_join(rng, dev), check_segment_kpi(rng, dev),
-               check_fold(rng, dev), check_gather(rng, dev)]
+    results = [check_hash_join(rng, dev), check_hash_join_pair(rng, dev),
+               check_segment_kpi(rng, dev), check_fold(rng, dev),
+               check_gather(rng, dev)]
     for r in results:
-        print(f"  {r['name']}: {r['ms']:.5f} ms kernel, {r['plain_ms']:.5f} "
-              f"ms plain (device, CUDA graph), {r['issue_ms']:.5f} ms per "
-              f"host-issued wrapper call, bound {r['bound_ms']:.6f} ms "
+        print(f"  {r['name']}: {r['ms']:.7f} ms kernel, {r['plain_ms']:.7f} "
+              f"ms plain (device, CUDA graph), {r['issue_ms']:.7f} ms per "
+              f"host-issued wrapper call, bound {r['bound_ms']:.7f} ms "
               f"({r['bound_by']}) [{card}]")
+    print("  TorchBackend.fold_segments_many per fold cycle (host clock, "
+          "compaction + staging + upload + launch + copy back + sync): "
+          + ", ".join(f"{d} x 1024-row deltas into the 4 views "
+                      f"{backend_fold_ms(dev, rng, d):.4f} ms"
+                      for d in (1, 5)) + f" [{card}]")
 
     # the sequential main path (phase 3/4)
     reset_launch_counts()
@@ -1364,12 +1531,27 @@ def main() -> None:
     print(f"the same path with the plain versions on this machine's CPU: "
           f"{rows / cpu[3]:.1f} records/s (host CPU, not a card number)")
     compare_main_path(gpu, cpu)
-    missing = [k for k in ("hash_join", "segment_kpi", "fold_segments",
-                           "gather_stats") if seq_counts[k] <= 0]
+    print(f"sequential path launches: {seq_counts}")
+    missing = [k for k in ETL_KERNELS if k != "segment_rollup"
+               and seq_counts[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     check_main_path_caches(gpu[0], rng)
     profile_run("main path", lambda: run_main_path("cuda"), card)
+
+    # the complex model's path (phase 4): the single-table probe
+    reset_launch_counts()
+    cx_gpu, cx_done = run_complex("cuda")
+    complex_counts = launch_counts()
+    cx_cpu, _ = run_complex("cpu")
+    if complex_counts["hash_join"] <= 0:
+        fail("hash_join never launched on the complex model's path")
+    cx_facts = cx_gpu.warehouse.canonical_fact_table()
+    if cx_facts.tobytes() != cx_cpu.warehouse.canonical_fact_table(
+            ).tobytes() or not np.isfinite(cx_facts).all():
+        fail("complex model facts on the card differ from the CPU run's")
+    print(f"complex model (join depth 8): {cx_done} records, facts "
+          f"byte-identical to the CPU run; launches {complex_counts}")
 
     # the cluster path (phase 5): every ETL kernel must launch in it
     reset_launch_counts()
@@ -1403,11 +1585,11 @@ def main() -> None:
 
     src = "src/repro_torch/kernels/segment_kpi/csrc/segment_kpi.cu"
     tpu = "src/repro/kernels/segment_kpi/segment_kpi.py"
-    sources = {"hash_join": ("src/repro_torch/kernels/hash_join/csrc/"
-                             "hash_join.cu",
-                             "src/repro/kernels/hash_join/hash_join.py:73"),
+    hj = ("src/repro_torch/kernels/hash_join/csrc/hash_join.cu",
+          "src/repro/kernels/hash_join/hash_join.py:73")
+    sources = {"hash_join": hj, "hash_join_pair": hj,
                "segment_kpi": (src, f"{tpu}:226"),
-               "fold_segments": (src, f"{tpu}:180"),
+               "fold_segments_many": (src, f"{tpu}:180"),
                "gather_stats": (src, f"{tpu}:152"),
                "segment_rollup": (src, f"{tpu}:205"),
                **{name: (f"src/repro_torch/kernels/flash_attention/csrc/"
@@ -1427,12 +1609,16 @@ def main() -> None:
         path, replaces = sources[name]
         by_path = {"sequential": seq_counts.get(name, 0),
                    "cluster": cluster_counts.get(name, 0),
+                   COMPLEX_PATH: complex_counts.get(name, 0),
                    **{p: c.get(name, 0) for p, c in lm_counts.items()},
                    **{p: c.get(name, 0) for p, c in f32_counts.items()}}
-        # the ETL kernels' main path is the cluster; the bf16 LM designs'
-        # the two serve runs; the f32 LM designs' the two f32 prefills
+        # the ETL kernels' main path is the cluster, the single-table
+        # probe's the complex model; the bf16 LM designs' the two serve
+        # runs; the f32 LM designs' the two f32 prefills
         if name in ETL_KERNELS:
             launches = by_path["cluster"]
+        elif name == "hash_join":
+            launches = by_path[COMPLEX_PATH]
         elif name in ("flash_attention_tc", "gla_chunk_ssd"):
             launches = sum(c[name] for c in lm_counts.values())
         else:

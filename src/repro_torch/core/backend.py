@@ -18,7 +18,9 @@ serving views is expressed against the ``ComputeBackend`` protocol:
                          from ``transform_and_rollup``),
   * ``fold_segments``  — the serving layer's incremental-view delta fold
                          (count + sum + min + max per segment per lane),
-                         segment-compacted, one kernel launch per block,
+                         segment-compacted; ``fold_segments_many`` folds
+                         a whole fold cycle's (delta, view) items at once
+                         (one kernel launch on the torch backend),
   * ``fold_segments_scan`` — the same fold as an associative scan over
                          bit-reversed rows, bitwise equal to the tree,
   * ``batch_gather_stats`` — the batched point-query read: one gather for
@@ -61,7 +63,8 @@ import torch
 
 from repro_torch.kernels.hash_join import ops as hash_join_ops
 from repro_torch.kernels.segment_kpi import ops as segment_kpi_ops
-from repro_torch.kernels.segment_kpi.ref import np_maximum, np_minimum
+from repro_torch.kernels.segment_kpi.ref import (combine_packed, np_maximum,
+                                                 np_minimum)
 from repro_torch.observability.registry import global_registry
 
 EPS = 1e-6
@@ -140,6 +143,35 @@ def _fold_tree_np(seg: np.ndarray, vals: np.ndarray,
                           axis=1)
 
 
+def _compact_fold(seg: np.ndarray, vals: np.ndarray, n_segments: int):
+    """The host half of a segment-compacted fold (see ``_fold_blocks``):
+    (packed identity table [n_segments, W], live ids, compacted ids,
+    values [n, L], n_fold), or None for the live ids when the delta adds
+    nothing (no rows, or none in [0, n_segments))."""
+    seg = np.asarray(seg, np.int64)
+    vals = np.asarray(vals, np.float32)
+    if vals.ndim == 1:
+        vals = vals[:, None]
+    n, L = vals.shape
+    out = empty_fold_state(n_segments, L)
+    if n == 0:
+        return out, None, seg, vals, 0
+    in_range = (seg >= 0) & (seg < n_segments)
+    live = np.unique(seg[in_range])
+    n_active = len(live)
+    if n_active == 0:
+        return out, None, seg, vals, 0   # nothing but identity rows
+    n_fold = min(n_segments, max(8, 1 << (n_active - 1).bit_length()))
+    # rows outside [0, n_segments) become -1 (identity), live ids become
+    # their rank in the sorted live array — the compact column index.
+    # Dense deltas (every segment live) skip the remap: rank == id.
+    if n_active == n_segments:
+        cseg = seg if in_range.all() else np.where(in_range, seg, -1)
+    else:
+        cseg = np.where(in_range, np.searchsorted(live, seg), -1)
+    return out, live, cseg, vals, n_fold
+
+
 def _fold_blocks(seg: np.ndarray, vals: np.ndarray, n_segments: int,
                  tree) -> np.ndarray:
     """Shared delta driver, SEGMENT-COMPACTED: ``np.unique`` the delta's
@@ -161,27 +193,10 @@ def _fold_blocks(seg: np.ndarray, vals: np.ndarray, n_segments: int,
     combine). The active-column count is padded to a power of two (>= 8,
     capped at n_segments) so jitted trees compile once per
     (rows, columns) bucket, not once per distinct delta sparsity."""
-    seg = np.asarray(seg, np.int64)
-    vals = np.asarray(vals, np.float32)
-    if vals.ndim == 1:
-        vals = vals[:, None]
-    n, L = vals.shape
-    out = empty_fold_state(n_segments, L)
-    if n == 0:
+    out, live, cseg, vals, n_fold = _compact_fold(seg, vals, n_segments)
+    if live is None:
         return out
-    in_range = (seg >= 0) & (seg < n_segments)
-    live = np.unique(seg[in_range])
-    n_active = len(live)
-    if n_active == 0:
-        return out                       # nothing but identity rows
-    n_fold = min(n_segments, max(8, 1 << (n_active - 1).bit_length()))
-    # rows outside [0, n_segments) become -1 (identity), live ids become
-    # their rank in the sorted live array — the compact column index.
-    # Dense deltas (every segment live) skip the remap: rank == id.
-    if n_active == n_segments:
-        cseg = seg if in_range.all() else np.where(in_range, seg, -1)
-    else:
-        cseg = np.where(in_range, np.searchsorted(live, seg), -1)
+    n, L = vals.shape
     acc = empty_fold_state(n_fold, L)
     for lo in range(0, n, FOLD_BLOCK):
         s = cseg[lo:lo + FOLD_BLOCK]
@@ -192,7 +207,7 @@ def _fold_blocks(seg: np.ndarray, vals: np.ndarray, n_segments: int,
             s = np.concatenate([s, np.full(bucket - m, -1, np.int64)])
             v = np.concatenate([v, np.zeros((bucket - m, L), np.float32)])
         acc = combine_fold(acc, tree(s, v, n_fold))
-    out[live] = acc[:n_active]           # scatter into the packed table
+    out[live] = acc[:len(live)]          # scatter into the packed table
     return out
 
 
@@ -556,6 +571,13 @@ class ComputeBackend:
         [n_segments, 1 + 3L] (see ``fold_width``)."""
         raise NotImplementedError
 
+    def fold_segments_many(self, items) -> list:
+        """``fold_segments`` of every (seg_ids, values, n_segments) in
+        ``items`` (a fold cycle's (delta, view) pairs), each table bitwise
+        what ``fold_segments(*item)`` returns. The default is that loop; a
+        device backend folds them all in one dispatch."""
+        return [self.fold_segments(*item) for item in items]
+
     def fold_segments_scan(self, seg_ids: np.ndarray, values: np.ndarray,
                            n_segments: int) -> np.ndarray:
         """``fold_segments`` with the per-block reduction expressed as an
@@ -817,27 +839,18 @@ def _kpi_facts_np(prod, eq_rows, q_rows, found) -> np.ndarray:
 
 
 # ============================================================ torch backend
-def _combine_packed_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``_combine_packed_np`` in torch (numpy's min/max semantics)."""
-    L = (a.shape[-1] - 1) // 3
-    return torch.cat([
-        a[..., :1 + L] + b[..., :1 + L],
-        np_minimum(a[..., 1 + L:1 + 2 * L], b[..., 1 + L:1 + 2 * L]),
-        np_maximum(a[..., 1 + 2 * L:], b[..., 1 + 2 * L:])], dim=-1)
-
-
 def _assoc_scan_t(x: torch.Tensor) -> torch.Tensor:
     """``_assoc_scan_np`` in torch: the SAME odd/even recursion, so the
     inclusive scan is bitwise the numpy one (and ``jax.lax``'s)."""
     n = x.shape[0]
     if n < 2:
         return x.clone()
-    reduced = _combine_packed_t(x[0::2], x[1::2])
+    reduced = combine_packed(x[0::2], x[1::2])
     odd = _assoc_scan_t(reduced)
     if n % 2 == 0:
-        even = _combine_packed_t(odd[:-1], x[2::2])
+        even = combine_packed(odd[:-1], x[2::2])
     else:
-        even = _combine_packed_t(odd, x[2::2])
+        even = combine_packed(odd, x[2::2])
     out = torch.empty_like(x)
     out[0] = x[0]
     out[1::2] = odd
@@ -871,14 +884,16 @@ def _fold_tree_scan_t(seg: torch.Tensor, vals: torch.Tensor,
 @register_backend("torch")
 class TorchBackend(ComputeBackend):
     """The hand-written CUDA kernels (``repro_torch.kernels``) behind the
-    backend protocol. ``transform_block`` launches two ``hash_join``
-    probes (a third, flattened hop probe when ``join_depth > 1``) and the
-    fused ``segment_kpi`` kernel, whose epilogue is the per-unit rollup;
-    the block stays on the device with zero host syncs until
-    ``to_host()``. ``segment_reduce`` (the warehouse's full rescan) is one
-    ``segment_rollup`` launch and one sync. ``fold_segments`` runs the
-    fold kernel once per compacted row block, ``batch_gather_stats`` the
-    gather kernel once per batch. ``fold_segments_scan`` and
+    backend protocol. ``transform_block`` launches ``hash_join_pair``
+    (both cache probes; a single-table ``hash_join`` hop probe follows
+    when ``join_depth > 1``) and the fused ``segment_kpi`` kernel, whose
+    epilogue is the per-unit rollup; the block stays on the device with
+    zero host syncs until ``to_host()``. ``segment_reduce`` (the
+    warehouse's full rescan) is one ``segment_rollup`` launch and one
+    sync. ``fold_segments_many`` folds a whole fold cycle — every item's
+    every compacted row block — in one ``fold_segments_many`` launch and
+    one sync (``fold_segments`` is its one-item case);
+    ``batch_gather_stats`` runs the gather kernel once per batch. ``fold_segments_scan`` and
     ``prefix_fold`` are structural scans (XLA ops in the reference, not
     Pallas kernels) and run as plain torch on the device.
 
@@ -911,28 +926,22 @@ class TorchBackend(ComputeBackend):
         prod = np.asarray(prod, np.float32)
         n = len(prod)
         padded = self._tensor(self._pad_bucket(prod, floor=256))
-        eqk, eqv, eqt = equipment.device_state()
-        qk, qv, qt = quality.device_state()
-        equip_id = padded[:, 1].to(torch.int32).contiguous()
-        prod_id = padded[:, 0].to(torch.int32).contiguous()
-        eq_rows, eq_found, _ = hash_join_ops.hash_join(equip_id, eqk, eqv,
-                                                       eqt)
-        q_rows, q_found, _ = hash_join_ops.hash_join(prod_id, qk, qv, qt)
-        self.op_dispatches += 2
+        eq_state = equipment.device_state()
+        # both probes in one launch; a missed row's key lane comes back
+        # -1.0, so the KPI kernel's valid flag equals the found mask
+        eq_rows, q_rows, found = hash_join_ops.hash_join_pair(
+            padded, eq_state, quality.device_state())
+        self.op_dispatches += 1
         if join_depth > 1:            # flattened hop probe (cost knob;
-            mod = max(eqk.shape[0] // 4, 1)           # numeric no-op)
+            eqk, eqv, eqt = eq_state                  # numeric no-op)
+            mod = max(eqk.shape[0] // 4, 1)
+            equip_id = padded[:, 1].to(torch.int32)
             hop_keys = ((equip_id[None, :]
                          + torch.arange(1, join_depth, dtype=torch.int32,
                                         device=self.torch_device)[:, None])
                         % mod)
             hash_join_ops.hash_join(hop_keys.reshape(-1), eqk, eqv, eqt)
             self.op_dispatches += 1
-        found = eq_found & q_found
-        # the KPI kernel derives its valid flag from the joined rows' key
-        # lane: mark misses so facts[:, -1] equals the probes' found mask
-        # (the probe outputs are fresh tensors, safe to write in place)
-        eq_rows[:, 1].masked_fill_(~eq_found, -1.0)
-        q_rows[:, 1].masked_fill_(~q_found, -1.0)
         # the fused kernel always emits the per-unit aggregate; without
         # n_units it is one unit wide and dropped
         facts, agg = segment_kpi_ops.segment_kpi(
@@ -950,12 +959,41 @@ class TorchBackend(ComputeBackend):
                                               n_units).cpu().numpy()
 
     def fold_segments(self, seg_ids, values, n_segments):
-        def tree(s, v, ns):
-            self.op_dispatches += 1
-            self.host_syncs += 1
-            return segment_kpi_ops.fold_segments(
-                self._tensor(s), self._tensor(v), ns).cpu().numpy()
-        return _fold_blocks(seg_ids, values, n_segments, tree)
+        return self.fold_segments_many([(seg_ids, values, n_segments)])[0]
+
+    def fold_segments_many(self, items):
+        """Host compaction per item (``_compact_fold``), every item's
+        blocks staged in one (pinned, on a card) buffer, one upload, one
+        ``fold_segments_many`` launch, one copy back and one sync, then
+        each item's table scattered into its packed [n_segments, W]
+        table. One dispatch and one sync per call with any rows to fold;
+        none for a call whose items add nothing."""
+        outs, work = [], []
+        for seg_ids, values, n_segments in items:
+            out, live, cseg, vals, n_fold = _compact_fold(seg_ids, values,
+                                                          n_segments)
+            if live is not None:
+                work.append((out, live, (cseg, vals, n_fold)))
+            outs.append(out)
+        if not work:
+            return outs
+        cuda = self.torch_device.type == "cuda"
+        words, plan = segment_kpi_ops.stage_fold(
+            [item for _, _, item in work], FOLD_BLOCK, pin=cuda)
+        flat = segment_kpi_ops.fold_segments_many(
+            words.to(self.torch_device, non_blocking=True), plan)
+        if cuda:
+            host = torch.empty(plan.n_out, dtype=torch.float32,
+                               pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            torch.cuda.current_stream(self.torch_device).synchronize()
+            flat = host
+        self.op_dispatches += 1
+        self.host_syncs += 1
+        for (out, live, _), acc in zip(work, segment_kpi_ops.fold_tables(
+                flat.numpy(), plan)):
+            out[live] = acc[:len(live)]  # scatter into the packed table
+        return outs
 
     def fold_segments_scan(self, seg_ids, values, n_segments):
         def tree(s, v, ns):

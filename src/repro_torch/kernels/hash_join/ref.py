@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the hash-join probe: the oracle of the CUDA
-kernel and what the wrapper runs for CPU tensors. Same contract as the
+"""Plain PyTorch versions of the hash-join probes: the oracles of the CUDA
+kernels and what the wrappers run for CPU tensors. Same contract as the
 reference's ``_hash_probe_np`` (bitwise): lowbias32 hash, h = hash %
 n_slots, up to ``MAX_PROBES`` linear probes, a hit tested before an empty
 slot (-1)."""
@@ -57,3 +57,20 @@ def hash_join_ref(query_keys: torch.Tensor, keys_tbl: torch.Tensor,
     txn = torch.where(found, txn_tbl[safe].to(torch.int32),
                       torch.zeros((), dtype=torch.int32, device=q.device))
     return vals, found, txn
+
+
+def hash_join_pair_ref(prod: torch.Tensor, eq_table, q_table
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The transform's two probes as separate ops: prod's col 1 and col 0
+    cast to int32, probed against the equipment and quality caches
+    (``eq_table`` / ``q_table``: keys, vals, txn), a missed row's key lane
+    (col 1) set to -1.0, found = eq_found & q_found. Returns (eq_rows,
+    q_rows, found)."""
+    equip_id = prod[:, 1].to(torch.int32).contiguous()
+    prod_id = prod[:, 0].to(torch.int32).contiguous()
+    eq_rows, eq_found, _ = hash_join_ref(equip_id, *eq_table)
+    q_rows, q_found, _ = hash_join_ref(prod_id, *q_table)
+    # the probe outputs are fresh tensors, safe to write in place
+    eq_rows[:, 1].masked_fill_(~eq_found, -1.0)
+    q_rows[:, 1].masked_fill_(~q_found, -1.0)
+    return eq_rows, q_rows, eq_found & q_found

@@ -1,5 +1,5 @@
 // The Data Transformer's numeric core and the serving layer's two read /
-// write ops, written by hand for Hopper (sm_90a). Three kernel families,
+// write ops, written by hand for Hopper (sm_90a). Four kernel families,
 // one per TPU kernel they replace (all in
 // src/repro/kernels/segment_kpi/segment_kpi.py):
 //
@@ -29,16 +29,29 @@
 //    truncated toward zero (numpy's astype); a NaN unit is dropped
 //    explicitly, because the conversion would make it unit 0.
 //
-// 3. fold_segments_launch <- fold_segments_kernel (body _fold_kernel).
-//    Serving-view delta fold: per segment, count + sum/min/max of every
-//    value lane. Bound: launch latency at the main path's shapes (B <=
-//    2048 rows, S <= 60 compacted segments, L <= 4 lanes: < 50 KB moved).
-//    Design: one block per (segment, lane) runs the shared-memory
-//    stride-halving tree s[i] = s[i] (+) s[i + h], h = B/2 ... 1 — operand
-//    for operand the reference's x[:h] (+) x[h:], so the result is
-//    BITWISE the numpy halving tree (the TPU kernel's matmul order is
-//    only ~1e-5). Sums are one-hot * v as a float multiply (0 * -3 is
-//    -0.0, as in numpy), min/max lanes are hit ? v : +-inf.
+// 3. fold_segments_many_launch <- fold_segments_kernel (body _fold_kernel).
+//    Serving-view delta fold of a whole fold cycle in one launch: every
+//    (delta, view) item's count + sum/min/max per segment per value lane,
+//    each item's <= 2048-row blocks combined in block order. Bound: launch
+//    latency and the host round trip around it — a steelworks cycle (4
+//    views x one ~1k-row delta) moves ~70 KB, ~20 ns of HBM time — so the
+//    design puts the cycle's every item and block into ONE launch fed by
+//    one staged buffer (descriptors, compacted segment ids, lane-major
+//    values), where slice 1 made one launch and one blocking copy per
+//    (delta, view, block). A CTA covers (item, segment chunk; 2 segments
+//    at 4 lanes, so that its tasks fill its 8 warps once): it stages a
+//    block's ids and values in shared memory once with cp.async, then each
+//    warp reduces one (segment, lane) halving tree — count, sum, min and
+//    max at once — in registers: lane t holds rows t + 32k, the levels
+//    h >= 32 pair two of the thread's own registers, the last five are
+//    __shfl_down_sync, so the tree has no __syncthreads. Those are the
+//    operand pairs, in the same order, of x[:h] (+) x[h:] (s[i] is the
+//    first operand of every combine), so the result is BITWISE the numpy
+//    halving tree (the TPU kernel's matmul order is only ~1e-5). Sums are
+//    one-hot * v as a float multiply (0 * -3 is -0.0, 0 * inf is NaN, as
+//    in numpy), min/max lanes are hit ? v : +-inf. Block partials combine
+//    into the output in block order from the identity (0 + -0 = +0, as
+//    combine_fold does).
 //
 // 4. gather_stats_launch  <- gather_stats_kernel (body _gather_kernel).
 //    Batched point read: row idx of the packed [S, 1 + 3L] table plus
@@ -59,7 +72,11 @@
 #define N_FACT 10
 #define PAYLOAD 8
 #define KPI_BLOCK 256
-#define FOLD_THREADS 256
+#define FOLD_THREADS 256       // 8 warps, one (segment, lane) tree each
+#define FOLD_WARPS (FOLD_THREADS / 32)      // ops.FOLD_WARPS
+#define FOLD_LANES_STAGED 4     // value lanes in shared memory at once
+#define MAX_FOLD_ROWS 2048      // rows of one block (ops.MAX_FOLD_ROWS)
+#define FOLD_ITEM_WORDS 8       // int32 words of one item descriptor
 
 __device__ __forceinline__ float np_min(float a, float b) {
   return (a < b || isnan(a)) ? a : b;
@@ -253,58 +270,174 @@ extern "C" int segment_rollup_launch(const void* facts, int64_t n,
 }
 
 // ----------------------------------------------------------------- fold
-__global__ void fold_kernel(const int64_t* __restrict__ seg,
-                            const float* __restrict__ vals, int B, int L,
-                            float* __restrict__ out) {
-  extern __shared__ float sm[];
-  float* s_sum = sm;
-  float* s_min = sm + B;
-  float* s_max = sm + 2 * B;
-  float* s_cnt = sm + 3 * B;           // used by the lane-0 block only
-  const int64_t s = blockIdx.x;
-  const int j = blockIdx.y;
-  const bool counts = (j == 0);
-  const int tid = threadIdx.x;
-  for (int i = tid; i < B; i += blockDim.x) {
-    const bool hit = seg[i] == s;
-    const float oh = hit ? 1.0f : 0.0f;
-    const float v = vals[(int64_t)i * L + j];
-    s_sum[i] = __fmul_rn(oh, v);
-    s_min[i] = hit ? v : __int_as_float(0x7f800000);   // +inf
-    s_max[i] = hit ? v : __int_as_float(0xff800000);  // -inf
-    if (counts) s_cnt[i] = oh;
-  }
-  __syncthreads();
-  for (int h = B >> 1; h >= 1; h >>= 1) {
-    for (int i = tid; i < h; i += blockDim.x) {
-      s_sum[i] = __fadd_rn(s_sum[i], s_sum[i + h]);
-      s_min[i] = np_min(s_min[i], s_min[i + h]);
-      s_max[i] = np_max(s_max[i], s_max[i + h]);
-      if (counts) s_cnt[i] = __fadd_rn(s_cnt[i], s_cnt[i + h]);
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    float* row = out + s * (1 + 3 * L);
-    row[1 + j] = s_sum[0];
-    row[1 + L + j] = s_min[0];
-    row[1 + 2 * L + j] = s_max[0];
-    if (counts) row[0] = s_cnt[0];
+#define FULL_MASK 0xffffffffu
+#define POS_INF __int_as_float(0x7f800000)
+#define NEG_INF __int_as_float(0xff800000)
+
+// One segment's four statistics over a run of rows: count, sum, min, max.
+struct Fold4 {
+  float c, s, mn, mx;
+};
+
+// One row's contribution to segment s: ids outside the item's segments,
+// and the -1 pad rows, give 0, 0 * v, +inf and -inf.
+__device__ __forceinline__ Fold4 fold_leaf(int seg, float v, int s) {
+  const bool hit = seg == s;
+  const float oh = hit ? 1.0f : 0.0f;
+  return {oh, __fmul_rn(oh, v), hit ? v : POS_INF, hit ? v : NEG_INF};
+}
+
+// a (+) b, a the first operand of every op (numpy's min/max return the
+// second operand on ties, so the order fixes the bits of +-0).
+__device__ __forceinline__ Fold4 fold_op(Fold4 a, Fold4 b) {
+  return {__fadd_rn(a.c, b.c), __fadd_rn(a.s, b.s), np_min(a.mn, b.mn),
+          np_max(a.mx, b.mx)};
+}
+
+__device__ __forceinline__ Fold4 shfl_down(Fold4 a, int h) {
+  return {__shfl_down_sync(FULL_MASK, a.c, h),
+          __shfl_down_sync(FULL_MASK, a.s, h),
+          __shfl_down_sync(FULL_MASK, a.mn, h),
+          __shfl_down_sync(FULL_MASK, a.mx, h)};
+}
+
+// The register levels of warp_tree: r[k] = r[k] (+) r[k + H] for k < H,
+// then H/2 ... 1, unrolled at compile time so r stays in registers.
+template <int H>
+__device__ __forceinline__ void register_levels(Fold4* r) {
+  if constexpr (H >= 1) {
+#pragma unroll
+    for (int k = 0; k < H; ++k) r[k] = fold_op(r[k], r[k + H]);
+    register_levels<H / 2>(r);
   }
 }
 
-// seg [B] i64 (B a power of two, <= 2048; ids outside [0, S) are the
-// identity), vals [B, L] f32 -> out [S, 1 + 3L] f32:
-// [count | sums(L) | mins(L) | maxs(L)].
-extern "C" int fold_segments_launch(const void* seg, const void* vals,
-                                    int B, int L, int S, void* out,
-                                    void* stream) {
-  if (S == 0 || L == 0) return 0;
-  const dim3 grid(S, L);
-  const int threads = B < FOLD_THREADS ? B : FOLD_THREADS;
-  const size_t smem = 4 * (size_t)B * sizeof(float);
-  fold_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const int64_t*)seg, (const float*)vals, B, L, (float*)out);
+// The halving tree s[i] = s[i] (+) s[i + h], h = B/2 ... 1, of one
+// segment over one block of B = 32K rows (K >= 2), or B in {8, 16, 32}
+// (K == 1), reduced by one warp, all four statistics at once; the result
+// lands in lane 0. Lane t holds rows t + 32k: the first level (h = 16K)
+// is fused into the loads, the levels down to h = 32 pair registers k and
+// k + h/32, the last five pair lanes t and t + h.
+template <int K>
+__device__ __forceinline__ Fold4 warp_tree(const int* s_seg,
+                                           const float* s_val, int s, int B,
+                                           int t) {
+  Fold4 v;
+  int h;
+  if constexpr (K == 1) {
+    v = fold_leaf(t < B ? s_seg[t] : -1, t < B ? s_val[t] : 0.0f, s);
+    h = B >> 1;
+  } else {
+    Fold4 r[K / 2];
+#pragma unroll
+    for (int k = 0; k < K / 2; ++k) {
+      const int i = t + 32 * k, j = i + 16 * K;
+      r[k] = fold_op(fold_leaf(s_seg[i], s_val[i], s),
+                     fold_leaf(s_seg[j], s_val[j], s));
+    }
+    register_levels<K / 4>(r);
+    v = r[0];
+    h = 16;
+  }
+  for (; h >= 1; h >>= 1) v = fold_op(v, shfl_down(v, h));
+  return v;
+}
+
+__device__ Fold4 block_tree(const int* s_seg, const float* s_val, int s,
+                            int B, int t) {
+  switch (B) {
+    case 64: return warp_tree<2>(s_seg, s_val, s, B, t);
+    case 128: return warp_tree<4>(s_seg, s_val, s, B, t);
+    case 256: return warp_tree<8>(s_seg, s_val, s, B, t);
+    case 512: return warp_tree<16>(s_seg, s_val, s, B, t);
+    case 1024: return warp_tree<32>(s_seg, s_val, s, B, t);
+    case 2048: return warp_tree<64>(s_seg, s_val, s, B, t);
+    default: return warp_tree<1>(s_seg, s_val, s, B, t);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// buf: the staged int32 words (ops.stage_fold): from word 0, per CTA
+// (item, first segment); at item_off, per item [seg_off, val_off, lane_stride, n_rows, n_lanes,
+// n_fold, out_off, seg_chunk]; per item its padded blocks' compacted
+// segment ids (-1 = identity) and its values lane-major, each lane
+// lane_stride words. Block b of an item starts at row b * block and holds
+// B = max(8, pow2(rows)) rows. A CTA folds seg_chunk segments (chosen so
+// that its (segment, lane) tasks fill its warps once) into out: every
+// item's packed [n_fold, 1 + 3L] table at out_off. The lane-0 task of a
+// segment writes its count too.
+__global__ void __launch_bounds__(FOLD_THREADS)
+fold_many_kernel(const int32_t* __restrict__ buf, int item_off, int block,
+                 float* __restrict__ out) {
+  __shared__ __align__(16) int s_seg[MAX_FOLD_ROWS];
+  __shared__ __align__(16) float s_val[FOLD_LANES_STAGED][MAX_FOLD_ROWS];
+  const int item = buf[2 * blockIdx.x];
+  const int seg_lo = buf[2 * blockIdx.x + 1];
+  const int32_t* d = buf + item_off + FOLD_ITEM_WORDS * item;
+  const int seg_off = d[0], val_off = d[1], lane_stride = d[2];
+  const int n_rows = d[3], L = d[4], n_fold = d[5], out_off = d[6];
+  const int W = 1 + 3 * L;
+  const int n_seg = min(d[7], n_fold - seg_lo);
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const float* vals = reinterpret_cast<const float*>(buf) + val_off;
+  for (int lo = 0; lo < n_rows; lo += block) {
+    const bool first = lo == 0;
+    const int m = min(block, n_rows - lo);
+    int B = 8;
+    while (B < m) B <<= 1;
+    for (int j0 = 0; j0 < L; j0 += FOLD_LANES_STAGED) {
+      const int nl = min(FOLD_LANES_STAGED, L - j0);
+      __syncthreads();                 // the last pass is done with smem
+      if (j0 == 0)
+        for (int c = threadIdx.x; c < B / 4; c += FOLD_THREADS)
+          cp_async16(&s_seg[4 * c], buf + seg_off + lo + 4 * c);
+      for (int c = threadIdx.x; c < nl * (B / 4); c += FOLD_THREADS) {
+        const int jj = c / (B / 4), r = 4 * (c % (B / 4));
+        cp_async16(&s_val[jj][r],
+                   vals + (int64_t)(j0 + jj) * lane_stride + lo + r);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      for (int task = warp; task < n_seg * nl; task += FOLD_WARPS) {
+        const int s = seg_lo + task / nl, jj = task % nl, j = j0 + jj;
+        const Fold4 f = block_tree(s_seg, s_val[jj], s, B, t);
+        if (t == 0) {
+          // out = first ? identity (+) f : out (+) f, the identity first
+          // as in combine_fold(empty_fold_state, ...): 0 + -0 is +0
+          float* row = out + out_off + s * W;
+          if (j == 0) row[0] = __fadd_rn(first ? 0.0f : row[0], f.c);
+          row[1 + j] = __fadd_rn(first ? 0.0f : row[1 + j], f.s);
+          row[1 + L + j] = np_min(first ? POS_INF : row[1 + L + j], f.mn);
+          row[1 + 2 * L + j] =
+              np_max(first ? NEG_INF : row[1 + 2 * L + j], f.mx);
+        }
+      }
+    }
+  }
+}
+
+// buf [n_words] i32 staged on the device (see fold_many_kernel): n_ctas
+// CTA descriptors from word 0, item descriptors at item_off; block a power
+// of two in [8, 2048] -> out [n_out] f32, every item's packed table.
+extern "C" int fold_segments_many_launch(const void* buf, int n_ctas,
+                                         int item_off, int block, void* out,
+                                         void* stream) {
+  if (n_ctas == 0) return 0;
+  if (block < 8 || block > MAX_FOLD_ROWS || (block & (block - 1)))
+    return (int)cudaErrorInvalidValue;
+  fold_many_kernel<<<n_ctas, FOLD_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)buf, item_off, block, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
 """Wrappers of the ``segment_kpi`` CUDA kernels (``csrc/segment_kpi.cu``):
 the fused fact build + per-unit rollup, the per-unit rollup of built facts
-(the warehouse's full rescan), the serving-view delta fold and the batched
-point-query gather.
+(the warehouse's full rescan), the serving views' delta fold of a whole
+fold cycle (``stage_fold`` lays its items out in one buffer,
+``fold_segments_many`` folds them in one launch, ``fold_tables`` splits
+the result) and the batched point-query gather.
 
 For CPU tensors each wrapper runs its plain version (``ref.py``); for
 CUDA tensors it launches its kernel on the current stream or raises.
@@ -11,22 +13,26 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels._build import (check, count_launch, on_cuda,
                                         raise_on)
 from repro_torch.kernels.segment_kpi.ref import (KPI_BLOCK, KPI_LANES,
-                                                 fold_segments_ref,
+                                                 fold_segments_many_ref,
                                                  gather_stats_ref,
                                                  segment_kpi_ref,
                                                  segment_rollup_ref)
 
 N_FACT = 10
-MAX_FOLD_ROWS = 2048  # the fold tree keeps 4 * B floats in shared memory
+MAX_FOLD_ROWS = 2048  # rows of one fold block: its ids and 4 lanes in smem
+FOLD_WARPS = 8        # warps of a fold CTA, one (segment, lane) task each
+FOLD_LANES_STAGED = 4  # value lanes a fold CTA holds in smem at once
+FOLD_ITEM_WORDS = 8   # int32 words of one item descriptor
 
-launches = {"segment_kpi": 0, "segment_rollup": 0, "fold_segments": 0,
+launches = {"segment_kpi": 0, "segment_rollup": 0, "fold_segments_many": 0,
             "gather_stats": 0}
 
 _P = ctypes.c_void_p
@@ -35,7 +41,7 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     "segment_kpi_launch": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     "segment_rollup_launch": [_P, _L, _I, _P, _P, _P],
-    "fold_segments_launch": [_P, _P, _I, _I, _I, _P, _P],
+    "fold_segments_many_launch": [_P, _I, _I, _I, _P, _P],
     "gather_stats_launch": [_P, _I, _P, _I, _P, _P],
 }
 
@@ -103,33 +109,116 @@ def segment_rollup(facts: torch.Tensor, n_units: int) -> torch.Tensor:
     return agg
 
 
-def fold_segments(seg: torch.Tensor, vals: torch.Tensor,
-                  n_segments: int) -> torch.Tensor:
-    """Serving-view delta fold of ONE power-of-two row block: seg [B] i64
-    (ids outside [0, n_segments) are the identity), vals [B, L] f32 ->
-    packed [n_segments, 1 + 3L] f32 (count | sums | mins | maxs), bitwise
-    the reference's halving tree."""
-    if not on_cuda(seg, "fold_segments"):
-        return fold_segments_ref(seg, vals, n_segments)
-    dev = seg.device
-    B = seg.shape[0]
-    if B < 1 or B & (B - 1) or B > MAX_FOLD_ROWS:
+def fold_bucket(rows: int) -> int:
+    """Rows a fold block of ``rows`` rows is padded to: a power of two,
+    at least 8 (the reference's ``_fold_blocks`` buckets)."""
+    return max(8, 1 << (rows - 1).bit_length())
+
+
+def fold_seg_chunk(n_lanes: int) -> int:
+    """Segments per fold CTA for an item of ``n_lanes`` lanes: as many as
+    fill the CTA's warps with (segment, lane) tasks in one round."""
+    return max(1, FOLD_WARPS // min(n_lanes, FOLD_LANES_STAGED))
+
+
+class FoldPlan(NamedTuple):
+    """Where ``stage_fold`` put a fold cycle's items in the staged int32
+    words, and where ``fold_segments_many`` writes their tables. ``items``
+    holds one descriptor per item, as the kernel reads it: (seg_off,
+    val_off, lane_stride, n_rows, n_lanes, n_fold, out_off, seg_chunk),
+    offsets in words of the staged buffer or floats of the output."""
+    block: int
+    items: Tuple[Tuple[int, ...], ...]
+    n_ctas: int         # CTA descriptors (item, first segment) from word 0
+    item_off: int
+    n_words: int
+    n_out: int
+
+
+def _align4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def stage_fold(items: Sequence[Tuple[np.ndarray, np.ndarray, int]],
+               block: int = MAX_FOLD_ROWS, pin: bool = False
+               ) -> Tuple[torch.Tensor, FoldPlan]:
+    """Lay a fold cycle's items out in one int32 host buffer (pinned with
+    ``pin``, for one non-blocking upload). Each item is (seg [n] int, vals
+    [n, L] f32, n_fold) with n >= 1 and n_fold >= 1; ids outside [0,
+    n_fold) add the identity. Its rows are cut into ``block``-row blocks,
+    the last padded to ``fold_bucket`` rows with id -1 and value 0. The
+    words are: per CTA (item, first segment) of each ``fold_seg_chunk``
+    segments; per item its descriptor; per item its padded ids, then its
+    values lane-major (each lane ``lane_stride`` words). Every region
+    starts on a 16-byte boundary."""
+    if block < 8 or block & (block - 1) or block > MAX_FOLD_ROWS:
         raise ValueError(f"fold block must be a power of two in "
-                         f"[1, {MAX_FOLD_ROWS}], got {B}")
-    check(seg, "seg", torch.int64, (B,), dev)
-    check(vals, "vals", torch.float32, (B, None), dev)
-    L = vals.shape[1]
-    if L < 1:
-        raise ValueError("vals needs at least one lane")
-    out = torch.empty((n_segments, 1 + 3 * L), dtype=torch.float32,
-                      device=dev)
-    if n_segments == 0:
+                         f"[8, {MAX_FOLD_ROWS}], got {block}")
+    ctas, descs = [], []
+    n_out = 0
+    for i, (seg, vals, n_fold) in enumerate(items):
+        n, L = vals.shape
+        if n < 1 or n_fold < 1 or L < 1 or len(seg) != n:
+            raise ValueError(f"fold item {i}: needs rows, lanes and "
+                             f"segments, got seg {len(seg)}, vals "
+                             f"{vals.shape}, n_fold {n_fold}")
+        full = (n - 1) // block * block
+        chunk = fold_seg_chunk(L)
+        descs.append([0, 0, full + fold_bucket(n - full), n, L, n_fold,
+                      n_out, chunk])
+        n_out += n_fold * (1 + 3 * L)
+        ctas += [(i, lo) for lo in range(0, n_fold, chunk)]
+    item_off = _align4(2 * len(ctas))
+    off = item_off + FOLD_ITEM_WORDS * len(descs)
+    for d in descs:
+        d[0], d[1] = off, off + d[2]           # ids, then lanes
+        off = d[1] + d[4] * d[2]
+    words = torch.zeros(off, dtype=torch.int32, pin_memory=pin)
+    w = words.numpy()
+    w[:2 * len(ctas)] = np.asarray(ctas, np.int32).reshape(-1)
+    w[item_off:item_off + FOLD_ITEM_WORDS * len(descs)] = np.asarray(
+        descs, np.int32).reshape(-1)
+    f = w.view(np.float32)
+    for (seg, vals, _), (seg_off, val_off, stride, n, L, *_) in zip(items,
+                                                                    descs):
+        w[seg_off:seg_off + n] = seg
+        w[seg_off + n:seg_off + stride] = -1
+        f[val_off:val_off + L * stride].reshape(L, stride)[:, :n] = vals.T
+    plan = FoldPlan(block, tuple(map(tuple, descs)), len(ctas), item_off, off,
+                    n_out)
+    return words, plan
+
+
+def fold_tables(flat, plan: FoldPlan) -> list:
+    """Split ``fold_segments_many``'s output (a tensor or a numpy array)
+    into each item's packed [n_fold, 1 + 3L] table (views)."""
+    return [flat[o:o + S * (1 + 3 * L)].reshape(S, 1 + 3 * L)
+            for _, _, _, _, L, S, o, _ in plan.items]
+
+
+def fold_segments_many(words: torch.Tensor, plan: FoldPlan) -> torch.Tensor:
+    """Serving-view delta fold of every item ``stage_fold`` laid out in
+    ``words`` (its [plan.n_words] i32 buffer, on the device): one launch
+    for all items and blocks. Returns [plan.n_out] f32, each item's packed
+    [n_fold, 1 + 3L] table (count | sums | mins | maxs; split with
+    ``fold_tables``), each block folded by the reference's halving tree
+    and the blocks combined in order from the identity: bitwise
+    ``fold_segments_many_ref``."""
+    if not on_cuda(words, "fold_segments_many"):
+        return fold_segments_many_ref(words, plan)
+    dev = words.device
+    check(words, "words", torch.int32, (plan.n_words,), dev)
+    if words.data_ptr() % 16:
+        raise ValueError("the staged fold words need 16-byte alignment")
+    out = torch.empty(plan.n_out, dtype=torch.float32, device=dev)
+    if plan.n_ctas == 0:
         return out
-    err = _fn("fold_segments_launch")(
-        seg.data_ptr(), vals.data_ptr(), B, L, n_segments, out.data_ptr(),
+    err = _fn("fold_segments_many_launch")(
+        words.data_ptr(), plan.n_ctas, plan.item_off, plan.block,
+        out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(err, "fold_segments")
-    count_launch(launches, "fold_segments")
+    raise_on(err, "fold_segments_many")
+    count_launch(launches, "fold_segments_many")
     return out
 
 
@@ -158,5 +247,7 @@ def gather_stats(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-__all__ = ["fold_segments", "gather_stats", "launches", "segment_kpi",
-           "segment_rollup"]
+__all__ = ["FoldPlan", "fold_bucket", "fold_seg_chunk",
+           "fold_segments_many", "fold_tables",
+           "gather_stats", "launches", "segment_kpi", "segment_rollup",
+           "stage_fold"]

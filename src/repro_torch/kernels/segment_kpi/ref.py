@@ -2,8 +2,8 @@
 the card checks them against and what the wrappers run for CPU tensors.
 
 Every elementwise op matches the reference's numpy oracle op for op
-(``repro.core.backend._kpi_facts_np``, ``_fold_tree_np``,
-``_gather_stats_np``): float32 throughout, and numpy's min/max semantics
+(``repro.core.backend._kpi_facts_np``, ``_fold_tree_np`` and
+``combine_fold``, ``_gather_stats_np``): float32 throughout, and numpy's min/max semantics
 (``np_minimum``/``np_maximum`` below), so facts, folds and gathers are
 bitwise the oracle's on the CPU."""
 from __future__ import annotations
@@ -139,6 +139,51 @@ def fold_segments_ref(seg: torch.Tensor, vals: torch.Tensor,
         mins = np_minimum(mins[:h], mins[h:])
         maxs = np_maximum(maxs[:h], maxs[h:])
     return torch.cat([cnt[0][:, None], sums[0], mins[0], maxs[0]], dim=1)
+
+
+def combine_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``combine_fold`` over packed [.., 1 + 3L] fold rows: counts and
+    sums added, mins and maxs by numpy's min/max, ``a`` the first operand
+    of each."""
+    L = (a.shape[-1] - 1) // 3
+    return torch.cat([
+        a[..., :1 + L] + b[..., :1 + L],
+        np_minimum(a[..., 1 + L:1 + 2 * L], b[..., 1 + L:1 + 2 * L]),
+        np_maximum(a[..., 1 + 2 * L:], b[..., 1 + 2 * L:])], dim=-1)
+
+
+def fold_identity(n_segments: int, n_lanes: int,
+                  like: torch.Tensor) -> torch.Tensor:
+    """The fold identity [n_segments, 1 + 3L] on ``like``'s device: count
+    and sums 0, mins +inf, maxs -inf."""
+    shape = (n_segments, n_lanes)
+    return torch.cat([
+        torch.zeros((n_segments, 1 + n_lanes), dtype=torch.float32,
+                    device=like.device),
+        torch.full(shape, float("inf"), dtype=torch.float32,
+                   device=like.device),
+        torch.full(shape, float("-inf"), dtype=torch.float32,
+                   device=like.device)], dim=1)
+
+
+def fold_segments_many_ref(words: torch.Tensor, plan) -> torch.Tensor:
+    """Plain version of ``ops.fold_segments_many``: for each item that
+    ``ops.stage_fold`` laid out in ``words`` (``plan`` its ``FoldPlan``),
+    ``fold_segments_ref`` of each padded block, combined in block order
+    from the identity, written at the item's output offset."""
+    vals = words.view(torch.float32)
+    out = torch.empty(plan.n_out, dtype=torch.float32, device=words.device)
+    for seg_off, val_off, stride, n, L, S, out_off, _chunk in plan.items:
+        lanes = vals[val_off:val_off + L * stride].view(L, stride)
+        acc = fold_identity(S, L, words)
+        for lo in range(0, n, plan.block):
+            m = min(plan.block, n - lo)
+            B = max(8, 1 << (m - 1).bit_length())
+            seg = words[seg_off + lo:seg_off + lo + B].to(torch.int64)
+            acc = combine_packed(acc, fold_segments_ref(
+                seg, lanes[:, lo:lo + B].t(), S))
+        out[out_off:out_off + S * (1 + 3 * L)] = acc.reshape(-1)
+    return out
 
 
 def gather_stats_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

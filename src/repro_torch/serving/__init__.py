@@ -6,7 +6,8 @@ paper's 'near real-time reports previously unavailable' claim is about).
             KPI rollups, top-N downtime, windowed production rates)
   engine  — ``MaterializedViewEngine``: folds warehouse fact deltas into
             per-view aggregate state via the compute backend's
-            ``fold_segments`` op; publishes immutable epochs
+            ``fold_segments_many`` op (one dispatch per fold cycle);
+            publishes immutable epochs
   server  — ``ReportServer``: O(n_segments) report queries with epoch +
             staleness stamps
   batch   — batched query plane: packed query plans answering thousands

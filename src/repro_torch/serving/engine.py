@@ -4,8 +4,9 @@ Write side: every warehouse load publishes its fact block as a
 ``FactDelta`` (``StarSchemaWarehouse.attach_serving`` wires the hook). The
 maintenance stage drains pending deltas in publication order and folds
 each one into every registered view's aggregate state through the compute
-backend's ``fold_segments`` op — one fused count/sum/min/max dispatch per
-(delta, view), O(delta) work, never O(history).
+backend's ``fold_segments_many`` op — one fused count/sum/min/max dispatch
+per fold cycle, covering every (delta, view) of the drain, O(delta) work,
+never O(history).
 
 Read side: **snapshot isolation via epoch publication.** View states are
 immutable once published: a fold cycle builds NEW state tables
@@ -30,7 +31,8 @@ response can stamp how old its data is right now.
 Determinism: folds replay bit-for-bit. Segment/value extraction is host
 numpy, the per-delta fold is the backend's deterministic halving tree
 (the numpy oracle and the torch backend's fold kernel produce
-bitwise-identical tables), and deltas are folded
+bitwise-identical tables; the kernel folds a cycle's items at once, but
+each item's table is what its own fold gives), and deltas are combined
 strictly in publication order with block boundaries fixed by delta
 length. Folds are segment-COMPACTED — the tree runs over only the
 delta's live segments and scatters into the packed table — which leaves
@@ -251,17 +253,22 @@ class MaterializedViewEngine:
                 tables = {name: st.table
                           for name, st in front.states.items()}
                 watermark = front.watermark_event_time
-                rows = 0
-                for d in deltas:
-                    valid = d.facts[:, 9] > 0.5
-                    vfacts = d.facts[valid]
-                    rows += len(d.facts)
-                    for spec in self.specs:
-                        fold = (self.backend.fold_segments_scan
-                                if self.scan_fold and spec.windowed
-                                else self.backend.fold_segments)
-                        agg = fold(spec.segments(vfacts),
-                                   spec.values(vfacts), spec.n_segments)
+                rows = sum(len(d.facts) for d in deltas)
+                valid = [d.facts[d.facts[:, 9] > 0.5] for d in deltas]
+                scan = [self.scan_fold and spec.windowed
+                        for spec in self.specs]
+                # every (delta, tree-folded view) of the drain in one
+                # backend call (one launch on a card), in the loop's order
+                aggs = iter(self.backend.fold_segments_many([
+                    (spec.segments(vf), spec.values(vf), spec.n_segments)
+                    for vf in valid
+                    for spec, sc in zip(self.specs, scan) if not sc]))
+                for d, vf in zip(deltas, valid):
+                    for spec, sc in zip(self.specs, scan):
+                        agg = (self.backend.fold_segments_scan(
+                                   spec.segments(vf), spec.values(vf),
+                                   spec.n_segments)
+                               if sc else next(aggs))
                         tables[spec.name] = combine_fold(
                             tables[spec.name], agg)
                     watermark = max(watermark,
@@ -312,35 +319,35 @@ class MaterializedViewEngine:
         shard.gauge_fn("serving_epoch", lambda: self._front.epoch)
 
     def prewarm(self) -> None:
-        """Compile the fold buckets a delta can hit (device backends jit
-        one kernel per (rows, tree-width, n_lanes) shape). Folds are
-        segment-compacted, so the tree width is
-        ``min(n_segments, pow2(n_active))`` — warm every row bucket at
-        full coverage (which sweeps the width ladder as the bucket grows)
-        plus the narrow widths at the largest bucket; a sparse delta shape
-        not warmed here compiles a smaller, cheaper tree on first hit.
-        Call before measuring or serving live traffic so steady-state
-        folds never stall behind compilation; a no-op for host
-        backends."""
+        """Warm the fold path before measuring or serving live traffic:
+        one ``fold_segments_many`` call over the shapes a delta can hit —
+        every row bucket at full coverage (which sweeps the compacted
+        width ladder as the bucket grows) plus the narrow widths at the
+        largest bucket — so the kernel library is built and loaded and the
+        pinned staging buffers are allocated before the first live fold
+        (the kernel itself takes any shape without recompiling). With
+        ``scan_fold`` the windowed views' scan-form fold is warmed too. A
+        no-op for host backends."""
         if not self.backend.device:
             return
         from repro_torch.core.backend import FOLD_BLOCK
-        shapes = {(s.n_segments, s.n_lanes) for s in self.specs}
-        for n_segments, n_lanes in shapes:
+        items = []
+        for n_segments, n_lanes in {(s.n_segments, s.n_lanes)
+                                    for s in self.specs}:
             m = 8
             while m <= FOLD_BLOCK:
                 # full coverage: n_active = min(m, n_segments)
-                self.backend.fold_segments(
-                    np.arange(m, dtype=np.int64) % n_segments,
-                    np.zeros((m, n_lanes), np.float32), n_segments)
+                items.append((np.arange(m, dtype=np.int64) % n_segments,
+                              np.zeros((m, n_lanes), np.float32),
+                              n_segments))
                 m *= 2
             width = 8
             while width < n_segments:      # sparse widths, largest bucket
-                self.backend.fold_segments(
-                    np.arange(FOLD_BLOCK, dtype=np.int64) % width,
-                    np.zeros((FOLD_BLOCK, n_lanes), np.float32),
-                    n_segments)
+                items.append((np.arange(FOLD_BLOCK, dtype=np.int64) % width,
+                              np.zeros((FOLD_BLOCK, n_lanes), np.float32),
+                              n_segments))
                 width *= 2
+        self.backend.fold_segments_many(items)
         if self.scan_fold:                 # scan-form fold, windowed views
             for spec in self.specs:
                 if not spec.windowed:

@@ -79,18 +79,112 @@ def test_segment_kpi(dev, n, units):
     assert _bits(agg) == _bits(ref_agg)
 
 
-@pytest.mark.parametrize("B", [8, 256, 2048])
-@pytest.mark.parametrize("S,L", [(20, 4), (60, 2), (32, 1)])
-def test_fold_segments_bitwise(dev, B, S, L):
-    rng = np.random.default_rng(B * S + L)
-    seg = np.where(rng.random(B) < 0.1, -1, rng.integers(0, S, B))
-    vals = rng.normal(size=(B, L)).astype(np.float32)
-    vals[rng.random((B, L)) < 0.1] = 0.0
-    vals[rng.random((B, L)) < 0.1] = -0.0
-    st = torch.tensor(seg, device=dev)
-    vt = torch.tensor(vals, device=dev)
-    assert _bits(sk_ops.fold_segments(st, vt, S)) == \
-        _bits(sk_ref.fold_segments_ref(st, vt, S))
+STEELWORKS_VIEWS = ((20, 4), (60, 4), (20, 2), (32, 2))   # (S, L) each
+
+
+def _fold_item(rng, n, S, L, special=None):
+    seg = np.where(rng.random(n) < 0.1, -1, rng.integers(0, S, n))
+    vals = rng.normal(size=(n, L)).astype(np.float32)
+    vals[rng.random((n, L)) < 0.1] = 0.0
+    vals[rng.random((n, L)) < 0.1] = -0.0
+    if special is not None:
+        vals[rng.random((n, L)) < 0.05] = special
+    return seg, vals, S
+
+
+def _fold_on_card(dev, items):
+    """The kernel and its plain version on the same staged words on the
+    card; the kernel launches once."""
+    words, plan = sk_ops.stage_fold(items)
+    wt = words.to(dev)
+    before = launch_counts()["fold_segments_many"]
+    got = sk_ops.fold_segments_many(wt, plan)
+    assert launch_counts()["fold_segments_many"] == before + 1
+    return got, sk_ref.fold_segments_many_ref(wt, plan)
+
+
+@pytest.mark.parametrize("B", [256, 1024, 2048])
+@pytest.mark.parametrize("deltas", [1, 3])
+def test_fold_segments_bitwise(dev, B, deltas):
+    """A fold cycle at the steelworks views' shapes: ``deltas`` deltas of
+    about B rows, each folded into the four views, in one launch."""
+    rng = np.random.default_rng(B * deltas)
+    items = [_fold_item(rng, int(rng.integers(B // 2 + 1, B + 1)), S, L)
+             for _ in range(deltas) for S, L in STEELWORKS_VIEWS]
+    got, want = _fold_on_card(dev, items)
+    assert _bits(got) == _bits(want)
+
+
+@pytest.mark.parametrize("shape", ["rows_1_to_64", "several_blocks",
+                                   "narrow", "nan", "inf", "lanes_5_to_9"])
+def test_fold_segments_many_edges(dev, shape):
+    """Edge shapes: every bucket below a warp (8, 16, 32 rows), items of
+    several blocks, fewer segments than a CTA's chunk, NaN-only and
+    +-inf-only lanes (the card's NaN bits are its own: kernel and plain
+    version both compute them there), more lanes than one staging pass."""
+    rng = np.random.default_rng(len(shape))
+    items = {
+        "rows_1_to_64": [_fold_item(rng, n, S, L) for n in (1, 7, 9, 16, 17,
+                                                            33, 64)
+                         for S, L in ((20, 4), (3, 1))],
+        "several_blocks": [_fold_item(rng, n, 60, 4)
+                           for n in (2049, 4096, 5000)],
+        "narrow": [_fold_item(rng, 100, S, 2) for S in (1, 2, 3, 5)],
+        "nan": [_fold_item(rng, 1000, S, L, np.nan)
+                for S, L in STEELWORKS_VIEWS],
+        "inf": [_fold_item(rng, 1000, S, L, np.inf)
+                for S, L in STEELWORKS_VIEWS],
+        "lanes_5_to_9": [_fold_item(rng, 700, 20, L) for L in (5, 8, 9)],
+    }[shape]
+    got, want = _fold_on_card(dev, items)
+    assert _bits(got) == _bits(want)
+
+
+def _open_table(rng, dev, n_slots, keys):
+    """(keys, vals, txn) on the card with ``keys`` placed by linear
+    probing from their lowbias32 home slot."""
+    from repro_torch.kernels.hash_join.ref import hash32
+    tk = np.full(n_slots, -1, np.int32)
+    tv = np.zeros((n_slots, 8), np.float32)
+    home = hash32(torch.tensor(keys, dtype=torch.int32)).numpy() % n_slots
+    for key, h in zip(keys, home):
+        for p in range(n_slots):
+            s = (h + p) % n_slots
+            if tk[s] == -1:
+                tk[s], tv[s] = key, rng.normal(size=8)
+                break
+    return (torch.tensor(tk, device=dev), torch.tensor(tv, device=dev),
+            torch.zeros(n_slots, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("eq_slots,eq_keys,q_slots,q_keys", [
+    (64, 20, 4096, 2000), (1024, 1000, 8192, 8000), (8, 8, 12, 5),
+    (16, 3, 16, 16)])
+def test_hash_join_pair_bitwise(dev, eq_slots, eq_keys, q_slots, q_keys):
+    """Both probes of a transform against the plain version's sequence:
+    hits, misses, fractional and negative keys, -1 pad rows, chains that
+    wrap at the table end, tables under 16 slots, full tables."""
+    rng = np.random.default_rng(eq_slots + q_keys)
+    ek = rng.choice(10**6, eq_keys, replace=False).astype(np.int32)
+    qk = rng.choice(10**6, q_keys, replace=False).astype(np.int32)
+    eq_t, q_t = _open_table(rng, dev, eq_slots, ek), \
+        _open_table(rng, dev, q_slots, qk)
+    n = 1024
+    prod = rng.normal(size=(n, 8)).astype(np.float32)
+    prod[:, 1] = rng.choice(ek, n)
+    prod[:, 0] = rng.choice(qk, n)
+    prod[rng.random(n) < 0.2, 1] = 2.5e6
+    prod[rng.random(n) < 0.2, 0] = -3.0e6
+    prod[rng.random(n) < 0.1, 1] += 0.75
+    prod[:4, 0] = [-0.5, -1.0, -2.0, 0.9]
+    prod[-64:] = -1.0
+    pt = torch.tensor(prod, device=dev)
+    before = launch_counts()["hash_join_pair"]
+    got = hj_ops.hash_join_pair(pt, eq_t, q_t)
+    assert launch_counts()["hash_join_pair"] == before + 1
+    want = hj_ops.hash_join_pair_ref(pt, eq_t, q_t)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and _bits(g) == _bits(w)
 
 
 @pytest.mark.parametrize("n", [1, 512, 4096])
@@ -111,9 +205,14 @@ def test_wrappers_check_their_inputs(dev):
     q = torch.zeros(4, dtype=torch.int64, device=dev)          # not int32
     with pytest.raises(TypeError):
         hj_ops.hash_join(q, keys, vals, keys)
-    seg = torch.zeros(12, dtype=torch.int64, device=dev)       # not pow2
-    with pytest.raises(ValueError):
-        sk_ops.fold_segments(seg, torch.zeros((12, 2), device=dev), 4)
+    words, plan = sk_ops.stage_fold([(np.zeros(12, np.int64),
+                                      np.zeros((12, 2), np.float32), 4)])
+    with pytest.raises(ValueError):                           # not its plan
+        sk_ops.fold_segments_many(words[:-4].to(dev), plan)
+    with pytest.raises(TypeError):                            # int prod
+        hj_ops.hash_join_pair(torch.zeros((4, 8), dtype=torch.int32,
+                                          device=dev),
+                              (keys, vals, keys), (keys, vals, keys))
     with pytest.raises(ValueError):                           # mixed devices
         sk_ops.segment_kpi(torch.zeros((4, 8), device=dev),
                            torch.zeros((4, 8)), torch.zeros((4, 8)),
@@ -132,6 +231,13 @@ def test_backend_ops_on_card_match_cpu(dev):
     for op in ("fold_segments", "fold_segments_scan"):
         assert getattr(gpu, op)(seg, vals, 37).tobytes() == \
             getattr(cpu, op)(seg, vals, 37).tobytes()
+    items = [(seg[:n], vals[:n, :L], S)
+             for n, S, L in ((3000, 37, 3), (0, 5, 1), (100, 60, 2))]
+    gpu.reset_stats()
+    many = gpu.fold_segments_many(items)
+    assert (gpu.op_dispatches, gpu.host_syncs) == (1, 1)
+    for a, b in zip(many, cpu.fold_segments_many(items)):
+        assert a.tobytes() == b.tobytes()
     table = cpu.fold_segments(seg, vals, 37)
     assert gpu.prefix_fold(table).tobytes() == cpu.prefix_fold(table).tobytes()
 
@@ -295,8 +401,9 @@ def test_each_worker_has_its_own_stream(dev):
 
 def test_cluster_launch_counts_match_transforms(dev):
     """The launch counters are exact under concurrent stage threads: one
-    segment_kpi launch and two hash_join launches per transform_block
-    call the workers made (join_depth 1, no poison records)."""
+    segment_kpi launch and one hash_join_pair launch per transform_block
+    call the workers made, and no single-table probe (join_depth 1, no
+    poison records)."""
     from repro_torch.runtime.cluster import ConcurrentCluster
     _, _, pipe = _cluster_pipe("cuda")
     lock = threading.Lock()
@@ -319,7 +426,8 @@ def test_cluster_launch_counts_match_transforms(dev):
     counts = launch_counts()
     assert calls[0] > 20
     assert counts["segment_kpi"] == calls[0]
-    assert counts["hash_join"] == 2 * calls[0]
+    assert counts["hash_join_pair"] == calls[0]
+    assert counts["hash_join"] == 0
 
 
 def _wait_for(predicate, timeout=60.0):

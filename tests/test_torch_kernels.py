@@ -130,21 +130,33 @@ def test_fold_segments_bitwise_vs_numpy(n, S, L, nan):
     assert be.fold_segments_scan(seg, vals, S).tobytes() == want.tobytes()
 
 
+def _fold_one(seg, vals, S):
+    """One item through the fold kernel's wrapper (staged as a card run
+    stages it; on the CPU the plain version runs)."""
+    words, plan = sk_ops.stage_fold([(seg, vals, S)])
+    return sk_ops.fold_tables(sk_ops.fold_segments_many(words, plan),
+                              plan)[0].numpy()
+
+
 @pytest.mark.parametrize("B,S,L", [(8, 5, 1), (256, 20, 4), (2048, 60, 2)])
 def test_fold_kernel_block_bitwise_vs_tree(B, S, L):
     """One padded power-of-two block, the kernel wrapper's contract:
-    bitwise ``_fold_tree_np`` (signed zeros and NaN included)."""
+    bitwise ``_fold_tree_np`` combined into the identity, as the
+    reference's ``_fold_blocks`` combines it (signed zeros and NaN
+    included)."""
     seg, vals = _fold_inputs(np.random.default_rng(B), B, S, L, nan=True)
     seg = np.where(seg < S, seg, -1)
-    got = sk_ops.fold_segments(_t(seg), _t(vals), S).numpy()
-    assert got.tobytes() == ref_backend._fold_tree_np(seg, vals, S).tobytes()
+    got = _fold_one(seg, vals, S)
+    want = ref_backend.combine_fold(ref_backend.empty_fold_state(S, L),
+                                    ref_backend._fold_tree_np(seg, vals, S))
+    assert got.tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("n,S,L", [(256, 8, 2), (512, 20, 4)])
 def test_fold_kernel_vs_pallas(n, S, L):
     seg, vals = _fold_inputs(np.random.default_rng(7), n, S, L, nan=False)
     seg = np.where(seg < S, seg, -1)
-    got = sk_ops.fold_segments(_t(seg), _t(vals), S).numpy()
+    got = _fold_one(seg, vals, S)
     packed = np.concatenate([seg[:, None].astype(np.float32), vals], axis=1)
     want = np.asarray(pallas_fold(jnp.asarray(packed), n_segments=S))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""Paired, interleaved runs of the ETL main path on one NVIDIA card: two
+checkouts of the repository (say, a change and its parent) measured in
+turns inside one machine, so their difference is not the difference
+between two cards or two hosts.
+
+    python3 tools/etl_paired.py --tree parent=DIR --tree change=DIR \\
+        --order parent,change,change,parent,parent,change \\
+        --out build/etl_paired.json
+
+Each entry of ``--order`` is one fresh process that imports that tree's
+own ``chip_smoke.py`` and ``src/repro_torch`` (so each tree runs its own
+code and builds its own kernels, into its own ``build/``), warms the path
+up once, then measures:
+
+- phase 3: the sequential steelworks loop (20,000 records per table, 5
+  workers, the four views, 200 records per partition per step) —
+  records/s of streaming, backend dispatches and host syncs, launches
+  per kernel;
+- phase 5a: the concurrent cluster on the pre-extracted stream —
+  records/s, freshness and report staleness p50/p95, the ``serving.fold``
+  and ``transform.dispatch`` spans (count, summed thread-seconds),
+  launches per kernel.
+
+Every run prints one JSON line; the parent process prints and writes the
+per-tree medians, with the card's name and power limit. Exits non-zero
+without CUDA.
+"""
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+NUMERIC = ("seq_records_s", "seq_dispatches", "seq_host_syncs",
+           "clu_records_s", "clu_fresh_p50_ms", "clu_fresh_p95_ms",
+           "clu_stale_p50_ms", "clu_stale_p95_ms", "clu_fold_spans",
+           "clu_fold_s", "clu_transform_s", "clu_fold_launches",
+           "clu_probe_launches", "seq_fold_launches", "seq_probe_launches")
+FOLD = ("fold_segments", "fold_segments_many")
+PROBE = ("hash_join", "hash_join_pair")
+
+
+def one_run(tree: Path) -> dict:
+    """Measure phases 3 and 5a of ``tree`` in this process."""
+    sys.path.insert(0, str(tree))
+    import chip_smoke as cs            # the tree's own script and package
+    card = cs.phase_card()
+    from repro_torch.core.backend import get_backend
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    cs.run_main_path("cuda")           # warm-up: libraries, caches, pools
+    reset_launch_counts()
+    get_backend("torch", device="cuda").reset_stats()   # one per device
+    pipe, _, _, secs = cs.run_main_path("cuda")
+    seq = launch_counts()
+    out = {"tree": str(tree), "card": card,
+           "seq_records_s": pipe.warehouse.rows_loaded / secs,
+           "seq_dispatches": pipe.backend.op_dispatches,
+           "seq_host_syncs": pipe.backend.host_syncs,
+           "seq_fold_launches": sum(seq.get(k, 0) for k in FOLD),
+           "seq_probe_launches": sum(seq.get(k, 0) for k in PROBE),
+           "seq_launches": seq}
+    cs.run_cluster_pre_extracted()     # warm-up of the cluster path
+    reset_launch_counts()
+    pipe, _, rep, _, _, spans = cs.run_cluster_pre_extracted()
+    clu = launch_counts()
+    per = spans["per_name"]
+    out.update({
+        "clu_records_s": rep["records_s"],
+        "clu_fresh_p50_ms": rep["p50_ms"], "clu_fresh_p95_ms": rep["p95_ms"],
+        "clu_stale_p50_ms": rep["serving"]["staleness_p50_ms"],
+        "clu_stale_p95_ms": rep["serving"]["staleness_p95_ms"],
+        "clu_fold_spans": per.get("serving.fold", (0, 0.0))[0],
+        "clu_fold_s": per.get("serving.fold", (0, 0.0))[1],
+        "clu_transform_s": per.get("transform.dispatch", (0, 0.0))[1],
+        "clu_fold_launches": sum(clu.get(k, 0) for k in FOLD),
+        "clu_probe_launches": sum(clu.get(k, 0) for k in PROBE),
+        "clu_launches": clu})
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", action="append", default=[],
+                    help="label=DIR of a checkout (repeat)")
+    ap.add_argument("--order", help="comma-separated labels, one run each")
+    ap.add_argument("--out", default="build/etl_paired.json")
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        print("RUN " + json.dumps(one_run(Path(args.one).resolve())))
+        return
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("etl_paired: needs a CUDA card")
+    trees = dict(t.split("=", 1) for t in args.tree)
+    runs = []
+    for label in args.order.split(","):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, __file__, "--one",
+                               trees[label]], capture_output=True, text=True,
+                              timeout=900)
+        line = [l for l in proc.stdout.splitlines() if l.startswith("RUN ")]
+        if proc.returncode or not line:
+            sys.exit(f"etl_paired: the {label} run failed:\n"
+                     f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        run = {"label": label, **json.loads(line[-1][4:]),
+               "process_s": time.perf_counter() - t0}
+        runs.append(run)
+        print(json.dumps({k: run[k] for k in ("label", "card", *NUMERIC)}),
+              flush=True)
+    medians = {label: {k: statistics.median(r[k] for r in runs
+                                            if r["label"] == label)
+                       for k in NUMERIC}
+               for label in dict.fromkeys(args.order.split(","))}
+    result = {"card": runs[0]["card"], "order": args.order,
+              "medians": medians, "runs": runs}
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps({"card": result["card"], "medians": medians}))
+
+
+if __name__ == "__main__":
+    main()
