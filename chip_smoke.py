@@ -8,16 +8,23 @@ Phases, each fatal on failure (no fallback to the CPU):
 1. card: name and power limit (nvidia-smi); build the CUDA kernels from
    the checkout's sources (nvcc, one process per source) and time it;
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the main path's shapes — hash_join, hash_join_pair (both
-   cache probes of a transform), fold_segments_many (a whole fold cycle:
-   every delta x view item, at the steelworks views' shapes and at edge
-   shapes) and gather_stats bitwise, segment_kpi facts within 1e-5 and
-   its rollup within 1e-4 — with each kernel's device time and its plain
-   version's
+   the card, at the main path's shapes, bitwise — hash_join,
+   hash_join_pair (both cache probes of a transform; no path launches it
+   since the transform runs them fused), transform_kpi (the whole
+   transform in one launch: both probes, facts, rollup; NaN, +-inf and
+   +-3e9 keys, pad rows, misses, wrapping chains, 1-8 blocks, 20 and 1000
+   units), segment_kpi (the same kernel fed joined rows, 1-8 blocks, 20
+   and 1000 units), fold_segments_many (a whole fold
+   cycle: every delta x view item, at the steelworks views' shapes and at
+   edge shapes) and gather_stats — with each kernel's device time and its
+   plain version's
    (calls captured in a CUDA graph, replays timed with CUDA events), the
    wrapper's host-issued time per call, and the kernel's bound (the larger
    of the bytes this run's inputs need / 3.35 TB/s and fp32 operations /
-   67 TFLOP/s, an H100 SXM's published peaks);
+   67 TFLOP/s, an H100 SXM's published peaks); then the host-to-device
+   uploads under ``torch.profiler``: a pageable ``torch.tensor(...,
+   device="cuda")`` against ``backend.upload`` (pinned, non-blocking) and
+   the transform, each with its count of stream synchronisations;
 3. main path: the paper's steelworks deployment (20 partitions, 20 units,
    5 workers, 20,000 records per table) through ``DODETLPipeline`` with
    the serving views attached, micro-batches of 200 records per partition
@@ -25,9 +32,10 @@ Phases, each fatal on failure (no fallback to the CPU):
    run on the card and again on the CPU (plain versions), the results
    held against each other;
 4. launch counts: every kernel of the main path must have launched on
-   it (backend dispatches and host syncs printed); both probes are
-   checked bitwise once more on the main path's own caches, at the slot
-   counts they reached; the main path once more under ``torch.profiler``
+   it (backend dispatches and host syncs printed); the probes and the
+   fused transform are checked bitwise once more on the main path's own
+   caches, at the slot counts they reached; the main path once more
+   under ``torch.profiler``
    (the card's busy share); then the example's ISA-95 complex model
    (2,000 records, join depth 8: the single-table hash_join's path, its
    flattened hop probe) on the card and on the CPU, facts byte-identical;
@@ -42,10 +50,14 @@ Phases, each fatal on failure (no fallback to the CPU):
    then scaled to 4: nothing lost, no buffer drop, identity columns equal
    to the sequential run's. Records/s, freshness and report staleness
    p50/p95, and the card's busy share of a profiled run of (a);
-6. segment_rollup against its plain version, bitwise, on the cluster's
-   own fact table and on a 2^20-row table from the seed with invalid,
-   out-of-range, negative and fractional units; its device time, issue
-   time, bound and ``index_add_``'s time over the pre-masked KPI lanes;
+6. segment_rollup against its plain version, bitwise, at 1, 255 and 257
+   rows (16-byte aligned and not), on the cluster's own fact table
+   (20,000 facts), on 20,000 rows over 1000 units, and on a 2^20-row
+   table from the seed with invalid,
+   out-of-range, negative, fractional and NaN units, spread over the
+   units and sorted by unit; its device time at both sizes and sorted,
+   the issue time, the bound, ``index_add_``'s time over the pre-masked
+   KPI lanes, and its two kernels' device times under the profiler;
 7. durability on the card: the cluster journaling to a checkpoint
    directory, crashed at ``commit.post``, recovered with
    ``recover_pipeline(device="cuda")`` and run to the end — facts
@@ -102,10 +114,15 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12            # H100 SXM, outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
 N_UNITS = 20
+MANY_UNITS = 1000                  # the KPI kernels' rollup: 4 unit chunks
 # the ETL kernels of the cluster path (the ETL main path); the
 # single-table hash_join runs on the complex model's path (COMPLEX_PATH)
-ETL_KERNELS = ("hash_join_pair", "segment_kpi", "fold_segments_many",
-               "gather_stats", "segment_rollup")
+ETL_KERNELS = ("transform_kpi", "fold_segments_many", "gather_stats",
+               "segment_rollup")
+# units of the port that no path launches: the transform runs both probes
+# and the KPI kernel fused in transform_kpi; they are still held against
+# their plain versions and timed
+OFF_PATH = ("hash_join_pair", "segment_kpi")
 COMPLEX_PATH = "complex_join8"
 
 
@@ -387,12 +404,12 @@ def check_main_path_caches(pipe, rng) -> None:
                               *tbl.device_state(),
                               f"{w.name} {name} cache, {tbl.n_slots} slots")
             sizes.append(f"{w.name}.{name} {tbl.n_rows}/{tbl.n_slots}")
-        hash_join_pair_bitwise(
-            pair_rows(rng, live["equipment"], live["quality"], 1024),
-            w.equipment.device_state(), w.quality.device_state(),
-            f"{w.name}'s caches")
-    print("hash_join and hash_join_pair on the main path's caches "
-          "(rows/slots): bitwise equal for " + ", ".join(sizes))
+        prod = pair_rows(rng, live["equipment"], live["quality"], 1024)
+        for check in (hash_join_pair_bitwise, transform_kpi_bitwise):
+            check(prod, w.equipment.device_state(), w.quality.device_state(),
+                  f"{w.name}'s caches")
+    print("hash_join, hash_join_pair and transform_kpi on the main path's "
+          "caches (rows/slots): bitwise equal for " + ", ".join(sizes))
 
 
 def kpi_inputs(rng, n, units):
@@ -412,28 +429,190 @@ def kpi_inputs(rng, n, units):
 
 
 def check_segment_kpi(rng, dev):
+    """The KPI kernel fed joined rows (one launch: facts, block rollup,
+    the last CTA's block sum), bitwise at 1 to 8 blocks; timed at the
+    main path's 1024 rows."""
     import torch
     from repro_torch.kernels.segment_kpi.ops import segment_kpi
     from repro_torch.kernels.segment_kpi.ref import segment_kpi_ref
+    for n in (200, 256, 512, 1000, 1024, 2048):
+        prod, eq, qr = (torch.tensor(a, device=dev)
+                        for a in kpi_inputs(rng, n, N_UNITS))
+        got = segment_kpi(prod, eq, qr, n_units=N_UNITS)
+        want = segment_kpi_ref(prod, eq, qr, N_UNITS)
+        torch.cuda.synchronize()
+        for g, w, out in zip(got, want, ("facts", "rollup")):
+            if not same_bits(g, w):
+                fail(f"segment_kpi {out} differs from the plain version "
+                     f"(N={n})")
+    for n in (1000, 2048):
+        prod, eq, qr = (torch.tensor(a, device=dev)
+                        for a in kpi_inputs(rng, n, MANY_UNITS))
+        got = segment_kpi(prod, eq, qr, n_units=MANY_UNITS)
+        want = segment_kpi_ref(prod, eq, qr, MANY_UNITS)
+        torch.cuda.synchronize()
+        if not all(same_bits(g, w) for g, w in zip(got, want)):
+            fail(f"segment_kpi differs from the plain version (N={n}, "
+                 f"{MANY_UNITS} units)")
+    print(f"segment_kpi N in {{200, 256, 512, 1000, 1024, 2048}} (1-8 "
+          f"blocks), units={N_UNITS}, and N in {{1000, 2048}}, "
+          f"units={MANY_UNITS}: facts and rollup bitwise equal")
     n = 1024
     prod, eq, qr = (torch.tensor(a, device=dev)
                     for a in kpi_inputs(rng, n, N_UNITS))
-    f_k, a_k = segment_kpi(prod, eq, qr, n_units=N_UNITS)
-    f_r, a_r = segment_kpi_ref(prod, eq, qr, N_UNITS)
-    f_err = float((f_k - f_r).abs().max())
-    a_err = float((a_k - a_r).abs().max())
-    if not f_err <= 1e-5 or not a_err <= 1e-4:
-        fail(f"segment_kpi facts err {f_err} (tol 1e-5), rollup err "
-             f"{a_err} (tol 1e-4)")
-    print(f"segment_kpi N={n} units={N_UNITS}: facts max err {f_err:.3g} "
-          f"(tol 1e-5, bitwise {same_bits(f_k, f_r)}), rollup max err "
-          f"{a_err:.3g} (tol 1e-4, bitwise {same_bits(a_k, a_r)})")
     n_bytes = 3 * n * 32 + n * 40 + N_UNITS * 5 * 4
     b_ms, b_by = bound(n_bytes, 30 * n)
-    return {"name": "segment_kpi", "max_abs_err": max(f_err, a_err),
+    return {"name": "segment_kpi", "max_abs_err": 0.0,
             **timings(lambda: segment_kpi(prod, eq, qr, n_units=N_UNITS),
                       lambda: segment_kpi_ref(prod, eq, qr, N_UNITS)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+SPECIAL_KEYS = (float("nan"), float("inf"), float("-inf"), 3e9, -3e9)
+
+
+def special_caches(rng, dev, slots, n_keys, key_hi: int = 10**6):
+    """Two master caches (equipment, quality) of ``slots`` slots holding
+    ``n_keys`` keys each, 0, INT32_MAX and INT32_MIN among them (the casts
+    of NaN, +inf and -inf / +-3e9 keys), the rest drawn from [1,
+    ``key_hi``). Returns (tables, keys)."""
+    import numpy as np
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.cache import InMemoryTable
+    be = get_backend("torch", device=dev)
+    tables, keys = [], []
+    for S, n_k in zip(slots, n_keys):
+        tbl = InMemoryTable(S, backend=be)
+        k = np.concatenate([[0, 2**31 - 1, -2**31], rng.choice(
+            np.arange(1, key_hi), n_k - 3, replace=False)]).astype(np.int64)
+        tbl.upsert(k, np.abs(rng.normal(size=(n_k, 8))).astype(np.float32),
+                   rng.integers(0, 10**6, n_k))
+        tables.append(tbl)
+        keys.append(k)
+    return tables, keys
+
+
+def transform_rows(rng, eq_keys, q_keys, n):
+    """``pair_rows`` with the special keys in both key columns."""
+    import numpy as np
+    prod = pair_rows(rng, eq_keys, q_keys, n)
+    k = len(SPECIAL_KEYS)
+    prod[:k, 1] = np.float32(SPECIAL_KEYS)
+    prod[k:2 * k, 0] = np.float32(SPECIAL_KEYS)
+    return prod
+
+
+def transform_kpi_bitwise(prod, eq_state, q_state, what: str,
+                          n_units: int = N_UNITS):
+    import torch
+    from repro_torch.kernels.segment_kpi.ops import transform_kpi
+    from repro_torch.kernels.segment_kpi.ref import transform_kpi_ref
+    pt = torch.tensor(prod, device=eq_state[0].device)
+    want = transform_kpi_ref(pt, eq_state, q_state, n_units)
+    got = transform_kpi(pt, eq_state, q_state, n_units=n_units)
+    torch.cuda.synchronize()
+    for g, w, out in zip(got, want, ("facts", "found", "agg")):
+        if not same_bits(g, w):
+            fail(f"transform_kpi {out} differs from the plain version "
+                 f"({what})")
+    return pt, want
+
+
+def check_transform_kpi(rng, dev):
+    """The whole transform in one launch at the main path's shape (a
+    1024-row padded block against two 4096-slot caches of 20 and 2,000
+    keys), at 1-8 blocks against full caches of 8 and 12 slots (every
+    chain wraps), and over MANY_UNITS units (the rollup's unit chunks),
+    with NaN, +-inf and +-3e9 keys, pad rows and misses, bitwise."""
+    import numpy as np
+    from repro_torch.kernels.segment_kpi.ops import transform_kpi
+    from repro_torch.kernels.segment_kpi.ref import transform_kpi_ref
+    for n in (256, 512, 1024, 2048):
+        tables, keys = special_caches(rng, dev, (8, 12), (8, 12))
+        transform_kpi_bitwise(transform_rows(rng, *keys, n),
+                              *(t.device_state() for t in tables),
+                              f"N={n}, full 8- and 12-slot caches")
+    S, n = 4096, 1024
+    tables, keys = special_caches(rng, dev, (S, S), (2000, 2000),
+                                  key_hi=2 * MANY_UNITS)
+    _, want = transform_kpi_bitwise(transform_rows(rng, *keys, n),
+                                    *(t.device_state() for t in tables),
+                                    f"{MANY_UNITS} units", MANY_UNITS)
+    many_counted = int(want[2][:, 4].sum())
+    tables, keys = special_caches(rng, dev, (S, S), (N_UNITS, 2000))
+    eq_state, q_state = (t.device_state() for t in tables)
+    prod = transform_rows(rng, *keys, n)
+    pt, want = transform_kpi_bitwise(prod, eq_state, q_state,
+                                     f"{S}-slot caches")
+    print(f"transform_kpi: bitwise equal at N in {{256, 512, 1024, 2048}} "
+          f"against full 8- and 12-slot caches and at N={n} (last "
+          f"{n // 8} pad rows) against {N_UNITS}- and 2000-key caches of "
+          f"{S} slots, NaN/+-inf/+-3e9 keys included (found rate "
+          f"{float(want[1].float().mean()):.3f}), and over {MANY_UNITS} "
+          f"units ({many_counted} rows counted)")
+    n_bytes = n * 32 + n * (40 + 1) + N_UNITS * 5 * 4
+    for tbl, col in zip(tables, (1, 0)):
+        q = np.nan_to_num(prod[:, col], nan=0.0).clip(-2**31, 2**31 - 1)
+        n_vis, n_hit = probe_footprint(q.astype(np.int64).astype(np.int32),
+                                       tbl.keys)
+        n_bytes += 4 * n_vis + 32 * n_hit
+    b_ms, b_by = bound(n_bytes, 30 * n)
+    print(f"  transform_kpi at N={n}: {n_bytes} B to move")
+    return {"name": "transform_kpi", "max_abs_err": 0.0,
+            **timings(lambda: transform_kpi(pt, eq_state, q_state,
+                                            n_units=N_UNITS),
+                      lambda: transform_kpi_ref(pt, eq_state, q_state,
+                                                N_UNITS)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def count_syncs(label: str, run, card: str) -> None:
+    """Run ``run()`` under ``torch.profiler`` and print how many CUDA
+    runtime calls of each kind it made: stream, event and device
+    synchronisations, async copies and kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+    kinds = ("cudaStreamSynchronize", "cudaEventSynchronize",
+             "cudaDeviceSynchronize", "cudaMemcpyAsync", "cudaLaunchKernel")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    counts = {k: 0 for k in kinds}
+    for e in prof.events():
+        if e.name in counts:
+            counts[e.name] += 1
+    if not any(counts.values()):
+        print(f"  {label}: CUDA runtime calls not measured (the profiler "
+              f"recorded none) [{card}]")
+        return
+    print(f"  {label}: " + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + f" [{card}]")
+
+
+def check_uploads(rng, dev, card: str) -> None:
+    """Whether a host-to-device upload waits for the stream: 20 uploads of
+    a transform's padded 1024-row payload as a pageable ``torch.tensor(...,
+    device="cuda")`` and through ``backend.upload``, then 20 transforms
+    through ``TorchBackend.transform_block`` (payload upload and one
+    launch each; the caches' mirrors are current)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.backend import get_backend, upload
+    arr = np.abs(rng.normal(size=(1024, 8))).astype(np.float32)
+    tables, keys = special_caches(rng, dev, (4096, 4096), (N_UNITS, 2000))
+    prod = pair_rows(rng, *keys, 1000)
+    be = get_backend("torch", device=dev)
+    be.transform_block(prod, *tables, n_units=N_UNITS).to_host()
+    torch.cuda.synchronize()
+    print("host-to-device uploads under the profiler (20 calls each):")
+    count_syncs("pageable torch.tensor(payload, device='cuda')",
+                lambda: [torch.tensor(arr, device=dev) for _ in range(20)],
+                card)
+    count_syncs("backend.upload(payload) (pinned, non-blocking)",
+                lambda: [upload(arr, dev) for _ in range(20)], card)
+    count_syncs("TorchBackend.transform_block (no to_host)",
+                lambda: [be.transform_block(prod, *tables, n_units=N_UNITS)
+                         for _ in range(20)], card)
+    torch.cuda.synchronize()
 
 
 STEELWORKS_VIEWS = ((20, 4), (60, 4), (20, 2), (32, 2))   # (S, L) each
@@ -899,12 +1078,13 @@ def run_cluster_live(gpu, card: str) -> None:
 # ------------------------------------------------------------------ phase 6
 def rescan_table(rng, n: int, n_units: int):
     """``n`` fact rows from the seed: units in [-3, n_units + 3) with
-    fractional parts (some truncate into range, some out of it), 20%
-    invalid rows, finite KPI lanes in [0, 1)."""
+    fractional parts (some truncate into range, some out of it), 1% NaN,
+    20% invalid rows, finite KPI lanes in [0, 1)."""
     import numpy as np
     f = rng.random((n, 10), dtype=np.float32)
     f[:, 0] = (rng.integers(-3, n_units + 3, n)
                + rng.choice(np.float32([0.0, 0.25, -0.5, 0.75]), n))
+    f[rng.random(n) < 0.01, 0] = np.nan
     f[:, 9] = (rng.random(n) > 0.2).astype(np.float32)
     return f
 
@@ -913,29 +1093,41 @@ def rollup_bitwise(t, n_units: int, what: str):
     import torch
     from repro_torch.kernels.segment_kpi.ops import segment_rollup
     from repro_torch.kernels.segment_kpi.ref import segment_rollup_ref
-    got = segment_rollup(t, n_units)
     want = segment_rollup_ref(t, n_units)
+    got = segment_rollup(t, n_units)
     torch.cuda.synchronize()
     if not same_bits(got, want):
         fail(f"segment_rollup differs from the plain version ({what})")
-    return got
+    return want
 
 
-def check_segment_rollup(rng, dev, pipe) -> dict:
+def check_segment_rollup(rng, dev, pipe, card: str) -> dict:
     import torch
     from repro_torch.kernels.segment_kpi.ops import segment_rollup
     from repro_torch.kernels.segment_kpi.ref import segment_rollup_ref
+    for n in (1, 255, 257):
+        t = torch.tensor(rescan_table(rng, n + 1, N_UNITS), device=dev)
+        for view, where in ((t[:n], "16-byte aligned"),
+                            (t[1:], "40 bytes in")):
+            rollup_bitwise(view, N_UNITS, f"{n} rows, {where}")
     warehouse = torch.tensor(pipe.warehouse.fact_table(), device=dev)
     rollup_bitwise(warehouse, N_UNITS, f"the cluster's "
                    f"{warehouse.shape[0]} facts")
+    many = torch.tensor(rescan_table(rng, 20_000, MANY_UNITS), device=dev)
+    rollup_bitwise(many, MANY_UNITS, f"20000 rows, {MANY_UNITS} units")
     n = 1 << 20
     big = torch.tensor(rescan_table(rng, n, N_UNITS), device=dev)
     agg = rollup_bitwise(big, N_UNITS, f"{n} rows")
-    print(f"segment_rollup: bitwise equal to the plain version on the "
-          f"cluster's {warehouse.shape[0]} facts and on {n} seeded rows "
-          f"({int(agg[:, 4].sum())} counted)")
+    clustered = big[big[:, 0].argsort()].contiguous()
+    rollup_bitwise(clustered, N_UNITS, f"{n} rows sorted by unit")
+    print(f"segment_rollup: bitwise equal to the plain version at 1, 255 "
+          f"and 257 rows (aligned and 40 bytes in), on the cluster's "
+          f"{warehouse.shape[0]} facts, on 20000 rows over {MANY_UNITS} "
+          f"units and on {n} seeded rows, spread over units and sorted by "
+          f"unit ({int(agg[:, 4].sum())} counted)")
     unit = big[:, 0].to(torch.int64)
-    keep = (big[:, 9] > 0.5) & (unit >= 0) & (unit < N_UNITS)
+    keep = ((big[:, 9] > 0.5) & ~torch.isnan(big[:, 0]) & (unit >= 0)
+            & (unit < N_UNITS))
     lanes = torch.cat([big[keep, 3:7], torch.ones(
         (int(keep.sum()), 1), dtype=torch.float32, device=dev)], dim=1)
     idx = unit[keep].contiguous()
@@ -947,13 +1139,15 @@ def check_segment_rollup(rng, dev, pipe) -> dict:
     print(f"  index_add_ over the pre-masked lanes: max diff "
           f"{float((lib - agg).abs().max()):.3g} from the kernel (not "
           f"bitwise: atomic order)")
+    print(f"  segment_rollup at {n} rows sorted by unit: "
+          f"{graph_ms(lambda: segment_rollup(clustered, N_UNITS)):.7f} ms "
+          f"(device, CUDA graph) [{card}]")
+    for label, t in (("the cluster's facts", warehouse),
+                     (f"{n} rows", big)):
+        profile_run(f"segment_rollup x 20 at {label}",
+                    lambda: [segment_rollup(t, N_UNITS) for _ in range(20)],
+                    card)
     b_ms, b_by = bound(n * 40 + N_UNITS * 5 * 4, n * 5)
-    small = {"ms": graph_ms(lambda: segment_rollup(warehouse, N_UNITS)),
-             "issue_ms": issue_ms(lambda: segment_rollup(warehouse,
-                                                         N_UNITS))}
-    print(f"  at the cluster's {warehouse.shape[0]} facts: "
-          f"{small['ms']:.5f} ms kernel (device, CUDA graph), "
-          f"{small['issue_ms']:.5f} ms per host-issued call")
     return {"name": "segment_rollup", "max_abs_err": 0.0,
             "ms": graph_ms(lambda: segment_rollup(big, N_UNITS)),
             "plain_ms": graph_ms(lambda: segment_rollup_ref(big, N_UNITS),
@@ -961,6 +1155,8 @@ def check_segment_rollup(rng, dev, pipe) -> dict:
             "issue_ms": issue_ms(lambda: segment_rollup(big, N_UNITS)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": graph_ms(library),
+            "cluster_facts_ms": graph_ms(lambda: segment_rollup(
+                warehouse, N_UNITS)),
             "shape": f"[{n}, 10] -> [{N_UNITS}, 5]"}
 
 
@@ -1486,8 +1682,8 @@ def run_lm(arch: str, dev, card: str):
     if not max(f_errs) < 0.02 * f_scale:
         fail(f"{arch}: f32 decode logits differ from the full forward by "
              f"{max(f_errs)} >= 0.02 x {f_scale}")
-    print(f"{arch} prefill/decode consistency in f32 (K/V cache bf16, as "
-          f"always): max err {max(f_errs):.4g} = "
+    print(f"{arch} prefill/decode consistency in f32 (the caches in the "
+          f"prefill's dtypes): max err {max(f_errs):.4g} = "
           f"{max(f_errs) / (0.02 * f_scale):.4f} of the bound (bf16: "
           f"{max(errs) / (0.02 * scale):.4f})")
     del params, got, cache
@@ -1505,8 +1701,8 @@ def main() -> None:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     results = [check_hash_join(rng, dev), check_hash_join_pair(rng, dev),
-               check_segment_kpi(rng, dev), check_fold(rng, dev),
-               check_gather(rng, dev)]
+               check_transform_kpi(rng, dev), check_segment_kpi(rng, dev),
+               check_fold(rng, dev), check_gather(rng, dev)]
     for r in results:
         print(f"  {r['name']}: {r['ms']:.7f} ms kernel, {r['plain_ms']:.7f} "
               f"ms plain (device, CUDA graph), {r['issue_ms']:.7f} ms per "
@@ -1517,6 +1713,7 @@ def main() -> None:
           + ", ".join(f"{d} x 1024-row deltas into the 4 views "
                       f"{backend_fold_ms(dev, rng, d):.4f} ms"
                       for d in (1, 5)) + f" [{card}]")
+    check_uploads(rng, dev, card)
 
     # the sequential main path (phase 3/4)
     reset_launch_counts()
@@ -1565,13 +1762,13 @@ def main() -> None:
     run_cluster_live(gpu, card)
     profile_run("cluster (a)", run_cluster_pre_extracted, card)
 
-    results.append(check_segment_rollup(rng, dev, clu[0]))     # phase 6
+    results.append(check_segment_rollup(rng, dev, clu[0], card))  # phase 6
     r = results[-1]
-    print(f"  segment_rollup: {r['ms']:.5f} ms kernel, {r['plain_ms']:.5f} "
-          f"ms plain (device, CUDA graph), {r['issue_ms']:.5f} ms per "
-          f"host-issued call, index_add_ {r['library_ms']:.5f} ms, bound "
-          f"{r['bound_ms']:.6f} ms ({r['bound_by']}) at {r['shape']} "
-          f"[{card}]")
+    print(f"  segment_rollup: {r['ms']:.7f} ms kernel, {r['plain_ms']:.7f} "
+          f"ms plain (device, CUDA graph), {r['issue_ms']:.7f} ms per "
+          f"host-issued call, index_add_ {r['library_ms']:.7f} ms, bound "
+          f"{r['bound_ms']:.7f} ms ({r['bound_by']}) at {r['shape']}; "
+          f"{r['cluster_facts_ms']:.7f} ms at the cluster's facts [{card}]")
     check_durability(clu)                                      # phase 7
 
     gen = torch.Generator(device=dev).manual_seed(0)           # phase 8
@@ -1584,11 +1781,13 @@ def main() -> None:
         f32_counts[path + "_f32_prefill"] = by_design(f32)
 
     src = "src/repro_torch/kernels/segment_kpi/csrc/segment_kpi.cu"
+    fused = "src/repro_torch/kernels/segment_kpi/csrc/transform_kpi.cu"
     tpu = "src/repro/kernels/segment_kpi/segment_kpi.py"
     hj = ("src/repro_torch/kernels/hash_join/csrc/hash_join.cu",
           "src/repro/kernels/hash_join/hash_join.py:73")
     sources = {"hash_join": hj, "hash_join_pair": hj,
-               "segment_kpi": (src, f"{tpu}:226"),
+               "transform_kpi": (fused, f"{tpu}:226"),
+               "segment_kpi": (fused, f"{tpu}:226"),
                "fold_segments_many": (src, f"{tpu}:180"),
                "gather_stats": (src, f"{tpu}:152"),
                "segment_rollup": (src, f"{tpu}:205"),
@@ -1615,7 +1814,11 @@ def main() -> None:
         # the ETL kernels' main path is the cluster, the single-table
         # probe's the complex model; the bf16 LM designs' the two serve
         # runs; the f32 LM designs' the two f32 prefills
-        if name in ETL_KERNELS:
+        if name in OFF_PATH:
+            launches = 0
+            if any(by_path.values()):
+                fail(f"{name} launched on a path: {by_path}")
+        elif name in ETL_KERNELS:
             launches = by_path["cluster"]
         elif name == "hash_join":
             launches = by_path[COMPLEX_PATH]
@@ -1623,7 +1826,7 @@ def main() -> None:
             launches = sum(c[name] for c in lm_counts.values())
         else:
             launches = sum(c[name] for c in f32_counts.values())
-        if launches <= 0:
+        if launches <= 0 and name not in OFF_PATH:
             fail(f"{name} never launched on its path")
         kernels.append({"name": name, "route": "cuda", "source": path,
                         "replaces": replaces, "launches": launches,
@@ -1633,7 +1836,8 @@ def main() -> None:
                         "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        **{key: r[key] for key in ("zamba2", "scratch_bytes")
+                        **{key: r[key] for key in (
+                            "zamba2", "scratch_bytes", "cluster_facts_ms")
                            if key in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.hash_join import ops as hash_join_ops
+from repro_torch.kernels.hash_join.ref import key_to_int32
 from repro_torch.kernels.segment_kpi import ops as segment_kpi_ops
 from repro_torch.kernels.segment_kpi.ref import (combine_packed, np_maximum,
                                                  np_minimum)
@@ -360,6 +361,25 @@ def _prefix_fold_np(table: np.ndarray) -> np.ndarray:
         table = np.concatenate([table, pad])
     return _assoc_scan_np(table)[:S]
 
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A copy of a host array on ``device`` that never aliases it
+    (published view tables and cache arrays are read-only or keep
+    changing). To a card it goes through pinned memory with a
+    non-blocking copy on the current stream: the host copies into a
+    buffer of PyTorch's caching host allocator, which records the copy's
+    stream and hands the buffer out again only after the copy is done; a
+    pageable ``torch.tensor(arr, device="cuda")`` would wait for the
+    stream instead. Kernels that read the copy on the same stream run
+    after it."""
+    arr = np.ascontiguousarray(arr)
+    if device.type != "cuda":
+        return torch.tensor(arr, device=device)
+    dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+    staged = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+    staged.numpy()[...] = arr
+    return staged.to(device, non_blocking=True)
 
 
 def _host(t) -> np.ndarray:
@@ -884,11 +904,11 @@ def _fold_tree_scan_t(seg: torch.Tensor, vals: torch.Tensor,
 @register_backend("torch")
 class TorchBackend(ComputeBackend):
     """The hand-written CUDA kernels (``repro_torch.kernels``) behind the
-    backend protocol. ``transform_block`` launches ``hash_join_pair``
-    (both cache probes; a single-table ``hash_join`` hop probe follows
-    when ``join_depth > 1``) and the fused ``segment_kpi`` kernel, whose
-    epilogue is the per-unit rollup; the block stays on the device with
-    zero host syncs until ``to_host()``. ``segment_reduce`` (the
+    backend protocol. ``transform_block`` is one ``transform_kpi`` launch
+    (both cache probes, the facts and the per-unit rollup; a single-table
+    ``hash_join`` hop probe follows when ``join_depth > 1``) after one
+    non-blocking upload of the payload; the block stays on the device
+    with zero host syncs until ``to_host()``. ``segment_reduce`` (the
     warehouse's full rescan) is one ``segment_rollup`` launch and one
     sync. ``fold_segments_many`` folds a whole fold cycle — every item's
     every compacted row block — in one ``fold_segments_many`` launch and
@@ -907,10 +927,8 @@ class TorchBackend(ComputeBackend):
         self.torch_device = torch.device(torch_device)
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
-        """A device copy of a host array (never aliasing it: published view
-        tables and cache arrays are read-only or keep changing)."""
-        return torch.tensor(np.ascontiguousarray(arr),
-                            device=self.torch_device)
+        """A device copy of a host array (``upload``: no stream sync)."""
+        return upload(arr, self.torch_device)
 
     def hash_probe(self, query_keys, keys_tbl, vals_tbl, txn_tbl):
         q = (np.asarray(query_keys).astype(np.int64)
@@ -927,26 +945,23 @@ class TorchBackend(ComputeBackend):
         n = len(prod)
         padded = self._tensor(self._pad_bucket(prod, floor=256))
         eq_state = equipment.device_state()
-        # both probes in one launch; a missed row's key lane comes back
-        # -1.0, so the KPI kernel's valid flag equals the found mask
-        eq_rows, q_rows, found = hash_join_ops.hash_join_pair(
-            padded, eq_state, quality.device_state())
+        # one launch: both probes, the facts and the per-unit rollup (one
+        # unit wide and dropped without n_units); a missed row's key lane
+        # reads -1.0, so the facts' valid flag equals the found mask
+        facts, found, agg = segment_kpi_ops.transform_kpi(
+            padded, eq_state, quality.device_state(),
+            n_units=n_units if n_units else 1)
         self.op_dispatches += 1
         if join_depth > 1:            # flattened hop probe (cost knob;
             eqk, eqv, eqt = eq_state                  # numeric no-op)
             mod = max(eqk.shape[0] // 4, 1)
-            equip_id = padded[:, 1].to(torch.int32)
+            equip_id = key_to_int32(padded[:, 1])
             hop_keys = ((equip_id[None, :]
                          + torch.arange(1, join_depth, dtype=torch.int32,
                                         device=self.torch_device)[:, None])
                         % mod)
             hash_join_ops.hash_join(hop_keys.reshape(-1), eqk, eqv, eqt)
             self.op_dispatches += 1
-        # the fused kernel always emits the per-unit aggregate; without
-        # n_units it is one unit wide and dropped
-        facts, agg = segment_kpi_ops.segment_kpi(
-            padded, eq_rows, q_rows, n_units=n_units if n_units else 1)
-        self.op_dispatches += 1
         return FactBlock(self, facts, found, n, agg if n_units else None)
 
     def segment_reduce(self, facts, n_units):
@@ -1034,7 +1049,8 @@ class TorchBackend(ComputeBackend):
 __all__ = [
     "ComputeBackend", "FactBlock", "NumpyBackend", "TorchBackend",
     "register_backend", "get_backend", "available_backends",
-    "resolve_backend_name", "resolve_device", "new_stream", "DEFAULT_BACKEND",
+    "resolve_backend_name", "resolve_device", "new_stream", "upload",
+    "DEFAULT_BACKEND",
     "DEFAULT_DEVICE", "KPI_LANES", "FOLD_BLOCK", "fold_width",
     "gather_width", "empty_fold_state", "combine_fold",
     "bitrev_permutation", "prefix_fold_reference",

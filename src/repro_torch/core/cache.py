@@ -285,16 +285,19 @@ class InMemoryTable:
         host content changed since the last mirror are re-uploaded (every
         upload COPIES, so mirrors already pinned by older
         ``CacheSnapshot``s stay immutable — on the CPU too). A steady-state
-        bucket whose master data hasn't moved re-uploads nothing."""
+        bucket whose master data hasn't moved re-uploads nothing. To a
+        card the uploads are non-blocking (``backend.upload``), ordered
+        before the kernels that the current stream launches next."""
         if self._device is None or self._dirty:
+            from repro_torch.core.backend import upload
             dev = self._torch_device()
             k, v, t = self._device or (None, None, None)
             if k is None or "keys" in self._dirty:
-                k = torch.tensor(self.keys, device=dev)
+                k = upload(self.keys, dev)
             if v is None or "values" in self._dirty:
-                v = torch.tensor(self.values, device=dev)
+                v = upload(self.values, dev)
             if t is None or "txn" in self._dirty:
-                t = torch.tensor(self.txn.astype(np.int32), device=dev)
+                t = upload(self.txn.astype(np.int32), dev)
             self._device = (k, v, t)
             self._dirty.clear()
         return self._device

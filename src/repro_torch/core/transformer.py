@@ -5,7 +5,7 @@ OEE KPI computation (§4: availability / performance / quality / OEE).
 
 The numeric core is routed through the compute-backend layer
 (``repro_torch.core.backend``): the ``numpy`` reference, or the ``torch``
-backend's ``hash_join`` + ``segment_kpi`` CUDA kernels.
+backend's ``transform_kpi`` CUDA kernel.
 
 Payload layouts (see configs.dod_etl.steelworks_config):
   production : (prod_id, equipment_id, txn_time, t_start, t_end, qty, speed, order_id)
@@ -14,6 +14,7 @@ Payload layouts (see configs.dod_etl.steelworks_config):
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -48,6 +49,9 @@ class DataTransformer:
         self.records_out = 0
         self.records_late = 0
         self.dispatches = 0     # device dispatch count (the tentpole metric)
+        # the transform stage and the load stage's retry sweep of one
+        # worker both dispatch: a bare += 1 from two threads can lose one
+        self._dispatch_lock = threading.Lock()
 
     def watermark(self) -> int:
         return min(self.equipment.watermark, self.quality.watermark)
@@ -68,7 +72,8 @@ class DataTransformer:
             equipment if equipment is not None else self.equipment,
             quality if quality is not None else self.quality,
             join_depth=self.join_depth, n_units=self.n_units)
-        self.dispatches += 1
+        with self._dispatch_lock:
+            self.dispatches += 1
         return block
 
     def process_block(self, prod_batch):

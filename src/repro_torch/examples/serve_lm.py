@@ -24,8 +24,14 @@ from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 def fill_cache(cache, prefill_cache) -> Any:
     """Copy a prefill cache into the leading corner of each leaf of a
     preallocated cache (the K/V of the prompt's positions; the recurrent
-    and conv states whole). Returns ``cache``."""
+    and conv states whole). A leaf whose dtype differs from the prefill's
+    is made anew, zeroed, in the prefill's dtype — as the reference's
+    example keeps the prefill's leaves and only pads K/V — so an f32
+    model's states are not rounded to the cache's bf16. Returns the
+    filled cache."""
     def put(dst, src):
+        if dst.dtype != src.dtype:
+            dst = torch.zeros(dst.shape, dtype=src.dtype, device=dst.device)
         dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
         return dst
     return tree_map(put, cache, prefill_cache)

@@ -18,8 +18,9 @@
 // a 4096-slot table is 16 KB and stays in L1/L2, the probe chain is short
 // (the cache grows before a chain passes 16), and the hit row moves as
 // float4 copies. At ~1k queries per
-// launch the kernel is launch-bound; fusing it with the KPI kernel is
-// later work (ROADMAP).
+// launch the kernel is launch-bound; the transform's probes now run fused
+// with the KPI kernel (segment_kpi/csrc/transform_kpi.cu), so no path
+// launches hash_join_pair_launch.
 //
 // Contract (identical to the reference's numpy, jnp and Pallas probes):
 // lowbias32 hash of the int32 key as uint32, h = hash % n_slots, then
@@ -106,8 +107,12 @@ extern "C" int hash_join_launch(const void* q, int n, const void* keys,
 // plus the key slots and rows the probes touch). The single-table
 // kernel's thread walks up to 16 DEPENDENT key loads; here a warp takes
 // one production row: lanes 0-15 probe the equipment cache with col 1,
-// lanes 16-31 the quality cache with col 0, each key truncated toward
-// zero as .to(torch.int32) does on the card. Lane p of a half loads slot
+// lanes 16-31 the quality cache with col 0, each key cast by
+// __float2int_rz: PTX cvt.rzi.s32.f32 gives 0 for NaN, saturates values
+// outside int32 and truncates the rest toward zero, which is the JAX
+// reference's astype(jnp.int32) and ref.key_to_int32 (a CPU
+// .to(torch.int32) is not: it gives -2^31 for NaN, +-inf and every value
+// out of range). Lane p of a half loads slot
 // (h + p) % n_slots, all 16 in one transaction; a ballot of (k == key ||
 // k == -1) gives the first deciding probe p, and the probe hits iff
 // keys[slot_p] == key. That is the contract above exactly: the hit test

@@ -38,7 +38,10 @@ def _fn(name: str):
     return fn
 
 
-def _check_table(keys, vals, name: str, dev, max_width=None) -> None:
+def check_table(keys, vals, name: str, dev, max_width=None) -> None:
+    """Raise unless (keys [S] i32, vals [S, W] f32) is a cache table on
+    ``dev`` that the probe kernels take: S >= 1, W % 4 == 0 (at most
+    ``max_width``), vals 16-byte aligned."""
     check(keys, f"{name} keys", torch.int32, (None,), dev)
     check(vals, f"{name} vals", torch.float32, (None, None), dev)
     n_slots, width = vals.shape
@@ -62,7 +65,7 @@ def hash_join(query_keys: torch.Tensor, keys_tbl: torch.Tensor,
         return hash_join_ref(query_keys, keys_tbl, vals_tbl, txn_tbl)
     dev = query_keys.device
     check(query_keys, "query_keys", torch.int32, (None,), dev)
-    _check_table(keys_tbl, vals_tbl, "table", dev)
+    check_table(keys_tbl, vals_tbl, "table", dev)
     check(txn_tbl, "txn_tbl", torch.int32, (None,), dev)
     n_slots, width = vals_tbl.shape
     if txn_tbl.shape[0] != n_slots:
@@ -100,8 +103,8 @@ def hash_join_pair(prod: torch.Tensor, eq_table, q_table
     dev = prod.device
     check(prod, "prod", torch.float32, (None, None), dev)
     (eqk, eqv, _), (qk, qv, _) = eq_table, q_table
-    _check_table(eqk, eqv, "eq_table", dev, MAX_PAIR_WIDTH)
-    _check_table(qk, qv, "q_table", dev, MAX_PAIR_WIDTH)
+    check_table(eqk, eqv, "eq_table", dev, MAX_PAIR_WIDTH)
+    check_table(qk, qv, "q_table", dev, MAX_PAIR_WIDTH)
     n, prod_w = prod.shape
     if prod_w < 2 or eqv.shape[1] < 2 or qv.shape[1] < 2:
         raise ValueError("prod and the joined rows need a key column 1")
@@ -120,5 +123,5 @@ def hash_join_pair(prod: torch.Tensor, eq_table, q_table
     return eq_rows, q_rows, found
 
 
-__all__ = ["hash_join", "hash_join_pair", "hash_join_pair_ref",
+__all__ = ["check_table", "hash_join", "hash_join_pair", "hash_join_pair_ref",
            "hash_join_ref", "launches"]

@@ -32,6 +32,22 @@ def hash32(keys: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+_INT32_MIN, _INT32_MAX = -2**31, 2**31 - 1
+
+
+def key_to_int32(x: torch.Tensor) -> torch.Tensor:
+    """A float join key cast to int32 as the JAX reference's device
+    backends cast it (``astype(jnp.int32)``) and as the CUDA kernels do
+    (``__float2int_rz``, PTX ``cvt.rzi.s32.f32``): NaN gives 0, values
+    outside int32 saturate to [-2**31, 2**31 - 1], the rest truncate
+    toward zero. (``.to(torch.int32)`` on the CPU gives -2**31 for NaN,
+    +-inf and every value out of range.)"""
+    x = x.to(torch.float64)
+    x = torch.where(torch.isnan(x), torch.zeros((), dtype=x.dtype,
+                                                device=x.device), x)
+    return x.clamp(_INT32_MIN, _INT32_MAX).to(torch.int32)
+
+
 def hash_join_ref(query_keys: torch.Tensor, keys_tbl: torch.Tensor,
                   vals_tbl: torch.Tensor, txn_tbl: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -62,12 +78,12 @@ def hash_join_ref(query_keys: torch.Tensor, keys_tbl: torch.Tensor,
 def hash_join_pair_ref(prod: torch.Tensor, eq_table, q_table
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The transform's two probes as separate ops: prod's col 1 and col 0
-    cast to int32, probed against the equipment and quality caches
-    (``eq_table`` / ``q_table``: keys, vals, txn), a missed row's key lane
-    (col 1) set to -1.0, found = eq_found & q_found. Returns (eq_rows,
-    q_rows, found)."""
-    equip_id = prod[:, 1].to(torch.int32).contiguous()
-    prod_id = prod[:, 0].to(torch.int32).contiguous()
+    cast to int32 (``key_to_int32``), probed against the equipment and
+    quality caches (``eq_table`` / ``q_table``: keys, vals, txn), a
+    missed row's key lane (col 1) set to -1.0, found = eq_found &
+    q_found. Returns (eq_rows, q_rows, found)."""
+    equip_id = key_to_int32(prod[:, 1])
+    prod_id = key_to_int32(prod[:, 0])
     eq_rows, eq_found, _ = hash_join_ref(equip_id, *eq_table)
     q_rows, q_found, _ = hash_join_ref(prod_id, *q_table)
     # the probe outputs are fresh tensors, safe to write in place

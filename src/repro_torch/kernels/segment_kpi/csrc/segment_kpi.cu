@@ -1,35 +1,11 @@
-// The Data Transformer's numeric core and the serving layer's two read /
-// write ops, written by hand for Hopper (sm_90a). Four kernel families,
+// The warehouse's full-rescan rollup and the serving layer's two read /
+// write ops, written by hand for Hopper (sm_90a). Three kernel families,
 // one per TPU kernel they replace (all in
-// src/repro/kernels/segment_kpi/segment_kpi.py):
+// src/repro/kernels/segment_kpi/segment_kpi.py); the fused transform and
+// the KPI kernel (segment_kpi_kernel) live in transform_kpi.cu, and the
+// device functions both files use in kpi.cuh.
 //
-// 1. segment_kpi_launch  <- segment_kpi_kernel (body _kpi_kernel).
-//    Fact-grain split + OEE KPIs per row, and the per-unit KPI rollup.
-//    Bound: bytes, and at the main path's ~1k-row micro-batches, launch
-//    latency. A row reads 3 x 32 B and writes 40 B; 1k rows are ~130 KB,
-//    ~40 ns of HBM time, far below a launch. Design: one thread per row
-//    computes the ten fact lanes in the reference's op order (IEEE
-//    division, no FMA contraction: the build passes -fmad=false), so the
-//    facts are bitwise the numpy oracle's. The TPU kernel rolls up with a
-//    one-hot MXU product; here each 256-row block reduces its valid rows
-//    into [n_units, 5] in row order from shared memory, and a second
-//    launch adds the block partials in block order. No float atomics, so
-//    two runs give the same bits.
-//
-// 2. segment_rollup_launch <- segment_rollup_kernel (body _rollup_kernel).
-//    The per-unit KPI rollup of already-built fact rows: the warehouse's
-//    full rescan (Warehouse.kpi_rollup), O(history) rows per call. Bound:
-//    bytes — every 40 B fact row is read once (2^20 rows: 40 MiB, ~12.5 us
-//    of HBM time). Design: the KPI kernel's rollup without its fact build,
-//    so the sums come out bitwise the plain version's: one block per
-//    256-row block stages the rows' units and KPI lanes in shared memory
-//    and one thread per (unit, lane) adds them in row order into a
-//    partials buffer; kpi_block_sum_kernel adds the partials in block
-//    order. Any N, no padding; row offsets are 64-bit. The unit is col 0
-//    truncated toward zero (numpy's astype); a NaN unit is dropped
-//    explicitly, because the conversion would make it unit 0.
-//
-// 3. fold_segments_many_launch <- fold_segments_kernel (body _fold_kernel).
+// 1. fold_segments_many_launch <- fold_segments_kernel (body _fold_kernel).
 //    Serving-view delta fold of a whole fold cycle in one launch: every
 //    (delta, view) item's count + sum/min/max per segment per value lane,
 //    each item's <= 2048-row blocks combined in block order. Bound: launch
@@ -53,224 +29,39 @@
 //    into the output in block order from the identity (0 + -0 = +0, as
 //    combine_fold does).
 //
-// 4. gather_stats_launch  <- gather_stats_kernel (body _gather_kernel).
+// 2. segment_rollup_launch <- segment_rollup_kernel (body _rollup_kernel).
+//    The per-unit KPI rollup of already-built fact rows: the warehouse's
+//    full rescan (Warehouse.kpi_rollup), O(history) rows per call. Bound:
+//    bytes — every 40 B fact row is read once (2^20 rows: 40 MiB, ~12.5 us
+//    of HBM time). Design: a persistent grid (as many CTAs as fit on the
+//    SMs) whose CTAs walk the 256-row blocks, each block's rows staged in
+//    shared memory by cp.async ROLLUP_STAGES - 1 blocks ahead of the one
+//    the CTA rolls up, so the stream stays in flight; the per-block
+//    rollup of transform_kpi.cu (block_rollup: the rows sorted by unit,
+//    then added in row order), partials written transposed, [n_out,
+//    stride]; then the partials added in block order by a second launch
+//    (combine_long: a warp per output reads its chain coalesced into
+//    shared memory, one lane adds it), which measured faster than adding
+//    them in the CTA that finishes last at every size from 8 blocks to
+//    4096. Bitwise ref.segment_rollup_ref. Any N, 64-bit row offsets; a
+//    NaN or out-of-range unit counts nowhere (rollup_unit).
+//
+// 3. gather_stats_launch  <- gather_stats_kernel (body _gather_kernel).
 //    Batched point read: row idx of the packed [S, 1 + 3L] table plus
 //    means = sums / count (NaN at count 0). Bound: bytes / launch latency
 //    (a 4096-query batch moves ~280 KB). Design: one thread per output
 //    element, a direct gather and one IEEE divide — bitwise the numpy
 //    oracle (the TPU kernel's one-hot matmul and 0 * inf workaround have
 //    no reason to exist here).
-//
-// Min/max follow numpy exactly: np.minimum(a, b) is (a < b || isnan(a)) ?
-// a : b — it returns the SECOND operand on ties (so +-0 order matters) and
-// propagates NaN. fminf/fmaxf do neither, so they are not used.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "kpi.cuh"
 
-#define KPI_LANES 5
-#define N_FACT 10
-#define PAYLOAD 8
-#define KPI_BLOCK 256
 #define FOLD_THREADS 256       // 8 warps, one (segment, lane) tree each
 #define FOLD_WARPS (FOLD_THREADS / 32)      // ops.FOLD_WARPS
 #define FOLD_LANES_STAGED 4     // value lanes in shared memory at once
 #define MAX_FOLD_ROWS 2048      // rows of one block (ops.MAX_FOLD_ROWS)
 #define FOLD_ITEM_WORDS 8       // int32 words of one item descriptor
 
-__device__ __forceinline__ float np_min(float a, float b) {
-  return (a < b || isnan(a)) ? a : b;
-}
-
-__device__ __forceinline__ float np_max(float a, float b) {
-  return (a > b || isnan(a)) ? a : b;
-}
-
-__device__ __forceinline__ float np_clip01(float x) {
-  return np_min(np_max(x, 0.0f), 1.0f);
-}
-
-// The unit a fact row adds to, or -1: col 0 truncated toward zero
-// (saturating, like numpy's astype), NaN and out-of-range units dropped.
-__device__ __forceinline__ int rollup_unit(float unit, bool valid,
-                                           int n_units) {
-  const int u = __float2int_rz(unit);
-  return (valid && !isnan(unit) && u >= 0 && u < n_units) ? u : -1;
-}
-
-// Deterministic per-block rollup: output (u, c) sums the block's rows of
-// unit u in row order into part[u * KPI_LANES + c].
-__device__ __forceinline__ void block_rollup(const int* s_unit,
-                                             const float (*s_kpi)[KPI_LANES],
-                                             int n_units, float* part) {
-  const int n_out = n_units * KPI_LANES;
-  for (int o = threadIdx.x; o < n_out; o += KPI_BLOCK) {
-    const int u = o / KPI_LANES, c = o % KPI_LANES;
-    float acc = 0.0f;
-    for (int r = 0; r < KPI_BLOCK; ++r)
-      if (s_unit[r] == u) acc = __fadd_rn(acc, s_kpi[r][c]);
-    part[o] = acc;
-  }
-}
-
-// ------------------------------------------------------------------ KPI
-__global__ void kpi_facts_kernel(const float* __restrict__ prod,
-                                 const float* __restrict__ eq,
-                                 const float* __restrict__ qr, int n,
-                                 int n_units, float* __restrict__ facts,
-                                 float* __restrict__ partials) {
-  __shared__ int s_unit[KPI_BLOCK];
-  __shared__ float s_kpi[KPI_BLOCK][KPI_LANES];
-  const float EPS = 1e-6f;
-  const int tid = threadIdx.x;
-  const int i = blockIdx.x * KPI_BLOCK + tid;
-  int unit = -1;
-  if (i < n) {
-    const float* p = prod + (int64_t)i * PAYLOAD;
-    const float* e = eq + (int64_t)i * PAYLOAD;
-    const float* q = qr + (int64_t)i * PAYLOAD;
-    const float t_start = p[3], t_end = p[4], qty = p[5];
-    const float e_start = e[3], e_end = e[4], status = e[5];
-    const float max_speed = e[6], planned = e[7];
-    const float defects = q[4], scrap = q[6];
-
-    const float inter_lo = np_max(t_start, e_start);
-    const float inter_hi = np_min(t_end, e_end);
-    const float overlap = np_max(__fsub_rn(inter_hi, inter_lo), 0.0f);
-    const float duration = np_max(__fsub_rn(t_end, t_start), EPS);
-    const float seg_on = status > 0.5f ? overlap : 0.0f;
-    const float seg_off = __fsub_rn(duration, seg_on);
-    const float availability =
-        np_clip01(__fdiv_rn(seg_on, np_max(planned, EPS)));
-    const float performance = np_clip01(
-        __fdiv_rn(qty, np_max(__fmul_rn(max_speed, duration), EPS)));
-    const float good =
-        np_max(__fsub_rn(__fsub_rn(qty, defects), scrap), 0.0f);
-    const float quality = np_clip01(__fdiv_rn(good, np_max(qty, EPS)));
-    const float oee =
-        __fmul_rn(__fmul_rn(availability, performance), quality);
-    const bool valid = (e[1] >= 0.0f) && (q[1] >= 0.0f);
-
-    float* f = facts + (int64_t)i * N_FACT;
-    f[0] = p[1];
-    f[1] = t_start;
-    f[2] = t_end;
-    f[3] = availability;
-    f[4] = performance;
-    f[5] = quality;
-    f[6] = oee;
-    f[7] = seg_on;
-    f[8] = seg_off;
-    f[9] = valid ? 1.0f : 0.0f;
-
-    unit = rollup_unit(p[1], valid, n_units);
-    s_kpi[tid][0] = availability;
-    s_kpi[tid][1] = performance;
-    s_kpi[tid][2] = quality;
-    s_kpi[tid][3] = oee;
-    s_kpi[tid][4] = 1.0f;
-  }
-  s_unit[tid] = unit;
-  __syncthreads();
-  block_rollup(s_unit, s_kpi, n_units,
-               partials + (int64_t)blockIdx.x * n_units * KPI_LANES);
-}
-
-#define SUM_UNROLL 32
-
-// agg[o] = (((0 + partials[0][o]) + partials[1][o]) + ...) in block order.
-// The adds form one dependent chain; the loads of SUM_UNROLL blocks are
-// issued together ahead of their adds, so a long chain (a full rescan has
-// thousands of blocks) waits on memory once per SUM_UNROLL blocks.
-__global__ void kpi_block_sum_kernel(const float* __restrict__ partials,
-                                     int n_blocks, int n_out,
-                                     float* __restrict__ agg) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= n_out) return;
-  float acc = 0.0f;
-  int b = 0;
-  for (; b + SUM_UNROLL <= n_blocks; b += SUM_UNROLL) {
-    float v[SUM_UNROLL];
-#pragma unroll
-    for (int k = 0; k < SUM_UNROLL; ++k)
-      v[k] = partials[(int64_t)(b + k) * n_out + o];
-#pragma unroll
-    for (int k = 0; k < SUM_UNROLL; ++k) acc = __fadd_rn(acc, v[k]);
-  }
-  for (; b < n_blocks; ++b)
-    acc = __fadd_rn(acc, partials[(int64_t)b * n_out + o]);
-  agg[o] = acc;
-}
-
-// prod/eq/qr [n, 8] f32 (a joined row with col 1 < 0 marks a join miss)
-// -> facts [n, 10] f32, agg [n_units, 5] f32; partials is caller-allocated
-// scratch of ceil(n / 256) * n_units * 5 floats.
-extern "C" int segment_kpi_launch(const void* prod, const void* eq,
-                                  const void* qr, int n, int n_units,
-                                  void* facts, void* partials, void* agg,
-                                  void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int n_out = n_units * KPI_LANES;
-  const int n_blocks = (n + KPI_BLOCK - 1) / KPI_BLOCK;
-  if (n_blocks > 0) {
-    kpi_facts_kernel<<<n_blocks, KPI_BLOCK, 0, s>>>(
-        (const float*)prod, (const float*)eq, (const float*)qr, n, n_units,
-        (float*)facts, (float*)partials);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  kpi_block_sum_kernel<<<(n_out + 127) / 128, 128, 0, s>>>(
-      (const float*)partials, n_blocks, n_out, (float*)agg);
-  return (int)cudaGetLastError();
-}
-
-// --------------------------------------------------------------- rollup
-__global__ void rollup_rows_kernel(const float* __restrict__ facts,
-                                   int64_t n, int n_units,
-                                   float* __restrict__ partials) {
-  __shared__ int s_unit[KPI_BLOCK];
-  __shared__ float s_kpi[KPI_BLOCK][KPI_LANES];
-  const int tid = threadIdx.x;
-  const int64_t i = (int64_t)blockIdx.x * KPI_BLOCK + tid;
-  int unit = -1;
-  if (i < n) {
-    const float* f = facts + i * N_FACT;
-    unit = rollup_unit(f[0], f[9] > 0.5f, n_units);
-    s_kpi[tid][0] = f[3];
-    s_kpi[tid][1] = f[4];
-    s_kpi[tid][2] = f[5];
-    s_kpi[tid][3] = f[6];
-    s_kpi[tid][4] = 1.0f;
-  }
-  s_unit[tid] = unit;
-  __syncthreads();
-  block_rollup(s_unit, s_kpi, n_units,
-               partials + (int64_t)blockIdx.x * n_units * KPI_LANES);
-}
-
-// facts [n, 10] f32 -> agg [n_units, 5] f32 (sums of cols 3-6 and a count
-// over valid rows of each unit); partials is caller-allocated scratch of
-// ceil(n / 256) * n_units * 5 floats.
-extern "C" int segment_rollup_launch(const void* facts, int64_t n,
-                                     int n_units, void* partials, void* agg,
-                                     void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int n_out = n_units * KPI_LANES;
-  const int64_t n_blocks = (n + KPI_BLOCK - 1) / KPI_BLOCK;
-  if (n_blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  if (n_blocks > 0) {
-    rollup_rows_kernel<<<(unsigned)n_blocks, KPI_BLOCK, 0, s>>>(
-        (const float*)facts, n, n_units, (float*)partials);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  kpi_block_sum_kernel<<<(n_out + 127) / 128, 128, 0, s>>>(
-      (const float*)partials, (int)n_blocks, n_out, (float*)agg);
-  return (int)cudaGetLastError();
-}
-
 // ----------------------------------------------------------------- fold
-#define FULL_MASK 0xffffffffu
 #define POS_INF __int_as_float(0x7f800000)
 #define NEG_INF __int_as_float(0xff800000)
 
@@ -356,18 +147,6 @@ __device__ Fold4 block_tree(const int* s_seg, const float* s_val, int s,
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
 // buf: the staged int32 words (ops.stage_fold): from word 0, per CTA
 // (item, first segment); at item_off, per item [seg_off, val_off, lane_stride, n_rows, n_lanes,
 // n_fold, out_off, seg_chunk]; per item its padded blocks' compacted
@@ -407,7 +186,8 @@ fold_many_kernel(const int32_t* __restrict__ buf, int item_off, int block,
         cp_async16(&s_val[jj][r],
                    vals + (int64_t)(j0 + jj) * lane_stride + lo + r);
       }
-      cp_async_wait_all();
+      cp_async_commit();
+      cp_async_wait<0>();
       __syncthreads();
       for (int task = warp; task < n_seg * nl; task += FOLD_WARPS) {
         const int s = seg_lo + task / nl, jj = task % nl, j = j0 + jj;
@@ -438,6 +218,139 @@ extern "C" int fold_segments_many_launch(const void* buf, int n_ctas,
     return (int)cudaErrorInvalidValue;
   fold_many_kernel<<<n_ctas, FOLD_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)buf, item_off, block, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------- rollup
+#define ROLLUP_STAGES 3                     // blocks staged per CTA at once
+#define ROLLUP_WORDS (KPI_BLOCK * N_FACT)   // floats of one staged block
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+// Issue the copies of block b's rows into dst (none when b is past the
+// end) and commit them as one group: 16-byte pieces when the fact table
+// is 16-byte aligned (a block starts at b * 10,240 bytes), else 4-byte
+// ones.
+__device__ __forceinline__ void stage_rows(const float* facts, int64_t n,
+                                           int64_t b, int64_t n_blocks,
+                                           float* dst, bool vec16) {
+  if (b < n_blocks) {
+    const int64_t r0 = b * KPI_BLOCK;
+    const int words =
+        (int)(n - r0 < KPI_BLOCK ? n - r0 : KPI_BLOCK) * N_FACT;
+    const float* src = facts + r0 * N_FACT;
+    int done = 0;
+    if (vec16) {
+      for (int c = threadIdx.x; c < words / 4; c += KPI_BLOCK)
+        cp_async16(dst + 4 * c, src + 4 * c);
+      done = words / 4 * 4;
+    }
+    for (int w = done + threadIdx.x; w < words; w += KPI_BLOCK)
+      cp_async4(dst + w, src + w);
+  }
+  cp_async_commit();
+}
+
+// Dynamic shared memory: ROLLUP_STAGES staged blocks, the unit masks
+// (chunk * KPI_WARPS words), the units' row offsets (chunk + 1 words;
+// chunk = min(n_units, UNIT_CHUNK)) and the sorted row list (KPI_BLOCK + ROLLUP_UNROLL bytes). A
+// CTA walks blocks blockIdx.x, + gridDim.x, ...; while it rolls up one,
+// the next ROLLUP_STAGES - 1 are in flight.
+__global__ void __launch_bounds__(KPI_BLOCK)
+rollup_kernel(const float* __restrict__ facts, int64_t n, int n_units,
+              int64_t n_blocks, int64_t stride, bool vec16,
+              float* __restrict__ partT) {
+  extern __shared__ __align__(16) float smem[];
+  const int chunk = min(n_units, UNIT_CHUNK);
+  unsigned* s_mask = reinterpret_cast<unsigned*>(
+      smem + ROLLUP_STAGES * ROLLUP_WORDS);
+  int* s_off = reinterpret_cast<int*>(s_mask + chunk * KPI_WARPS);
+  unsigned char* s_list = reinterpret_cast<unsigned char*>(s_off + chunk + 1);
+  const int tid = threadIdx.x;
+  const int64_t G = gridDim.x;
+  for (int w = tid; w < chunk * KPI_WARPS; w += KPI_BLOCK) s_mask[w] = 0;
+#pragma unroll
+  for (int k = 0; k < ROLLUP_STAGES - 1; ++k)
+    stage_rows(facts, n, blockIdx.x + k * G, n_blocks,
+               smem + k * ROLLUP_WORDS, vec16);
+  int stage = 0;
+  for (int64_t b = blockIdx.x; b < n_blocks; b += G) {
+    // the stage read in the last pass takes block b + (STAGES - 1) G
+    const int ahead = (stage + ROLLUP_STAGES - 1) % ROLLUP_STAGES;
+    stage_rows(facts, n, b + (ROLLUP_STAGES - 1) * G, n_blocks,
+               smem + ahead * ROLLUP_WORDS, vec16);
+    cp_async_wait<ROLLUP_STAGES - 1>();
+    __syncthreads();                  // block b landed
+    const float* rows = smem + stage * ROLLUP_WORDS;
+    const int unit =
+        b * KPI_BLOCK + tid < n
+            ? rollup_unit(rows[tid * N_FACT], rows[tid * N_FACT + 9] > 0.5f,
+                          n_units)
+            : -1;
+    block_rollup(unit, n_units, s_mask, s_off, s_list,
+                 [&](int r, int c) {
+                   return c < 4 ? rows[r * N_FACT + 3 + c] : 1.0f;
+                 },
+                 partT, stride, b);
+    __syncthreads();                  // rows, offsets and list read
+    stage = (stage + 1) % ROLLUP_STAGES;
+  }
+  cp_async_wait<0>();                 // no copy outlives the CTA
+}
+
+#define COMBINE_WARPS 2                     // warps of a combine CTA
+
+__global__ void __launch_bounds__(32 * COMBINE_WARPS)
+combine_kernel(const float* __restrict__ partT, int64_t stride,
+               int64_t n_blocks, int n_out, float* __restrict__ agg) {
+  __shared__ float4 s_buf[COMBINE_WARPS][32];
+  combine_long(partT, stride, n_blocks, n_out, agg,
+               blockIdx.x * COMBINE_WARPS + (threadIdx.x >> 5),
+               gridDim.x * COMBINE_WARPS, s_buf[threadIdx.x >> 5]);
+}
+
+// facts [n, 10] f32 (n >= 1) -> agg [n_units, 5] f32 (sums of cols 3-6
+// and a count over valid rows of each unit), n_units >= 1.
+// partT: scratch of n_units * 5 rows of ``stride`` floats, stride >=
+// ceil(n / 256) and a multiple of 4. Two launches: the per-block rollup,
+// then the combine.
+extern "C" int segment_rollup_launch(const void* facts, int64_t n,
+                                     int n_units, void* partT,
+                                     int64_t stride, void* agg,
+                                     void* stream) {
+  const int64_t n_blocks = (n + KPI_BLOCK - 1) / KPI_BLOCK;
+  if (n <= 0 || n_units < 1 || stride < n_blocks || stride % 4)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n_out = n_units * KPI_LANES;
+  const int chunk = n_units < UNIT_CHUNK ? n_units : UNIT_CHUNK;
+  const size_t smem = (size_t)ROLLUP_STAGES * ROLLUP_WORDS * sizeof(float) +
+                      (size_t)chunk * KPI_WARPS * sizeof(unsigned) +
+                      (size_t)(chunk + 1) * sizeof(int) + KPI_BLOCK +
+                      ROLLUP_UNROLL;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rollup_kernel, KPI_BLOCK, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t cap = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const int64_t grid = n_blocks < cap ? n_blocks : cap;
+  rollup_kernel<<<(unsigned)grid, KPI_BLOCK, smem, s>>>(
+      (const float*)facts, n, n_units, n_blocks, stride,
+      ((uintptr_t)facts % 16) == 0, (float*)partT);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  combine_kernel<<<(n_out + COMBINE_WARPS - 1) / COMBINE_WARPS,
+                   32 * COMBINE_WARPS, 0, s>>>((const float*)partT, stride,
+                                               n_blocks, n_out, (float*)agg);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
-"""Wrappers of the ``segment_kpi`` CUDA kernels (``csrc/segment_kpi.cu``):
-the fused fact build + per-unit rollup, the per-unit rollup of built facts
-(the warehouse's full rescan), the serving views' delta fold of a whole
-fold cycle (``stage_fold`` lays its items out in one buffer,
+"""Wrappers of the ``segment_kpi`` CUDA kernels (``csrc/transform_kpi.cu``
+and ``csrc/segment_kpi.cu``): the whole transform in one launch (both
+cache probes, the fact build, the per-unit rollup), the fact build +
+rollup of joined rows, the per-unit rollup of built facts (the
+warehouse's full rescan), the serving views' delta fold of a whole fold
+cycle (``stage_fold`` lays its items out in one buffer,
 ``fold_segments_many`` folds them in one launch, ``fold_tables`` splits
 the result) and the batched point-query gather.
 
@@ -13,18 +15,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence, Tuple
+import threading
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels._build import (check, count_launch, on_cuda,
                                         raise_on)
+from repro_torch.kernels.hash_join.ops import check_table
 from repro_torch.kernels.segment_kpi.ref import (KPI_BLOCK, KPI_LANES,
                                                  fold_segments_many_ref,
                                                  gather_stats_ref,
                                                  segment_kpi_ref,
-                                                 segment_rollup_ref)
+                                                 segment_rollup_ref,
+                                                 transform_kpi_ref)
 
 N_FACT = 10
 MAX_FOLD_ROWS = 2048  # rows of one fold block: its ids and 4 lanes in smem
@@ -32,15 +37,17 @@ FOLD_WARPS = 8        # warps of a fold CTA, one (segment, lane) task each
 FOLD_LANES_STAGED = 4  # value lanes a fold CTA holds in smem at once
 FOLD_ITEM_WORDS = 8   # int32 words of one item descriptor
 
-launches = {"segment_kpi": 0, "segment_rollup": 0, "fold_segments_many": 0,
-            "gather_stats": 0}
+launches = {"transform_kpi": 0, "segment_kpi": 0, "segment_rollup": 0,
+            "fold_segments_many": 0, "gather_stats": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGNATURES = {
-    "segment_kpi_launch": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
-    "segment_rollup_launch": [_P, _L, _I, _P, _P, _P],
+    "transform_kpi_launch": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P,
+                             _P, _P, _P, _P, _P],
+    "segment_kpi_launch": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "segment_rollup_launch": [_P, _L, _I, _P, _L, _P, _P],
     "fold_segments_many_launch": [_P, _I, _I, _I, _P, _P],
     "gather_stats_launch": [_P, _I, _P, _I, _P, _P],
 }
@@ -55,30 +62,125 @@ def _fn(name: str):
     return fn
 
 
+TICKET_BLOCK = 256    # ticket counters zeroed at once, one per stream
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+_TICKET_FREE: Dict[int, list] = {}
+_TICKET_LOCK = threading.Lock()
+
+
+def _ticket(dev: torch.device, stream) -> torch.Tensor:
+    """The ticket counter of ``stream``: one u32 per (card, stream), 0
+    between launches (the last CTA of each launch that takes tickets sets
+    it back). Launches on one stream run in order and share it; launches
+    on two streams never do. Counters are zeroed ``TICKET_BLOCK`` at a
+    time, outside graph capture, and the zeroing is waited for once, so a
+    stream that first appears while it captures a graph (as
+    ``torch.cuda.graph``'s own capture stream does) gets a counter that is
+    already 0."""
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    key = (index, stream.cuda_stream)
+    with _TICKET_LOCK:
+        t = _TICKETS.get(key)
+        if t is None:
+            free = _TICKET_FREE.setdefault(index, [])
+            if not free:
+                if torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError(
+                        "the KPI kernels' ticket counters are zeroed "
+                        "outside graph capture: launch once before")
+                block = torch.zeros(TICKET_BLOCK, dtype=torch.int32,
+                                    device=dev)
+                stream.synchronize()
+                free.extend(block.split(1))
+            t = _TICKETS[key] = free.pop()
+    return t
+
+
+def _check_units(n_units: int) -> None:
+    if n_units < 1:
+        raise ValueError(f"n_units must be >= 1, got {n_units}")
+
+
+def _check_rows(t: torch.Tensor, name: str, n: int, dev) -> None:
+    check(t, name, torch.float32, (n, 8), dev)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} needs 16-byte alignment")
+
+
+def _partials(n: int, n_units: int, dev, align: int = 1) -> torch.Tensor:
+    """Scratch for the block partials, transposed: [n_units * 5, stride],
+    stride the block count rounded up to a multiple of ``align``."""
+    stride = -(-n // KPI_BLOCK)
+    stride = -(-stride // align) * align
+    return torch.empty((n_units * KPI_LANES, stride), dtype=torch.float32,
+                       device=dev)
+
+
+def transform_kpi(prod: torch.Tensor, eq_table, q_table, *, n_units: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole transform of one block in one launch: prod [N, 8] f32
+    probed against the equipment cache with col 1 and against the quality
+    cache with col 0 (each cast by ``key_to_int32``: NaN to 0, saturated,
+    truncated toward zero), the fact-grain split and OEE KPIs of the
+    joined rows, and the per-unit rollup. ``eq_table`` / ``q_table`` are a
+    cache's (keys [S] i32, vals [S, W] f32, txn [S] i32), W >= 8, txn
+    unread. Returns (facts [N, 10] f32, found [N] bool, agg [n_units, 5]
+    f32): bitwise ``transform_kpi_ref`` — ``hash_join_pair_ref`` then
+    ``segment_kpi_ref``."""
+    _check_units(n_units)
+    if not on_cuda(prod, "transform_kpi"):
+        return transform_kpi_ref(prod, eq_table, q_table, n_units)
+    dev = prod.device
+    n = prod.shape[0]
+    _check_rows(prod, "prod", n, dev)
+    (eqk, eqv, _), (qk, qv, _) = eq_table, q_table
+    check_table(eqk, eqv, "eq_table", dev)
+    check_table(qk, qv, "q_table", dev)
+    if eqv.shape[1] < 8 or qv.shape[1] < 8:
+        raise ValueError("the joined rows need 8 lanes")
+    facts = torch.empty((n, N_FACT), dtype=torch.float32, device=dev)
+    found = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return facts, found, torch.zeros((n_units, KPI_LANES), device=dev)
+    agg = torch.empty((n_units, KPI_LANES), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    err = _fn("transform_kpi_launch")(
+        prod.data_ptr(), n, eqk.data_ptr(), eqv.data_ptr(), eqv.shape[0],
+        eqv.shape[1], qk.data_ptr(), qv.data_ptr(), qv.shape[0],
+        qv.shape[1], n_units, facts.data_ptr(),
+        found.data_ptr(), _partials(n, n_units, dev).data_ptr(),
+        _ticket(dev, stream).data_ptr(), agg.data_ptr(), stream.cuda_stream)
+    raise_on(err, "transform_kpi")
+    count_launch(launches, "transform_kpi")
+    return facts, found, agg
+
+
 def segment_kpi(prod: torch.Tensor, eq_rows: torch.Tensor,
                 q_rows: torch.Tensor, *, n_units: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused fact build + per-unit KPI rollup. prod/eq_rows/q_rows [N, 8]
-    f32 (a joined row with col 1 < 0 marks a join miss) -> (facts [N, 10]
-    f32, agg [n_units, 5] f32). Rows that are not valid, or whose unit
-    (prod col 1) lies outside [0, n_units), add nothing to ``agg``."""
-    if n_units < 1:
-        raise ValueError(f"n_units must be >= 1, got {n_units}")
+    """Fused fact build + per-unit KPI rollup in one launch (the kernel of
+    ``transform_kpi`` fed joined rows). prod/eq_rows/q_rows [N, 8] f32 (a
+    joined row with col 1 < 0 marks a join miss) -> (facts [N, 10] f32,
+    agg [n_units, 5] f32). Rows that are not valid, or whose unit (prod
+    col 1) lies outside [0, n_units), add nothing to ``agg``. Bitwise
+    ``segment_kpi_ref``."""
+    _check_units(n_units)
     if not on_cuda(prod, "segment_kpi"):
         return segment_kpi_ref(prod, eq_rows, q_rows, n_units)
     dev = prod.device
     n = prod.shape[0]
     for t, name in ((prod, "prod"), (eq_rows, "eq_rows"), (q_rows, "q_rows")):
-        check(t, name, torch.float32, (n, 8), dev)
-    n_blocks = -(-n // KPI_BLOCK)
+        _check_rows(t, name, n, dev)
     facts = torch.empty((n, N_FACT), dtype=torch.float32, device=dev)
-    partials = torch.empty((n_blocks, n_units, KPI_LANES),
-                           dtype=torch.float32, device=dev)
+    if n == 0:
+        return facts, torch.zeros((n_units, KPI_LANES), device=dev)
     agg = torch.empty((n_units, KPI_LANES), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev)
     err = _fn("segment_kpi_launch")(
         prod.data_ptr(), eq_rows.data_ptr(), q_rows.data_ptr(), n, n_units,
-        facts.data_ptr(), partials.data_ptr(), agg.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        facts.data_ptr(), _partials(n, n_units, dev).data_ptr(),
+        _ticket(dev, stream).data_ptr(), agg.data_ptr(), stream.cuda_stream)
     raise_on(err, "segment_kpi")
     count_launch(launches, "segment_kpi")
     return facts, agg
@@ -90,20 +192,20 @@ def segment_rollup(facts: torch.Tensor, n_units: int) -> torch.Tensor:
     over rows with col 9 > 0.5 whose unit (col 0, truncated toward zero;
     NaN counts nowhere) lies in [0, n_units). Bitwise ``segment_rollup_ref``:
     rows added in order within 256-row blocks, block partials in block
-    order."""
-    if n_units < 1:
-        raise ValueError(f"n_units must be >= 1, got {n_units}")
+    order (a second launch adds them)."""
+    _check_units(n_units)
     if not on_cuda(facts, "segment_rollup"):
         return segment_rollup_ref(facts, n_units)
     dev = facts.device
     check(facts, "facts", torch.float32, (None, N_FACT), dev)
     n = facts.shape[0]
-    partials = torch.empty((-(-n // KPI_BLOCK), n_units, KPI_LANES),
-                           dtype=torch.float32, device=dev)
+    if n == 0:
+        return torch.zeros((n_units, KPI_LANES), device=dev)
     agg = torch.empty((n_units, KPI_LANES), dtype=torch.float32, device=dev)
+    partials = _partials(n, n_units, dev, align=4)
     err = _fn("segment_rollup_launch")(
-        facts.data_ptr(), n, n_units, partials.data_ptr(), agg.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        facts.data_ptr(), n, n_units, partials.data_ptr(), partials.shape[1],
+        agg.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "segment_rollup")
     count_launch(launches, "segment_rollup")
     return agg
@@ -248,6 +350,5 @@ def gather_stats(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["FoldPlan", "fold_bucket", "fold_seg_chunk",
-           "fold_segments_many", "fold_tables",
-           "gather_stats", "launches", "segment_kpi", "segment_rollup",
-           "stage_fold"]
+           "fold_segments_many", "fold_tables", "gather_stats", "launches",
+           "segment_kpi", "segment_rollup", "stage_fold", "transform_kpi"]

@@ -12,6 +12,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.hash_join.ref import hash_join_pair_ref
+
 EPS = 1e-6
 KPI_LANES = 5
 KPI_BLOCK = 256      # rows per block of the KPI kernel's rollup
@@ -116,6 +118,16 @@ def segment_kpi_ref(prod: torch.Tensor, eq_rows: torch.Tensor,
     valid = (eq_rows[:, 1] >= 0) & (q_rows[:, 1] >= 0)
     facts = kpi_facts_ref(prod, eq_rows, q_rows, valid)
     return facts, unit_rollup_ref(facts, n_units)
+
+
+def transform_kpi_ref(prod: torch.Tensor, eq_table, q_table, n_units: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``ops.transform_kpi``: the transform's two probes
+    (``hash_join_pair_ref``), then ``segment_kpi_ref`` on the joined rows.
+    Returns (facts [N, 10], found [N] bool, agg [n_units, 5])."""
+    eq_rows, q_rows, found = hash_join_pair_ref(prod, eq_table, q_table)
+    facts, agg = segment_kpi_ref(prod, eq_rows, q_rows, n_units)
+    return facts, found, agg
 
 
 def fold_segments_ref(seg: torch.Tensor, vals: torch.Tensor,

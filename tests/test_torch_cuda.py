@@ -56,7 +56,8 @@ def test_hash_join_bitwise(dev, n_slots, n_keys, n_queries):
         assert g.dtype == w.dtype and _bits(g) == _bits(w)
 
 
-@pytest.mark.parametrize("n,units", [(1024, 20), (513, 32), (7, 3)])
+@pytest.mark.parametrize("n,units", [(1024, 20), (513, 32), (7, 3),
+                                     (2048, 20), (2048, 1000)])
 def test_segment_kpi(dev, n, units):
     rng = np.random.default_rng(n)
     prod = np.abs(rng.normal(size=(n, 8))).astype(np.float32)
@@ -187,6 +188,68 @@ def test_hash_join_pair_bitwise(dev, eq_slots, eq_keys, q_slots, q_keys):
         assert g.dtype == w.dtype and _bits(g) == _bits(w)
 
 
+def _special_table(rng, dev, n_slots, n_keys, key_hi=10**6):
+    """A card table of ``n_keys`` keys (0, INT32_MAX and INT32_MIN among
+    them, so that NaN, +-inf and +-3e9 keys hit after the cast; the rest
+    from [1, key_hi)) placed by linear probing; with n_keys near n_slots
+    the chains wrap."""
+    keys = np.concatenate([[0, 2**31 - 1, -2**31], rng.choice(
+        np.arange(1, key_hi), n_keys - 3, replace=False)]).astype(np.int32)
+    return _open_table(rng, dev, n_slots, keys), keys
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2, 4, 8])
+@pytest.mark.parametrize("units", [20, 1000])
+@pytest.mark.parametrize("slots", [(64, 4096), (8, 12)])
+def test_transform_kpi_bitwise(dev, n_blocks, units, slots):
+    """The one-launch transform against its plain version (the pair probe,
+    then the KPI kernel's plain version): NaN, +-inf and +-3e9 keys, pad
+    rows, misses, fractional keys, chains that wrap at the table end,
+    tables under 16 slots, 1 to 8 blocks; equipment keys (the rows' units)
+    half in [0, units), at 20 units and at 1000 (the rollup's unit
+    chunks)."""
+    rng = np.random.default_rng(n_blocks * slots[0] + units)
+    eq_t, ek = _special_table(rng, dev, slots[0], min(20, slots[0]),
+                              key_hi=2 * units)
+    q_t, qk = _special_table(rng, dev, slots[1], min(2000, slots[1] - 1))
+    n = 256 * n_blocks
+    prod = np.abs(rng.normal(size=(n, 8))).astype(np.float32) * 10
+    prod[:, 1] = rng.choice(ek, n)
+    prod[:, 0] = rng.choice(qk, n)
+    prod[rng.random(n) < 0.2, 1] = 2.5e6
+    prod[rng.random(n) < 0.2, 0] = -3.0e6
+    prod[rng.random(n) < 0.1, 1] += 0.75
+    special = np.float32([np.nan, np.inf, -np.inf, 3e9, -3e9])
+    prod[:5, 1] = special
+    prod[5:10, 0] = special
+    prod[n - n // 8:] = -1.0                     # _pad_bucket's rows
+    pt = torch.tensor(prod, device=dev)
+    before = launch_counts()["transform_kpi"]
+    got = sk_ops.transform_kpi(pt, eq_t, q_t, n_units=units)
+    assert launch_counts()["transform_kpi"] == before + 1
+    want = sk_ref.transform_kpi_ref(pt, eq_t, q_t, units)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and _bits(g) == _bits(w)
+    again = sk_ops.transform_kpi(pt, eq_t, q_t, n_units=units)
+    assert all(_bits(g) == _bits(a) for g, a in zip(got, again))
+
+
+def test_upload_stages_through_pinned_memory(dev):
+    """``backend.upload`` copies into pinned memory and returns at once:
+    the source array may change right after the call, the card still gets
+    the values it had."""
+    from repro_torch.core.backend import upload
+    for arr in (np.arange(10**6, dtype=np.float32),
+                np.arange(4096, dtype=np.int32),
+                np.arange(12, dtype=np.int64).reshape(3, 4)):
+        want = arr.copy()
+        t = upload(arr, dev)
+        arr += 1
+        assert t.device.type == "cuda" and t.dtype == torch.from_numpy(
+            want).dtype
+        assert _bits(t) == want.tobytes()
+
+
 @pytest.mark.parametrize("n", [1, 512, 4096])
 def test_gather_stats_bitwise(dev, n):
     rng = np.random.default_rng(n)
@@ -217,6 +280,13 @@ def test_wrappers_check_their_inputs(dev):
         sk_ops.segment_kpi(torch.zeros((4, 8), device=dev),
                            torch.zeros((4, 8)), torch.zeros((4, 8)),
                            n_units=2)
+    with pytest.raises(TypeError):                            # int prod
+        sk_ops.transform_kpi(torch.zeros((4, 8), dtype=torch.int32,
+                                         device=dev),
+                             (keys, vals, keys), (keys, vals, keys),
+                             n_units=2)
+    with pytest.raises(ValueError):                           # no units
+        sk_ops.segment_rollup(torch.zeros((4, 10), device=dev), 0)
 
 
 def test_backend_ops_on_card_match_cpu(dev):
@@ -288,6 +358,29 @@ def test_segment_rollup_bitwise(dev, n, units):
     got = sk_ops.segment_rollup(t, units)
     assert launch_counts()["segment_rollup"] == before + 1
     assert _bits(got) == _bits(sk_ref.segment_rollup_ref(t, units))
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 20000])
+@pytest.mark.parametrize("units", [256, 257, 1000])
+def test_segment_rollup_bitwise_many_units(dev, n, units):
+    """More units than one rollup pass holds (256): the kernel walks them
+    in chunks, each unit's rows still added in row order."""
+    t = torch.tensor(_rescan_facts(np.random.default_rng(n + units), n,
+                                   units), device=dev)
+    assert _bits(sk_ops.segment_rollup(t, units)) == \
+        _bits(sk_ref.segment_rollup_ref(t, units))
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 20000, 1 << 20])
+def test_segment_rollup_bitwise_sorted_and_unaligned(dev, n):
+    """The rescan on rows sorted by unit (the warehouse's order: whole
+    blocks of one unit), on a 16-byte aligned table and on a view 40 bytes
+    in (the 4-byte staging path)."""
+    f = torch.tensor(_rescan_facts(np.random.default_rng(n), n + 1, 20),
+                     device=dev)
+    for t in (f[:n], f[1:], f[f[:, 0].argsort()].contiguous()):
+        assert _bits(sk_ops.segment_rollup(t, 20)) == \
+            _bits(sk_ref.segment_rollup_ref(t, 20))
 
 
 def test_segment_reduce_on_card(dev):
@@ -401,9 +494,9 @@ def test_each_worker_has_its_own_stream(dev):
 
 def test_cluster_launch_counts_match_transforms(dev):
     """The launch counters are exact under concurrent stage threads: one
-    segment_kpi launch and one hash_join_pair launch per transform_block
-    call the workers made, and no single-table probe (join_depth 1, no
-    poison records)."""
+    transform_kpi launch per transform_block call the workers made, and
+    no pair probe, KPI kernel or single-table probe of their own
+    (join_depth 1, no poison records)."""
     from repro_torch.runtime.cluster import ConcurrentCluster
     _, _, pipe = _cluster_pipe("cuda")
     lock = threading.Lock()
@@ -425,8 +518,8 @@ def test_cluster_launch_counts_match_transforms(dev):
     cluster.stop_all()
     counts = launch_counts()
     assert calls[0] > 20
-    assert counts["segment_kpi"] == calls[0]
-    assert counts["hash_join_pair"] == calls[0]
+    assert counts["transform_kpi"] == calls[0]
+    assert counts["segment_kpi"] == counts["hash_join_pair"] == 0
     assert counts["hash_join"] == 0
 
 

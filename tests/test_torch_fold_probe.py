@@ -304,9 +304,9 @@ def test_hash_join_pair_bitwise_today_and_numpy(eq_slots, q_slots, wrap):
 
 
 def test_transform_uses_one_probe_dispatch():
-    """The torch backend's transform on the CPU: the pair probe and the
-    KPI kernel (2 dispatches), facts bitwise the reference's numpy
-    transform."""
+    """The torch backend's transform on the CPU: one dispatch (the fused
+    transform kernel: both probes, the facts, the rollup), facts bitwise
+    the reference's numpy transform."""
     from repro.core.cache import InMemoryTable as RefTable
     from repro_torch.core.cache import InMemoryTable
     rng = np.random.default_rng(3)
@@ -324,7 +324,7 @@ def test_transform_uses_one_probe_dispatch():
     prod[:, 1] = rng.integers(0, 24, 200)
     be.reset_stats()
     facts, found = be.transform(prod, tables[0][1], tables[1][1])
-    assert be.op_dispatches == 2 and be.host_syncs == 1
+    assert be.op_dispatches == 1 and be.host_syncs == 1
     ref_facts, ref_found = ref_backend.NumpyBackend().transform(
         prod, tables[0][0], tables[1][0])
     assert facts.tobytes() == ref_facts.tobytes()

@@ -190,14 +190,14 @@ def _prod_payloads(rng, n, n_units=8, n_prod=300):
     return prod
 
 
-@pytest.mark.parametrize("join_depth,dispatches", [(1, 2), (3, 3)])
+@pytest.mark.parametrize("join_depth,dispatches", [(1, 1), (3, 2)])
 def test_factblock_dispatch_and_sync_counters(join_depth, dispatches):
     """Mirrors tests/test_backends.py::test_factblock_dispatch_and_sync_
-    counters for the torch backend: the transform is one launch probing
-    both caches (+1 flattened hop probe) and one fused KPI + rollup
-    launch — one fewer than the pallas backend's two probes — and ZERO
-    host syncs until the load boundary materializes the block (exactly one
-    sync, cached after that)."""
+    counters for the torch backend: the transform is one launch that
+    probes both caches, builds the facts and rolls them up (+1 flattened
+    hop probe) — the jax backend's one dispatch — and ZERO host syncs
+    until the load boundary materializes the block (exactly one sync,
+    cached after that)."""
     rng = np.random.default_rng(12)
     eq, qu = _master_tables(rng)
     prod = _prod_payloads(rng, 200)
@@ -228,8 +228,8 @@ def _ref_table(tbl):
 
 
 def test_worker_step_single_round_trip():
-    """One process_operational step: two launches (the pair probe of
-    both caches + the fused KPI kernel) and one host sync."""
+    """One process_operational step: one launch (both probes, the facts
+    and the rollup in the fused transform kernel) and one host sync."""
     cfg = port_cfg.steelworks_config(n_partitions=N_UNITS)
     src = port_core.SourceDatabase()
     port_sampler.SteelworksSampler(cfg, port_sampler.SamplerConfig(
@@ -241,7 +241,7 @@ def test_worker_step_single_round_trip():
     be = pipe.backend
     be.reset_stats()
     assert pipe.step(max_records_per_partition=25) > 0
-    assert be.op_dispatches == 2 and be.host_syncs == 1
+    assert be.op_dispatches == 1 and be.host_syncs == 1
 
 
 def test_cpu_runs_launch_no_kernels(runs):

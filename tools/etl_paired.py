@@ -6,7 +6,7 @@ between two cards or two hosts.
 
     python3 tools/etl_paired.py --tree parent=DIR --tree change=DIR \\
         --order parent,change,change,parent,parent,change \\
-        --out build/etl_paired.json
+        --out build/etl_paired.json [--profile]
 
 Each entry of ``--order`` is one fresh process that imports that tree's
 own ``chip_smoke.py`` and ``src/repro_torch`` (so each tree runs its own
@@ -20,7 +20,15 @@ up once, then measures:
 - phase 5a: the concurrent cluster on the pre-extracted stream —
   records/s, freshness and report staleness p50/p95, the ``serving.fold``
   and ``transform.dispatch`` spans (count, summed thread-seconds),
-  launches per kernel.
+  launches per kernel;
+- with ``--profile``, under ``torch.profiler``: 20 transforms
+  (``TorchBackend.transform_block`` at the steelworks shapes: a 1000-row
+  payload, padded to 1024, against caches of 20 and 2,000 keys in 4096
+  slots, 20 units) with their ``to_host`` — the CUDA runtime calls of
+  each kind (stream, event and device synchronisations, async copies,
+  kernel launches) and each CUDA kernel's count and mean device time in
+  us; and 10 full rescans (``segment_rollup`` of a seeded 2^20-row fact
+  table, 20 units) — each kernel's count and mean device time in us.
 
 Every run prints one JSON line; the parent process prints and writes the
 per-tree medians, with the card's name and power limit. Exits non-zero
@@ -40,11 +48,77 @@ NUMERIC = ("seq_records_s", "seq_dispatches", "seq_host_syncs",
            "clu_fold_s", "clu_transform_s", "clu_fold_launches",
            "clu_probe_launches", "seq_fold_launches", "seq_probe_launches")
 FOLD = ("fold_segments", "fold_segments_many")
-PROBE = ("hash_join", "hash_join_pair")
+PROBE = ("hash_join", "hash_join_pair", "transform_kpi")
+RUNTIME = ("cudaStreamSynchronize", "cudaEventSynchronize",
+           "cudaDeviceSynchronize", "cudaMemcpyAsync", "cudaLaunchKernel")
 
 
-def one_run(tree: Path) -> dict:
-    """Measure phases 3 and 5a of ``tree`` in this process."""
+def _profile(run):
+    """(runtime call counts, {kernel: (count, mean us)}) of ``run()``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    calls = {k: 0 for k in RUNTIME}
+    kernels = {}
+    for e in prof.events():
+        if e.name in calls:
+            calls[e.name] += 1
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            c, t = kernels.get(e.name, (0, 0.0))
+            kernels[e.name] = (c + 1, t + e.time_range.end
+                               - e.time_range.start)
+    return calls, {k: (c, t / c) for k, (c, t) in kernels.items()}
+
+
+def profile_kernels() -> dict:
+    """The transforms and rescans of ``--profile`` on this process's
+    tree."""
+    import numpy as np
+    import torch
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.cache import InMemoryTable
+    from repro_torch.kernels.segment_kpi import ops
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    be = get_backend("torch", device=dev)
+    tables, keys = [], []
+    for n_keys in (20, 2000):
+        tbl = InMemoryTable(4096, backend=be)
+        k = rng.choice(10**6, n_keys, replace=False).astype(np.int64)
+        tbl.upsert(k, np.abs(rng.normal(size=(n_keys, 8))).astype(
+            np.float32), rng.integers(0, 10**6, n_keys))
+        tables.append(tbl)
+        keys.append(k)
+    prod = np.abs(rng.normal(size=(1000, 8))).astype(np.float32) * 10
+    prod[:, 1] = rng.choice(keys[0], 1000)
+    prod[:, 0] = rng.choice(keys[1], 1000)
+
+    def transforms(n):
+        for _ in range(n):
+            be.transform_block(prod, *tables, n_units=20).to_host()
+    transforms(5)
+    t_calls, t_kernels = _profile(lambda: transforms(20))
+    facts = torch.tensor(rng.random((1 << 20, 10), dtype=np.float32),
+                         device=dev)
+    facts[:, 0] = torch.tensor(rng.integers(0, 20, 1 << 20),
+                               dtype=torch.float32, device=dev)
+
+    def rescans(n):
+        for _ in range(n):
+            ops.segment_rollup(facts, 20)
+    rescans(3)
+    _, r_kernels = _profile(lambda: rescans(10))
+    return {"transform_x20_runtime_calls": t_calls,
+            "transform_x20_kernels_us": t_kernels,
+            "rescan_2p20_x10_kernels_us": r_kernels}
+
+
+def one_run(tree: Path, profile: bool) -> dict:
+    """Measure phases 3 and 5a of ``tree`` in this process (and the
+    ``--profile`` runs)."""
     sys.path.insert(0, str(tree))
     import chip_smoke as cs            # the tree's own script and package
     card = cs.phase_card()
@@ -78,6 +152,8 @@ def one_run(tree: Path) -> dict:
         "clu_fold_launches": sum(clu.get(k, 0) for k in FOLD),
         "clu_probe_launches": sum(clu.get(k, 0) for k in PROBE),
         "clu_launches": clu})
+    if profile:
+        out["profile"] = profile_kernels()
     return out
 
 
@@ -87,10 +163,13 @@ def main() -> None:
                     help="label=DIR of a checkout (repeat)")
     ap.add_argument("--order", help="comma-separated labels, one run each")
     ap.add_argument("--out", default="build/etl_paired.json")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile transforms and 2^20-row rescans")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        print("RUN " + json.dumps(one_run(Path(args.one).resolve())))
+        print("RUN " + json.dumps(one_run(Path(args.one).resolve(),
+                                          args.profile)))
         return
     import torch
     if not torch.cuda.is_available():
@@ -100,8 +179,8 @@ def main() -> None:
     for label in args.order.split(","):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, __file__, "--one",
-                               trees[label]], capture_output=True, text=True,
-                              timeout=900)
+                               trees[label]] + ["--profile"] * args.profile,
+                              capture_output=True, text=True, timeout=900)
         line = [l for l in proc.stdout.splitlines() if l.startswith("RUN ")]
         if proc.returncode or not line:
             sys.exit(f"etl_paired: the {label} run failed:\n"
@@ -109,7 +188,8 @@ def main() -> None:
         run = {"label": label, **json.loads(line[-1][4:]),
                "process_s": time.perf_counter() - t0}
         runs.append(run)
-        print(json.dumps({k: run[k] for k in ("label", "card", *NUMERIC)}),
+        print(json.dumps({k: run[k] for k in ("label", "card", *NUMERIC,
+                                              "profile") if k in run}),
               flush=True)
     medians = {label: {k: statistics.median(r[k] for r in runs
                                             if r["label"] == label)
