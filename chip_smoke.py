@@ -16,8 +16,12 @@ Phases, each fatal on failure (no fallback to the CPU):
    units), segment_kpi (the same kernel fed joined rows, 1-8 blocks, 20
    and 1000 units), fold_segments_many (a whole fold
    cycle: every delta x view item, at the steelworks views' shapes and at
-   edge shapes) and gather_stats — with each kernel's device time and its
-   plain version's
+   edge shapes) and gather_stats_many (a whole query batch in one launch:
+   the dashboard's 400 oee point queries, the same routed over 4 shards,
+   the four views' tables in one launch, one id, empty segments, 4096
+   queries, a table too large for shared memory; its host time per batch
+   through ``TorchBackend.batch_gather_stats_many`` too) — with each
+   kernel's device time and its plain version's
    (calls captured in a CUDA graph, replays timed with CUDA events), the
    wrapper's host-issued time per call, and the kernel's bound (the larger
    of the bytes this run's inputs need / 3.35 TB/s and fp32 operations /
@@ -49,7 +53,16 @@ Phases, each fatal on failure (no fallback to the CPU):
    launched in this run. (b) Live feed: 2 of 5 workers killed mid-stream,
    then scaled to 4: nothing lost, no buffer drop, identity columns equal
    to the sequential run's. Records/s, freshness and report staleness
-   p50/p95, and the card's busy share of a profiled run of (a);
+   p50/p95, and the card's busy share of a profiled run of (a). (c) The
+   sharded serving plane: the pre-extracted stream through the cluster
+   with a ``ShardedViewEngine`` of 4 shards on the card (the shard mesh
+   attached, skew-aware routing, ``repartition()`` at half the stream):
+   facts byte-identical to (a) and to the CPU run, every view bitwise an
+   unsharded engine's on the same chunk log through ``owner_gather`` and
+   ``tree_reduce``, the burst's answers bitwise the unsharded front's,
+   one fold_segments_many launch per fold cycle and one
+   gather_stats_many launch per query batch; records/s, staleness, stage
+   spans and ``mesh_report()``;
 6. segment_rollup against its plain version, bitwise, at 1, 255 and 257
    rows (16-byte aligned and not), on the cluster's own fact table
    (20,000 facts), on 20,000 rows over 1000 units, and on a 2^20-row
@@ -117,7 +130,7 @@ N_UNITS = 20
 MANY_UNITS = 1000                  # the KPI kernels' rollup: 4 unit chunks
 # the ETL kernels of the cluster path (the ETL main path); the
 # single-table hash_join runs on the complex model's path (COMPLEX_PATH)
-ETL_KERNELS = ("transform_kpi", "fold_segments_many", "gather_stats",
+ETL_KERNELS = ("transform_kpi", "fold_segments_many", "gather_stats_many",
                "segment_rollup")
 # units of the port that no path launches: the transform runs both probes
 # and the KPI kernel fused in transform_kpi; they are still held against
@@ -693,31 +706,134 @@ def backend_fold_ms(dev, rng, deltas: int, reps: int = 50) -> float:
     return statistics.median(times)
 
 
-def check_gather(rng, dev):
+def gather_table(rng, S, L):
+    """A packed [S, 1 + 3L] view table: counts in [0, 50) with a third of
+    the segments empty (NaN means), a -0.0 sum, +-inf min/max
+    identities."""
     import numpy as np
-    import torch
-    from repro_torch.kernels.segment_kpi.ops import gather_stats
-    from repro_torch.kernels.segment_kpi.ref import gather_stats_ref
-    S, L = N_UNITS, 4
     table = rng.normal(size=(S, 1 + 3 * L)).astype(np.float32)
     table[:, 0] = rng.integers(0, 50, S)
-    table[:3, 0] = 0.0                            # empty segments: NaN
-    tt = torch.tensor(table, device=dev)
-    for n in (512, 4096):
-        it = torch.tensor(rng.integers(0, S, n), device=dev)
-        got = gather_stats(tt, it)
-        want = gather_stats_ref(tt, it)
-        torch.cuda.synchronize()
-        if not same_bits(got, want):
-            fail(f"gather_stats N={n} not bitwise")
-    print(f"gather_stats table [{S}, {1 + 3 * L}] N in {{512, 4096}}: "
-          "bitwise equal (NaN means included)")
-    n_bytes = S * (1 + 3 * L) * 4 + n * 8 + n * (1 + 4 * L) * 4
-    b_ms, b_by = bound(n_bytes, n * L)
-    return {"name": "gather_stats", "max_abs_err": 0.0,
-            **timings(lambda: gather_stats(tt, it),
-                      lambda: gather_stats_ref(tt, it)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    table[rng.random(S) < 0.33, 0] = 0.0
+    table[0, 0], table[0, 1] = 3.0, -0.0
+    table[-1, 1 + L:] = np.concatenate([np.full(L, np.inf),
+                                        np.full(L, -np.inf)])
+    return table
+
+
+def shard_items(table, ids, n_shards):
+    """The (shard-local table, routed ids) items of one view's point
+    queries over ``n_shards`` shards owning contiguous segment ranges:
+    foreign rows hold the fold identity, as a shard's table does."""
+    import numpy as np
+    from repro_torch.core.backend import empty_fold_state
+    S, W = table.shape
+    owner = np.arange(S) * n_shards // S
+    ident = empty_fold_state(S, (W - 1) // 3)
+    return [(np.where(owner[:, None] == k, table, ident), ids[owner[ids] == k])
+            for k in range(n_shards) if (owner[ids] == k).any()]
+
+
+def gather_bitwise(items, dev, what: str):
+    """One gather_stats_many launch over ``items``, held bitwise against
+    the plain version item by item. Returns (words on the card, plan)."""
+    import torch
+    from repro_torch.kernels.segment_kpi.ops import (gather_stats_many,
+                                                     gather_tables,
+                                                     stage_gather)
+    from repro_torch.kernels.segment_kpi.ref import gather_stats_many_ref
+    words, plan = stage_gather(items)
+    wt = torch.from_numpy(words).to(dev)
+    got = gather_tables(gather_stats_many(wt, plan), plan)
+    want = gather_tables(gather_stats_many_ref(wt, plan), plan)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not same_bits(g, w):
+            fail(f"gather_stats_many item {i} not bitwise ({what})")
+    return wt, plan
+
+
+def gather_bytes(items) -> int:
+    """Each table and id read once, each answer written once."""
+    return sum(4 * t.size + 4 * len(i) + 4 * len(i) * (1 + 4 * (
+        (t.shape[1] - 1) // 3)) for t, i in items)
+
+
+def backend_gather_ms(dev, items, reps: int = 50) -> float:
+    """Host-clock ms per ``TorchBackend.batch_gather_stats_many`` call:
+    staging, one upload, one launch, one copy back and the sync, as a
+    query batch pays them."""
+    from repro_torch.core.backend import get_backend
+    be = get_backend("torch", device=dev)
+    be.batch_gather_stats_many(items)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        be.batch_gather_stats_many(items)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_gather_stats_many(rng, dev, card: str):
+    """The batched gather bitwise its plain version, one launch per
+    batch: the dashboard's 400 oee point queries, the same routed over 4
+    shards, the four views in one launch (L 4, 4, 2, 2), one id, a table
+    of empty segments, a 4096-query batch and a table too large for
+    shared memory; device, issue, plain and bound times at 400 and 4096
+    queries and at 4 shards, and the backend's host time per batch."""
+    import numpy as np
+    from repro_torch.kernels.segment_kpi.ops import gather_stats_many
+    from repro_torch.kernels.segment_kpi.ref import gather_stats_many_ref
+    oee = gather_table(rng, N_UNITS, 4)
+    dash = np.arange(400) % N_UNITS
+    big = rng.integers(0, N_UNITS, 4096)
+    empty = gather_table(rng, N_UNITS, 4)
+    empty[:, 0] = 0.0
+    cases = {
+        "dashboard, 400 oee queries": [(oee, dash)],
+        "the same over 4 shards": shard_items(oee, dash, 4),
+        "the four views": [(gather_table(rng, S, L), rng.integers(0, S, n))
+                           for (S, L), n in zip(STEELWORKS_VIEWS,
+                                                (400, 300, 20, 129))],
+        "one id": [(oee, np.array([7]))],
+        "empty segments": [(empty, dash)],
+        "4096 queries": [(oee, big)],
+        "a 3000 x 10 table (read through L2)": [
+            (gather_table(rng, 3000, 3), rng.integers(0, 3000, 1000))],
+    }
+    staged = {what: gather_bitwise(items, dev, what)
+              for what, items in cases.items()}
+    print(f"gather_stats_many: bitwise equal, one launch each, on "
+          f"{len(cases)} batches ({'; '.join(cases)})")
+    timed = {}
+    for what, label in (("dashboard, 400 oee queries", "dashboard"),
+                        ("the same over 4 shards", "dashboard_4_shards"),
+                        ("4096 queries", "q4096")):
+        wt, plan = staged[what]
+        items = cases[what]
+        b_ms, b_by = bound(gather_bytes(items),
+                           sum(len(i) * ((t.shape[1] - 1) // 3)
+                               for t, i in items))
+        timed[label] = {
+            **timings(lambda: gather_stats_many(wt, plan),
+                      lambda: gather_stats_many_ref(wt, plan)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "batch_ms": backend_gather_ms(dev, items)}
+        t = timed[label]
+        print(f"  gather_stats_many {what} ({plan.n_ctas} CTAs, "
+              f"{len(items)} items): {t['ms']:.7f} ms kernel, "
+              f"{t['plain_ms']:.7f} ms plain (device, CUDA graph), "
+              f"{t['issue_ms']:.7f} ms per host-issued wrapper call, "
+              f"bound {b_ms:.7f} ms ({b_by}, {gather_bytes(items)} B); "
+              f"TorchBackend.batch_gather_stats_many per batch (host "
+              f"clock: staging, upload, launch, copy back, sync) "
+              f"{t['batch_ms']:.4f} ms [{card}]")
+    main = timed["q4096"]
+    return {"name": "gather_stats_many", "max_abs_err": 0.0,
+            **{k: main[k] for k in ("ms", "plain_ms", "issue_ms",
+                                    "bound_ms", "bound_by", "batch_ms")},
+            "library_ms": None,
+            "dashboard": timed["dashboard"],
+            "dashboard_4_shards": timed["dashboard_4_shards"]}
 
 
 # ------------------------------------------------------------------ phase 3
@@ -894,13 +1010,14 @@ CLUSTER_CAP = 200                  # records per partition per fetch
 DEVICE = "cuda"                    # where the cluster phases run
 
 
-def steelworks_deployment(device: str, fault=None, tracer=None):
+def steelworks_deployment(device: str, fault=None, tracer=None,
+                          strategy: str = "static"):
     """The steelworks deployment of phase 3 (same seed, so the same
     records), unextracted: (cfg, source, sampler, pipeline)."""
     from repro_torch.configs.dod_etl import steelworks_config
     from repro_torch.core import DODETLPipeline, SourceDatabase
     from repro_torch.data.sampler import SamplerConfig, SteelworksSampler
-    cfg = steelworks_config(n_partitions=N_UNITS)
+    cfg = steelworks_config(n_partitions=N_UNITS, partition_strategy=strategy)
     src = SourceDatabase()
     sampler = SteelworksSampler(cfg, SamplerConfig(
         records_per_table=CLUSTER_RECORDS, n_equipment=N_UNITS, seed=0))
@@ -1073,6 +1190,141 @@ def run_cluster_live(gpu, card: str) -> None:
           f"columns equal to the sequential run; workers alive "
           f"{sorted(cluster.alive_workers())}")
     print_cluster_report("(b) live feed", rep, card)
+
+
+SHARDS = 4                         # serving shards of phase 5c, one card
+
+
+def run_cluster_sharded():
+    """(c): the pre-extracted stream through the cluster with a
+    ``ShardedViewEngine`` of ``SHARDS`` shards on the card (the skew
+    strategy's routing; ``repartition()`` once half the records are
+    loaded), then the dashboard burst. Returns (pipeline, engine, report,
+    answers, front stats, repartition seconds, launches of the run,
+    launches of the burst, stage spans, mesh report)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_shard_mesh
+    from repro_torch.observability.tracer import StageTracer
+    from repro_torch.runtime.cluster import ConcurrentCluster
+    from repro_torch.runtime.shard_plane import ShardedViewEngine
+    from repro_torch.serving import steelworks_views
+    tracer = StageTracer()
+    _, src, sampler, pipe = steelworks_deployment(DEVICE, tracer=tracer,
+                                                  strategy="skew")
+    sampler.generate(src)
+    pipe.extract()
+    engine = ShardedViewEngine(steelworks_views(N_UNITS), n_shards=SHARDS,
+                               backend=pipe.backend)
+    pipe.backend.set_mesh(make_shard_mesh(SHARDS))
+    try:
+        cluster = ConcurrentCluster(
+            pipe, max_records_per_partition=CLUSTER_CAP, poll_cdc=False,
+            serving=engine)
+        reset_launch_counts()
+        cluster.start()
+        t0 = time.perf_counter()
+        while cluster.records_done() < CLUSTER_RECORDS // 2:
+            if time.perf_counter() - t0 > 120:
+                fail(f"sharded cluster stalled at {cluster.records_done()}")
+            time.sleep(0.002)
+        t0 = time.perf_counter()
+        cluster.repartition()
+        repartition_s = time.perf_counter() - t0
+        done = cluster.run_until_idle(timeout=300)
+        cluster.stop_all()
+        run_counts = launch_counts()
+        if done != CLUSTER_RECORDS:
+            fail(f"sharded cluster loaded {done} of {CLUSTER_RECORDS}")
+        report = cluster.report()
+        spans = stage_spans(tracer, cluster._t_start)
+        reset_launch_counts()
+        answers, stats = dashboard_burst(engine)
+        burst_counts = launch_counts()
+        mesh = engine.mesh_report()          # while the mesh is attached
+    finally:
+        pipe.backend.set_mesh(None)
+    return (pipe, engine, report, answers, stats, repartition_s, run_counts,
+            burst_counts, spans, mesh)
+
+
+def same_answers(a, b) -> bool:
+    """Two reports' data, value for value, bit for bit."""
+    import numpy as np
+    if a.view != b.view or a.data.keys() != b.data.keys():
+        return False
+    return all(np.asarray(a.data[k]).tobytes() == np.asarray(
+        b.data[k]).tobytes() for k in a.data)
+
+
+def check_cluster_sharded(shd, clu, cpu, card: str) -> dict:
+    """Phase 5c's checks: facts byte-identical to 5a's unsharded card run
+    and to the CPU run; every view, through owner_gather (the front) and
+    tree_reduce, and every burst answer bitwise an unsharded engine's on
+    the same committed stream (the warehouse's chunk log, folded on the
+    card: a cluster's delta order is its own, so two cluster runs' float
+    sums differ in order); one fold_segments_many launch per fold cycle
+    and one gather_stats_many launch per query batch. Returns the run's
+    launch counts by kernel."""
+    from repro_torch.runtime.shard_plane import owner_gather
+    (pipe, engine, rep, answers, stats, repartition_s, run_counts,
+     burst_counts, spans, mesh) = shd
+    facts = pipe.warehouse.canonical_fact_table().tobytes()
+    for other, what in ((clu[0], "unsharded card cluster run (a)"),
+                        (cpu[0], "CPU run")):
+        if facts != other.warehouse.canonical_fact_table().tobytes():
+            fail(f"sharded cluster facts are not byte-identical to the "
+                 f"{what}")
+    if pipe.current_routing().epoch < 1:
+        fail("the mid-run repartition() made no new routing epoch")
+    if not mesh["device_mesh"]:
+        fail("the shard mesh was not attached to the card's backend")
+    snap = engine.snapshot()
+    if snap.rows_folded != CLUSTER_RECORDS:
+        fail("sharded views do not cover every loaded fact")
+    plain = views_for(pipe.backend)
+    for chunk in pipe.warehouse.read_view().chunks:
+        plain.publish(chunk)
+    plain.fold_pending()
+    for spec in engine.specs:
+        want = plain.snapshot().view(spec.name).table.tobytes()
+        gathered = owner_gather(snap.shard_states[spec.name],
+                                snap.seg_owners[spec.name]).tobytes()
+        if not (snap.view(spec.name).table.tobytes() == gathered == want
+                == engine.tree_reduced_table(spec.name).tobytes()):
+            fail(f"sharded view {spec.name} is not bitwise the unsharded "
+                 f"engine's (owner_gather / tree_reduce)")
+    plain_answers, _ = dashboard_burst(plain)
+    if len(answers) != 412 or not all(
+            same_answers(a, b) for a, b in zip(answers, plain_answers)):
+        fail("sharded burst answers are not bitwise the unsharded front's")
+    folds, gathers = (run_counts["fold_segments_many"],
+                      burst_counts["gather_stats_many"])
+    if folds != mesh["fold"]["cycles"] or folds < 1:
+        fail(f"{folds} fold_segments_many launches for "
+             f"{mesh['fold']['cycles']} fold cycles")
+    if gathers != stats["point_executes"] or gathers < 1:
+        fail(f"{gathers} gather_stats_many launches for "
+             f"{stats['point_executes']} query batches")
+    print(f"cluster (c) {SHARDS} shards on one card, skew routing: "
+          f"repartition() at {CLUSTER_RECORDS // 2} records made routing "
+          f"epoch {pipe.current_routing().epoch} in {repartition_s:.3f} s "
+          f"({mesh['segments_moved']} view segments moved shard); "
+          f"{pipe.warehouse.rows_loaded} facts "
+          f"byte-identical to run (a) and to the CPU run; the 4 views "
+          f"bitwise an unsharded engine on the same chunk log through "
+          f"owner_gather and tree_reduce; 412 burst answers bitwise the "
+          f"unsharded front's")
+    print(f"  launches: {folds} fold_segments_many for "
+          f"{mesh['fold']['cycles']} fold cycles ({mesh['fold']['items']} live (delta, view, shard) "
+          f"items); {gathers} gather_stats_many for "
+          f"{stats['point_executes']} query batches with point queries "
+          f"({stats['batches']} batches, {stats['queries']} queries)")
+    print_cluster_report(f"(c) {SHARDS} shards", rep, card)
+    print("  stage spans (count, summed s over all threads): " + ", ".join(
+        f"{k} {c} / {t:.3f}" for k, (c, t) in sorted(
+            spans["per_name"].items())))
+    print(f"  mesh_report: {json.dumps(mesh)}")
+    return {k: run_counts[k] + burst_counts[k] for k in run_counts}
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1569,7 +1821,7 @@ def run_lm(arch: str, dev, card: str):
           f"drawn on the card in {time.perf_counter() - t0:.2f} s")
 
     # prefill/decode consistency against one full forward
-    full, _ = model.forward(params, {"tokens": prompts}, mode="train")
+    full, _, _ = model.forward(params, {"tokens": prompts}, mode="train")
     scale = max(float(full.abs().max()), 1.0)
     tail = full[:, -LM_TAIL:].clone()
     if full.shape != (LM_BATCH, LM_PROMPT, cfg.vocab) or \
@@ -1579,7 +1831,7 @@ def run_lm(arch: str, dev, card: str):
     del full
     p = LM_PROMPT - LM_TAIL
     reset_launch_counts()
-    _, pre = model.forward(params, {"tokens": prompts[:, :p]},
+    _, pre, _ = model.forward(params, {"tokens": prompts[:, :p]},
                            mode="prefill")
     pre_counts = lm_launches(launch_counts())
     if pre_counts != lm_expected(model):
@@ -1591,7 +1843,7 @@ def run_lm(arch: str, dev, card: str):
     reset_launch_counts()
     errs = []
     for t in range(p, LM_PROMPT):
-        dl, cache = model.forward(params, {"tokens": prompts[:, t:t + 1]},
+        dl, cache, _ = model.forward(params, {"tokens": prompts[:, t:t + 1]},
                                   mode="decode", cache=cache, cache_index=t)
         errs.append(float((dl[:, 0] - tail[:, t - p]).abs().max()))
     dec_counts = lm_launches(launch_counts())
@@ -1639,14 +1891,14 @@ def run_lm(arch: str, dev, card: str):
     params = tree_map(lambda t: t.float(), params)
     torch.cuda.empty_cache()
     reset_launch_counts()
-    got, got_cache = model.forward(params, {"tokens": prompts},
+    got, got_cache, _ = model.forward(params, {"tokens": prompts},
                                    mode="prefill")
     f32_counts = lm_launches(launch_counts())
     if f32_counts != lm_expected(model, bf16=False):
         fail(f"{arch}: the f32 prefill launched {f32_counts}, expected "
              f"{lm_expected(model, bf16=False)}")
     with plain_versions():
-        want, want_cache = model.forward(params, {"tokens": prompts},
+        want, want_cache, _ = model.forward(params, {"tokens": prompts},
                                          mode="prefill")
     torch.cuda.synchronize()
     f_scale = max(float(want.abs().max()), 1.0)
@@ -1670,13 +1922,13 @@ def run_lm(arch: str, dev, card: str):
     del want, got_cache, want_cache
     # the consistency check once more in f32 (the prefill logits are the
     # full forward's): the algorithm's agreement without bf16 rounding
-    _, pre = model.forward(params, {"tokens": prompts[:, :p]},
+    _, pre, _ = model.forward(params, {"tokens": prompts[:, :p]},
                            mode="prefill")
     cache = fill_cache(model.init_cache(LM_BATCH, LM_PROMPT, dev), pre)
     del pre
     f_errs = []
     for t in range(p, LM_PROMPT):
-        dl, cache = model.forward(params, {"tokens": prompts[:, t:t + 1]},
+        dl, cache, _ = model.forward(params, {"tokens": prompts[:, t:t + 1]},
                                   mode="decode", cache=cache, cache_index=t)
         f_errs.append(float((dl[:, 0] - got[:, t]).abs().max()))
     if not max(f_errs) < 0.02 * f_scale:
@@ -1702,7 +1954,7 @@ def main() -> None:
     rng = np.random.default_rng(0)
     results = [check_hash_join(rng, dev), check_hash_join_pair(rng, dev),
                check_transform_kpi(rng, dev), check_segment_kpi(rng, dev),
-               check_fold(rng, dev), check_gather(rng, dev)]
+               check_fold(rng, dev), check_gather_stats_many(rng, dev, card)]
     for r in results:
         print(f"  {r['name']}: {r['ms']:.7f} ms kernel, {r['plain_ms']:.7f} "
               f"ms plain (device, CUDA graph), {r['issue_ms']:.7f} ms per "
@@ -1761,6 +2013,15 @@ def main() -> None:
     check_cluster_pre_extracted(clu, gpu, cpu, card)
     run_cluster_live(gpu, card)
     profile_run("cluster (a)", run_cluster_pre_extracted, card)
+    # the sharded serving plane on the card (phase 5c)
+    sharded_counts = check_cluster_sharded(run_cluster_sharded(), clu, cpu,
+                                           card)
+    missing = [k for k in ETL_KERNELS if k != "segment_rollup"
+               and sharded_counts[k] <= 0]
+    if missing:
+        fail(f"kernels never launched on the sharded cluster path: "
+             f"{missing}")
+    print(f"sharded cluster path launches: {sharded_counts}")
 
     results.append(check_segment_rollup(rng, dev, clu[0], card))  # phase 6
     r = results[-1]
@@ -1789,7 +2050,7 @@ def main() -> None:
                "transform_kpi": (fused, f"{tpu}:226"),
                "segment_kpi": (fused, f"{tpu}:226"),
                "fold_segments_many": (src, f"{tpu}:180"),
-               "gather_stats": (src, f"{tpu}:152"),
+               "gather_stats_many": (src, f"{tpu}:152"),
                "segment_rollup": (src, f"{tpu}:205"),
                **{name: (f"src/repro_torch/kernels/flash_attention/csrc/"
                          f"{name}.cu",
@@ -1808,6 +2069,7 @@ def main() -> None:
         path, replaces = sources[name]
         by_path = {"sequential": seq_counts.get(name, 0),
                    "cluster": cluster_counts.get(name, 0),
+                   "sharded_cluster": sharded_counts.get(name, 0),
                    COMPLEX_PATH: complex_counts.get(name, 0),
                    **{p: c.get(name, 0) for p, c in lm_counts.items()},
                    **{p: c.get(name, 0) for p, c in f32_counts.items()}}
@@ -1837,7 +2099,8 @@ def main() -> None:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         **{key: r[key] for key in (
-                            "zamba2", "scratch_bytes", "cluster_facts_ms")
+                            "zamba2", "scratch_bytes", "cluster_facts_ms",
+                            "batch_ms", "dashboard", "dashboard_4_shards")
                            if key in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,14 @@ serving views is expressed against the ``ComputeBackend`` protocol:
   * ``fold_segments_scan`` — the same fold as an associative scan over
                          bit-reversed rows, bitwise equal to the tree,
   * ``batch_gather_stats`` — the batched point-query read: one gather for
-                         a whole batch of per-segment stat lookups,
+                         a whole batch of per-segment stat lookups;
+                         ``batch_gather_stats_many`` answers every
+                         (table, ids) item of a query batch at once (one
+                         kernel launch on the torch backend),
+  * ``fold_segments_sharded`` — the sharded serving plane's write op: a
+                         delta folded once per shard with every segment
+                         the shard does not own masked to the identity
+                         (``set_mesh`` attaches the plane's mesh),
   * ``prefix_fold``    — all S window prefixes of a packed view table in
                          one associative scan (oracle:
                          ``prefix_fold_reference``).
@@ -171,6 +178,24 @@ def _compact_fold(seg: np.ndarray, vals: np.ndarray, n_segments: int):
     else:
         cseg = np.where(in_range, np.searchsorted(live, seg), -1)
     return out, live, cseg, vals, n_fold
+
+
+def sharded_fold_items(seg_ids: np.ndarray, values: np.ndarray,
+                       n_segments: int, owners: np.ndarray,
+                       n_shards: int) -> list:
+    """The ``n_shards`` masked fold items of one (delta, view): item ``k``
+    is (ids with every segment shard ``k`` does not own set to -1, the
+    values, n_segments). An item whose rows are all foreign compacts to
+    no live segment: the identity table, and no work for a kernel."""
+    seg = np.asarray(seg_ids, np.int64)
+    owners = np.asarray(owners, np.int64)
+    vals = np.asarray(values, np.float32)
+    if vals.ndim == 1:
+        vals = vals[:, None]
+    in_range = (seg >= 0) & (seg < n_segments)
+    own = np.where(in_range, owners[np.clip(seg, 0, n_segments - 1)], -1)
+    return [(np.where(own == k, seg, -1), vals, n_segments)
+            for k in range(n_shards)]
 
 
 def _fold_blocks(seg: np.ndarray, vals: np.ndarray, n_segments: int,
@@ -614,12 +639,51 @@ class ComputeBackend:
         NaN where count == 0 (see ``gather_width``)."""
         raise NotImplementedError
 
+    def batch_gather_stats_many(self, items) -> list:
+        """``batch_gather_stats`` of every (table, seg_ids) in ``items``
+        (a query batch's (point-query view, owning shard) pairs; tables of
+        any S and L), each answer bitwise what
+        ``batch_gather_stats(*item)`` returns. The default is that loop; a
+        device backend answers them all in one dispatch."""
+        return [self.batch_gather_stats(*item) for item in items]
+
     def prefix_fold(self, table: np.ndarray) -> np.ndarray:
         """Cumulative windowed fold: inclusive running combine of a packed
         ``[S, 1 + 3L]`` view table along the window axis — row ``w``
         aggregates windows [0, w] — bitwise equal to
         ``prefix_fold_reference``. Returns host ``[S, 1 + 3L]`` f32."""
         raise NotImplementedError
+
+    # ------------------------------------------------- device-mesh extension
+    mesh = None   # the sharded serving plane's 1-D mesh — see set_mesh
+
+    def set_mesh(self, mesh) -> None:
+        """Attach the serving plane's 1-D shard mesh
+        (``repro_torch.launch.mesh.make_shard_mesh``: one device per
+        shard); ``None`` detaches. Attaching a mesh never changes WHAT
+        ``fold_segments_sharded`` computes."""
+        self.mesh = mesh
+
+    def fold_segments_sharded(self, seg_ids: np.ndarray, values: np.ndarray,
+                              n_segments: int, owners: np.ndarray,
+                              n_shards: int) -> np.ndarray:
+        """Shard-local delta folds for the sharded serving plane
+        (``repro_torch.runtime.shard_plane``): shard ``k`` folds the FULL
+        delta with every segment it does not own masked to the -1
+        identity, so nothing crosses shards on the write path. ``owners``
+        [n_segments] int maps segment id -> owning shard. Returns the
+        stacked host tables ``[n_shards, n_segments, 1 + 3L]``.
+
+        Bitwise contract: the fold tree is elementwise per segment column
+        (a segment's fold never reads another segment's lanes, and a row
+        of another segment adds the same ``0 * v`` to a column whether its
+        id is kept or masked), so shard ``k``'s owned columns are bitwise
+        the single-device ``fold_segments`` columns and its foreign
+        columns exactly the ``empty_fold_state`` identity. The K masked
+        folds are the K items of one ``fold_segments_many`` call: one
+        launch on a card, whatever the mesh."""
+        return np.stack(self.fold_segments_many(sharded_fold_items(
+            seg_ids, values, n_segments, owners, n_shards)))
 
     # -------------------------------------------------------------- helpers
     @staticmethod
@@ -912,8 +976,12 @@ class TorchBackend(ComputeBackend):
     warehouse's full rescan) is one ``segment_rollup`` launch and one
     sync. ``fold_segments_many`` folds a whole fold cycle — every item's
     every compacted row block — in one ``fold_segments_many`` launch and
-    one sync (``fold_segments`` is its one-item case);
-    ``batch_gather_stats`` runs the gather kernel once per batch. ``fold_segments_scan`` and
+    one sync (``fold_segments`` is its one-item case; the sharded plane's
+    masked folds are items of the same call);
+    ``batch_gather_stats_many`` answers a whole query batch — every
+    (view, shard) item — in one ``gather_stats_many`` launch after one
+    upload, with one sync (``batch_gather_stats`` is its one-item case).
+    ``fold_segments_scan`` and
     ``prefix_fold`` are structural scans (XLA ops in the reference, not
     Pallas kernels) and run as plain torch on the device.
 
@@ -1018,18 +1086,55 @@ class TorchBackend(ComputeBackend):
                                      ns).cpu().numpy()
         return _fold_blocks(seg_ids, values, n_segments, tree)
 
+    def set_mesh(self, mesh):
+        """Every shard of ``mesh`` must be this backend's device: the K
+        shards of one card fold as K items of one launch there. Placing
+        shards on other cards is not built yet."""
+        if mesh is not None:
+            here = self.torch_device
+            for d in mesh.devices:
+                d = torch.device(d)
+                if d.type != here.type or (d.index or 0) != (here.index or 0):
+                    raise ValueError(
+                        f"shard on {d}: the torch backend on {here} folds "
+                        f"every shard on its own device")
+        super().set_mesh(mesh)
+
     def batch_gather_stats(self, table, seg_ids):
-        table = np.asarray(table, np.float32)
-        idx = np.asarray(seg_ids, np.int64)
-        if not len(idx):
+        return self.batch_gather_stats_many([(table, seg_ids)])[0]
+
+    def batch_gather_stats_many(self, items):
+        """Every item staged in one buffer (``stage_gather``: ids checked
+        against their table on the host), one upload, one
+        ``gather_stats_many`` launch, one copy back and one sync, then the
+        answers split per item. One dispatch and one sync per call with
+        any ids; none for a call without."""
+        outs, work = [], []
+        for table, seg_ids in items:
+            table = np.asarray(table, np.float32)
+            idx = np.asarray(seg_ids, np.int64)
             L = (table.shape[1] - 1) // 3
-            return np.zeros((0, gather_width(L)), np.float32)
-        if idx.min() < 0 or idx.max() >= len(table):
-            raise ValueError(f"segment ids out of range [0, {len(table)})")
+            outs.append(np.zeros((0, gather_width(L)), np.float32))
+            if len(idx):
+                work.append((len(outs) - 1, table, idx))
+        if not work:
+            return outs
+        words, plan = segment_kpi_ops.stage_gather(
+            [(table, idx) for _, table, idx in work])
+        flat = segment_kpi_ops.gather_stats_many(
+            self._tensor(words), plan)
+        if self.torch_device.type == "cuda":
+            host = torch.empty(plan.n_out, dtype=torch.float32,
+                               pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            torch.cuda.current_stream(self.torch_device).synchronize()
+            flat = host
         self.op_dispatches += 1
         self.host_syncs += 1
-        return segment_kpi_ops.gather_stats(
-            self._tensor(table), self._tensor(idx)).cpu().numpy()
+        answers = segment_kpi_ops.gather_tables(flat.numpy().copy(), plan)
+        for (i, _, _), ans in zip(work, answers):
+            outs[i] = ans
+        return outs
 
     def prefix_fold(self, table):
         table = np.asarray(table, np.float32)
@@ -1050,6 +1155,7 @@ __all__ = [
     "ComputeBackend", "FactBlock", "NumpyBackend", "TorchBackend",
     "register_backend", "get_backend", "available_backends",
     "resolve_backend_name", "resolve_device", "new_stream", "upload",
+    "sharded_fold_items",
     "DEFAULT_BACKEND",
     "DEFAULT_DEVICE", "KPI_LANES", "FOLD_BLOCK", "fold_width",
     "gather_width", "empty_fold_state", "combine_fold",

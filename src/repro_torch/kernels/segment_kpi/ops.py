@@ -5,7 +5,8 @@ rollup of joined rows, the per-unit rollup of built facts (the
 warehouse's full rescan), the serving views' delta fold of a whole fold
 cycle (``stage_fold`` lays its items out in one buffer,
 ``fold_segments_many`` folds them in one launch, ``fold_tables`` splits
-the result) and the batched point-query gather.
+the result) and the batched point-query gather of a whole query batch
+(``stage_gather``, ``gather_stats_many``, ``gather_tables`` likewise).
 
 For CPU tensors each wrapper runs its plain version (``ref.py``); for
 CUDA tensors it launches its kernel on the current stream or raises.
@@ -26,6 +27,7 @@ from repro_torch.kernels._build import (check, count_launch, on_cuda,
 from repro_torch.kernels.hash_join.ops import check_table
 from repro_torch.kernels.segment_kpi.ref import (KPI_BLOCK, KPI_LANES,
                                                  fold_segments_many_ref,
+                                                 gather_stats_many_ref,
                                                  gather_stats_ref,
                                                  segment_kpi_ref,
                                                  segment_rollup_ref,
@@ -36,9 +38,11 @@ MAX_FOLD_ROWS = 2048  # rows of one fold block: its ids and 4 lanes in smem
 FOLD_WARPS = 8        # warps of a fold CTA, one (segment, lane) task each
 FOLD_LANES_STAGED = 4  # value lanes a fold CTA holds in smem at once
 FOLD_ITEM_WORDS = 8   # int32 words of one item descriptor
+GATHER_ROWS = 32      # ids of one gather CTA
+GATHER_CTA_WORDS = 8  # int32 words of one gather CTA descriptor
 
 launches = {"transform_kpi": 0, "segment_kpi": 0, "segment_rollup": 0,
-            "fold_segments_many": 0, "gather_stats": 0}
+            "fold_segments_many": 0, "gather_stats_many": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,7 +53,7 @@ _SIGNATURES = {
     "segment_kpi_launch": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "segment_rollup_launch": [_P, _L, _I, _P, _L, _P, _P],
     "fold_segments_many_launch": [_P, _I, _I, _I, _P, _P],
-    "gather_stats_launch": [_P, _I, _P, _I, _P, _P],
+    "gather_stats_many_launch": [_P, _I, _P, _P],
 }
 
 
@@ -324,31 +328,133 @@ def fold_segments_many(words: torch.Tensor, plan: FoldPlan) -> torch.Tensor:
     return out
 
 
-def gather_stats(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Batched point read: table [S, 1 + 3L] f32, idx [N] i64 in [0, S)
-    (the caller validates the range: the kernel does not) -> [N, 1 + 4L]
-    f32 (count | sums | mins | maxs | means), means NaN where count is 0."""
-    if not on_cuda(table, "gather_stats"):
-        return gather_stats_ref(table, idx)
-    dev = table.device
-    check(table, "table", torch.float32, (None, None), dev)
-    check(idx, "idx", torch.int64, (None,), dev)
-    if (table.shape[1] - 1) % 3:
-        raise ValueError(f"table must be [S, 1 + 3L], got "
-                         f"{tuple(table.shape)}")
-    n = idx.shape[0]
-    L = (table.shape[1] - 1) // 3
-    out = torch.empty((n, 1 + 4 * L), dtype=torch.float32, device=dev)
-    if n == 0:
+class GatherPlan(NamedTuple):
+    """Where ``stage_gather`` put a query batch's items in the staged
+    int32 words, and where ``gather_stats_many`` writes their answers.
+    ``items`` holds (table_off, n_segments, n_lanes, ids_off, n_ids,
+    out_off) per item, offsets in words of the staged buffer or floats of
+    the output; ``head`` the CTA descriptors from word 0, as the kernel
+    reads them."""
+    items: Tuple[Tuple[int, ...], ...]
+    head: Tuple[int, ...]
+    n_ctas: int
+    n_words: int
+    n_out: int
+
+
+def plan_gather(shapes: Sequence[Tuple[int, int, int]]) -> GatherPlan:
+    """The layout of a query batch whose items have (n_segments, n_lanes,
+    n_ids) ``shapes``: one ``GATHER_CTA_WORDS``-word descriptor per CTA
+    ([table_off, S, L, first id's offset, ids, first answer's offset, 0,
+    0]; each CTA answers ``GATHER_ROWS`` ids of one item), then per item
+    its packed [S, 1 + 3L] table and its ids. The output holds each item's
+    [n, 1 + 4L] answers. Every region and every item's output starts on a
+    16-byte boundary."""
+    for i, (S, L, n) in enumerate(shapes):
+        if S < 0 or L < 1 or n < 0:
+            raise ValueError(f"gather item {i}: needs S >= 0, L >= 1 and "
+                             f"n >= 0, got ({S}, {L}, {n})")
+    n_ctas = sum(-(-n // GATHER_ROWS) for _, _, n in shapes)
+    off, n_out = GATHER_CTA_WORDS * n_ctas, 0
+    items, head = [], []
+    for S, L, n in shapes:
+        ids_off = _align4(off + S * (1 + 3 * L))
+        items.append((off, S, L, ids_off, n, n_out))
+        for lo in range(0, n, GATHER_ROWS):
+            head += (off, S, L, ids_off + lo, min(GATHER_ROWS, n - lo),
+                     n_out + lo * (1 + 4 * L), 0, 0)
+        off = _align4(ids_off + n)
+        n_out = _align4(n_out + n * (1 + 4 * L))
+    return GatherPlan(tuple(items), tuple(head), n_ctas, off, n_out)
+
+
+def stage_gather(items: Sequence[Tuple[np.ndarray, np.ndarray]]
+                 ) -> Tuple[np.ndarray, GatherPlan]:
+    """Lay a query batch's (table [S, 1 + 3L] f32, ids [n] int) items out
+    in one int32 host array (for one upload: ``core.backend.upload``), as
+    ``plan_gather`` places them. Raises on an id outside [0, S): the
+    kernel reads the rows it is given unchecked."""
+    items = [(np.asarray(table, np.float32), np.asarray(ids, np.int64))
+             for table, ids in items]
+    shapes = []
+    for i, (table, ids) in enumerate(items):
+        if table.ndim != 2 or (table.shape[1] - 1) % 3 or table.shape[1] < 4:
+            raise ValueError(f"gather item {i}: table must be [S, 1 + 3L], "
+                             f"got {table.shape}")
+        if ids.ndim != 1 or (len(ids) and (ids.min() < 0
+                                           or ids.max() >= len(table))):
+            raise ValueError(f"gather item {i}: ids must be [n] in [0, "
+                             f"{len(table)})")
+        shapes.append((len(table), (table.shape[1] - 1) // 3, len(ids)))
+    plan = plan_gather(shapes)
+    w = np.zeros(plan.n_words, np.int32)
+    w[:len(plan.head)] = plan.head
+    f = w.view(np.float32)
+    for (table, ids), (t_off, _, _, i_off, n, _) in zip(items, plan.items):
+        f[t_off:t_off + table.size] = table.reshape(-1)
+        w[i_off:i_off + n] = ids
+    return w, plan
+
+
+def gather_tables(flat, plan: GatherPlan) -> list:
+    """Split ``gather_stats_many``'s output (a tensor or a numpy array)
+    into each item's [n, 1 + 4L] answers (views)."""
+    return [flat[o:o + n * (1 + 4 * L)].reshape(n, 1 + 4 * L)
+            for _, _, L, _, n, o in plan.items]
+
+
+def gather_stats_many(words: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
+    """Batched point read of every item ``stage_gather`` laid out in
+    ``words`` (its [plan.n_words] i32 buffer, on the device), one launch
+    for the whole batch. Returns [plan.n_out] f32, each item's [n, 1 + 4L]
+    answers (count | sums | mins | maxs | means; split with
+    ``gather_tables``), means NaN where the count is 0: bitwise
+    ``gather_stats_many_ref``."""
+    if not on_cuda(words, "gather_stats_many"):
+        return gather_stats_many_ref(words, plan)
+    dev = words.device
+    check(words, "words", torch.int32, (plan.n_words,), dev)
+    if words.data_ptr() % 16:
+        raise ValueError("the staged gather words need 16-byte alignment")
+    out = torch.empty(plan.n_out, dtype=torch.float32, device=dev)
+    if plan.n_ctas == 0:
         return out
-    err = _fn("gather_stats_launch")(
-        table.data_ptr(), L, idx.data_ptr(), n, out.data_ptr(),
+    err = _fn("gather_stats_many_launch")(
+        words.data_ptr(), plan.n_ctas, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(err, "gather_stats")
-    count_launch(launches, "gather_stats")
+    raise_on(err, "gather_stats_many")
+    count_launch(launches, "gather_stats_many")
     return out
 
 
-__all__ = ["FoldPlan", "fold_bucket", "fold_seg_chunk",
-           "fold_segments_many", "fold_tables", "gather_stats", "launches",
-           "segment_kpi", "segment_rollup", "stage_fold", "transform_kpi"]
+def gather_stats(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Batched point read of one table: table [S, 1 + 3L] f32, idx [N] i64
+    in [0, S) (the caller validates the range: the kernel does not) ->
+    [N, 1 + 4L] f32 (count | sums | mins | maxs | means), means NaN where
+    count is 0. On a card: the one-item case of ``gather_stats_many``,
+    its words assembled on the device."""
+    if not on_cuda(table, "gather_stats"):
+        return gather_stats_ref(table, idx)
+    from repro_torch.core.backend import upload   # imports this module
+    dev = table.device
+    check(table, "table", torch.float32, (None, None), dev)
+    check(idx, "idx", torch.int64, (None,), dev)
+    if (table.shape[1] - 1) % 3 or table.shape[1] < 4:
+        raise ValueError(f"table must be [S, 1 + 3L], got "
+                         f"{tuple(table.shape)}")
+    S, W = table.shape
+    n = idx.shape[0]
+    plan = plan_gather([(S, (W - 1) // 3, n)])
+    words = torch.zeros(plan.n_words, dtype=torch.int32, device=dev)
+    words[:len(plan.head)] = upload(np.asarray(plan.head, np.int32), dev)
+    t_off, _, _, i_off, _, _ = plan.items[0]
+    words[t_off:t_off + S * W] = table.reshape(-1).view(torch.int32)
+    words[i_off:i_off + n] = idx.to(torch.int32)
+    return gather_tables(gather_stats_many(words, plan), plan)[0]
+
+
+__all__ = ["FoldPlan", "GatherPlan", "fold_bucket", "fold_seg_chunk",
+           "fold_segments_many", "fold_tables", "gather_stats",
+           "gather_stats_many", "gather_tables", "launches", "plan_gather",
+           "segment_kpi", "segment_rollup", "stage_fold", "stage_gather",
+           "transform_kpi"]

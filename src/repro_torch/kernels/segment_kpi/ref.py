@@ -207,3 +207,20 @@ def gather_stats_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     means = torch.where(cnt > 0, t[:, 1:1 + L] / cnt,
                         _scalar(float("nan"), table))
     return torch.cat([t, means], dim=1)
+
+
+def gather_stats_many_ref(words: torch.Tensor, plan) -> torch.Tensor:
+    """Plain version of ``ops.gather_stats_many``: for each item that
+    ``ops.stage_gather`` laid out in ``words`` (``plan`` its
+    ``GatherPlan``), ``gather_stats_ref`` of its table at its ids, written
+    at the item's output offset (the alignment gaps between items are left
+    unwritten, as the kernel leaves them)."""
+    vals = words.view(torch.float32)
+    out = torch.empty(plan.n_out, dtype=torch.float32, device=words.device)
+    for table_off, S, L, ids_off, n, out_off in plan.items:
+        W = 1 + 3 * L
+        table = vals[table_off:table_off + S * W].view(S, W)
+        ids = words[ids_off:ids_off + n].to(torch.int64)
+        out[out_off:out_off + n * (1 + 4 * L)] = \
+            gather_stats_ref(table, ids).reshape(-1)
+    return out

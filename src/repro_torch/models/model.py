@@ -135,10 +135,13 @@ class Model:
     @torch.no_grad()
     def forward(self, params, batch: Dict[str, torch.Tensor], *, mode: str,
                 cache=None, cache_index: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Any]:
-        """Returns (logits f32 [B, S, vocab], new_cache). In decode mode the
-        logits cover the single new token, ``cache_index`` is the position
-        it is decoded at and ``cache`` is updated in place."""
+                ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+        """Returns (logits f32 [B, S, vocab], new_cache, aux), as the JAX
+        package's ``Model.forward`` does. ``aux`` is the f32 scalar sum of
+        the blocks' auxiliary losses on the tokens' device: 0 for the
+        dense and hybrid families, whose blocks have none. In decode mode
+        the logits cover the single new token, ``cache_index`` is the
+        position it is decoded at and ``cache`` is updated in place."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         cfg = self.cfg
@@ -159,7 +162,8 @@ class Model:
         logits = unembed(table, x)
         if cfg.padded_vocab != cfg.vocab:
             logits = logits[..., :cfg.vocab]   # drop the padding columns
-        return logits, new_cache
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return logits, new_cache, aux
 
     # ------------------------------------------------------------ stacks
     def _scan_stack(self, params, x, *, mode, positions, cache,

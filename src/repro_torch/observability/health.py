@@ -45,8 +45,9 @@ Schema (``build_cluster_health``)::
                     attached, a static same-shape stub otherwise,
       "mesh":      sharded serving plane: {"n_shards", "device_mesh",
                     "routing_epoch", "fold_rows", "fold_rows_imbalance",
-                    "owned_segments", "merge": {bytes, dispatches},
-                    "reowns", "segments_moved"} — ShardedViewEngine's
+                    "owned_segments", "fold": {cycles, items},
+                    "merge": {bytes, dispatches}, "reowns",
+                    "segments_moved"} — ShardedViewEngine's
                     mesh_report() when sharded, a same-shape stub
                     otherwise,
       "counters":  merged registry counters (pipeline + process-global),
@@ -166,8 +167,8 @@ def build_cluster_health(cluster) -> Dict:
     else:
         mesh = {"n_shards": 1, "device_mesh": False, "routing_epoch": 0,
                 "fold_rows": [], "fold_rows_imbalance": 1.0,
-                "owned_segments": {}, "merge": {"bytes": 0,
-                                                "dispatches": 0},
+                "owned_segments": {}, "fold": {"cycles": 0, "items": 0},
+                "merge": {"bytes": 0, "dispatches": 0},
                 "reowns": 0, "segments_moved": 0}
 
     # control plane: the supervisor/controller's own snapshot when one is

@@ -11,8 +11,9 @@ paper's 'near real-time reports previously unavailable' claim is about).
   server  — ``ReportServer``: O(n_segments) report queries with epoch +
             staleness stamps
   batch   — batched query plane: packed query plans answering thousands
-            of heterogeneous queries in one backend dispatch per view,
-            plus the ``BatchedReportServer`` admission front
+            of heterogeneous queries with one batched gather dispatch per
+            batch (every point-query view and owning shard), plus the
+            ``BatchedReportServer`` admission front
 """
 from repro_torch.serving.batch import (BatchedReportServer,  # noqa: F401
                                  BatchResult, BatchTicket, QueryPlan,

@@ -14,9 +14,10 @@ plan/execute shape:
                          dashboard re-issuing the same query set every
                          refresh reuses its plan across epochs.
   * ``QueryPlan.execute`` — answer the whole batch against one pinned
-                         ``ReportSnapshot``: all per-unit point queries
-                         against a view become ONE ``batch_gather_stats``
-                         dispatch, every distinct shared report (view
+                         ``ReportSnapshot``: all per-unit point queries,
+                         of every view and every owning shard, become ONE
+                         ``batch_gather_stats_many`` dispatch, every
+                         distinct shared report (view
                          read, top-k, windowed rate, curve, shift,
                          rollup) is computed once via the snapshot's
                          per-epoch memo, and the result is a columnar
@@ -140,21 +141,21 @@ class QueryPlan:
     # ------------------------------------------------------------- execute
     def execute(self, rsnap: ReportSnapshot) -> "BatchResult":
         """Answer every query against ONE pinned snapshot: one
-        ``batch_gather_stats`` dispatch per point-query view, one shared
-        computation per distinct report (epoch-memoized, so a second
-        batch on the same epoch recomputes nothing). Columnar out."""
+        ``batch_gather_stats_many`` dispatch for every point-query view's
+        ids, one shared computation per distinct report (epoch-memoized,
+        so a second batch on the same epoch recomputes nothing). Columnar
+        out."""
         snap = rsnap.snap
         # sharded serving plane: when the snapshot carries shard-local
         # tables (ShardedEpochSnapshot), each query descriptor routes to
-        # its segment's OWNING shard — one gather dispatch per shard with
-        # resident queries, against that shard's local table. Owned rows
-        # are bitwise-identical to the merged table's, so the scattered
-        # answers are bitwise the unsharded dispatch (duck-typed: no
-        # runtime import, plain snapshots take the single-dispatch path).
+        # its segment's OWNING shard, an item against that shard's local
+        # table. Owned rows are bitwise the merged table's, so the
+        # scattered answers are bitwise the unsharded ones (duck-typed: no
+        # runtime import, plain snapshots make one item per view).
         shard_states = getattr(snap, "shard_states", None)
         seg_owners = getattr(snap, "seg_owners", None)
-        point_stats: Dict[int, np.ndarray] = {}
-        for vid, (pos, units) in self.point_groups.items():
+        items, routes = [], []
+        for vid, (_, units) in self.point_groups.items():
             name = self.views[vid]
             st = snap.view(name)
             if len(units) and (units.min() < 0
@@ -162,19 +163,25 @@ class QueryPlan:
                 raise ValueError(
                     f"unit ids out of range for view {name!r}")
             if shard_states and name in shard_states and len(units):
-                tabs = shard_states[name]
-                owner_u = np.asarray(seg_owners[name],
-                                     np.int64)[units]
-                out = np.empty((len(units), 1 + 4 * st.spec.n_lanes),
-                               np.float32)
+                owner_u = np.asarray(seg_owners[name], np.int64)[units]
                 for k in np.unique(owner_u):
                     mask = owner_u == k
-                    out[mask] = rsnap.backend.batch_gather_stats(
-                        tabs[int(k)], units[mask])
-                point_stats[vid] = out
+                    items.append((shard_states[name][int(k)], units[mask]))
+                    routes.append((vid, mask))
             else:
-                point_stats[vid] = rsnap.backend.batch_gather_stats(
-                    st.table, units)
+                items.append((st.table, units))
+                routes.append((vid, None))
+        point_stats: Dict[int, np.ndarray] = {}
+        answers = rsnap.backend.batch_gather_stats_many(items)
+        for (vid, mask), ans in zip(routes, answers):
+            if mask is None:
+                point_stats[vid] = ans
+                continue
+            if vid not in point_stats:
+                units = self.point_groups[vid][1]
+                point_stats[vid] = np.empty((len(units), ans.shape[1]),
+                                            np.float32)
+            point_stats[vid][mask] = ans
         shared: List[object] = [None] * (max(self._shared_map.values()) + 1
                                          if self._shared_map else 0)
         for code, vid, arg in self.shared_keys:
@@ -354,6 +361,7 @@ class BatchedReportServer:
         self._queries = 0
         self._max_batch_seen = 0
         self._multi_epoch_batches = 0
+        self._point_executes = 0
 
     # ---------------------------------------------------------- lifecycle
     def start(self) -> None:
@@ -399,7 +407,10 @@ class BatchedReportServer:
             return {"batches": b, "queries": q,
                     "mean_batch": (q / b) if b else 0.0,
                     "max_batch": self._max_batch_seen,
-                    "multi_epoch_batches": self._multi_epoch_batches}
+                    "multi_epoch_batches": self._multi_epoch_batches,
+                    # plan executions with point queries: one batched
+                    # gather dispatch each
+                    "point_executes": self._point_executes}
 
     # --------------------------------------------------------- dispatcher
     def _dispatch(self, stream) -> None:
@@ -435,11 +446,13 @@ class BatchedReportServer:
         groups: Dict[int, List[BatchTicket]] = {}
         for t in batch:
             groups.setdefault(t.snapshot.epoch, []).append(t)
+        point_executes = 0
         for tickets in groups.values():
             snap = tickets[0].snapshot
             try:
                 with self.engine.tracer.span("query.batch") as sp:
                     plan = compile_queries([t.query for t in tickets])
+                    point_executes += bool(plan.point_groups)
                     rsnap = ReportSnapshot(snap, self.engine.backend)
                     for t, rep in zip(tickets,
                                       plan.execute(rsnap).reports()):
@@ -454,6 +467,7 @@ class BatchedReportServer:
             self._batches += 1
             self._queries += len(batch)
             self._max_batch_seen = max(self._max_batch_seen, len(batch))
+            self._point_executes += point_executes
             if len(groups) > 1:
                 self._multi_epoch_batches += 1
 

@@ -13,7 +13,7 @@ from repro_torch.models.model import Model
 def make_prefill_step(model: Model):
     def prefill_step(params, batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, Any]:
-        logits, cache = model.forward(params, batch, mode="prefill")
+        logits, cache, _ = model.forward(params, batch, mode="prefill")
         # greedy next token from the last position
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, cache
@@ -25,7 +25,7 @@ def make_decode_step(model: Model):
                     ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
         """token: [B, 1] int; index: the position being decoded. Returns
         (next_token [B], logits [B, V], cache)."""
-        logits, cache = model.forward(params, {"tokens": token},
+        logits, cache, _ = model.forward(params, {"tokens": token},
                                       mode="decode", cache=cache,
                                       cache_index=index)
         next_tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)

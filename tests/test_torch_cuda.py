@@ -262,6 +262,118 @@ def test_gather_stats_bitwise(dev, n):
         _bits(sk_ref.gather_stats_ref(tt, it))
 
 
+def _gather_items(rng, shapes):
+    """(table, ids) items with empty segments (NaN means), a -0.0 sum and
+    +-inf min/max identities."""
+    items = []
+    for S, L, n in shapes:
+        table = rng.normal(size=(S, 1 + 3 * L)).astype(np.float32)
+        table[:, 0] = rng.integers(0, 9, S)
+        table[:S // 3 + 1, 0] = 0.0
+        table[0, 1 + L:] = np.concatenate([np.full(L, np.inf),
+                                           np.full(L, -np.inf)])
+        table[-1, 0], table[-1, 1] = 2.0, -0.0
+        items.append((table, rng.integers(0, S, n)))
+    return items
+
+
+@pytest.mark.parametrize("shapes", [
+    [(20, 4, 400)],                                    # the dashboard's
+    [(20, 4, 100), (20, 4, 120), (20, 4, 80), (20, 4, 100)],   # 4 shards
+    [(20, 4, 37), (60, 4, 300), (20, 2, 1), (32, 2, 129)],     # the views
+    [(20, 4, 1)], [(20, 4, 4096)], [(5, 9, 0), (1, 1, 1)],
+    [(3000, 3, 500), (20, 4, 3)],     # a table past the shared memory
+])
+def test_gather_stats_many_bitwise(dev, shapes):
+    """One launch answers every item of a batch, bitwise the plain
+    version item by item (and the one-item wrapper), and the backend's
+    batched call is one dispatch and one sync, bitwise the CPU's."""
+    rng = np.random.default_rng(len(shapes) * 7 + shapes[0][2])
+    items = _gather_items(rng, shapes)
+    words, plan = sk_ops.stage_gather(items)
+    wt = torch.from_numpy(words).to(dev)
+    before = launch_counts()["gather_stats_many"]
+    got = sk_ops.gather_tables(sk_ops.gather_stats_many(wt, plan), plan)
+    assert launch_counts()["gather_stats_many"] == \
+        before + int(plan.n_ctas > 0)
+    want = sk_ops.gather_tables(sk_ref.gather_stats_many_ref(wt, plan), plan)
+    for (table, ids), g, w in zip(items, got, want):
+        assert _bits(g) == _bits(w)
+        if len(ids):
+            assert _bits(sk_ops.gather_stats(
+                torch.tensor(table, device=dev),
+                torch.tensor(ids, device=dev))) == _bits(g)
+    gpu, cpu = get_backend("torch", device=dev), get_backend("torch",
+                                                             device="cpu")
+    gpu.reset_stats()
+    for a, b in zip(gpu.batch_gather_stats_many(items),
+                    cpu.batch_gather_stats_many(items)):
+        assert a.tobytes() == b.tobytes()
+    assert (gpu.op_dispatches, gpu.host_syncs) == (1, 1)
+
+
+def test_sharded_plane_on_card(dev):
+    """The 4-shard engine on one card: each fold cycle is one
+    fold_segments_many launch and each query batch one gather_stats_many
+    launch, whatever the shard count; tables and answers bitwise the
+    unsharded card engine's and the CPU sharded engine's on the same
+    deltas; a mesh on the card is taken, one on another device refused."""
+    from repro_torch.launch.mesh import make_shard_mesh
+    from repro_torch.runtime.shard_plane import ShardedViewEngine
+    from repro_torch.serving import (MaterializedViewEngine, ReportQuery,
+                                     ReportServer, compile_queries,
+                                     steelworks_views)
+    rng = np.random.default_rng(4)
+    specs = steelworks_views(20)
+    gpu = get_backend("torch", device=dev)
+    eng = ShardedViewEngine(specs, n_shards=4, backend=gpu)
+    plain = MaterializedViewEngine(specs, backend=gpu)
+    cpu = ShardedViewEngine(specs, n_shards=4,
+                            backend=get_backend("torch", device="cpu"))
+    gpu.set_mesh(make_shard_mesh(4))
+    try:
+        assert eng.mesh_report()["device_mesh"]
+        for cycle in range(5):
+            for _ in range(cycle % 3 + 1):
+                n = int(rng.integers(1, 2500))
+                f = np.zeros((n, 10), np.float32)
+                f[:, 0] = rng.integers(0, 20, n)
+                f[:, 1] = rng.uniform(0, 10000, n)
+                f[:, 2] = f[:, 1] + rng.uniform(1, 50, n)
+                f[:, 3:7] = rng.uniform(0, 1, (n, 4))
+                f[:, 7] = rng.uniform(0, 40, n)
+                f[:, 8] = rng.uniform(0, 10, n)
+                f[:, 9] = (rng.uniform(0, 1, n) > 0.1).astype(np.float32)
+                for e in (eng, plain, cpu):
+                    e.publish(f)
+            reset_launch_counts()
+            eng.fold_pending()
+            assert launch_counts()["fold_segments_many"] == 1
+            plain.fold_pending()
+            cpu.fold_pending()
+        queries = [ReportQuery("oee", unit=u % 20) for u in range(400)] + [
+            ReportQuery("top_downtime", k=3), ReportQuery("shift_report")]
+        plan = compile_queries(queries)
+        reset_launch_counts()
+        got = plan.execute(ReportServer(eng).snapshot()).reports()
+        assert launch_counts()["gather_stats_many"] == 1
+        want = plan.execute(ReportServer(plain).snapshot()).reports()
+        for a, b in zip(got, want):
+            assert a.data.keys() == b.data.keys()
+            for k in a.data:
+                assert np.asarray(a.data[k]).tobytes() == \
+                    np.asarray(b.data[k]).tobytes()
+        for spec in specs:
+            table = plain.snapshot().view(spec.name).table.tobytes()
+            assert eng.snapshot().view(spec.name).table.tobytes() == table
+            assert eng.tree_reduced_table(spec.name).tobytes() == table
+            assert cpu.snapshot().view(spec.name).table.tobytes() == table
+    finally:
+        gpu.set_mesh(None)
+    with pytest.raises(ValueError):
+        gpu.set_mesh(make_shard_mesh(2, [dev, "cpu"]))
+
+
 def test_wrappers_check_their_inputs(dev):
     keys = torch.full((16,), -1, dtype=torch.int32, device=dev)
     vals = torch.zeros((16, 8), device=dev)
@@ -287,6 +399,13 @@ def test_wrappers_check_their_inputs(dev):
                              n_units=2)
     with pytest.raises(ValueError):                           # no units
         sk_ops.segment_rollup(torch.zeros((4, 10), device=dev), 0)
+    words, plan = sk_ops.stage_gather([(np.zeros((4, 7), np.float32),
+                                        np.arange(4))])
+    with pytest.raises(TypeError):                            # not int32
+        sk_ops.gather_stats_many(torch.from_numpy(words).float().to(dev),
+                                 plan)
+    with pytest.raises(ValueError):                           # not its plan
+        sk_ops.gather_stats_many(torch.from_numpy(words[:-4]).to(dev), plan)
 
 
 def test_backend_ops_on_card_match_cpu(dev):

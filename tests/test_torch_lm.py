@@ -324,19 +324,19 @@ def _forward_all_modes(arch, tol):
     jforward = jax.jit(jm.forward, static_argnames=("mode",))
     toks = _tokens(pm.cfg)
     tt, tj = torch.from_numpy(toks).long(), jnp.asarray(toks)
-    logits, cache = pm.forward(pp, {"tokens": tt}, mode="train")
+    logits, cache, _ = pm.forward(pp, {"tokens": tt}, mode="train")
     jl, jc, _ = jforward(jp, {"tokens": tj}, mode="train")
     assert cache is None and logits.shape == (2, 40, pm.cfg.vocab)
     scale = max(float(np.abs(_np(jl)).max()), 1.0)
     _close(logits, jl, tol * scale)
     p = 36
-    logits, cache = pm.forward(pp, {"tokens": tt[:, :p]}, mode="prefill")
+    logits, cache, _ = pm.forward(pp, {"tokens": tt[:, :p]}, mode="prefill")
     jl, jc, _ = jforward(jp, {"tokens": tj[:, :p]}, mode="prefill")
     _close(logits, jl, tol * scale)
     _tree_close(cache, jc, max(tol * scale, 1e-2))       # bf16 K/V
     cache, jc = _pad_kv(cache, p, 4), _pad_kv(jc, p, 4)
     for t in range(p, 40):
-        logits, cache = pm.forward(pp, {"tokens": tt[:, t:t + 1]},
+        logits, cache, _ = pm.forward(pp, {"tokens": tt[:, t:t + 1]},
                                    mode="decode", cache=cache, cache_index=t)
         jl, jc, _ = jforward(jp, {"tokens": tj[:, t:t + 1]},
                              mode="decode", cache=jc, cache_index=t)
@@ -356,6 +356,23 @@ def test_zamba2_forward_within_reference_model_bound():
     """The unpatched reference (bf16 ratios in its Mamba2 layers) against
     the port, at the reference's own model bound."""
     _forward_all_modes("zamba2-1.2b", 0.02)
+
+
+@pytest.mark.parametrize("mode", ["train", "prefill"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_aux_matches_reference(arch, mode):
+    """``Model.forward`` returns the reference's third value: the f32
+    scalar aux loss on the model's device, bitwise the reference's (0.0
+    for the dense and hybrid families)."""
+    jm, jp, pm, pp = _models(arch)
+    toks = _tokens(pm.cfg, s=16)
+    logits, _, aux = pm.forward(pp, {"tokens": torch.from_numpy(
+        toks).long()}, mode=mode)
+    _, _, jaux = jax.jit(jm.forward, static_argnames=("mode",))(
+        jp, {"tokens": jnp.asarray(toks)}, mode=mode)
+    assert aux.shape == () and aux.dtype == torch.float32
+    assert aux.device == logits.device
+    assert aux.numpy().tobytes() == np.asarray(jaux, np.float32).tobytes()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -392,13 +409,13 @@ def test_prefill_decode_matches_full_forward(arch):
     b, s, tail = 2, 64, 4
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, (b, s)))
-    full, _ = m.forward(params, {"tokens": toks}, mode="train")
+    full, _, _ = m.forward(params, {"tokens": toks}, mode="train")
     p = s - tail
-    _, pre = m.forward(params, {"tokens": toks[:, :p]}, mode="prefill")
+    _, pre, _ = m.forward(params, {"tokens": toks[:, :p]}, mode="prefill")
     cache = serve_lm.fill_cache(m.init_cache(b, s, device="cpu"), pre)
     errs = []
     for t in range(p, s):
-        dl, cache = m.forward(params, {"tokens": toks[:, t:t + 1]},
+        dl, cache, _ = m.forward(params, {"tokens": toks[:, t:t + 1]},
                               mode="decode", cache=cache, cache_index=t)
         errs.append(float((dl[:, 0] - full[:, t]).abs().max()))
     scale = float(full.abs().max())

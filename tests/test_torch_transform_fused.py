@@ -189,7 +189,8 @@ def test_transform_kpi_checks_its_arguments():
 def test_uploads_go_through_backend_upload(monkeypatch):
     """Every host-to-device copy of the torch backend's hot ops — a
     transform's payload, the cache mirrors it probes, a rescan's facts, a
-    gather's table and ids — goes through ``backend.upload``, which on a
+    query batch's staged tables and ids (one buffer) — goes through
+    ``backend.upload``, which on a
     card stages through pinned memory with a non-blocking copy (held on
     the card by tests/test_torch_cuda.py and chip_smoke.py's profiler
     phase) and on the CPU copies."""
@@ -210,7 +211,8 @@ def test_uploads_go_through_backend_upload(monkeypatch):
     be.segment_reduce(rng.random((50, 10), dtype=np.float32), 8)
     be.batch_gather_stats(rng.random((8, 13), dtype=np.float32),
                           np.arange(8))
-    assert shapes[7:] == [(50, 10), (8, 13), (8,)]
+    staged = sk_ops.plan_gather([(8, 4, 8)]).n_words
+    assert shapes[7:] == [(50, 10), (staged,)]
     src = np.arange(6, dtype=np.float32)
     copy = real(src, CPU)
     src[:] = -1.0
@@ -260,7 +262,7 @@ def test_fill_cache_keeps_the_prefills_dtypes():
                       m.init(torch.Generator().manual_seed(0)))
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, m.cfg.vocab, (2, 12)))
-    _, pre = m.forward(params, {"tokens": toks}, mode="prefill")
+    _, pre, _ = m.forward(params, {"tokens": toks}, mode="prefill")
     cache = fill_cache(m.init_cache(2, 16, device="cpu"), pre)
     conv, pre_conv = cache["mamba"]["conv"], pre["mamba"]["conv"]
     assert pre_conv.dtype == torch.float32

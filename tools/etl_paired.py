@@ -21,6 +21,14 @@ up once, then measures:
   records/s, freshness and report staleness p50/p95, the ``serving.fold``
   and ``transform.dispatch`` spans (count, summed thread-seconds),
   launches per kernel;
+- the dashboard's query batch (phase 3's 403 queries: 400 oee point
+  queries and three shared reports) answered by ``QueryPlan.execute``
+  against phase 3's final epoch, as it is and with its tables split
+  over 4 shards (a snapshot carrying shard-local tables, as a sharded
+  engine publishes; the tree's own router sends each point query to its
+  owning shard): host ms per batch (median of 50), gather launches,
+  backend dispatches and host syncs per batch, and the CUDA runtime calls
+  of 10 batches under ``torch.profiler``;
 - with ``--profile``, under ``torch.profiler``: 20 transforms
   (``TorchBackend.transform_block`` at the steelworks shapes: a 1000-row
   payload, padded to 1024, against caches of 20 and 2,000 keys in 4096
@@ -46,11 +54,15 @@ NUMERIC = ("seq_records_s", "seq_dispatches", "seq_host_syncs",
            "clu_records_s", "clu_fresh_p50_ms", "clu_fresh_p95_ms",
            "clu_stale_p50_ms", "clu_stale_p95_ms", "clu_fold_spans",
            "clu_fold_s", "clu_transform_s", "clu_fold_launches",
-           "clu_probe_launches", "seq_fold_launches", "seq_probe_launches")
+           "clu_probe_launches", "seq_fold_launches", "seq_probe_launches",
+           "q1_ms", "q1_launches", "q1_dispatches", "q1_syncs",
+           "q4_ms", "q4_launches", "q4_dispatches", "q4_syncs")
+GATHER = ("gather_stats", "gather_stats_many")
 FOLD = ("fold_segments", "fold_segments_many")
 PROBE = ("hash_join", "hash_join_pair", "transform_kpi")
 RUNTIME = ("cudaStreamSynchronize", "cudaEventSynchronize",
-           "cudaDeviceSynchronize", "cudaMemcpyAsync", "cudaLaunchKernel")
+           "cudaDeviceSynchronize", "cudaMemcpyAsync", "cudaLaunchKernel",
+           "cudaEventRecord", "cudaEventQuery", "cudaHostAlloc")
 
 
 def _profile(run):
@@ -116,6 +128,61 @@ def profile_kernels() -> dict:
             "rescan_2p20_x10_kernels_us": r_kernels}
 
 
+def query_batches(engine, dashboard) -> dict:
+    """The dashboard's batch against ``engine``'s epoch, unsharded and
+    over 4 shards (see the module docstring)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.backend import empty_fold_state
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving import ReportSnapshot, compile_queries
+    from repro_torch.serving.engine import EpochSnapshot
+
+    @dataclasses.dataclass(frozen=True)
+    class Sharded(EpochSnapshot):
+        shard_states: dict = dataclasses.field(default_factory=dict)
+        seg_owners: dict = dataclasses.field(default_factory=dict)
+
+    snap, be = engine.snapshot(), engine.backend
+    states, owners = {}, {}
+    for name, st in snap.states.items():
+        S, W = st.table.shape
+        owners[name] = np.arange(S) * 4 // S
+        ident = empty_fold_state(S, (W - 1) // 3)
+        states[name] = tuple(np.where(owners[name][:, None] == k, st.table,
+                                      ident) for k in range(4))
+    sharded = Sharded(epoch=snap.epoch, states=snap.states,
+                      published_at=snap.published_at,
+                      watermark_event_time=snap.watermark_event_time,
+                      rows_folded=snap.rows_folded,
+                      deltas_folded=snap.deltas_folded,
+                      shard_states=states, seg_owners=owners)
+    plan = compile_queries(dashboard)
+    out = {}
+    for label, s in (("q1", snap), ("q4", sharded)):
+        rsnap = ReportSnapshot(s, be)
+        for _ in range(5):
+            plan.execute(rsnap)
+        torch.cuda.synchronize()
+        g0 = sum(launch_counts().get(k, 0) for k in GATHER)
+        d0, h0 = be.op_dispatches, be.host_syncs
+        times = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            plan.execute(rsnap)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.update({
+            f"{label}_ms": statistics.median(times),
+            f"{label}_launches": (sum(launch_counts().get(k, 0)
+                                      for k in GATHER) - g0) / 50,
+            f"{label}_dispatches": (be.op_dispatches - d0) / 50,
+            f"{label}_syncs": (be.host_syncs - h0) / 50,
+            f"{label}_x10_runtime_calls": _profile(
+                lambda: [plan.execute(rsnap) for _ in range(10)])[0]})
+    return out
+
+
 def one_run(tree: Path, profile: bool) -> dict:
     """Measure phases 3 and 5a of ``tree`` in this process (and the
     ``--profile`` runs)."""
@@ -127,7 +194,7 @@ def one_run(tree: Path, profile: bool) -> dict:
     cs.run_main_path("cuda")           # warm-up: libraries, caches, pools
     reset_launch_counts()
     get_backend("torch", device="cuda").reset_stats()   # one per device
-    pipe, _, _, secs = cs.run_main_path("cuda")
+    pipe, engine, _, secs = cs.run_main_path("cuda")
     seq = launch_counts()
     out = {"tree": str(tree), "card": card,
            "seq_records_s": pipe.warehouse.rows_loaded / secs,
@@ -135,7 +202,8 @@ def one_run(tree: Path, profile: bool) -> dict:
            "seq_host_syncs": pipe.backend.host_syncs,
            "seq_fold_launches": sum(seq.get(k, 0) for k in FOLD),
            "seq_probe_launches": sum(seq.get(k, 0) for k in PROBE),
-           "seq_launches": seq}
+           "seq_launches": seq,
+           **query_batches(engine, cs.dashboard_queries())}
     cs.run_cluster_pre_extracted()     # warm-up of the cluster path
     reset_launch_counts()
     pipe, _, rep, _, _, spans = cs.run_cluster_pre_extracted()
@@ -188,8 +256,9 @@ def main() -> None:
         run = {"label": label, **json.loads(line[-1][4:]),
                "process_s": time.perf_counter() - t0}
         runs.append(run)
-        print(json.dumps({k: run[k] for k in ("label", "card", *NUMERIC,
-                                              "profile") if k in run}),
+        print(json.dumps({k: run[k] for k in (
+            "label", "card", *NUMERIC, "q1_x10_runtime_calls",
+            "q4_x10_runtime_calls", "profile") if k in run}),
               flush=True)
     medians = {label: {k: statistics.median(r[k] for r in runs
                                             if r["label"] == label)
