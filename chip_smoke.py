@@ -101,7 +101,23 @@ Phases, each fatal on failure (no fallback to the CPU):
    decode tokens/s, counted as the bf16 designs' launches; the same
    prefill in f32 (the CUDA-core and serial designs, counted as theirs)
    with the kernels against their plain versions on the card; the card's
-   busy share of a profiled serve run.
+   busy share of a profiled serve run;
+10. training: (a) the LM kernels' autograd Functions at the training
+   shapes (internlm2's attention, zamba2's Mamba2; bf16): the forward
+   within the kernels' bounds, every input gradient bitwise autograd's
+   through the plain version (the backward recomputes it), the kernel
+   forward and the recompute backward timed; (b) one ``make_train_step``
+   of the f32 smoke configs, card against CPU within 1e-4; (c)
+   internlm2-1.8b and zamba2-1.2b at full width and depth, seeded bf16
+   weights, batch 8 x 2048 tokens in 8 microbatches, remat on, 3 steps:
+   every gradient leaf finite and not all zero, the loss finite, the LM
+   kernels' launches per step checked (two per layer and microbatch:
+   the forward, then its recompute), step ms, train tokens/s, 6·N·tokens
+   per step time over the bf16 dense peak, peak memory; (d)
+   ``examples.train_lm`` (ETL-fed) for 30 steps: the loss falls,
+   transform_kpi launched, its checkpoint restores bitwise; (e)
+   ``manual_dp`` over NCCL at world size 1 against ``make_train_step``;
+   (f) ``examples.quickstart`` on the card against its CPU run.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -1421,10 +1437,12 @@ def check_durability(clu) -> None:
                                         recover_pipeline)
     from repro_torch.durability.faults import COMMIT_POST
     from repro_torch.runtime.cluster import ConcurrentCluster
-    # the crash comes at the 20th load (a load holds 150-800 records, so
-    # 15-80% through), after the explicit checkpoint below journaled the
-    # first tenth of the stream; the periodic checkpointer runs besides
-    fault = FaultInjector({COMMIT_POST: CLUSTER_RECORDS // 1000})
+    # the crash is armed once the explicit checkpoint below has journaled
+    # the first tenth of the stream (a capture still waiting for its
+    # locks at the crash journals nothing), and comes 10 loads later (a
+    # load holds 150-800 records, so 17-50% through); the periodic
+    # checkpointer runs besides
+    fault = FaultInjector({})
     cfg, src, sampler, pipe = steelworks_deployment(DEVICE, fault=fault)
     sampler.generate(src)
     pipe.extract()
@@ -1444,7 +1462,9 @@ def check_durability(clu) -> None:
             if time.perf_counter() - t0 > 120:
                 fail("the journaling cluster stalled")
             time.sleep(0.001)
-        cluster.checkpoint()
+        if cluster.checkpoint() is None:
+            fail("the explicit checkpoint journaled nothing")
+        fault.schedule[COMMIT_POST] = 10
         if not fault.tripped.wait(120):
             fail("the commit.post crash point was never reached")
         cluster.abandon()
@@ -1943,6 +1963,355 @@ def run_lm(arch: str, dev, card: str):
     return counts, f32_counts
 
 
+# ----------------------------------------------------------------- phase 10
+TRAIN_ARCHS = ("internlm2-1.8b", "zamba2-1.2b")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 3
+TRAIN_LM_STEPS = 30
+SMOKE_TOL = 1e-4
+
+
+def backward_ms(run, reps: int = 3) -> float:
+    """Median milliseconds of ``run()`` (a forward and its backward, or a
+    backward alone) between CUDA events, after one warm-up; autograd's
+    backward is not captured in a graph, so this is host-issued time."""
+    import torch
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def check_function_grads(dev, gen, card) -> dict:
+    """Phase 10a: ``FlashAttentionFn`` and ``GlaChunkFn`` against autograd
+    through their plain versions at the training shapes (internlm2's
+    attention, q [1, 16, 2048, 128] and k/v [1, 8, 2048, 128] bf16 causal;
+    zamba2's Mamba2, [1, 2048, 64, 64] bf16 with an f32 decay): the
+    forward within the kernels' bounds, every input gradient bitwise the
+    plain version's (the backward recomputes it); the kernel forward, the
+    Function's forward + backward and the recompute backward alone timed.
+    Returns {name: times}."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gla_chunk import ops as gl
+    from repro_torch.kernels.gla_chunk.ref import gla_ssd_ref
+    from repro_torch.models import build_model
+    out = {}
+    cfg = build_model("internlm2-1.8b").cfg
+    hd = cfg.resolved_head_dim
+    base = [lm_rand((1, TRAIN_SEQ, h, hd), dev, torch.bfloat16, gen)
+            for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
+    go = lm_rand((1, cfg.n_heads, TRAIN_SEQ, hd), dev, torch.bfloat16, gen)
+    mz = build_model("zamba2-1.2b").cfg
+    h, dk = mz.ssm.n_ssm_heads, mz.ssm.state_size
+    dv = mz.ssm.expand * mz.d_model // h
+    gbase = [lm_rand((1, TRAIN_SEQ, 1, dk), dev, torch.bfloat16, gen),
+             lm_rand((1, TRAIN_SEQ, 1, dk), dev, torch.bfloat16, gen),
+             lm_rand((1, TRAIN_SEQ, h, dv), dev, torch.bfloat16, gen),
+             -torch.exp(lm_rand((1, TRAIN_SEQ, h, 1), dev, torch.float32,
+                                gen))]
+    ggo = lm_rand((1, TRAIN_SEQ, h, dv), dev, torch.bfloat16, gen)
+
+    def flash_args(x):
+        return tuple(t.transpose(1, 2) for t in x)
+
+    def gla_args(x):
+        s = TRAIN_SEQ
+        return (x[0].expand(1, s, h, dk), x[1].expand(1, s, h, dk), x[2],
+                x[3].expand(1, s, h, dk))
+
+    cases = (("flash_attention_tc", base, go, flash_args,
+              lambda *a: fa.attention(*a, causal=True),
+              lambda *a: attention_ref(*a, causal=True),
+              lambda *a: fa.mha(*a, causal=True), FLASH_TOL["bfloat16"]),
+             ("gla_chunk_ssd", gbase, ggo, gla_args,
+              lambda *a: gl.gla_fn(*a, inclusive=True)[0],
+              lambda *a: gla_ssd_ref(*a)[0],
+              lambda *a: gl.gla(*a, inclusive=True)[0],
+              FLASH_TOL["bfloat16"]))
+    for name, x0, g, args, fn, plain, kernel, tol in cases:
+        leaves = {}
+        outs = {}
+        for side, f in (("fn", fn), ("plain", plain)):
+            x = [t.clone().requires_grad_() for t in x0]
+            outs[side] = f(*args(x))
+            leaves[side] = torch.autograd.grad(outs[side], x, g)
+        torch.cuda.synchronize()
+        err = max_err(outs["fn"].detach(), outs["plain"].detach(), tol,
+                      f"{name} Function forward")
+        if not all(a.dtype == b.dtype and bool(torch.equal(a, b))
+                   for a, b in zip(leaves["fn"], leaves["plain"])):
+            fail(f"{name}: the Function's input gradients differ from the "
+                 f"plain version's")
+        del outs, leaves
+        x = [t.clone().requires_grad_() for t in x0]
+        with torch.no_grad():
+            fwd_ms = graph_ms(lambda: kernel(*args(x0)), reps=5, rounds=3)
+        fn_ms = backward_ms(lambda: torch.autograd.grad(fn(*args(x)), x, g))
+        y = fn(*args(x))
+        bwd_ms = backward_ms(lambda: torch.autograd.grad(
+            y, x, g, retain_graph=True))
+        del y
+        plain_ms = backward_ms(lambda: torch.autograd.grad(
+            plain(*args(x)), x, g))
+        out[name] = {"fwd_ms": fwd_ms, "fn_ms": fn_ms, "bwd_ms": bwd_ms,
+                     "plain_fwd_bwd_ms": plain_ms, "max_abs_err": err}
+        print(f"{name} Function at the training shape: forward within {tol}"
+              f" of the plain version (max abs err {err:.3g}), every input "
+              f"gradient bitwise the plain version's; kernel forward "
+              f"{fwd_ms:.4f} ms (device, CUDA graph), the Function's forward"
+              f" + backward {fn_ms:.4f} ms, its recompute backward alone "
+              f"{bwd_ms:.4f} ms, the plain version's forward + backward "
+              f"{plain_ms:.4f} ms (CUDA events) [{card}]")
+        torch.cuda.empty_cache()
+    return out
+
+
+def smoke_train_parity(dev, card) -> None:
+    """Phase 10b: one ``make_train_step`` of the f32 smoke configs on the
+    card against the CPU: loss, grad norm and updated parameters within
+    1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+    for arch in TRAIN_ARCHS:
+        model = build_model(arch, smoke=True)
+        params = tree_map(lambda t: t.float(),
+                          model.init(torch.Generator().manual_seed(0)))
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, model.cfg.vocab, (4, 64)))
+        batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+        step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                  total_steps=10))
+        gp = tree_map(lambda t: t.to(dev, copy=True), params)
+        cp, _, cm = step(params, init_state(params), batch)   # in place
+        gp, _, gm = step(gp, init_state(gp),
+                         {k: v.to(dev) for k, v in batch.items()})
+        errs = {k: abs(float(gm[k]) - float(cm[k])) for k in
+                ("loss", "grad_norm")}
+        errs["params"] = max(float((a.cpu() - b).abs().max())
+                             for a, b in zip(tree_leaves(gp),
+                                             tree_leaves(cp)))
+        if not all(e <= SMOKE_TOL for e in errs.values()):
+            fail(f"{arch}-smoke train step on the card differs from the "
+                 f"CPU's: {errs}")
+        print(f"{arch}-smoke f32 train step, card vs CPU: loss "
+              f"{float(gm['loss']):.6f}, max abs differences {errs} (tol "
+              f"{SMOKE_TOL})")
+
+
+def run_train(arch: str, dev, card: str, fn_times: dict) -> dict:
+    """Phase 10c: the full-width, full-depth model (seeded bf16 weights on
+    the card) takes ``TRAIN_STEPS`` steps of batch 8 x 2048 tokens in the
+    config's 8 microbatches with remat on. Every gradient leaf must be
+    finite and not all zero (read through the train step's
+    ``compress_fn`` hook, which returns them unchanged); the loss finite.
+    Prints step ms (median of steps 2..), train tokens/s, 6·N·tokens per
+    step time over the bf16 dense peak, peak memory and the LM kernels'
+    launches per step, and the share of a step the recompute backwards of
+    the LM kernels take at phase 10a's times (one backward per attention /
+    Mamba2 layer per microbatch). Returns the kernel launches of the
+    run."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models.param import count_params, tree_leaves
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+    model = build_model(arch)
+    cfg = model.cfg
+    if not cfg.remat or cfg.microbatches != 8:
+        fail(f"{arch}: expected remat on and 8 microbatches")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    opt = init_state(params)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                         generator=gen, device=dev)
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    n_params = count_params(model.defs)
+    bad = []
+
+    def inspect(grads):
+        for i, g in enumerate(tree_leaves(grads)):
+            if not bool(torch.isfinite(g).all()) or not bool(
+                    (g != 0).any()):
+                bad.append(i)
+        return grads
+
+    checked = make_train_step(model, AdamWConfig(), compress_fn=inspect)
+    plain = make_train_step(model, AdamWConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    times, losses, counts = [], [], []
+    for i in range(TRAIN_STEPS):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        params, opt, met = (checked if i == 0 else plain)(params, opt, batch)
+        loss = float(met["loss"])             # syncs
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        after = launch_counts()
+        counts.append({k: after[k] - before[k] for k in LM_KEYS})
+    total = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if bad:
+        fail(f"{arch}: gradient leaves {bad} are not finite or all zero")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{arch}: train loss not finite: {losses}")
+    n_mb = cfg.microbatches
+    n_attn = (cfg.n_layers if cfg.family == "dense"
+              else model.n_shared_apps())
+    n_gla = 0 if cfg.family == "dense" else cfg.n_layers
+    # each layer's forward runs twice per microbatch: once, then again
+    # under remat in the backward
+    want = {"flash_attention": 2 * n_mb * n_attn,
+            "flash_attention_tc": 2 * n_mb * n_attn,
+            "gla_chunk": 2 * n_mb * n_gla, "gla_chunk_ssd": 2 * n_mb * n_gla}
+    if any(c != want for c in counts):
+        fail(f"{arch}: train steps launched {counts}, expected {want} each")
+    step_s = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    recompute_ms = n_mb * (n_attn * fn_times["flash_attention_tc"]["bwd_ms"]
+                           + n_gla * fn_times["gla_chunk_ssd"]["bwd_ms"])
+    share = 6 * n_params * tokens / step_s / BF16_FLOP_PER_S
+    print(f"{arch} train [{card}]: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters (bf16, f32 "
+          f"moments), batch {TRAIN_BATCH} x {TRAIN_SEQ} in {n_mb} "
+          f"microbatches, remat on; {len(bad)} of "
+          f"{len(tree_leaves(params))} gradient leaves non-finite or all "
+          f"zero; losses {[round(x, 4) for x in losses]}; step ms "
+          f"{[round(t * 1e3, 3) for t in times]} (median of steps 2-"
+          f"{TRAIN_STEPS}: {step_s * 1e3:.3f} ms) = {tokens / step_s:.1f} "
+          f"train tokens/s; 6·N·tokens / step time over the bf16 dense "
+          f"peak (989 TFLOP/s) = {share:.4f}; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches per step "
+          f"{counts[-1]}; the LM kernels' recompute backwards at phase 10a's"
+          f" times {recompute_ms:.3f} ms = {recompute_ms / (step_s * 1e3):.4f}"
+          f" of a step")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return {k: total[k] for k in total}
+
+
+def run_train_lm(card: str) -> dict:
+    """Phase 10d: ``examples.train_lm`` on the card for 30 steps: the loss
+    falls, ``transform_kpi`` launched, the final checkpoint restores
+    bitwise through ``restore_latest``. Returns the run's launches."""
+    import torch
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train.checkpoint import CheckpointManager, flatten
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_lm-", dir=scratch)
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train_lm.main(["--steps", str(TRAIN_LM_STEPS), "--ckpt-every",
+                             str(TRAIN_LM_STEPS), "--ckpt", root])
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        losses = out["losses"]
+        if not losses[-1] < losses[0]:
+            fail(f"train_lm: the loss did not fall: {losses}")
+        if counts["transform_kpi"] <= 0 or counts["flash_attention_tc"] <= 0:
+            fail(f"train_lm launched {counts}")
+        tree = {"params": out["params"], "opt": out["opt"], "corpus": None}
+        step, got, extra = CheckpointManager(root).restore_latest(tree)
+        same = all(b is None or bool(torch.equal(a, b)) for a, b in zip(
+            flatten(got)[0], flatten(tree)[0]))
+        if step != TRAIN_LM_STEPS or not same or \
+                extra["stream"] != out["stream"]:
+            fail("train_lm: the checkpoint does not restore bitwise")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"train_lm (lm_small, ETL-fed) on the card [{card}]: "
+          f"{TRAIN_LM_STEPS} steps in {wall:.2f} s wall (ETL set-up "
+          f"included), loss {losses[0]:.4f} -> {losses[-1]:.4f}; checkpoint "
+          f"of step {step} restored bitwise with the listener offsets; "
+          f"launches {counts}")
+    return counts
+
+
+def check_manual_dp(dev, card) -> None:
+    """Phase 10e: ``manual_dp`` at world size 1 over NCCL against
+    ``make_train_step`` (f32 smoke): the same update, within 1e-6 (the
+    global norm is summed in another order)."""
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import manual_dp
+    from repro_torch.train.train_step import make_train_step
+    model = build_model("internlm2-1.8b", smoke=True)
+    params = tree_map(lambda t: t.float().to(dev),
+                      model.init(torch.Generator().manual_seed(0)))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, model.cfg.vocab, (4, 64))).to(dev)
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    want, _, wm = make_train_step(model, cfg)(
+        tree_map(torch.clone, params), init_state(params), batch)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        got, _, gm = manual_dp.make_manual_dp_train_step(model, cfg)(
+            params, manual_dp.init_shard_state(params), batch)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    err = max(float((a - b).abs().max())
+              for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    if not err <= 1e-6:
+        fail(f"manual_dp at world size 1 differs from make_train_step by "
+             f"{err}")
+    print(f"manual_dp (NCCL, world size 1; one reduce-scatter, one "
+          f"all-gather) vs make_train_step, internlm2-smoke f32 on the "
+          f"card: parameters max abs diff {err:.3g}, loss "
+          f"{float(gm['loss']):.6f} / {float(wm['loss']):.6f} [{card}]")
+
+
+def check_quickstart(card) -> None:
+    """Phase 10f: ``examples.quickstart`` on the card against its CPU run:
+    the warehouse's facts within the transform's 1e-5."""
+    import io
+    import numpy as np
+    from repro_torch.examples import quickstart
+    runs = {}
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            runs[device] = quickstart.main(["--device", device])
+        if device == "cuda":
+            print(buf.getvalue().rstrip())
+    gpu, cpu = (runs[d].warehouse.canonical_fact_table()
+                for d in ("cuda", "cpu"))
+    if gpu.shape != cpu.shape or not np.allclose(gpu, cpu, rtol=1e-5,
+                                                 atol=1e-5):
+        fail("quickstart's warehouse on the card differs from the CPU run")
+    print(f"quickstart on the card [{card}]: {len(gpu)} facts within 1e-5 "
+          f"of the CPU run (max abs diff "
+          f"{float(np.abs(gpu - cpu).max()):.3g})")
+
+
 def main() -> None:
     card = phase_card()
     import numpy as np
@@ -2040,6 +2409,21 @@ def main() -> None:
         serve_counts, f32 = run_lm(arch, dev, card)
         lm_counts[path] = by_design(serve_counts)
         f32_counts[path + "_f32_prefill"] = by_design(f32)
+    fn_times = check_function_grads(dev, gen, card)            # phase 10
+    smoke_train_parity(dev, card)
+    train_counts = {}
+    for arch in TRAIN_ARCHS:
+        train_counts["train_" + arch.split("-")[0]] = by_design(
+            run_train(arch, dev, card, fn_times))
+    lm_run = run_train_lm(card)
+    train_counts["train_lm"] = {**lm_run, **by_design(lm_run)}
+    check_manual_dp(dev, card)
+    check_quickstart(card)
+    for name, t in fn_times.items():
+        next(r for r in results if r["name"] == name).update(
+            train_forward_ms=t["fwd_ms"], recompute_backward_ms=t["bwd_ms"],
+            function_fwd_bwd_ms=t["fn_ms"],
+            plain_fwd_bwd_ms=t["plain_fwd_bwd_ms"])
 
     src = "src/repro_torch/kernels/segment_kpi/csrc/segment_kpi.cu"
     fused = "src/repro_torch/kernels/segment_kpi/csrc/transform_kpi.cu"
@@ -2072,10 +2456,12 @@ def main() -> None:
                    "sharded_cluster": sharded_counts.get(name, 0),
                    COMPLEX_PATH: complex_counts.get(name, 0),
                    **{p: c.get(name, 0) for p, c in lm_counts.items()},
-                   **{p: c.get(name, 0) for p, c in f32_counts.items()}}
+                   **{p: c.get(name, 0) for p, c in f32_counts.items()},
+                   **{p: c.get(name, 0) for p, c in train_counts.items()}}
         # the ETL kernels' main path is the cluster, the single-table
         # probe's the complex model; the bf16 LM designs' the two serve
-        # runs; the f32 LM designs' the two f32 prefills
+        # runs and the three training runs; the f32 LM designs' the two
+        # f32 prefills
         if name in OFF_PATH:
             launches = 0
             if any(by_path.values()):
@@ -2085,7 +2471,8 @@ def main() -> None:
         elif name == "hash_join":
             launches = by_path[COMPLEX_PATH]
         elif name in ("flash_attention_tc", "gla_chunk_ssd"):
-            launches = sum(c[name] for c in lm_counts.values())
+            launches = sum(c[name] for c in (*lm_counts.values(),
+                                             *train_counts.values()))
         else:
             launches = sum(c[name] for c in f32_counts.values())
         if launches <= 0 and name not in OFF_PATH:
@@ -2100,7 +2487,9 @@ def main() -> None:
                         "library_ms": r["library_ms"],
                         **{key: r[key] for key in (
                             "zamba2", "scratch_bytes", "cluster_facts_ms",
-                            "batch_ms", "dashboard", "dashboard_4_shards")
+                            "batch_ms", "dashboard", "dashboard_4_shards",
+                            "train_forward_ms", "recompute_backward_ms",
+                            "function_fwd_bwd_ms", "plain_fwd_bwd_ms")
                            if key in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -76,17 +76,25 @@ class RecoveryCoordinator:
         return self._marks
 
     # ----------------------------------------------------------------- capture
-    def capture(self, pipe, engine=None, extra_locks=()) -> Dict[str, Any]:
+    def capture(self, pipe, engine=None, extra_locks=(), abort=None
+                ) -> Optional[Dict[str, Any]]:
         """One consistent snapshot of the data plane (see module doc).
         ``extra_locks`` are the live workers' commit locks — the caller
         (the concurrent cluster) supplies them in a FIXED sort order so
         two concurrent captures cannot deadlock; the sequential runtime
-        passes none (nothing runs between its steps)."""
+        passes none (nothing runs between its steps). ``abort``: asked
+        once every lock is held; True returns None, no snapshot (the
+        cluster's "a fault has tripped": a load stage that died between
+        its warehouse load and its offset commit released its lock to a
+        capture already waiting for it, and that state — loaded, not
+        committed — must never be journaled)."""
         marks = self._current_marks()
         with contextlib.ExitStack() as stack:
             stack.enter_context(pipe.tracker.lock)
             for lk in extra_locks:
                 stack.enter_context(lk)
+            if abort is not None and abort():
+                return None
             state: Dict[str, Any] = {
                 "broker": pipe.queue.export_state(
                     since=marks.get("broker_lengths")),
@@ -113,15 +121,19 @@ class RecoveryCoordinator:
             }
         return state
 
-    def checkpoint(self, pipe, engine=None, extra_locks=()) -> int:
+    def checkpoint(self, pipe, engine=None, extra_locks=(), abort=None
+                   ) -> Optional[int]:
         """Capture + append one incremental journal step. Returns the
-        step number. The cumulative marks only advance after the step is
+        step number, or None where ``abort`` stopped the capture (see
+        ``capture``). The cumulative marks only advance after the step is
         durably renamed in — a crash mid-write leaves the marks (and the
         next checkpoint's increments) exactly where they were."""
         with self._lock:
             prev = copy.deepcopy(self._current_marks())
             state = self.capture(pipe, engine=engine,
-                                 extra_locks=extra_locks)
+                                 extra_locks=extra_locks, abort=abort)
+            if state is None:
+                return None
             totals = {
                 "chunk_seq": int(state["warehouse"]["seq"]),
                 "broker_lengths": {

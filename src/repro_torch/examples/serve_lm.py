@@ -42,12 +42,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@torch.no_grad()
 def serve(model: Model, params, prompts: torch.Tensor, *, gen_len: int,
           max_len: int) -> Dict[str, Any]:
     """Prefill ``prompts`` [B, P], then decode greedily to ``gen_len`` new
     tokens per sequence against a cache of ``max_len`` positions. Returns
     the tokens [B, gen_len], the decode steps' logits [B, gen_len - 1, V]
-    and the prefill and decode wall seconds."""
+    and the prefill and decode wall seconds. Records no autograd graph."""
     b, p = prompts.shape
     if p + gen_len - 1 > max_len:
         raise ValueError(f"prompt {p} + {gen_len - 1} decode steps exceed "

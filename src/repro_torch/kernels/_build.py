@@ -13,7 +13,8 @@ missing libraries compile at once, one ``nvcc`` process each.
 
 Nothing here runs at import time; the first CUDA launch of a wrapper in
 ``ops.py`` calls ``library``. ``on_cuda``, ``check`` and ``raise_on`` are
-the argument and error checks every wrapper shares; ``count_launch`` is the
+the argument and error checks every wrapper shares; ``no_graph_inputs``
+and ``recompute_grads`` serve the LM kernels' autograd Functions; ``count_launch`` is the
 one place a wrapper's launch counter moves, under a lock (the concurrent
 runtime's stage threads launch at the same time).
 """
@@ -154,6 +155,42 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"{tuple('*' if s is None else s for s in shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def no_graph_inputs(op: str, fn: str, *tensors) -> None:
+    """Raise when grad mode is on and one of ``tensors`` requires grad: a
+    kernel writes its output through raw pointers, so that output would
+    carry no gradient. ``fn`` names the differentiable entry point."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{op} has no gradient of its own: an input "
+                           f"requires grad, call {fn} (its autograd "
+                           f"Function) instead")
+
+
+def recompute_grads(plain, saved, needs_grad, grad_outputs) -> list:
+    """The backward of an LM kernel's autograd Function: run ``plain`` (the
+    kernel's plain version) under autograd on detached copies of the saved
+    inputs and return ``torch.autograd.grad`` of its outputs, one entry
+    per saved input (None where ``needs_grad`` is false or the input
+    is None)."""
+    inputs = [None if t is None else t.detach().requires_grad_(bool(n))
+              for t, n in zip(saved, needs_grad)]
+    with torch.enable_grad():
+        outs = plain(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    want = [i for i, (t, n) in enumerate(zip(inputs, needs_grad))
+            if t is not None and n]
+    pairs = [(o, g) for o, g in zip(outs, grad_outputs)
+             if g is not None and o.requires_grad]
+    grads = [None] * len(inputs)
+    if want and pairs:
+        got = torch.autograd.grad([o for o, _ in pairs],
+                                  [inputs[i] for i in want],
+                                  [g for _, g in pairs], allow_unused=True)
+        for i, g in zip(want, got):
+            grads[i] = g
+    return grads
 
 
 def raise_on(err: int, op: str) -> None:

@@ -12,7 +12,15 @@ streaming softmax, in two hand-written designs.
 For CPU tensors ``mha`` runs the plain version (``ref.attention_ref``);
 for CUDA tensors it launches one of the kernels on the current stream or
 raises. ``launches["flash_attention"]`` counts every kernel launch,
-``launches["flash_attention_tc"]`` those of the tensor-core design."""
+``launches["flash_attention_tc"]`` those of the tensor-core design.
+
+Gradients: ``attention`` (``FlashAttentionFn``) runs ``mha`` forward and,
+backward, recomputes the plain version under autograd and returns its
+input gradients — the JAX package has no backward kernel and trains
+through its plain jnp attention, so the gradient is the plain
+formulation's at the same point. ``mha`` itself writes through raw
+pointers and has no graph: it raises when grad mode is on and an input
+requires grad, so no caller can drop a gradient silently."""
 from __future__ import annotations
 
 import ctypes
@@ -21,7 +29,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import count_launch, on_cuda, raise_on
+from repro_torch.kernels._build import (count_launch, no_graph_inputs,
+                                       on_cuda, raise_on, recompute_grads)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -91,6 +100,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     time the two side by side; "tc" raises where ``takes_tc`` is false."""
     if design not in DESIGNS:
         raise ValueError(f"design {design!r} not in {DESIGNS}")
+    no_graph_inputs("flash_attention", "attention", q, k, v)
     if not on_cuda(q, "flash_attention"):
         return attention_ref(q, k, v, causal=causal, scale=scale)
     dev = q.device
@@ -140,4 +150,33 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-__all__ = ["attention_ref", "launches", "mha", "takes_tc"]
+class FlashAttentionFn(torch.autograd.Function):
+    """``mha`` with a gradient: the kernel forward (the plain version for
+    CPU tensors), the plain version's gradient backward (recomputed from
+    the saved inputs)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return mha(q, k, v, causal=causal, scale=scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = recompute_grads(
+            lambda q, k, v: attention_ref(q, k, v, causal=ctx.causal,
+                                          scale=ctx.scale),
+            ctx.saved_tensors, ctx.needs_input_grad, (grad_out,))
+        return (*grads, None, None)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, scale: Optional[float] = None
+              ) -> torch.Tensor:
+    """``mha`` (the default design) through ``FlashAttentionFn``: what the
+    model calls in every mode."""
+    return FlashAttentionFn.apply(q, k, v, causal, scale)
+
+
+__all__ = ["FlashAttentionFn", "attention", "attention_ref", "launches",
+           "mha", "takes_tc"]

@@ -14,7 +14,16 @@ For CPU tensors ``gla`` runs the plain version (``ref.gla_chunk_ref``);
 for CUDA tensors it launches one of the designs on the current stream or
 raises. ``launches["gla_chunk"]`` counts calls that launched a kernel
 (one per call, whatever the design's number of kernels);
-``launches["gla_chunk_ssd"]`` those that took the SSD design."""
+``launches["gla_chunk_ssd"]`` those that took the SSD design.
+
+Gradients: ``gla_fn`` (``GlaChunkFn``) runs ``gla`` forward and, backward,
+recomputes a plain version under autograd and returns its input gradients
+— ``ref.gla_ssd_ref`` for the inputs the SSD design takes (its
+vectorized chunk-parallel form), ``ref.gla_chunk_ref`` for the rest. The
+JAX package has no backward kernel and trains through its plain jnp
+recurrence, so the gradient is the plain formulation's at the same point.
+``gla`` itself writes through raw pointers and has no graph: it raises
+when grad mode is on and an input requires grad."""
 from __future__ import annotations
 
 import ctypes
@@ -23,8 +32,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import check, count_launch, on_cuda, raise_on
-from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+from repro_torch.kernels._build import (check, count_launch, no_graph_inputs,
+                                       on_cuda, raise_on, recompute_grads)
+from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref, gla_ssd_ref
 
 CHUNK = 64            # the kernel's chunk length (the model's)
 MAX_DK = 64
@@ -92,6 +102,7 @@ def gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     two side by side; "ssd" raises where ``takes_ssd`` is false."""
     if design not in DESIGNS:
         raise ValueError(f"design {design!r} not in {DESIGNS}")
+    no_graph_inputs("gla_chunk", "gla_fn", q, k, v, log_w, u, initial_state)
     if not on_cuda(q, "gla_chunk"):
         return gla_chunk_ref(q, k, v, log_w, u, inclusive=inclusive,
                              chunk=chunk, initial_state=initial_state)
@@ -158,4 +169,52 @@ def gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, final
 
 
-__all__ = ["gla", "gla_chunk_ref", "launches", "takes_ssd"]
+def plain_for(q, k, v, log_w, u, inclusive: bool, chunk: int = CHUNK):
+    """The plain version whose gradient ``GlaChunkFn`` returns for these
+    inputs, as ``f(q, k, v, log_w, u, initial_state) -> (out, final)``."""
+    if takes_ssd(q, k, v, log_w, u, inclusive):
+        return lambda q, k, v, log_w, u, s0: gla_ssd_ref(
+            q, k, v, log_w, chunk=chunk, initial_state=s0)
+    return lambda q, k, v, log_w, u, s0: gla_chunk_ref(
+        q, k, v, log_w, u, inclusive=inclusive, chunk=chunk,
+        initial_state=s0)
+
+
+class GlaChunkFn(torch.autograd.Function):
+    """``gla`` with a gradient: the kernel forward (the plain version for
+    CPU tensors), the gradient of ``plain_for``'s plain version backward
+    (recomputed from the saved inputs). Broadcast (zero-stride) inputs
+    get their gradient summed by ``expand``'s own backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_w, u, initial_state, inclusive: bool,
+                chunk: int):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, log_w, u, initial_state)
+        ctx.inclusive, ctx.chunk = inclusive, chunk
+        return gla(q, k, v, log_w, u, inclusive=inclusive, chunk=chunk,
+                   initial_state=initial_state)
+
+    @staticmethod
+    def backward(ctx, grad_out, grad_final):
+        saved = ctx.saved_tensors          # unpacked once (checkpointing)
+        q, k, v, log_w, u, _ = saved
+        grads = recompute_grads(
+            plain_for(q, k, v, log_w, u, ctx.inclusive, ctx.chunk),
+            saved, ctx.needs_input_grad, (grad_out, grad_final))
+        return (*grads, None, None)
+
+
+def gla_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           log_w: torch.Tensor, u: Optional[torch.Tensor] = None, *,
+           inclusive: bool = False, chunk: int = CHUNK,
+           initial_state: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gla`` (the default design) through ``GlaChunkFn``: what the model
+    calls in every mode."""
+    return GlaChunkFn.apply(q, k, v, log_w, u, initial_state, inclusive,
+                            chunk)
+
+
+__all__ = ["GlaChunkFn", "gla", "gla_chunk_ref", "gla_fn", "launches",
+           "plain_for", "takes_ssd"]

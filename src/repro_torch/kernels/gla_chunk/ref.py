@@ -12,6 +12,9 @@ Recurrence per head (state S in R^{dk x dv}):
     S_t = diag(w_t) @ S_{t-1} + k_t v_t^T            (w_t in (0,1])
     o_t = q_t @ (S_{t-1} + diag(u) k_t v_t^T)        lag=1 w/ bonus  (RWKV6)
     o_t = q_t @ S_t                                  lag=0           (Mamba2)
+
+Both compute in f32 (f64 for f64 inputs, so that their gradients can be
+checked numerically).
 """
 from __future__ import annotations
 
@@ -41,18 +44,18 @@ def gla_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           for x in (q, k, v, log_w))
         s += pad
     n = s // chunk
+    acc = torch.promote_types(q.dtype, torch.float32)
 
     def chunks(x):                                   # [n, b, h, C, d] f32
-        return x.reshape(b, n, chunk, h, -1).permute(1, 0, 3, 2, 4).float()
+        return x.reshape(b, n, chunk, h, -1).permute(1, 0, 3, 2, 4).to(acc)
 
     qc, kc, vc, lw = chunks(q), chunks(k), chunks(v), chunks(log_w)
     lag = 0 if inclusive else 1
     t_idx = torch.arange(chunk, device=q.device)
     # masked (t, i) pairs: i > t - lag
     masked = t_idx[:, None] < (t_idx[None, :] + lag)
-    S = (initial_state.float() if initial_state is not None
-         else torch.zeros((b, h, dk, dv), dtype=torch.float32,
-                          device=q.device))
+    S = (initial_state.to(acc) if initial_state is not None
+         else torch.zeros((b, h, dk, dv), dtype=acc, device=q.device))
     outs = []
     for c in range(n):
         qb, kb, vb, lwb = qc[c], kc[c], vc[c], lw[c]          # [b,h,C,*]
@@ -68,7 +71,7 @@ def gla_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              * torch.exp(diff)).sum(dim=-1)
         out = inter + torch.einsum("bhti,bhiv->bhtv", A, vb)
         if u is not None:                     # RWKV6 current-token bonus
-            dot = (qb * u.float()[None, :, None, :] * kb).sum(dim=-1)
+            dot = (qb * u.to(acc)[None, :, None, :] * kb).sum(dim=-1)
             out = out + dot[..., None] * vb
         # state update: S <- diag(exp(L_C)) S + sum_i k_i exp(L_C-L_i) v_i
         Ltot = L[:, :, -1:, :]
@@ -104,9 +107,10 @@ def gla_ssd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           for x in (q, k, v, log_w))
         s += pad
     n = s // chunk
+    acc = torch.promote_types(q.dtype, torch.float32)
 
     def chunks(x):                                # [b, h, n, C, d] f32
-        return x.reshape(b, n, chunk, h, -1).permute(0, 3, 1, 2, 4).float()
+        return x.reshape(b, n, chunk, h, -1).permute(0, 3, 1, 2, 4).to(acc)
 
     qc, kc, vc = chunks(q), chunks(k), chunks(v)
     L = torch.cumsum(chunks(log_w[..., :1])[..., 0], dim=-1)   # [b,h,n,C]
@@ -115,9 +119,8 @@ def gla_ssd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d_state = torch.einsum("bhnid,bhnij->bhndj", kc,
                            torch.exp(Lc[..., None] - L)[..., None] * vc)
     # 2. state passing
-    S = (initial_state.float() if initial_state is not None
-         else torch.zeros((b, h, dk, dv), dtype=torch.float32,
-                          device=q.device))
+    S = (initial_state.to(acc) if initial_state is not None
+         else torch.zeros((b, h, dk, dv), dtype=acc, device=q.device))
     starts = []
     for c in range(n):
         starts.append(S)

@@ -4,8 +4,12 @@
   * ``attend_prefill`` — train and prefill: the hand-written
                          ``flash_attention`` kernel on the card
                          (``kernels.flash_attention.ops.mha``, its plain
-                         version on the CPU), fed transposed views of the
-                         activations, so nothing is copied.
+                         version on the CPU) through its autograd
+                         Function (the gradient is the plain version's),
+                         fed transposed views of the activations, so
+                         nothing is copied. The reference trains through
+                         ``attend_full`` up to 8192 tokens, the same
+                         function.
   * ``attend_full``    — the reference's einsum path in plain torch (its
                          probabilities rounded to the compute dtype before
                          PV, as ``models/attention.py:attend_full``).
@@ -36,8 +40,8 @@ def attend_prefill(q: torch.Tensor, k: torch.Tensor,
     through the flash_attention kernel. In bf16 (its tensor-core design)
     the probabilities are rounded to bf16 before PV, as ``attend_full``
     rounds them; in f32 they stay f32 (as the TPU kernel keeps them)."""
-    out = flash_ops.mha(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True)
+    out = flash_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True)
     return out.transpose(1, 2)
 
 

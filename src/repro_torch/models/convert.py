@@ -2,7 +2,10 @@
 given as numpy arrays (the caller does the ``np.asarray``), becomes the
 port's parameter tree. The two trees have the same structure and leaf
 shapes — the port keeps the stacked ``[L, ...]`` layer axis — so the
-conversion is leaf for leaf, checked against the port's ParamDefs."""
+conversion is leaf for leaf, checked against the port's ParamDefs. An
+``AdamWState`` (step, mu, nu as numpy) carries across the same way
+(``opt_from_reference``), so both packages can start from one optimizer
+state."""
 from __future__ import annotations
 
 from typing import Any
@@ -35,3 +38,13 @@ def from_reference(defs, tree) -> Any:
         got = sorted(tree) if isinstance(tree, dict) else type(tree)
         raise ValueError(f"keys {got}, expected {sorted(defs)}")
     return {k: from_reference(defs[k], tree[k]) for k in defs}
+
+
+def opt_from_reference(defs, state):
+    """The reference's ``AdamWState`` (any ``(step, mu, nu)`` sequence of
+    numpy arrays; mu and nu shaped as ``defs``) as the port's, on the
+    CPU."""
+    from repro_torch.optim import AdamWState
+    step, mu, nu = state
+    return AdamWState(step=_tensor(np.asarray(step, dtype=np.int32)),
+                      mu=from_reference(defs, mu), nu=from_reference(defs, nu))

@@ -6,10 +6,11 @@ Recurrence per head (state S in R^{dk x dv}):
     o_t = q_t @ (S_{t-1} + diag(u) k_t v_t^T)        lag=1 w/ bonus  (RWKV6)
     o_t = q_t @ S_t                                  lag=0           (Mamba2)
 
-``gla_chunk`` (prefill) is the hand-written ``gla_chunk`` kernel on the
-card (``kernels.gla_chunk.ops.gla``; its plain version, the chunked form
-with f32 decay ratios, on the CPU). ``gla_step`` (decode) is one token of
-the recurrence in plain torch.
+``gla_chunk`` (train and prefill) is the hand-written ``gla_chunk`` kernel
+on the card (``kernels.gla_chunk.ops.gla``; its plain version, the
+chunked form with f32 decay ratios, on the CPU), through its autograd
+Function ``gla_fn``, whose gradient is the plain version's. ``gla_step``
+(decode) is one token of the recurrence in plain torch.
 
 The JAX package's ``models/gla.py:gla_chunk`` rounds q, k and the decay
 ratios of the intra-chunk term to ``ratio_dtype`` (bf16 by default, which
@@ -37,11 +38,11 @@ def gla_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``inclusive=False`` reads the state *before* the current token (RWKV6,
     combined with the ``u`` bonus for the diagonal); ``inclusive=True``
     reads the state after the update (Mamba2 — pass ``u=None``)."""
-    return gla_ops.gla(q, k, v, log_w.float(),
-                       None if u is None else u.float(),
-                       inclusive=inclusive, chunk=chunk,
-                       initial_state=(None if initial_state is None
-                                      else initial_state.float()))
+    return gla_ops.gla_fn(q, k, v, log_w.float(),
+                          None if u is None else u.float(),
+                          inclusive=inclusive, chunk=chunk,
+                          initial_state=(None if initial_state is None
+                                         else initial_state.float()))
 
 
 def gla_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -3,14 +3,20 @@
 ``Model(cfg)`` builds a ParamDef tree once (the JAX package's tree, leaf
 for leaf); ``init`` materializes it from a ``torch.Generator`` on that
 generator's device, ``init_cache`` allocates the decode cache. ``forward``
-covers three modes, without autograd:
+covers three modes:
 
-  train   — full-sequence causal LM forward, returns logits
+  train   — full-sequence causal LM forward, returns logits; records
+            autograd's graph where grad mode is on and the parameters
+            require grad (``train/train_step.py``), each layer body under
+            ``torch.utils.checkpoint`` when ``cfg.remat`` (the reference's
+            ``jax.checkpoint``)
   prefill — like train but also returns a populated KV/state cache
   decode  — one token against a cache, which it updates in place
+Prefill and decode run without a graph.
 
 The stacks loop over the stacked ``[L, ...]`` layer params (the JAX
-package scans them).
+package scans them), unbound once per forward so that the backward stacks
+the layers' gradients in one step.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
@@ -29,6 +36,23 @@ from repro_torch.models.param import ParamDef, tree_init, tree_map
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked [L, ...] tree (views)."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked [L, ...] tree, as views from one
+    ``unbind`` per leaf (whose backward stacks the layer gradients at
+    once, where per-layer indexing would add L full-size zero-padded
+    gradients)."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda p: p[i], parts) for i in range(n)]
+
+
+def _body(remat: bool, fn, *args):
+    """``fn(*args)``, under a non-reentrant activation checkpoint when
+    ``remat``: its activations are recomputed in the backward."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _stack(caches):
@@ -132,7 +156,6 @@ class Model:
                         self.cache_defs(batch, seq))
 
     # -------------------------------------------------------------- forward
-    @torch.no_grad()
     def forward(self, params, batch: Dict[str, torch.Tensor], *, mode: str,
                 cache=None, cache_index: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
@@ -141,9 +164,18 @@ class Model:
         the blocks' auxiliary losses on the tokens' device: 0 for the
         dense and hybrid families, whose blocks have none. In decode mode
         the logits cover the single new token, ``cache_index`` is the
-        position it is decoded at and ``cache`` is updated in place."""
+        position it is decoded at and ``cache`` is updated in place.
+        Only train mode records a graph."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
+        if mode != "train":
+            with torch.no_grad():
+                return self._forward(params, batch, mode=mode, cache=cache,
+                                     cache_index=cache_index)
+        return self._forward(params, batch, mode=mode, cache=cache,
+                             cache_index=cache_index)
+
+    def _forward(self, params, batch, *, mode, cache, cache_index):
         cfg = self.cfg
         tokens = batch["tokens"]
         s = tokens.shape[1]
@@ -166,17 +198,26 @@ class Model:
         return logits, new_cache, aux
 
     # ------------------------------------------------------------ stacks
+    def _remat(self, mode: str) -> bool:
+        """Whether train mode checkpoints each layer body: ``cfg.remat``,
+        where a graph is being recorded."""
+        return mode == "train" and self.cfg.remat and torch.is_grad_enabled()
+
     def _scan_stack(self, params, x, *, mode, positions, cache,
                     cache_index):
         """Blocks return no cache in train mode, a fresh per-layer cache in
         prefill mode (stacked here) and the updated cache in decode
         mode."""
         cfg = self.cfg
+        remat = self._remat(mode)
         fresh = []
-        for i in range(cfg.n_layers):
+        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            if mode == "train":
+                x = _body(remat, lambda p, h: blocks.decoder_block(
+                    p, h, cfg, mode=mode, positions=positions)[0], lp, x)
+                continue
             x, lc = blocks.decoder_block(
-                _layer(params["layers"], i), x, cfg, mode=mode,
-                positions=positions,
+                lp, x, cfg, mode=mode, positions=positions,
                 cache=None if cache is None else _layer(cache, i),
                 cache_index=cache_index)
             fresh.append(lc)
@@ -210,14 +251,24 @@ class Model:
             z = z + swiglu_mlp(shared_p["mlp"], hh)
             return h + z, new_sc
 
+        remat = self._remat(mode)
         m_fresh, s_fresh = [], []
-        for i in range(cfg.n_layers):
+        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            g = i // k
+            shared_after = (i + 1) % k == 0 and g < napp
+            if mode == "train":
+                # the shared block's parameters enter every application,
+                # so their gradient sums over the applications
+                x = _body(remat, lambda p, h: blocks.mamba2_block(
+                    p, h, cfg, mode=mode)[0], lp, x)
+                if shared_after:
+                    x = _body(remat, lambda h: apply_shared(h, None)[0], x)
+                continue
             x, lc = blocks.mamba2_block(
-                _layer(params["layers"], i), x, cfg, mode=mode,
+                lp, x, cfg, mode=mode,
                 cache=None if m_cache is None else _layer(m_cache, i))
             m_fresh.append(lc)
-            g = i // k
-            if (i + 1) % k == 0 and g < napp:
+            if shared_after:
                 x, sc = apply_shared(
                     x, None if s_cache is None else _layer(s_cache, g))
                 s_fresh.append(sc)

@@ -53,6 +53,22 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure whose leaves are ``leaves``, given in
+    ``tree_leaves`` order (sorted keys)."""
+    it = iter(leaves)
+
+    def fill(t):
+        if isinstance(t, dict):
+            return {k: fill(t[k]) for k in sorted(t)}
+        return next(it)
+
+    out = fill(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
 def _truncated_normal(shape: Shape, generator: torch.Generator
                       ) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], f32, on the generator's

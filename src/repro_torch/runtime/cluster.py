@@ -232,12 +232,15 @@ class WorkerRuntime:
     """
 
     _QUEUE_POLL_S = 0.05
+    _YIELD_S = 0.02              # longest a load stage waits for a capture
 
     def __init__(self, worker: StreamProcessorWorker, pipe: DODETLPipeline,
-                 max_records_per_partition: Optional[int] = None):
+                 max_records_per_partition: Optional[int] = None,
+                 captures: Optional["PendingCaptures"] = None):
         self.worker = worker
         self.pipe = pipe
         self.cap = max_records_per_partition
+        self.captures = captures or PendingCaptures()
         self.stream = new_stream(worker.backend)
         depth = max(1, pipe.cfg.handoff_depth)
         self.transform_q: "queue_mod.Queue[_Work]" = queue_mod.Queue(depth)
@@ -595,8 +598,18 @@ class WorkerRuntime:
         self.records_done += len(good)
         return len(good)
 
+    def _yield_to_capture(self) -> None:
+        """Let a waiting checkpoint capture take this worker's commit lock
+        first; bounded, so a capture stuck behind another worker's hung
+        stage never stalls this one."""
+        deadline = time.perf_counter() + self._YIELD_S
+        while self.captures.waiting() and not self.stop.is_set() \
+                and time.perf_counter() < deadline:
+            time.sleep(0.0005)
+
     def _retry_sweep(self) -> None:
         w = self.worker
+        self._yield_to_capture()
         with self.commit_lock:
             if self.dead or not len(w.buffer):
                 return
@@ -641,6 +654,7 @@ class WorkerRuntime:
                 continue
             n_dead = len(item.dead) if item.dead is not None else 0
             n_total = len(item.batch) + n_dead
+            self._yield_to_capture()
             with self.commit_lock:
                 if not self.dead:
                     with self.tracer.span("load.commit") as sp:
@@ -679,6 +693,25 @@ class WorkerRuntime:
             # credit-bounded)
             self.credits.refund(n_total)
             self._retry_sweep()
+
+
+class PendingCaptures:
+    """The number of checkpoint captures waiting for the workers' commit
+    locks. A load stage lets them in before it takes its lock again: a
+    busy load thread re-takes a lock it just released before a blocked
+    waiter runs, so a capture would otherwise starve until the stream
+    idles (on the card, every periodic capture of a drill did)."""
+
+    def __init__(self):
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self, delta: int) -> None:
+        with self._lock:
+            self._n += delta
+
+    def waiting(self) -> bool:
+        return self._n > 0
 
 
 class ConcurrentCluster:
@@ -747,8 +780,10 @@ class ConcurrentCluster:
             if hasattr(self.serving, "reown"):
                 self.serving.reown(pipe.current_routing())
                 pipe.warehouse.attach_shards(self.serving.ownership)
+        self._captures = PendingCaptures()
         self.runtimes: Dict[str, WorkerRuntime] = {
-            w.name: WorkerRuntime(w, pipe, max_records_per_partition)
+            w.name: WorkerRuntime(w, pipe, max_records_per_partition,
+                                  self._captures)
             for w in pipe.workers}
         self.assignment = pipe.assignment
         self.redump_s_total = 0.0
@@ -792,14 +827,32 @@ class ConcurrentCluster:
         are passed in name order — a fixed acquisition order, so a
         concurrent rebalance (which takes one lock at a time) can never
         deadlock against a capture. No-op once a fault has tripped: a
-        dead process journals nothing on the way down."""
+        dead process journals nothing on the way down — asked again once
+        the locks are held, since a load stage can die at
+        ``load.pre_commit`` (warehouse loaded, offsets not committed)
+        while this capture waits for its lock."""
         if self.recovery is None or self.pipe.fault.tripped.is_set():
             return None
         locks = [rt.commit_lock for _, rt in sorted(self.runtimes.items())
                  if not rt.dead]
+        waiting = [True]
+
+        def locked() -> bool:
+            # every lock held: the load stages may block on them again;
+            # journal nothing if a fault tripped while this waited
+            self._captures.add(-1)
+            waiting[0] = False
+            return self.pipe.fault.tripped.is_set()
+
         with self.pipe.tracer.span("checkpoint.step") as sp:
-            step = self.recovery.checkpoint(self.pipe, engine=self.serving,
-                                            extra_locks=locks)
+            self._captures.add(1)
+            try:
+                step = self.recovery.checkpoint(
+                    self.pipe, engine=self.serving, extra_locks=locks,
+                    abort=locked)
+            finally:
+                if waiting[0]:
+                    self._captures.add(-1)
             sp.put("step", step)
         return step
 
@@ -1192,7 +1245,7 @@ class ConcurrentCluster:
             if self.pipe.workers else 1)
         w.partitions = []
         self.pipe.workers.append(w)
-        rt = WorkerRuntime(w, self.pipe, self.cap)
+        rt = WorkerRuntime(w, self.pipe, self.cap, self._captures)
         self.runtimes = {**self.runtimes, name: rt}
         if self._t_start is not None:
             rt.start()

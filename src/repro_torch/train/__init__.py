@@ -1,2 +1,5 @@
-"""Checkpoint files for the durability journal (``checkpoint``) and the LM
-serving steps (``serve_step``)."""
+"""Training and serving steps: ``train_step`` (microbatched gradient
+accumulation and the AdamW update), ``manual_dp`` (data parallel over
+``torch.distributed``), ``compression`` (int8 error feedback),
+``checkpoint`` (atomic steps for the durability journal and the trainer's
+``CheckpointManager``) and ``serve_step`` (prefill and greedy decode)."""

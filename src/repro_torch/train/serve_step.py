@@ -1,6 +1,7 @@
 """Serving steps: batched prefill and greedy single-token decode against
 a KV/state cache, with the JAX package's signatures. Decode updates the
-cache in place (where the reference donates it) and returns it."""
+cache in place (where the reference donates it) and returns it. Neither
+records an autograd graph."""
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
@@ -11,6 +12,7 @@ from repro_torch.models.model import Model
 
 
 def make_prefill_step(model: Model):
+    @torch.no_grad()
     def prefill_step(params, batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, Any]:
         logits, cache, _ = model.forward(params, batch, mode="prefill")
@@ -21,6 +23,7 @@ def make_prefill_step(model: Model):
 
 
 def make_decode_step(model: Model):
+    @torch.no_grad()
     def decode_step(params, cache, token: torch.Tensor, index: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
         """token: [B, 1] int; index: the position being decoded. Returns

@@ -658,7 +658,10 @@ def test_commit_post_recovery_drill_on_card(dev, tmp_path):
                                         recover_pipeline)
     from repro_torch.durability.faults import COMMIT_POST
     from repro_torch.runtime.cluster import ConcurrentCluster
-    fault = FaultInjector({COMMIT_POST: 15})      # mid-stream
+    # the crash is armed once a step holding loaded chunks is journaled
+    # (a capture still waiting for its locks at the crash journals
+    # nothing), and comes 10 loads later: mid-stream
+    fault = FaultInjector({})
     cfg, src, pipe = _cluster_pipe("cuda", n_workers=3, fault=fault)
     cluster = ConcurrentCluster(
         pipe, max_records_per_partition=25, poll_cdc=False,
@@ -667,7 +670,8 @@ def test_commit_post_recovery_drill_on_card(dev, tmp_path):
     cluster.checkpoint()
     cluster.start()
     assert _wait_for(lambda: pipe.warehouse.rows_loaded >= 300)
-    cluster.checkpoint()               # a step that holds loaded chunks
+    assert cluster.checkpoint() is not None
+    fault.schedule[COMMIT_POST] = 10
     assert fault.tripped.wait(60.0)
     cluster.abandon()
     pipe2, coord2, info = recover_pipeline(
@@ -1036,3 +1040,148 @@ def test_smoke_serve_on_card_matches_cpu(dev, arch):
     scale = max(float(cpu["logits"].abs().max()), 1.0)
     err = float((gpu["logits"].cpu() - cpu["logits"]).abs().max())
     assert err < 1e-3 * scale, (err, scale)
+
+
+# ------------------------------------------------------------- training
+
+def test_flash_function_on_card_gradient_is_the_plain_versions(dev):
+    """``FlashAttentionFn`` on the tensor-core design: the forward within
+    2e-2 of the plain version (one launch), the input gradients bitwise
+    autograd's through the plain version."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(31)
+    base = [_lm_rand(rng, (2, 200, h, 128), dev, torch.bfloat16)
+            for h in (8, 4, 4)]
+    go = _lm_rand(rng, (2, 8, 200, 128), dev, torch.bfloat16)
+    grads, outs = {}, {}
+    for name, fn in (("fn", fa.attention), ("plain", attention_ref)):
+        x = [t.clone().requires_grad_() for t in base]
+        before = launch_counts()["flash_attention_tc"]
+        outs[name] = fn(*(t.transpose(1, 2) for t in x))
+        assert launch_counts()["flash_attention_tc"] == before + int(
+            name == "fn")
+        grads[name] = torch.autograd.grad(outs[name], x, go)
+    torch.testing.assert_close(outs["fn"].float(), outs["plain"].float(),
+                               rtol=2e-2, atol=2e-2)
+    assert all(torch.equal(a, b) for a, b in zip(grads["fn"],
+                                                 grads["plain"]))
+
+
+def test_gla_function_on_card_gradient_is_the_plain_versions(dev):
+    """``GlaChunkFn`` on Mamba2's bf16 broadcast inputs (the SSD design):
+    the forward within 2e-2 of the plain version, the gradients of the
+    un-broadcast q, k, v and decay bitwise autograd's through
+    ``gla_ssd_ref``."""
+    from repro_torch.kernels.gla_chunk import ops as gl
+    from repro_torch.kernels.gla_chunk.ref import gla_ssd_ref
+    rng = np.random.default_rng(37)
+    b, s, h, dk, dv = 2, 200, 8, 64, 64
+    base = [_lm_rand(rng, (b, s, 1, dk), dev, torch.bfloat16),
+            _lm_rand(rng, (b, s, 1, dk), dev, torch.bfloat16),
+            _lm_rand(rng, (b, s, h, dv), dev, torch.bfloat16),
+            -torch.exp(_lm_rand(rng, (b, s, h, 1), dev))]
+    go = _lm_rand(rng, (b, s, h, dv), dev, torch.bfloat16)
+    grads, outs = {}, {}
+    for name, fn in (("fn", lambda *a: gl.gla_fn(*a, inclusive=True)),
+                     ("plain", gla_ssd_ref)):
+        x = [t.clone().requires_grad_() for t in base]
+        args = (x[0].expand(b, s, h, dk), x[1].expand(b, s, h, dk), x[2],
+                x[3].expand(b, s, h, dk))
+        before = launch_counts()["gla_chunk_ssd"]
+        outs[name], _ = fn(*args)
+        assert launch_counts()["gla_chunk_ssd"] == before + int(name == "fn")
+        grads[name] = torch.autograd.grad(outs[name], x, go)
+    torch.testing.assert_close(outs["fn"].float(), outs["plain"].float(),
+                               rtol=2e-2, atol=2e-2)
+    assert all(torch.equal(a, b) for a, b in zip(grads["fn"],
+                                                 grads["plain"]))
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-1.2b"])
+def test_smoke_train_step_on_card_matches_cpu(dev, arch):
+    """One ``make_train_step`` of the f32 smoke config on the card against
+    the CPU (the kernels forward there): loss, grad norm and every
+    parameter within 1e-4; one kernel launch per attention / Mamba2
+    layer."""
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+    model = build_model(arch, smoke=True)
+    cfg = model.cfg
+    params = tree_map(lambda t: t.float(),
+                      model.init(torch.Generator().manual_seed(0)))
+    toks = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (4, 64)))
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                              total_steps=10))
+    gp = tree_map(lambda t: t.to(dev), params)
+    cp, _, cmet = step(params, init_state(params), batch)
+    reset_launch_counts()
+    gp, _, gmet = step(gp, init_state(gp),
+                       {k: v.to(dev) for k, v in batch.items()})
+    counts = launch_counts()
+    n_attn = cfg.n_layers if cfg.family == "dense" else model.n_shared_apps()
+    assert counts["flash_attention"] == n_attn
+    assert counts["gla_chunk"] == (0 if cfg.family == "dense"
+                                   else cfg.n_layers)
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(float(gmet[key]) - float(cmet[key])) <= 1e-4 * max(
+            1.0, abs(float(cmet[key])))
+    for a, b in zip(tree_leaves(gp), tree_leaves(cp)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_manual_dp_world_one_on_card_matches_train_step(dev):
+    """``manual_dp`` at world size 1 over NCCL: the update of
+    ``make_train_step`` (f32 smoke; the global norm is summed in another
+    order, so 1e-6)."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import manual_dp
+    from repro_torch.train.train_step import make_train_step
+    model = build_model("internlm2-1.8b", smoke=True)
+    params = tree_map(lambda t: t.float().to(dev),
+                      model.init(torch.Generator().manual_seed(0)))
+    toks = torch.tensor(np.random.default_rng(4).integers(
+        0, model.cfg.vocab, (4, 64)), device=dev)
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    want, _, _ = make_train_step(model, opt)(
+        tree_map(torch.clone, params), init_state(params), batch)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        step = manual_dp.make_manual_dp_train_step(model, opt)
+        got, _, _ = step(params, manual_dp.init_shard_state(params), batch)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_train_lm_on_card(dev, tmp_path):
+    """The ETL-fed example on the card: transform_kpi and flash_attention
+    launch, the loss falls, the checkpoint restores bitwise."""
+    from repro_torch.examples import train_lm
+    from repro_torch.train.checkpoint import CheckpointManager, flatten
+    reset_launch_counts()
+    out = train_lm.main(["--steps", "10", "--ckpt-every", "10", "--ckpt",
+                         str(tmp_path)])
+    counts = launch_counts()
+    assert counts["transform_kpi"] > 0 and counts["flash_attention_tc"] > 0
+    assert out["losses"][-1] < out["losses"][0]
+    tree = {"params": out["params"], "opt": out["opt"], "corpus": None}
+    step, got, _ = CheckpointManager(str(tmp_path)).restore_latest(tree)
+    assert step == 10
+    for a, b in zip(flatten(got)[0], flatten(tree)[0]):
+        if b is not None:
+            assert torch.equal(a, b)

@@ -371,6 +371,68 @@ def test_concurrent_kill_drill_exactly_once(tmp_path, point):
             rebuilt.states[name].table.tobytes(), name
 
 
+def test_capture_waiting_on_a_dying_load_journals_nothing(tmp_path):
+    """The kill drill's race, made deterministic: a periodic capture
+    passes its "tripped?" check, then waits for a worker's commit lock
+    while that worker's load stage, holding it, loads the warehouse and
+    dies at ``load.pre_commit``. The capture must journal nothing: the
+    state it would see (loaded, offsets not committed) replays the load
+    on recovery — a duplicate."""
+    import threading
+    import time
+    from repro_torch.durability.faults import InjectedCrash
+    cfg, src = _workload(n=300)
+    fault = FaultInjector({LOAD_PRE_COMMIT: 1})
+    pipe = _pipeline("port", cfg, src, n_workers=2, fault=fault)
+    journal = port_dur.DurabilityJournal(str(tmp_path))
+    pipe.extract()
+    cluster = ConcurrentCluster(pipe, poll_cdc=False,
+                                recovery=port_dur.RecoveryCoordinator(
+                                    journal))
+    assert cluster.checkpoint() == 0
+    rt = cluster.runtimes[sorted(cluster.runtimes)[0]]
+    got = {}
+    with pytest.raises(InjectedCrash):
+        with rt.commit_lock:                  # the load stage's section
+            waiter = threading.Thread(
+                target=lambda: got.update(step=cluster.checkpoint()))
+            waiter.start()
+            time.sleep(0.3)                   # it now waits for the lock
+            fault.trip(LOAD_PRE_COMMIT)
+    waiter.join(10.0)
+    assert not waiter.is_alive()
+    assert got == {"step": None}
+    assert journal.steps() == [0]
+
+
+def test_load_stage_yields_to_a_waiting_capture_for_a_bounded_time(
+        tmp_path):
+    """A load stage lets a waiting capture take its commit lock first (on
+    the card a busy load thread re-took its lock ahead of the capture for
+    the whole stream), but never longer than ``_YIELD_S``: a capture stuck
+    behind another worker's hung stage must not stall this one. Every
+    capture leaves the count of waiting captures at zero."""
+    import time
+    cfg, src = _workload(n=300)
+    pipe = _pipeline("port", cfg, src, n_workers=2)
+    pipe.extract()
+    cluster = ConcurrentCluster(pipe, poll_cdc=False,
+                                recovery=port_dur.RecoveryCoordinator(
+                                    port_dur.DurabilityJournal(
+                                        str(tmp_path))))
+    rt = cluster.runtimes[sorted(cluster.runtimes)[0]]
+    t0 = time.perf_counter()
+    rt._yield_to_capture()
+    assert time.perf_counter() - t0 < rt._YIELD_S
+    cluster._captures.add(1)
+    t0 = time.perf_counter()
+    rt._yield_to_capture()
+    waited = time.perf_counter() - t0
+    cluster._captures.add(-1)
+    assert rt._YIELD_S <= waited < rt._YIELD_S + 1.0
+    assert cluster.checkpoint() == 0 and not cluster._captures.waiting()
+
+
 # ------------------------------------------------------- torn-checkpoint repair
 def _journal_with_steps(tmp_path, n_steps=3):
     cfg, src = _workload(n=300)
