@@ -80,28 +80,44 @@ Phases, each fatal on failure (no fallback to the CPU):
    path's shapes and at ragged S, each in both of its designs:
    flash_attention in f32 on the CUDA-core design (2e-5) and in bf16 on
    the tensor-core design (wgmma + TMA, 2e-2) at internlm2's and zamba2's
-   attention shapes; gla_chunk in f32 on the serial design in both
-   regimes and zamba2's bf16 Mamba2 inputs on the SSD design (out 2e-2),
-   with and without an initial state, final state included (2e-4); each
-   call's design checked by the launch counters. Both designs of each
-   kernel then timed in turns (old, new, new, old) on the bf16 serving
-   shapes: device and issue times, the plain version,
-   ``scaled_dot_product_attention`` beside flash, and the bound (bytes /
-   3.35 TB/s or operations over the input dtype's peak: 989 TFLOP/s dense
-   bf16 tensor core, 67 TFLOP/s f32), the SSD design's chunk-state scratch
-   bytes beside it;
-9. LM serving for internlm2-1.8b and zamba2-1.2b at full published width
-   and depth, bf16 weights from a seeded ``torch.Generator`` on the card:
-   prefill/decode consistency (prefill of 2044 prompt tokens, 4 decode
-   steps against one full forward of 2048, within 0.02 x max(|logits|,
-   1)); launches per prefill (internlm2: 24 flash on the tensor-core
-   design; zamba2: 6 flash + 38 gla on the tensor-core and SSD designs)
-   and none in decode; the serve run (batch 4 x 2048 prompt tokens, 32
-   greedy decode steps, ``examples.serve_lm.serve``) with prefill and
-   decode tokens/s, counted as the bf16 designs' launches; the same
-   prefill in f32 (the CUDA-core and serial designs, counted as theirs)
-   with the kernels against their plain versions on the card; the card's
-   busy share of a profiled serve run;
+   attention shapes, and at the other families' (whisper's full-attention
+   encoder [4, 12, 1500, 64], its cross-attention with 416 and 1 queries
+   against 1500 keys, its causal decoder at 416; qwen2-vl's GQA group 7
+   [4, 28 / 4, 2048, 128]; qwen2-moe's [4, 16, 2048, 128]); gla_chunk in
+   f32 on the serial design in both regimes, zamba2's bf16 Mamba2 inputs
+   on the SSD design and rwkv6's bf16 RWKV6 inputs [4, S, 64, 64] (decay
+   -exp(clip(x, -8, 4)), channels at -e^4, bonus u) on the serial design
+   (out 2e-2), with and without an initial state, final state included
+   (2e-4); each call's design checked by the launch counters. Both designs
+   of each kernel then timed in turns (old, new, new, old) on the bf16
+   serving shapes, and the tensor-core flash at whisper's encoder shape
+   and qwen2-vl's, the serial gla at rwkv6's: device and issue times, the
+   plain version, ``scaled_dot_product_attention`` beside flash, and the
+   bound (bytes / 3.35 TB/s or operations over the input dtype's peak:
+   989 TFLOP/s dense bf16 tensor core, 67 TFLOP/s f32), the SSD design's
+   chunk-state scratch bytes beside it;
+9. LM serving for all six families at full published width and depth,
+   bf16 weights from a seeded ``torch.Generator`` on the card:
+   internlm2-1.8b, zamba2-1.2b, rwkv6-7b, qwen2-moe-a2.7b, qwen2-vl-7b
+   (batch 4 x 2048 prompt tokens) and whisper-small (4 x 1500 seeded
+   frames, a 416-token decoder prompt); prefill/decode consistency
+   (prefill of the prompt less 4 tokens, 4 decode steps against one full
+   forward, within 0.02 x max(|logits|, 1); not for qwen2-moe, whose
+   dispatch groups' capacity depends on their token count, as the
+   reference leaves it out); launches per prefill (internlm2 24, qwen2-moe
+   24, qwen2-vl 28 flash on the tensor-core design; zamba2 6 flash + 38
+   gla on the tensor-core and SSD designs; rwkv6 32 gla on the serial
+   design; whisper 36 flash: 12 encoder, 12 causal self, 12 cross) and per
+   decode step (whisper's 12 cross-attention flash, none for the others);
+   the serve run (32 greedy decode steps, ``examples.serve_lm.serve``)
+   with prefill and decode tokens/s and its peak memory, counted as the
+   bf16 designs' launches; the card's busy share of a profiled serve run
+   (qwen2-moe: the share of its one-hot dispatch and combine products);
+   the same prefill in f32 (the CUDA-core and serial designs, counted as
+   theirs; qwen2-moe cut to 8 of its 24 layers, tokens routed otherwise
+   at a near tie of the router left out and counted) with the kernels
+   against their plain versions on the card, final recurrent states
+   included, and the consistency once more in f32;
 10. training: (a) the LM kernels' autograd Functions at the training
    shapes (internlm2's attention, zamba2's Mamba2; bf16): the forward
    within the kernels' bounds, every input gradient bitwise autograd's
@@ -950,14 +966,17 @@ def compare_main_path(gpu, cpu) -> None:
         fail("fact table is not finite [n, 10]")
 
 
-def profile_run(label: str, run, card: str) -> None:
+def profile_run(label: str, run, card: str, ranges=()):
     """Run ``run()`` once under ``torch.profiler`` and print each CUDA
     kernel's count and mean device time, plus the share of the run's wall
     time in which the card was busy (union of kernel and copy intervals
     over all streams; the profiler's own host overhead lengthens the wall
-    time, so the share is a lower bound), and the host side: the torch
-    ops' and CUDA runtime calls' self time summed over all threads, with
-    the largest."""
+    time, so the share is a lower bound), the device time of the kernels
+    launched inside each ``record_function`` range named in ``ranges``
+    and its share of the busy time, and the host side: the torch ops' and
+    CUDA runtime calls' self time summed over all threads, with the
+    largest. Returns {"busy_us", "wall_us", range: device us} (None when
+    no CUDA event was recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -967,11 +986,12 @@ def profile_run(label: str, run, card: str) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = [(e.name, e.time_range.start, e.time_range.end)
              for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.name not in ranges]      # not a range's GPU-side mark
     if not spans:
         print(f"device time under the profiler ({label}): not measured (no "
               "CUDA events recorded)")
-        return
+        return None
     per = {}
     for name, lo, hi in spans:
         c, t = per.get(name, (0, 0.0))
@@ -984,6 +1004,16 @@ def profile_run(label: str, run, card: str) -> None:
           f"{wall_us:.0f} us wall ({100 * busy / wall_us:.2f}%)")
     for name, (c, t) in sorted(per.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {c:5d} x {t / c:8.2f} us  {name[:90]}")
+    out = {"busy_us": busy, "wall_us": wall_us}
+    for rng_name in ranges:
+        marks = [e for e in prof.events() if e.name == rng_name and
+                 e.device_type == torch.autograd.DeviceType.CPU]
+        dev_us = sum(e.cuda_time_total if getattr(
+            e, "device_time_total", None) is None else e.device_time_total
+            for e in marks)
+        out[rng_name] = dev_us
+        print(f"  range {rng_name}: {len(marks)} calls, kernels {dev_us:.0f}"
+              f" us = {100 * dev_us / busy:.2f}% of the busy time")
     host = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CPU:
@@ -994,6 +1024,7 @@ def profile_run(label: str, run, card: str) -> None:
           f"threads {total / 1e6:.3f} s; largest:")
     for name, (c, t) in sorted(host.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"  {c:5d} x {t / c:8.2f} us  {name[:90]}")
+    return out
 
 
 def run_complex(device: str, records: int = 2_000):
@@ -1505,8 +1536,24 @@ def check_durability(clu) -> None:
 
 
 # ------------------------------------------------------------------ phase 8
-LM_ARCHS = ("internlm2-1.8b", "zamba2-1.2b")
+LM_ARCHS = ("internlm2-1.8b", "zamba2-1.2b", "rwkv6-7b", "qwen2-moe-a2.7b",
+            "qwen2-vl-7b", "whisper-small")
+# each model's serve path in the kernels record
+LM_PATHS = {"internlm2-1.8b": "lm_internlm2", "zamba2-1.2b": "lm_zamba2",
+            "rwkv6-7b": "lm_rwkv6", "qwen2-moe-a2.7b": "lm_qwen2moe",
+            "qwen2-vl-7b": "lm_qwen2vl", "whisper-small": "lm_whisper"}
 LM_BATCH, LM_PROMPT, LM_DECODE, LM_TAIL = 4, 2048, 32, 4
+# whisper's decoder prompt: 416 tokens + 32 decode steps fill its 448-token
+# text context (arXiv:2212.04356)
+WHISPER_PROMPT = 416
+# qwen2-moe's f32 weights (~57 GB) leave no room for the activations: its
+# f32 prefill check runs at full width, 8 of its 24 layers
+MOE_F32_LAYERS = 8
+NEAR_TIE = 1e-4                    # router probabilities this close tie
+# rwkv6-7b's measured bf16 miss and f32 head (rwkv6_bf16_miss,
+# rwkv6_f32_head)
+RWKV6_BF16_SLACK = 1.25
+RWKV6_HEAD, RWKV6_HEAD_SLACK = 16, 1.5
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 GLA_TOL = 2e-4
 
@@ -1541,12 +1588,13 @@ def flash_inputs(b, hq, hkv, s, d, dtype, dev, gen):
 
 def flash_bound(q, k, v, causal=True):
     """Least time for one attention call: each input read once and the
-    output written once over HBM, against 2·B·Hq·S²·D flops (causal; 4·
-    for full) over the input dtype's peak."""
+    output written once over HBM, against 4·B·Hq·Sq·Skv·D flops (full;
+    half of that causal, at Sq = Skv) over the input dtype's peak."""
     import torch
-    b, hq, s, d = q.shape
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
     n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    flops = (2 if causal else 4) * b * hq * s * s * d
+    flops = (2 if causal else 4) * b * hq * sq * skv * d
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     return bound(n_bytes, flops, peak)
 
@@ -1572,7 +1620,7 @@ def check_flash(dev, gen, card) -> list:
     from repro_torch.models import build_model
     errs = {"simt": [], "tc": []}
     rows = {}
-    for arch in LM_ARCHS:
+    for arch in ("internlm2-1.8b", "zamba2-1.2b"):
         cfg = build_model(arch).cfg
         hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         for dtype in (torch.float32, torch.bfloat16):
@@ -1625,11 +1673,106 @@ def check_flash(dev, gen, card) -> list:
                   f"better of two turns), {t['issue_ms']:.5f} ms per "
                   f"host-issued call, bound {b_ms:.6f} ms ({b_by}, bf16 "
                   f"tensor-core peak) [{card}]")
+    r_errs, regimes = check_flash_regimes(dev, gen, card)
     main = "internlm2-1.8b"
-    return [{"name": "flash_attention", "max_abs_err": max(errs["simt"]),
+    return [{"name": "flash_attention",
+             "max_abs_err": max(errs["simt"] + r_errs["simt"]),
              "zamba2": rows[("zamba2-1.2b", "simt")], **rows[(main, "simt")]},
-            {"name": "flash_attention_tc", "max_abs_err": max(errs["tc"]),
-             "zamba2": rows[("zamba2-1.2b", "tc")], **rows[(main, "tc")]}]
+            {"name": "flash_attention_tc",
+             "max_abs_err": max(errs["tc"] + r_errs["tc"]),
+             "zamba2": rows[("zamba2-1.2b", "tc")], **regimes,
+             **rows[(main, "tc")]}]
+
+
+# the other families' attention calls: (label, arch, Sq, Skv, causal, the
+# key of its timing in the kernels record or None)
+FLASH_REGIMES = (
+    ("whisper encoder", "whisper-small", 1500, 1500, False,
+     "whisper_encoder"),
+    ("whisper cross-attention, prefill", "whisper-small", WHISPER_PROMPT,
+     1500, False, None),
+    ("whisper cross-attention, decode", "whisper-small", 1, 1500, False,
+     None),
+    ("whisper decoder self-attention", "whisper-small", WHISPER_PROMPT,
+     WHISPER_PROMPT, True, None),
+    ("qwen2-vl self-attention (GQA group 7)", "qwen2-vl-7b", LM_PROMPT,
+     LM_PROMPT, True, "qwen2_vl"),
+    ("qwen2-moe self-attention", "qwen2-moe-a2.7b", LM_PROMPT, LM_PROMPT,
+     True, None))
+
+
+def check_flash_regimes(dev, gen, card):
+    """Phase 8's flash checks at the other families' shapes, read through
+    the model's [B, S, H, D] layout: full attention (whisper's encoder, its
+    cross-attention with Sq != Skv: 416 and 1 queries against 1500 keys,
+    a ragged last key tile), causal (whisper's decoder, qwen2-vl's GQA
+    group 7, qwen2-moe) — bf16 on the tensor-core design within 2e-2, f32
+    on the CUDA-core design within 2e-5 of the plain version, each call's
+    design checked by the counters. At whisper's encoder shape and
+    qwen2-vl's, the tensor-core design's device and issue times, the
+    plain version's, ``scaled_dot_product_attention``'s (``is_causal`` as
+    the call's, ``enable_gqa``) and the bound. Returns (errors per design,
+    the timed records by key)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import build_model
+    errs = {"simt": [], "tc": []}
+    rows = {}
+    for label, arch, sq, skv, causal, key in FLASH_REGIMES:
+        cfg = build_model(arch).cfg
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        shape = (f"q [{LM_BATCH}, {hq}, {sq}, {d}], k/v [{LM_BATCH}, {hkv}, "
+                 f"{skv}, {d}], causal={causal}")
+        got_errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            design = "tc" if dtype == torch.bfloat16 else "simt"
+            q = lm_rand((LM_BATCH, sq, hq, d), dev, dtype, gen).transpose(1, 2)
+            k, v = (lm_rand((LM_BATCH, skv, hkv, d), dev, dtype,
+                            gen).transpose(1, 2) for _ in range(2))
+            before = launch_counts()
+            got = mha(q, k, v, causal=causal)
+            after = launch_counts()
+            design_moved(before, after, "flash_attention", 1, label)
+            design_moved(before, after, "flash_attention_tc",
+                         int(design == "tc"), f"{label} {name}")
+            want = attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            got_errs[design] = max_err(got, want, FLASH_TOL[name],
+                                       f"flash_attention {label} {name}")
+            errs[design].append(got_errs[design])
+            del got, want
+        print(f"flash_attention {label}, {shape}: bf16 (tensor-core design)"
+              f" within {FLASH_TOL['bfloat16']}, max abs err "
+              f"{got_errs['tc']:.3g}; f32 (CUDA-core design) within "
+              f"{FLASH_TOL['float32']}, max abs err {got_errs['simt']:.3g}")
+        if key is None:
+            continue
+        # q, k, v of the last (bf16) round: time them
+        fn = lambda: mha(q, k, v, causal=causal)
+        t = {"ms": graph_ms(fn), "issue_ms": issue_ms(fn, reps=10),
+             "plain_ms": graph_ms(lambda: attention_ref(q, k, v,
+                                                        causal=causal),
+                                  reps=3, rounds=3),
+             "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=causal, enable_gqa=True)),
+             "shape": shape}
+        t["bound_ms"], t["bound_by"] = flash_bound(q, k, v, causal)
+        flops = (2 if causal else 4) * LM_BATCH * hq * sq * skv * d
+        rows[key] = t
+        print(f"  flash_attention {label} bf16, tensor-core design: "
+              f"{t['ms']:.5f} ms kernel ({flops / t['ms'] / 1e9:.1f} "
+              f"TFLOP/s), {t['plain_ms']:.5f} ms plain, "
+              f"{t['library_ms']:.5f} ms scaled_dot_product_attention "
+              f"(device, CUDA graph), {t['issue_ms']:.5f} ms per host-issued"
+              f" call, bound {t['bound_ms']:.6f} ms ({t['bound_by']}, bf16 "
+              f"tensor-core peak) [{card}]")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return errs, rows
 
 
 def gla_inputs(b, s, h, dk, dv, dtype, dev, gen, *, mamba):
@@ -1764,24 +1907,128 @@ def check_gla(dev, gen, card) -> list:
         torch.cuda.synchronize()
     profile_run("gla_chunk SSD design, one call (its three kernels)",
                 ssd_call, card)
-    return [{"name": "gla_chunk", "max_abs_err": max(errs["serial"]),
-             **rows["serial"]},
+    del q, k, v, lw, out, fin
+    rwkv_err, rwkv = check_gla_rwkv6(dev, gen, card)
+    return [{"name": "gla_chunk",
+             "max_abs_err": max(errs["serial"] + [rwkv_err]),
+             "zamba2": rows["serial"], **rwkv},
             {"name": "gla_chunk_ssd", "max_abs_err": max(errs["ssd"]),
              **rows["ssd"]}]
 
 
+def rwkv6_gla_inputs(b, s, h, dk, dev, gen):
+    """rwkv6's time-mix inputs as the model hands them over: bf16 r, k, v
+    [B, S, H, dk], the f32 per-channel log decay made as the model makes
+    it, -exp(clip(x, -8, 4)), its first 4 channels at the clip's -e^4 per
+    token (a chunk's cumulative decay near -3,500), and the f32 bonus u
+    [H, dk]."""
+    import torch
+    r, k, v = (lm_rand((b, s, h, dk), dev, torch.bfloat16, gen)
+               for _ in range(3))
+    x = lm_rand((b, s, h, dk), dev, torch.float32, gen) * 3
+    x[..., :4] = 4.0
+    lw = -torch.exp(torch.clamp(x, -8.0, 4.0))
+    return r, k, v, lw, lm_rand((h, dk), dev, torch.float32, gen)
+
+
+def check_gla_rwkv6(dev, gen, card):
+    """Phase 8's gla_chunk check in the RWKV6 regime at rwkv6-7b's shape
+    ([4, S, 64, 64]; lag-1 read, bonus u, per-channel decay) in bf16, on
+    the serial design (the SSD design does not take it), at S 2048, 2044
+    and 1000, with and without an initial state: out within 2e-2, final
+    state within 2e-4 of the plain version. Then timed at S = 2048: device
+    and issue time, the plain version's, and the bound (bytes / 3.35 TB/s
+    or ``gla_work`` operations at the bf16 peak). Returns (max error, the
+    timed record)."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.gla_chunk.ops import gla
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+    from repro_torch.models import build_model
+    cfg = build_model("rwkv6-7b").cfg
+    h = cfg.ssm.n_ssm_heads
+    dk = cfg.d_model // h
+    errs, state_errs = [], []
+    for s in (LM_PROMPT, LM_PROMPT - LM_TAIL, 1000):
+        for with_state in (False, True):
+            r, k, v, lw, u = rwkv6_gla_inputs(LM_BATCH, s, h, dk, dev, gen)
+            s0 = (lm_rand((LM_BATCH, h, dk, dk), dev, torch.float32, gen)
+                  if with_state else None)
+            what = f"gla_chunk rwkv6 bf16 S={s} state={with_state}"
+            before = launch_counts()
+            out, fin = gla(r, k, v, lw, u, inclusive=False, initial_state=s0)
+            after = launch_counts()
+            design_moved(before, after, "gla_chunk", 1, what)
+            design_moved(before, after, "gla_chunk_ssd", 0, what)
+            r_out, r_fin = gla_chunk_ref(r, k, v, lw, u, inclusive=False,
+                                         initial_state=s0)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(out.float()).all()):
+                fail(f"{what}: output not finite")
+            state_errs.append(max_err(fin, r_fin, GLA_TOL,
+                                      what + " final state"))
+            errs.append(max(max_err(out, r_out, FLASH_TOL["bfloat16"], what),
+                            state_errs[-1]))
+    print(f"gla_chunk RWKV6 lag-1 + u [B {LM_BATCH}, H {h}, dk = dv {dk}] "
+          f"bf16, decay -exp(clip(x, -8, 4)) with channels at -e^4 (serial "
+          f"design), S in {{{LM_PROMPT}, {LM_PROMPT - LM_TAIL}, 1000}}, with "
+          f"and without an initial state: out within "
+          f"{FLASH_TOL['bfloat16']}, final state within {GLA_TOL} of the "
+          f"plain version, max abs err {max(errs):.3g} (final state "
+          f"{max(state_errs):.3g})")
+    del out, fin, r_out, r_fin
+    r, k, v, lw, u = rwkv6_gla_inputs(LM_BATCH, LM_PROMPT, h, dk, dev, gen)
+    fn = lambda: gla(r, k, v, lw, u, inclusive=False)
+    t = {"ms": graph_ms(fn), "issue_ms": issue_ms(fn, reps=10),
+         "plain_ms": graph_ms(lambda: gla_chunk_ref(r, k, v, lw, u,
+                                                    inclusive=False),
+                              reps=2, rounds=3),
+         "library_ms": None,
+         "shape": f"RWKV6 lag-1 + u, r/k/v [{LM_BATCH}, {LM_PROMPT}, {h}, "
+                  f"{dk}] bf16, decay f32 (rwkv6-7b)"}
+    n_bytes = (sum(x.element_size() * x.numel() for x in (r, k, v, lw, u))
+               + v.element_size() * v.numel()
+               + 4 * LM_BATCH * h * dk * dk)
+    ops = gla_work(r, v, False)
+    t["bound_ms"], t["bound_by"] = bound(n_bytes, ops, BF16_FLOP_PER_S)
+    print(f"  gla_chunk rwkv6 bf16 S={LM_PROMPT}, serial design: "
+          f"{t['ms']:.5f} ms kernel, {t['plain_ms']:.5f} ms plain (device, "
+          f"CUDA graph), {t['issue_ms']:.5f} ms per host-issued call, bound "
+          f"{t['bound_ms']:.6f} ms ({t['bound_by']}: {n_bytes} B, {ops:.4g} "
+          f"operations at the bf16 peak) [{card}]")
+    del r, k, v, lw, u
+    torch.cuda.empty_cache()
+    return max(errs), t
+
+
 # ------------------------------------------------------------------ phase 9
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(dtype=None):
     """The model's kernel calls routed to the plain versions, on the card
     (the wrappers themselves run their plain version only for CPU
-    tensors)."""
+    tensors). With ``dtype`` (f64), the plain versions compute in that
+    dtype from the same inputs and hand back the inputs' dtypes: a run
+    more accurate than both the kernels and the f32 plain versions."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.gla_chunk import ops as gl
     from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+
+    def mha(q, k, v, *, causal=True, scale=None, design="auto"):
+        return attention_ref(q.to(dtype), k.to(dtype), v.to(dtype),
+                             causal=causal, scale=scale).to(q.dtype)
+
+    def gla(q, k, v, log_w, u=None, *, inclusive=False, chunk=64,
+            initial_state=None, design="auto"):
+        out, final = gla_chunk_ref(
+            *(t.to(dtype) for t in (q, k, v, log_w)),
+            None if u is None else u.to(dtype), inclusive=inclusive,
+            chunk=chunk, initial_state=None if initial_state is None
+            else initial_state.to(dtype))
+        return out.to(v.dtype), final.float()
     saved = fa.mha, gl.gla
-    fa.mha, gl.gla = attention_ref, gla_chunk_ref
+    fa.mha, gl.gla = ((attention_ref, gla_chunk_ref) if dtype is None
+                      else (mha, gla))
     try:
         yield
     finally:
@@ -1792,17 +2039,32 @@ LM_KEYS = ("flash_attention", "flash_attention_tc", "gla_chunk",
            "gla_chunk_ssd")
 
 
-def lm_expected(model, bf16: bool = True) -> dict:
-    """Launches of one prefill: every attention layer and every Mamba2
-    layer once; in bf16 on the tensor-core and SSD designs, in f32 on the
-    CUDA-core and serial ones."""
+def lm_expected(model, bf16: bool = True, decode_steps: int = 0) -> dict:
+    """Launches of one prefill and ``decode_steps`` decode steps: every
+    attention layer and every Mamba2 / RWKV6 layer once per prefill
+    (whisper: its encoder's self-attention and its decoder's self- and
+    cross-attention), whisper's cross-attention once per decode step, the
+    other families none in decode; in bf16 on the tensor-core design
+    (flash) and the SSD (Mamba2) or serial (RWKV6) one (gla), in f32 on
+    the CUDA-core and serial ones."""
     cfg = model.cfg
-    n_attn = (cfg.n_layers if cfg.family == "dense"
-              else model.n_shared_apps())
-    n_gla = 0 if cfg.family == "dense" else cfg.n_layers
+    L = cfg.n_layers
+    n_attn = {"dense": L, "moe": L, "vlm": L, "ssm": 0,
+              "hybrid": model.n_shared_apps(),
+              "encdec": cfg.n_enc_layers + 2 * L + decode_steps * L
+              }[cfg.family]
+    n_gla = L if cfg.family in ("ssm", "hybrid") else 0
     return {"flash_attention": n_attn,
             "flash_attention_tc": n_attn if bf16 else 0,
-            "gla_chunk": n_gla, "gla_chunk_ssd": n_gla if bf16 else 0}
+            "gla_chunk": n_gla,
+            "gla_chunk_ssd": n_gla if bf16 and cfg.family == "hybrid"
+            else 0}
+
+
+def decode_expected(model, steps: int) -> dict:
+    """Launches of ``steps`` bf16 decode steps alone."""
+    with_steps = lm_expected(model, decode_steps=steps)
+    return {k: n - lm_expected(model)[k] for k, n in with_steps.items()}
 
 
 def lm_launches(counts) -> dict:
@@ -1819,146 +2081,374 @@ def by_design(counts) -> dict:
             "gla_chunk_ssd": counts["gla_chunk_ssd"]}
 
 
+@contextlib.contextmanager
+def routing_log(log: list):
+    """Record every MoE layer's routing (``moe.route``) as (its top-k
+    experts [G, gs, k], keep mask [G, gs, k], the gap between each token's
+    k-th and (k+1)-th router probability [G, gs]) into ``log``."""
+    import torch
+    from repro_torch.models import moe
+    saved = moe.route
+
+    def recorded(params, x, cfg):
+        r = saved(params, x, cfg)
+        top = torch.topk(r.probs, cfg.top_k + 1, dim=-1).values
+        k = cfg.top_k
+        log.append((r.topi, r.keep, top[..., k - 1] - top[..., k]))
+        return r
+    moe.route = recorded
+    try:
+        yield
+    finally:
+        moe.route = saved
+
+
+def routing_flips(got_log, want_log, what: str):
+    """Tokens whose routing differs between two runs of one prefill (the
+    kernels' and the plain versions'), layer by layer. A token routed to
+    another set of experts must sit at a near tie in the plain run (its
+    k-th and (k+1)-th probabilities within ``NEAR_TIE``) unless its
+    routing already differed at an earlier layer; a token whose only
+    difference is the order of its k experts (a tie among them) or a
+    dropped or kept slot must share its dispatch group (capacity is per
+    group) with a token whose routing differs now or did before (the
+    queues moved). Fails otherwise. Returns the mask of tokens [B * S] to
+    leave out of the logits comparison."""
+    import torch
+    flipped = None
+    for layer, ((ti, kg, _), (tw, kw, gap)) in enumerate(zip(got_log,
+                                                            want_log)):
+        if flipped is None:                                  # [G, gs]
+            flipped = torch.zeros(ti.shape[:2], dtype=torch.bool,
+                                  device=ti.device)
+        experts = (torch.sort(ti, -1).values
+                   != torch.sort(tw, -1).values).any(-1)
+        moved = experts | (ti != tw).any(-1)
+        differ = moved | (kg != kw).any(-1)
+        fresh = experts & ~flipped
+        if bool(fresh.any()) and not bool((gap[fresh] < NEAR_TIE).all()):
+            fail(f"{what}: layer {layer} routes tokens to other experts "
+                 f"away from a near tie")
+        licensed = (moved | flipped).any(-1, keepdim=True)   # per group
+        if bool((differ & ~licensed).any()):
+            fail(f"{what}: layer {layer} drops or keeps other tokens in a "
+                 f"dispatch group where no routing moved")
+        flipped |= differ
+    return flipped.reshape(-1)
+
+
+def consistency_errs(model, params, batch, prompt: int, p: int, full=None):
+    """A prefill of the first ``p`` of ``batch(prompt)``'s tokens, then
+    ``prompt - p`` decode steps, against one forward of all ``prompt``
+    (``full``: its logits, else a train-mode forward made here). Returns
+    (max |decode logits - full logits| over those positions,
+    max(|full logits|, 1), the prefill's launches, the decode steps')."""
+    import torch
+    from repro_torch.examples.serve_lm import fill_cache
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    cfg = model.cfg
+    if full is None:
+        full, _, _ = model.forward(params, batch(prompt), mode="train")
+        if full.shape != (LM_BATCH, prompt, cfg.vocab) or \
+                not bool(torch.isfinite(full).all()):
+            fail(f"{cfg.arch}: full-forward logits are not finite "
+                 f"[{LM_BATCH}, {prompt}, {cfg.vocab}]")
+    scale = max(float(full.abs().max()), 1.0)
+    tail = full[:, p:prompt].clone()
+    del full
+    reset_launch_counts()
+    _, pre, _ = model.forward(params, batch(p), mode="prefill")
+    pre_counts = lm_launches(launch_counts())
+    cache = fill_cache(model.init_cache(LM_BATCH, prompt, tail.device), pre)
+    del pre
+    reset_launch_counts()
+    err = 0.0
+    for t in range(p, prompt):
+        dl, cache, _ = model.forward(params, {"tokens": batch(
+            t + 1, t)["tokens"]}, mode="decode", cache=cache, cache_index=t)
+        err = max(err, float((dl[:, 0] - tail[:, t - p]).abs().max()))
+    dec_counts = lm_launches(launch_counts())
+    del tail, cache
+    torch.cuda.empty_cache()
+    if not math.isfinite(err):
+        fail(f"{cfg.arch}: decode logits are not finite")
+    return err, scale, pre_counts, dec_counts
+
+
+def first_layers(model, params, n: int):
+    """The model cut to its first ``n`` layers, with those layers' weights
+    (the init of the whole depth, so the layers are the full run's)."""
+    import dataclasses
+    from repro_torch.models import Model
+    from repro_torch.models.param import tree_map
+    return (Model(dataclasses.replace(model.cfg, n_layers=n)),
+            dict(params, layers=tree_map(lambda t: t[:n], params["layers"])))
+
+
+def rwkv6_bf16_miss(model, params, batch, prompt: int, p: int, err: float,
+                    scale: float) -> str:
+    """rwkv6-7b's prefill/decode consistency in bf16 misses the bound
+    0.02 x max(|logits|, 1), which is the reference's at smoke size: at
+    its full width the JAX package misses it too from 4 layers on
+    (tests/rwkv6_bf16_witness.py on the CPU, from the same weights as the
+    port), and the miss grows with depth (printed here for the first 2,
+    4, 8 and 16 layers). Its f32 run meets the bound (checked after the f32
+    prefill), and phase 8 holds the kernel in this bf16 regime at 2e-2. So
+    the full depth holds the kernels to the plain versions' own bf16 miss
+    on the card: within ``RWKV6_BF16_SLACK`` of its error. Returns the note
+    to print."""
+    ratios = []
+    for n in (2, 4, 8, 16):
+        m, prm = first_layers(model, params, n)
+        e, sc, _, _ = consistency_errs(m, prm, batch, prompt, p)
+        ratios.append(f"{n}: {e / (0.02 * sc):.4f}")
+        del prm
+    with plain_versions():
+        plain_err, plain_scale, _, _ = consistency_errs(model, params, batch,
+                                                        prompt, p)
+    if not err <= RWKV6_BF16_SLACK * plain_err:
+        fail(f"rwkv6-7b: bf16 decode logits differ from the full forward by "
+             f"{err} (0.02 x {scale}), more than {RWKV6_BF16_SLACK} x the "
+             f"plain versions' {plain_err}")
+    return (f" — MISSED in bf16, as the reference misses it at this width "
+            f"(tests/rwkv6_bf16_witness.py): {err / (0.02 * scale):.4f} of "
+            f"the bound; the plain versions {plain_err:.4g} = "
+            f"{plain_err / (0.02 * plain_scale):.4f} of theirs, the kernels "
+            f"{err / plain_err:.4f} x that (held within "
+            f"{RWKV6_BF16_SLACK}); the kernels' share of the bound at the "
+            f"first n layers: {', '.join(ratios)}")
+
+
+def rwkv6_f32_head(model, params, batch, prompt: int, got, want,
+                   scale: float) -> str:
+    """rwkv6-7b's first ``RWKV6_HEAD`` tokens are ill-conditioned in f32:
+    there the f32 plain versions are far from a run with the plain versions
+    in f64 (measured on an H100: 0.231 at position 0, falling to 0.00194
+    at position 15, bound 0.00131), and the kernels about as far; from
+    position 16 on the plain versions stay at the f32 floor of this random
+    32-layer model (0.0004-0.0019 from the f64 run). So the caller holds
+    the kernels to the plain versions at the 1e-3 bound from position
+    ``RWKV6_HEAD`` on, and here, at each head position, the kernels must
+    be within the larger of the bound and ``RWKV6_HEAD_SLACK`` x the plain
+    versions' distance to the f64 run. Returns the note to print."""
+    import torch
+    bound = 1e-3 * scale
+    with plain_versions(torch.float64):
+        truth, _, _ = model.forward(params, batch(prompt), mode="prefill")
+    p_pos = (want - truth).abs_().amax(dim=(0, 2))
+    k_pos = (got - truth).abs_().amax(dim=(0, 2))[:RWKV6_HEAD]
+    del truth
+    torch.cuda.empty_cache()
+
+    def fmt(t):
+        return "[" + ", ".join(f"{x:.3g}" for x in t.tolist()) + "]"
+    head = p_pos[:RWKV6_HEAD]
+    if bool((k_pos > torch.clamp(RWKV6_HEAD_SLACK * head, min=bound)).any()):
+        fail(f"rwkv6-7b: in the f32 head (positions 0-{RWKV6_HEAD - 1}) the "
+             f"kernels are {fmt(k_pos)} from the f64 run, the plain versions "
+             f"{fmt(head)}")
+    return (f"; positions 0-{RWKV6_HEAD - 1} held against the model with "
+            f"its plain versions in f64 instead (ill-conditioned in f32): "
+            f"the kernels {fmt(k_pos)} from it, the f32 plain versions "
+            f"{fmt(head)}, each within max(bound, {RWKV6_HEAD_SLACK} x the "
+            f"plain versions'); past them the plain versions are at most "
+            f"{float(p_pos[RWKV6_HEAD:].max()):.4g} from it")
+
+
 def run_lm(arch: str, dev, card: str):
     """Phase 9 for one model. Returns the serve run's launch counts and
     the f32 prefill's."""
     import torch
-    from repro_torch.examples.serve_lm import fill_cache, serve
+    from repro_torch.examples.serve_lm import serve
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
     from repro_torch.models.param import count_params, tree_map
     model = build_model(arch)
     cfg = model.cfg
+    fam = cfg.family
+    prompt = WHISPER_PROMPT if fam == "encdec" else LM_PROMPT
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     params = model.init(gen)
-    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, prompt),
                             generator=gen, device=dev)
-    torch.cuda.synchronize()
-    print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
-          f"{cfg.vocab} (padded {cfg.padded_vocab}), "
-          f"{count_params(model.defs) / 1e9:.3f} B parameters in bf16, "
-          f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    frames = None
+    if fam == "encdec":        # the stubbed conv front end's output
+        frames = torch.randn((LM_BATCH, cfg.enc_seq, cfg.d_model),
+                             generator=gen, device=dev).to(torch.bfloat16)
 
-    # prefill/decode consistency against one full forward
-    full, _, _ = model.forward(params, {"tokens": prompts}, mode="train")
-    scale = max(float(full.abs().max()), 1.0)
-    tail = full[:, -LM_TAIL:].clone()
-    if full.shape != (LM_BATCH, LM_PROMPT, cfg.vocab) or \
-            not bool(torch.isfinite(full).all()):
-        fail(f"{arch}: full-forward logits are not finite "
-             f"[{LM_BATCH}, {LM_PROMPT}, {cfg.vocab}]")
-    del full
-    p = LM_PROMPT - LM_TAIL
-    reset_launch_counts()
-    _, pre, _ = model.forward(params, {"tokens": prompts[:, :p]},
-                           mode="prefill")
-    pre_counts = lm_launches(launch_counts())
+    def batch(hi, lo=0, fr=frames):
+        out = {"tokens": prompts[:, lo:hi]}
+        if fr is not None:
+            out["frames"] = fr
+        return out
+
+    torch.cuda.synchronize()
+    print(f"{arch} ({fam}): {cfg.n_layers} layers"
+          + (f" + {cfg.n_enc_layers} encoder layers over {cfg.enc_seq} "
+             f"frames" if fam == "encdec" else "")
+          + f", d_model {cfg.d_model}, vocab {cfg.vocab} (padded "
+          f"{cfg.padded_vocab}), {count_params(model.defs) / 1e9:.3f} B "
+          f"parameters in bf16, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # prefill/decode consistency against one full forward, with the
+    # launches of the prefill and of each decode step (not checked for
+    # MoE, which the reference leaves out of this check: a dispatch
+    # group's capacity depends on how many tokens it holds)
+    p = prompt - LM_TAIL
+    errs, scale, pre_counts, dec_counts = consistency_errs(
+        model, params, batch, prompt, p)
     if pre_counts != lm_expected(model):
         fail(f"{arch}: prefill launched {pre_counts}, expected "
              f"{lm_expected(model)}")
-    cache = fill_cache(model.init_cache(LM_BATCH, LM_PROMPT + LM_DECODE,
-                                        dev), pre)
-    del pre
-    reset_launch_counts()
-    errs = []
-    for t in range(p, LM_PROMPT):
-        dl, cache, _ = model.forward(params, {"tokens": prompts[:, t:t + 1]},
-                                  mode="decode", cache=cache, cache_index=t)
-        errs.append(float((dl[:, 0] - tail[:, t - p]).abs().max()))
-    dec_counts = lm_launches(launch_counts())
-    if any(dec_counts.values()):
-        fail(f"{arch}: decode launched {dec_counts}")
-    if not max(errs) < 0.02 * scale:
-        fail(f"{arch}: decode logits differ from the full forward by "
-             f"{max(errs)} >= 0.02 x {scale}")
-    print(f"{arch} prefill/decode consistency: prefill of {p} tokens, "
-          f"{LM_TAIL} decode steps vs one full forward of {LM_PROMPT}: max "
-          f"err {max(errs):.4g} < 0.02 x max(|logits|, 1) = "
-          f"{0.02 * scale:.4g}; prefill launched {pre_counts}, decode "
-          f"{dec_counts}")
-    del cache, tail
+    if dec_counts != decode_expected(model, LM_TAIL):
+        fail(f"{arch}: {LM_TAIL} decode steps launched {dec_counts}, "
+             f"expected {decode_expected(model, LM_TAIL)}")
+    launched = (f"prefill launched {pre_counts}, {LM_TAIL} decode steps "
+                f"{dec_counts}")
+    if fam == "moe":
+        print(f"{arch} prefill/decode consistency: not checked (MoE: a "
+              f"dispatch group's capacity depends on how many tokens it "
+              f"holds, so a prefill of {p} tokens routes otherwise than one "
+              f"of {prompt}; the reference leaves MoE out of this check, "
+              f"tests/test_models_smoke.py): max err {errs:.4g}; {launched}")
+    else:
+        bf16_note = ""
+        if not errs < 0.02 * scale:
+            if fam != "ssm":
+                fail(f"{arch}: decode logits differ from the full forward "
+                     f"by {errs} >= 0.02 x {scale}")
+            bf16_note = rwkv6_bf16_miss(model, params, batch, prompt, p,
+                                        errs, scale)
+        print(f"{arch} prefill/decode consistency: prefill of {p} tokens, "
+              f"{LM_TAIL} decode steps vs one full forward of {prompt}: max"
+              f" err {errs:.4g} vs 0.02 x max(|logits|, 1) = "
+              f"{0.02 * scale:.4g}{bf16_note}; {launched}")
 
     # the serve run: warm-up, then the counted and timed run
-    serve(model, params, prompts[:, :64], gen_len=4, max_len=128)
+    serve(model, params, prompts[:, :64], gen_len=4, max_len=128,
+          frames=frames)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     out = serve(model, params, prompts, gen_len=LM_DECODE + 1,
-                max_len=LM_PROMPT + LM_DECODE)
+                max_len=prompt + LM_DECODE, frames=frames)
     counts = lm_launches(launch_counts())
-    if counts != lm_expected(model):
-        fail(f"{arch}: the serve run launched {counts}, expected "
-             f"{lm_expected(model)} (one prefill, decode none)")
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = lm_expected(model, decode_steps=LM_DECODE)
+    if counts != want:
+        fail(f"{arch}: the serve run launched {counts}, expected {want} "
+             f"(one prefill, {LM_DECODE} decode steps)")
     toks = out["tokens"]
     if toks.shape != (LM_BATCH, LM_DECODE + 1) or \
             not bool(((toks >= 0) & (toks < cfg.vocab)).all()) or \
             not bool(torch.isfinite(out["logits"]).all()):
         fail(f"{arch}: serve returned bad tokens or logits")
-    pre_tps = LM_BATCH * LM_PROMPT / out["prefill_s"]
+    pre_tps = LM_BATCH * prompt / out["prefill_s"]
     dec_tps = LM_BATCH * LM_DECODE / out["decode_s"]
-    print(f"{arch} serve [{card}]: prefill {LM_BATCH} x {LM_PROMPT} tokens "
-          f"in {out['prefill_s'] * 1e3:.3f} ms = {pre_tps:.1f} tokens/s; "
+    print(f"{arch} serve [{card}]: prefill {LM_BATCH} x {prompt} tokens "
+          + (f"(and {cfg.enc_seq} frames) " if fam == "encdec" else "")
+          + f"in {out['prefill_s'] * 1e3:.3f} ms = {pre_tps:.1f} tokens/s; "
           f"{LM_DECODE} decode steps x {LM_BATCH} in "
           f"{out['decode_s'] * 1e3:.3f} ms = {dec_tps:.1f} tokens/s "
           f"({out['decode_s'] / LM_DECODE * 1e3:.3f} ms per step); "
-          f"launches {counts}; peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    profile_run(f"serve {arch}", lambda: serve(
+          f"launches {counts}; peak memory of the serve run "
+          f"{peak / 2**30:.2f} GiB")
+    ranges = ("moe.dispatch", "moe.combine") if fam == "moe" else ()
+    prof = profile_run(f"serve {arch}", lambda: serve(
         model, params, prompts, gen_len=LM_DECODE + 1,
-        max_len=LM_PROMPT + LM_DECODE), card)
-
-    # the same prefill in f32, kernels against the plain versions
+        max_len=prompt + LM_DECODE, frames=frames), card, ranges)
+    if prof is not None and ranges:
+        shares = {r: prof[r] / prof["busy_us"] for r in ranges}
+        print(f"{arch}: the one-hot MoE products' share of the profiled "
+              f"serve run's busy time: dispatch {shares['moe.dispatch']:.4f}"
+              f", combine (f32) {shares['moe.combine']:.4f}")
     del out
+
+    # the same prefill in f32 (the CUDA-core and serial designs), kernels
+    # against the plain versions on the card
+    f_model = model
+    if fam == "moe":
+        f_model, params = first_layers(model, params, MOE_F32_LAYERS)
+        print(f"{arch}: the f32 check runs at full width with its depth cut"
+              f" to {MOE_F32_LAYERS} of {cfg.n_layers} layers (f32 weights "
+              f"of all {cfg.n_layers} would not leave the activations room)")
     params = tree_map(lambda t: t.float(), params)
+    f_frames = None if frames is None else frames.float()
     torch.cuda.empty_cache()
+    got_log, want_log = [], []
     reset_launch_counts()
-    got, got_cache, _ = model.forward(params, {"tokens": prompts},
-                                   mode="prefill")
+    with routing_log(got_log):
+        got, got_cache, _ = f_model.forward(params, batch(prompt, fr=f_frames),
+                                            mode="prefill")
     f32_counts = lm_launches(launch_counts())
-    if f32_counts != lm_expected(model, bf16=False):
+    if f32_counts != lm_expected(f_model, bf16=False):
         fail(f"{arch}: the f32 prefill launched {f32_counts}, expected "
-             f"{lm_expected(model, bf16=False)}")
-    with plain_versions():
-        want, want_cache, _ = model.forward(params, {"tokens": prompts},
-                                         mode="prefill")
+             f"{lm_expected(f_model, bf16=False)}")
+    with plain_versions(), routing_log(want_log):
+        want, want_cache, _ = f_model.forward(params,
+                                              batch(prompt, fr=f_frames),
+                                              mode="prefill")
     torch.cuda.synchronize()
     f_scale = max(float(want.abs().max()), 1.0)
-    err = float((got - want).abs().max())
-    if not err <= 1e-3 * f_scale:
+    note = ""
+    diff = (got - want).abs_()
+    if fam == "moe":
+        flipped = routing_flips(got_log, want_log, f"{arch} f32 prefill")
+        diff.masked_fill_(flipped.reshape(LM_BATCH, prompt, 1), 0.0)
+        note = (f"; {int(flipped.sum())} of {flipped.numel()} tokens routed "
+                f"otherwise at a near tie (k-th and (k+1)-th router "
+                f"probabilities within {NEAR_TIE}), left out")
+    err_pos = diff.amax(dim=(0, 2))
+    del diff
+    head = 0
+    if fam == "ssm":
+        head = RWKV6_HEAD
+        note += rwkv6_f32_head(f_model, params,
+                               lambda hi: batch(hi, fr=f_frames), prompt,
+                               got, want, f_scale)
+        note += (f"; kernels vs plain from position {head} on: largest at "
+                 f"{head + int(err_pos[head:].argmax())}, at positions "
+                 f"{head}-63 {float(err_pos[head:64].max()):.4g}")
+    err = float(err_pos[head:].max())
+
+    def state_of(c):
+        if fam not in ("hybrid", "ssm"):
+            return None
+        return c["mamba"]["state"] if fam == "hybrid" else c["state"]
+    gs_, ws_ = state_of(got_cache), state_of(want_cache)
+    state_err = None if gs_ is None else float((gs_ - ws_).abs().max())
+    s_scale = None if ws_ is None else max(float(ws_.abs().max()), 1.0)
+    if not err <= 1e-3 * f_scale or (
+            state_err is not None and not state_err <= 1e-3 * s_scale):
         fail(f"{arch}: f32 prefill with the kernels differs from the plain "
-             f"versions by {err} > 1e-3 x {f_scale}")
-    cache_err = 0.0
-    if cfg.family == "hybrid":
-        cache_err = float((got_cache["mamba"]["state"]
-                           - want_cache["mamba"]["state"]).abs().max())
-        s_scale = float(want_cache["mamba"]["state"].abs().max())
-        if not cache_err <= 1e-3 * max(s_scale, 1.0):
-            fail(f"{arch}: f32 prefill states differ by {cache_err}")
-    print(f"{arch} f32 prefill [{LM_BATCH} x {LM_PROMPT}] (launched "
-          f"{f32_counts}), kernels vs plain "
-          f"versions on the card: logits max err {err:.4g} (tol 1e-3 x "
-          f"max(|logits|, 1) = {1e-3 * f_scale:.4g})"
-          + (f", final Mamba2 states max err {cache_err:.4g}"
-             if cfg.family == "hybrid" else ""))
-    del want, got_cache, want_cache
-    # the consistency check once more in f32 (the prefill logits are the
-    # full forward's): the algorithm's agreement without bf16 rounding
-    _, pre, _ = model.forward(params, {"tokens": prompts[:, :p]},
-                           mode="prefill")
-    cache = fill_cache(model.init_cache(LM_BATCH, LM_PROMPT, dev), pre)
-    del pre
-    f_errs = []
-    for t in range(p, LM_PROMPT):
-        dl, cache, _ = model.forward(params, {"tokens": prompts[:, t:t + 1]},
-                                  mode="decode", cache=cache, cache_index=t)
-        f_errs.append(float((dl[:, 0] - got[:, t]).abs().max()))
-    if not max(f_errs) < 0.02 * f_scale:
-        fail(f"{arch}: f32 decode logits differ from the full forward by "
-             f"{max(f_errs)} >= 0.02 x {f_scale}")
-    print(f"{arch} prefill/decode consistency in f32 (the caches in the "
-          f"prefill's dtypes): max err {max(f_errs):.4g} = "
-          f"{max(f_errs) / (0.02 * f_scale):.4f} of the bound (bf16: "
-          f"{max(errs) / (0.02 * scale):.4f})")
-    del params, got, cache
+             f"versions by {err} (> 1e-3 x {f_scale}) or its final states by"
+             f" {state_err} (1e-3 x {s_scale}){note}")
+    print(f"{arch} f32 prefill [{LM_BATCH} x {prompt}] (launched "
+          f"{f32_counts}), kernels vs plain versions on the card: logits max"
+          f" err {err:.4g} (tol 1e-3 x max(|logits|, 1) = "
+          f"{1e-3 * f_scale:.4g})"
+          + (f", final {'Mamba2' if fam == 'hybrid' else 'RWKV6'} states "
+             f"max err {state_err:.4g} (tol {1e-3 * s_scale:.4g})"
+             if state_err is not None else "")
+          + note)
+    del want, got_cache, want_cache, got_log, want_log
+    if fam != "moe":
+        # the consistency check once more in f32 (the prefill's logits are
+        # the full forward's): the algorithm's agreement without bf16
+        # rounding
+        f_errs, _, _, _ = consistency_errs(
+            model, params, lambda hi, lo=0: batch(hi, lo, fr=f_frames),
+            prompt, p, full=got)
+        if not f_errs < 0.02 * f_scale:
+            fail(f"{arch}: f32 decode logits differ from the full forward "
+                 f"by {f_errs} >= 0.02 x {f_scale}")
+        print(f"{arch} prefill/decode consistency in f32 (the caches in the "
+              f"prefill's dtypes): max err {f_errs:.4g} = "
+              f"{f_errs / (0.02 * f_scale):.4f} of the bound (bf16: "
+              f"{errs / (0.02 * scale):.4f})")
+    del params, got
     torch.cuda.empty_cache()
     return counts, f32_counts
 
@@ -2313,6 +2803,7 @@ def check_quickstart(card) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     card = phase_card()
     import numpy as np
     import torch
@@ -2405,7 +2896,7 @@ def main() -> None:
     results += check_flash(dev, gen, card) + check_gla(dev, gen, card)
     lm_counts, f32_counts = {}, {}                             # phase 9
     for arch in LM_ARCHS:
-        path = "lm_" + arch.split("-")[0]
+        path = LM_PATHS[arch]
         serve_counts, f32 = run_lm(arch, dev, card)
         lm_counts[path] = by_design(serve_counts)
         f32_counts[path + "_f32_prefill"] = by_design(f32)
@@ -2459,9 +2950,9 @@ def main() -> None:
                    **{p: c.get(name, 0) for p, c in f32_counts.items()},
                    **{p: c.get(name, 0) for p, c in train_counts.items()}}
         # the ETL kernels' main path is the cluster, the single-table
-        # probe's the complex model; the bf16 LM designs' the two serve
-        # runs and the three training runs; the f32 LM designs' the two
-        # f32 prefills
+        # probe's the complex model; the LM designs' the six serve runs
+        # (the bf16 designs; rwkv6's serial gla), the six f32 prefills
+        # (the CUDA-core and serial designs) and the training runs
         if name in OFF_PATH:
             launches = 0
             if any(by_path.values()):
@@ -2470,11 +2961,17 @@ def main() -> None:
             launches = by_path["cluster"]
         elif name == "hash_join":
             launches = by_path[COMPLEX_PATH]
-        elif name in ("flash_attention_tc", "gla_chunk_ssd"):
-            launches = sum(c[name] for c in (*lm_counts.values(),
-                                             *train_counts.values()))
         else:
-            launches = sum(c[name] for c in f32_counts.values())
+            launches = sum(c[name] for c in (*lm_counts.values(),
+                                             *f32_counts.values(),
+                                             *train_counts.values()))
+            if name == "gla_chunk" and lm_counts["lm_rwkv6"][name] <= 0:
+                fail("gla_chunk (serial) never launched on rwkv6's serve "
+                     "path")
+            if name == "flash_attention_tc" and any(
+                    lm_counts[p][name] <= 0 for p in (
+                        "lm_qwen2moe", "lm_qwen2vl", "lm_whisper")):
+                fail("flash_attention_tc missing on a serve path")
         if launches <= 0 and name not in OFF_PATH:
             fail(f"{name} never launched on its path")
         kernels.append({"name": name, "route": "cuda", "source": path,
@@ -2486,11 +2983,14 @@ def main() -> None:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         **{key: r[key] for key in (
-                            "zamba2", "scratch_bytes", "cluster_facts_ms",
+                            "zamba2", "whisper_encoder", "qwen2_vl",
+                            "shape", "scratch_bytes", "cluster_facts_ms",
                             "batch_ms", "dashboard", "dashboard_4_shards",
                             "train_forward_ms", "recompute_backward_ms",
                             "function_fwd_bwd_ms", "plain_fwd_bwd_ms")
                            if key in r}})
+    print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s, "
+          f"the kernels' build included [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

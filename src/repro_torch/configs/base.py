@@ -4,8 +4,8 @@ copied: the port imports nothing of it).
 One ``ModelConfig`` dataclass covers the architecture families of the
 reference: dense decoder-only transformers (GQA/MQA), encoder-decoder,
 VLM backbones, attention-free SSMs, MoE transformers and hybrids (zamba2:
-Mamba2 + shared attention). The port registers the families it runs so
-far: dense (internlm2) and hybrid (zamba2).
+Mamba2 + shared attention). The port registers all six, one
+architecture per family, as the reference does.
 
 Every architecture registers itself in ``REGISTRY`` via ``register``;
 ``get_config(arch_id)`` returns the full published config and

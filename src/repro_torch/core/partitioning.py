@@ -23,7 +23,7 @@ Partitioning is a pluggable, *adaptive* subsystem:
 
 The same hashing discipline drives the MoE expert dispatch (a token is a
 message, the router's expert choice is its business key):
-``assign_positions`` in ``repro.models.moe`` is the capacity-bounded
+``assign_positions`` in ``repro_torch.models.moe`` is the capacity-bounded
 variant of this assignment.
 """
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Attention: grouped-query (GQA/MQA) softmax attention in the model's
 [B, S, H, D] layout, in three regimes.
 
-  * ``attend_prefill`` — train and prefill: the hand-written
+  * ``attend_prefill`` — train and prefill (and cross-attention in every
+                         mode), causal or full: the hand-written
                          ``flash_attention`` kernel on the card
                          (``kernels.flash_attention.ops.mha``, its plain
                          version on the CPU) through its autograd
@@ -34,14 +35,17 @@ def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     return q.reshape(b, s, n_kv, hq // n_kv, d)
 
 
-def attend_prefill(q: torch.Tensor, k: torch.Tensor,
-                   v: torch.Tensor) -> torch.Tensor:
-    """Causal. q: [B, S, Hq, d]; k, v: [B, S, Hkv, d] -> [B, S, Hq, d],
-    through the flash_attention kernel. In bf16 (its tensor-core design)
-    the probabilities are rounded to bf16 before PV, as ``attend_full``
-    rounds them; in f32 they stay f32 (as the TPU kernel keeps them)."""
+def attend_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True) -> torch.Tensor:
+    """q: [B, Sq, Hq, d]; k, v: [B, Skv, Hkv, d] -> [B, Sq, Hq, d],
+    through the flash_attention kernel, causal or full (the whisper
+    encoder and cross-attention, where Sq may differ from Skv: 1 query
+    against the encoder's keys in decode). In bf16 (its tensor-core
+    design) the probabilities are rounded to bf16 before PV, as
+    ``attend_full`` rounds them; in f32 they stay f32 (as the TPU kernel
+    keeps them)."""
     out = flash_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True)
+                              v.transpose(1, 2), causal=causal)
     return out.transpose(1, 2)
 
 

@@ -25,9 +25,10 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 
 def from_reference(defs, tree) -> Any:
     """``tree``: nested dicts of numpy arrays shaped as ``defs`` (a port
-    ``Model.defs``). Returns the same tree as CPU torch tensors in the
-    arrays' dtypes. Raises on a missing or extra key or a shape that
-    differs."""
+    ``Model.defs``), of any family. Returns the same tree as CPU torch
+    tensors in the arrays' dtypes (the reference's init: bf16 leaves and
+    the MoE router's f32). Raises on a missing or extra key or a shape
+    that differs."""
     if isinstance(defs, ParamDef):
         if not isinstance(tree, np.ndarray):
             raise TypeError(f"expected a numpy array, got {type(tree)}")

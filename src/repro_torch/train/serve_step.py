@@ -15,6 +15,9 @@ def make_prefill_step(model: Model):
     @torch.no_grad()
     def prefill_step(params, batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, Any]:
+        """batch: the whole dict reaches ``Model.forward`` — ``tokens``
+        [B, P], and an encdec model's ``frames``. Returns (next_token [B],
+        the filled cache)."""
         logits, cache, _ = model.forward(params, batch, mode="prefill")
         # greedy next token from the last position
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)

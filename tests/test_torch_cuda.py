@@ -1010,14 +1010,44 @@ def test_gla_chunk_pinned_design_matches_plain(dev, design):
     torch.testing.assert_close(final, ref_final, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-1.2b"])
+LM_ARCHS = ["internlm2-1.8b", "zamba2-1.2b", "rwkv6-7b", "qwen2-moe-a2.7b",
+            "qwen2-vl-7b", "whisper-small"]
+
+
+def _lm_launches(model, decode_steps: int = 0):
+    """(flash_attention, gla_chunk) launches of one prefill (or train
+    forward) and ``decode_steps`` decode steps of a model: one per
+    attention layer (whisper: its encoder's, and its decoder's self- and
+    cross-attention; its cross-attention again in every decode step) and
+    one per Mamba2 / RWKV6 layer."""
+    cfg = model.cfg
+    L = cfg.n_layers
+    flash = {"dense": L, "moe": L, "vlm": L, "ssm": 0,
+             "hybrid": model.n_shared_apps(),
+             "encdec": cfg.n_enc_layers + 2 * L + decode_steps * L
+             }[cfg.family]
+    return flash, L if cfg.family in ("ssm", "hybrid") else 0
+
+
+def _smoke_batch(model, toks):
+    """tokens, and frames for an encdec model (seeded normal)."""
+    cfg = model.cfg
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.tensor(np.random.default_rng(5).standard_normal(
+            (toks.shape[0], cfg.enc_seq, cfg.d_model), dtype=np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_smoke_serve_on_card_matches_cpu(dev, arch):
     """The smoke config's serve run (prefill + greedy decode) on the card
     against the same run on the CPU, f32 weights drawn on the CPU: the
     same tokens, decode logits within 1e-3 x max(|logits|, 1) (the two
     devices' products add in other orders; f32 rounding through a few
     layers stays orders of magnitude below that), and one kernel launch
-    per attention / Mamba2 layer of the prefill, none in decode."""
+    per attention / Mamba2 / RWKV6 layer of the prefill, none in decode
+    but whisper's cross-attention."""
     from repro_torch.examples.serve_lm import serve
     from repro_torch.models import build_model
     from repro_torch.models.param import tree_map
@@ -1027,19 +1057,86 @@ def test_smoke_serve_on_card_matches_cpu(dev, arch):
                       model.init(torch.Generator().manual_seed(0)))
     prompts = torch.tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, (2, 45)))
-    cpu = serve(model, params, prompts, gen_len=6, max_len=64)
+    frames = _smoke_batch(model, prompts).get("frames")
+    cpu = serve(model, params, prompts, gen_len=6, max_len=64,
+                frames=frames)
     reset_launch_counts()
     gpu = serve(model, tree_map(lambda t: t.to(dev), params),
-                prompts.to(dev), gen_len=6, max_len=64)
+                prompts.to(dev), gen_len=6, max_len=64,
+                frames=None if frames is None else frames.to(dev))
     counts = launch_counts()
-    n_attn = cfg.n_layers if cfg.family == "dense" else model.n_shared_apps()
-    n_gla = 0 if cfg.family == "dense" else cfg.n_layers
-    assert counts["flash_attention"] == n_attn
+    n_flash, n_gla = _lm_launches(model, decode_steps=5)
+    assert counts["flash_attention"] == n_flash
     assert counts["gla_chunk"] == n_gla
     assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
     scale = max(float(cpu["logits"].abs().max()), 1.0)
     err = float((gpu["logits"].cpu() - cpu["logits"]).abs().max())
     assert err < 1e-3 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("sq,skv,hq,hkv,d,causal", [
+    (1500, 1500, 12, 12, 64, False),      # whisper's encoder
+    (416, 1500, 12, 12, 64, False),       # its cross-attention, prefill
+    (1, 1500, 12, 12, 64, False),         # and decode
+    (416, 416, 12, 12, 64, True),         # its decoder's self-attention
+    (300, 300, 28, 4, 128, True),         # qwen2-vl's GQA group 7
+    (130, 77, 14, 2, 128, False)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_model_regimes_match_plain(dev, sq, skv, hq, hkv, d,
+                                                   causal, dtype):
+    """The regimes the other families put on the kernel, read through the
+    model's [B, S, H, D] layout: full attention with Sq != Skv (a ragged
+    last key tile, one query against 1500 keys), GQA group 7; bf16 on the
+    tensor-core design within 2e-2, f32 on the CUDA-core one within
+    2e-5."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(sq + skv + hq)
+    q = _lm_rand(rng, (2, sq, hq, d), dev, dtype).transpose(1, 2)
+    k, v = (_lm_rand(rng, (2, skv, hkv, d), dev, dtype).transpose(1, 2)
+            for _ in range(2))
+    before = launch_counts()
+    got = fa.mha(q, k, v, causal=causal)
+    after = launch_counts()
+    tc = dtype == torch.bfloat16
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert (after["flash_attention_tc"] - before["flash_attention_tc"]
+            == int(tc))
+    tol = 2e-2 if tc else 2e-5
+    torch.testing.assert_close(got.float(), attention_ref(
+        q, k, v, causal=causal).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("s", [256, 130])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_gla_chunk_rwkv6_bf16_regime(dev, s, with_state):
+    """rwkv6's regime as its time mix hands it over: bf16 r, k, v, an f32
+    per-channel log decay made as the model makes it, -exp(clip(x, -8,
+    4)), with channels at -e^4 (a chunk's cumulative decay near -3,500),
+    and the bonus u — on the serial design: out within 2e-2 and the final
+    state within 2e-4 of the plain version."""
+    from repro_torch.kernels.gla_chunk import ops as gl
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+    rng = np.random.default_rng(s + with_state)
+    b, h, dk = 2, 4, 64
+    r, k, v = (_lm_rand(rng, (b, s, h, dk), dev, torch.bfloat16)
+               for _ in range(3))
+    x = _lm_rand(rng, (b, s, h, dk), dev) * 3
+    x[..., :4] = 4.0                                  # w = exp(-e^4)
+    lw = -torch.exp(torch.clamp(x, -8.0, 4.0))
+    u = _lm_rand(rng, (h, dk), dev)
+    s0 = _lm_rand(rng, (b, h, dk, dk), dev) if with_state else None
+    before = launch_counts()
+    out, final = gl.gla(r, k, v, lw, u, inclusive=False, initial_state=s0)
+    after = launch_counts()
+    assert after["gla_chunk"] == before["gla_chunk"] + 1
+    assert after["gla_chunk_ssd"] == before["gla_chunk_ssd"]
+    ref_out, ref_final = gla_chunk_ref(r, k, v, lw, u, inclusive=False,
+                                       initial_state=s0)
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(final, ref_final, rtol=2e-4, atol=2e-4)
 
 
 # ------------------------------------------------------------- training
@@ -1127,6 +1224,75 @@ def test_smoke_train_step_on_card_matches_cpu(dev, arch):
     assert counts["flash_attention"] == n_attn
     assert counts["gla_chunk"] == (0 if cfg.family == "dense"
                                    else cfg.n_layers)
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(float(gmet[key]) - float(cmet[key])) <= 1e-4 * max(
+            1.0, abs(float(cmet[key])))
+    for a, b in zip(tree_leaves(gp), tree_leaves(cp)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "qwen2-moe-a2.7b",
+                                  "qwen2-vl-7b", "whisper-small"])
+def test_family_smoke_train_step_on_card_matches_cpu(dev, arch):
+    """The four other families' f32 smoke configs, card against CPU: every
+    gradient leaf (the kernels forward on the card, their plain versions'
+    recomputed backward), then one ``make_train_step`` from a nonzero
+    AdamW state (step 5, random moments, as tests/test_torch_train.py
+    holds the CPU against the reference) — loss, aux, grad norm and every
+    parameter within 1e-4; one kernel launch per attention / RWKV6 layer.
+    The nonzero state matters: from a zero state Adam's first update is
+    g / (|g| + eps) per element, so a gradient near 1e-7 (rwkv6's smoke
+    config has one in ``tm.wk``) turns the devices' rounding of it into a
+    1e-4 parameter difference."""
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, AdamWState
+    from repro_torch.train.train_step import (grads_of, make_loss_fn,
+                                              make_train_step)
+    model = build_model(arch, smoke=True)
+    cfg = model.cfg
+    params = tree_map(lambda t: t.float(),
+                      model.init(torch.Generator().manual_seed(0)))
+    toks = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (4, 64)))
+    batch = dict(_smoke_batch(model, toks), targets=torch.roll(toks, -1, 1))
+    gbatch = {k: v.to(dev) for k, v in batch.items()}
+    gp = tree_map(lambda t: t.to(dev, copy=True), params)
+    loss_fn = make_loss_fn(model)
+    cg, closs = grads_of(loss_fn, params, batch)
+    reset_launch_counts()
+    gg, gloss = grads_of(loss_fn, gp, gbatch)
+    counts = launch_counts()
+    n_flash, n_gla = _lm_launches(model)
+    assert counts["flash_attention"] == n_flash
+    assert counts["gla_chunk"] == n_gla
+    assert abs(float(gloss) - float(closs)) <= 1e-4 * max(1.0, abs(float(
+        closs)))
+    for a, b in zip(gg, cg):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    with torch.no_grad():
+        caux = loss_fn(params, batch)[1][1]
+        gaux = loss_fn(gp, gbatch)[1][1]
+    torch.testing.assert_close(gaux.cpu(), caux, rtol=1e-4, atol=1e-4)
+
+    rng = np.random.default_rng(7)
+    mu = [torch.tensor(rng.standard_normal(p.shape, dtype=np.float32)
+                       * 1e-3) for p in tree_leaves(params)]
+    nu = [torch.tensor(rng.random(p.shape, dtype=np.float32) * 1e-6)
+          for p in tree_leaves(params)]
+
+    def state(on):
+        from repro_torch.models.param import tree_unflatten
+        return AdamWState(step=torch.tensor(5, dtype=torch.int32,
+                                            device=on),
+                          mu=tree_unflatten(params, [m.to(on, copy=True)
+                                                     for m in mu]),
+                          nu=tree_unflatten(params, [n.to(on, copy=True)
+                                                     for n in nu]))
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                              total_steps=10))
+    cp, _, cmet = step(params, state("cpu"), batch)
+    gp, _, gmet = step(gp, state(dev), gbatch)
     for key in ("loss", "grad_norm", "lr"):
         assert abs(float(gmet[key]) - float(cmet[key])) <= 1e-4 * max(
             1.0, abs(float(cmet[key])))

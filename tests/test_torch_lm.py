@@ -35,6 +35,9 @@ from repro_torch.models.param import (ParamDef, count_params, tree_leaves,
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 
 ARCHS = ["internlm2-1.8b", "zamba2-1.2b"]
+# every arch the port registers: the reference's six, one per family
+ALL_ARCHS = ["internlm2-1.8b", "qwen2-moe-a2.7b", "qwen2-vl-7b", "rwkv6-7b",
+             "whisper-small", "zamba2-1.2b"]
 TOL = 1e-4
 _cache = {}
 
@@ -107,7 +110,7 @@ def _pad_seq(x, p, tail):
 
 # ----------------------------------------------------------------- layers
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_configs_match_reference(arch):
     import dataclasses
     import repro.configs as jax_configs
@@ -118,7 +121,7 @@ def test_configs_match_reference(arch):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
         assert got.param_count() == want.param_count()
         assert got.padded_vocab == want.padded_vocab
-    assert port_configs.list_archs() == ARCHS
+    assert port_configs.list_archs() == ALL_ARCHS == jax_configs.list_archs()
 
 
 
@@ -236,7 +239,7 @@ def test_decoder_block_matches_reference():
     xt, xj = _hidden(cfg)
     pt, pj = _positions(2, 40)
     for mode in ("train", "prefill"):
-        y, c = blocks.decoder_block(lp, xt, cfg, mode=mode, positions=pt)
+        y, c, _ = blocks.decoder_block(lp, xt, cfg, mode=mode, positions=pt)
         jy, jc, _ = jax_blocks.decoder_block(jlp, xj, jm.cfg, mode=mode,
                                              positions=pj)
         _close(y, jy)
@@ -252,7 +255,7 @@ def test_decoder_block_matches_reference():
                       jax.tree.map(np.asarray, jcache))
     xt1, xj1 = _hidden(cfg, s=1, seed=6)
     pt1, pj1 = _positions(2, 1, 40)
-    y, out_cache = blocks.decoder_block(lp, xt1, cfg, mode="decode",
+    y, out_cache, _ = blocks.decoder_block(lp, xt1, cfg, mode="decode",
                                         positions=pt1, cache=tcache,
                                         cache_index=40)
     jy, jc, _ = jax_blocks.decoder_block(jlp, xj1, jm.cfg, mode="decode",
@@ -287,16 +290,16 @@ def test_mamba2_block_matches_reference():
     jlp = jax.tree.map(lambda a: a[2], jp["layers"])
     jblock = jax.jit(jax_blocks.mamba2_block, static_argnames=("cfg", "mode"))
     xt, xj = _hidden(cfg, s=70)                   # one full chunk + a tail
-    y, c = blocks.mamba2_block(lp, xt, cfg, mode="train")
+    y, c, _ = blocks.mamba2_block(lp, xt, cfg, mode="train")
     jy, jc, _ = jblock(jlp, xj, jm.cfg, mode="train")
     assert c is None and jc is None
     _close(y, jy)
-    y, c = blocks.mamba2_block(lp, xt, cfg, mode="prefill")
+    y, c, _ = blocks.mamba2_block(lp, xt, cfg, mode="prefill")
     jy, jc, _ = jblock(jlp, xj, jm.cfg, mode="prefill")
     _close(y, jy)
     _tree_close(c, jc)
     xt1, xj1 = _hidden(cfg, s=1, seed=9)
-    y, c2 = blocks.mamba2_block(lp, xt1, cfg, mode="decode", cache=c)
+    y, c2, _ = blocks.mamba2_block(lp, xt1, cfg, mode="decode", cache=c)
     jy, jc2, _ = jblock(jlp, xj1, jm.cfg, mode="decode", cache=jc)
     assert c2 is c
     _close(y, jy)

@@ -194,12 +194,17 @@ def _pair(arch, remat):
 
 
 def _batch(cfg, b=4, s=64, seed=3):
-    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (b, s),
-                                                dtype=np.int32)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)
     tg = np.roll(toks, -1, 1)
-    return ({"tokens": torch.from_numpy(toks).long(),
-             "targets": torch.from_numpy(tg).long()},
-            {"tokens": jnp.asarray(toks), "targets": jnp.asarray(tg)})
+    bt = {"tokens": torch.from_numpy(toks).long(),
+          "targets": torch.from_numpy(tg).long()}
+    bj = {"tokens": jnp.asarray(toks), "targets": jnp.asarray(tg)}
+    if cfg.family == "encdec":                   # whisper's encoder input
+        fr = rng.standard_normal((b, cfg.enc_seq, cfg.d_model),
+                                 dtype=np.float32)
+        bt["frames"], bj["frames"] = torch.from_numpy(fr), jnp.asarray(fr)
+    return bt, bj
 
 
 def _train_step_vs_reference(arch, remat, check):
@@ -208,9 +213,12 @@ def _train_step_vs_reference(arch, remat, check):
     bt, bj = _batch(pm.cfg)
     # the gradient of one step, leaf by leaf
     grads, loss = grads_of(make_loss_fn(pm), pp, bt)
-    (jtot, (jloss, _)), jgrads = jax.jit(jax.value_and_grad(
+    (jtot, (jloss, jaux)), jgrads = jax.jit(jax.value_and_grad(
         jax_make_loss_fn(jm), has_aux=True))(jp, bj)
     check(loss, jloss, "loss")
+    with torch.no_grad():
+        _, (_, aux) = make_loss_fn(pm)(pp, bt)
+    check(aux, jaux, "aux")
     for i, (g, jg) in enumerate(zip(grads, jax.tree.leaves(jgrads))):
         check(g, jg, f"gradient leaf {i}")
     # two train steps
