@@ -86,16 +86,17 @@ Phases, each fatal on failure (no fallback to the CPU):
    [4, 28 / 4, 2048, 128]; qwen2-moe's [4, 16, 2048, 128]); gla_chunk in
    f32 on the serial design in both regimes, zamba2's bf16 Mamba2 inputs
    on the SSD design and rwkv6's bf16 RWKV6 inputs [4, S, 64, 64] (decay
-   -exp(clip(x, -8, 4)), channels at -e^4, bonus u) on the serial design
-   (out 2e-2), with and without an initial state, final state included
-   (2e-4); each call's design checked by the launch counters. Both designs
-   of each kernel then timed in turns (old, new, new, old) on the bf16
-   serving shapes, and the tensor-core flash at whisper's encoder shape
-   and qwen2-vl's, the serial gla at rwkv6's: device and issue times, the
-   plain version, ``scaled_dot_product_attention`` beside flash, and the
-   bound (bytes / 3.35 TB/s or operations over the input dtype's peak:
-   989 TFLOP/s dense bf16 tensor core, 67 TFLOP/s f32), the SSD design's
-   chunk-state scratch bytes beside it;
+   -exp(clip(x, -8, 4)), channels at -e^4, bonus u) on the RWKV6 design
+   and, pinned, on the serial design (out 2e-2), with and without an
+   initial state, final state included (2e-4); each call's design checked
+   by the launch counters. Both designs of each kernel then timed in turns
+   (old, new, new, old) on the bf16 serving shapes (gla: zamba2's and
+   rwkv6's), and the tensor-core flash at whisper's encoder shape and
+   qwen2-vl's: device and issue times, the plain version,
+   ``scaled_dot_product_attention`` beside flash, and the bound (bytes /
+   3.35 TB/s or operations over the input dtype's peak: 989 TFLOP/s dense
+   bf16 tensor core, 67 TFLOP/s f32), the SSD and RWKV6 designs' chunk-
+   state scratch bytes beside it;
 9. LM serving for all six families at full published width and depth,
    bf16 weights from a seeded ``torch.Generator`` on the card:
    internlm2-1.8b, zamba2-1.2b, rwkv6-7b, qwen2-moe-a2.7b, qwen2-vl-7b
@@ -106,9 +107,10 @@ Phases, each fatal on failure (no fallback to the CPU):
    dispatch groups' capacity depends on their token count, as the
    reference leaves it out); launches per prefill (internlm2 24, qwen2-moe
    24, qwen2-vl 28 flash on the tensor-core design; zamba2 6 flash + 38
-   gla on the tensor-core and SSD designs; rwkv6 32 gla on the serial
-   design; whisper 36 flash: 12 encoder, 12 causal self, 12 cross) and per
-   decode step (whisper's 12 cross-attention flash, none for the others);
+   gla on the tensor-core and SSD designs; rwkv6 32 gla on the RWKV6
+   design, none on the serial one; whisper 36 flash: 12 encoder, 12
+   causal self, 12 cross) and per decode step (whisper's 12
+   cross-attention flash, none for the others);
    the serve run (32 greedy decode steps, ``examples.serve_lm.serve``)
    with prefill and decode tokens/s and its peak memory, counted as the
    bf16 designs' launches; the card's busy share of a profiled serve run
@@ -1908,12 +1910,13 @@ def check_gla(dev, gen, card) -> list:
     profile_run("gla_chunk SSD design, one call (its three kernels)",
                 ssd_call, card)
     del q, k, v, lw, out, fin
-    rwkv_err, rwkv = check_gla_rwkv6(dev, gen, card)
+    rwkv_err, rwkv, rwkv6_design = check_gla_rwkv6(dev, gen, card)
     return [{"name": "gla_chunk",
              "max_abs_err": max(errs["serial"] + [rwkv_err]),
              "zamba2": rows["serial"], **rwkv},
             {"name": "gla_chunk_ssd", "max_abs_err": max(errs["ssd"]),
-             **rows["ssd"]}]
+             **rows["ssd"]},
+            rwkv6_design]
 
 
 def rwkv6_gla_inputs(b, s, h, dk, dev, gen):
@@ -1933,72 +1936,114 @@ def rwkv6_gla_inputs(b, s, h, dk, dev, gen):
 
 def check_gla_rwkv6(dev, gen, card):
     """Phase 8's gla_chunk check in the RWKV6 regime at rwkv6-7b's shape
-    ([4, S, 64, 64]; lag-1 read, bonus u, per-channel decay) in bf16, on
-    the serial design (the SSD design does not take it), at S 2048, 2044
-    and 1000, with and without an initial state: out within 2e-2, final
-    state within 2e-4 of the plain version. Then timed at S = 2048: device
-    and issue time, the plain version's, and the bound (bytes / 3.35 TB/s
-    or ``gla_work`` operations at the bf16 peak). Returns (max error, the
-    timed record)."""
+    ([4, S, 64, 64]; lag-1 read, bonus u, per-channel decay) in bf16, at S
+    2048, 2044 and 1000, with and without an initial state: the RWKV6
+    design (what ``gla`` picks) and the serial design pinned, each with
+    out within 2e-2 and the final state within 2e-4 of the plain version
+    and its launch counted as its own. Then both timed in turns (serial,
+    RWKV6, RWKV6, serial) at S = 2048: device and issue time, the plain
+    version's, the bound (bytes / 3.35 TB/s or ``gla_work`` operations at
+    the bf16 peak) and the RWKV6 design's chunk-state scratch; its three
+    kernels under the profiler. Returns (the serial design's max error and
+    timed record, the RWKV6 design's record)."""
     import torch
     from repro_torch.kernels import launch_counts
-    from repro_torch.kernels.gla_chunk.ops import gla
+    from repro_torch.kernels.gla_chunk.ops import CHUNK, gla
     from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
     from repro_torch.models import build_model
     cfg = build_model("rwkv6-7b").cfg
     h = cfg.ssm.n_ssm_heads
     dk = cfg.d_model // h
-    errs, state_errs = [], []
+    errs = {"rwkv6": [], "serial": []}
+    state_errs = {"rwkv6": [], "serial": []}
     for s in (LM_PROMPT, LM_PROMPT - LM_TAIL, 1000):
         for with_state in (False, True):
             r, k, v, lw, u = rwkv6_gla_inputs(LM_BATCH, s, h, dk, dev, gen)
             s0 = (lm_rand((LM_BATCH, h, dk, dk), dev, torch.float32, gen)
                   if with_state else None)
-            what = f"gla_chunk rwkv6 bf16 S={s} state={with_state}"
-            before = launch_counts()
-            out, fin = gla(r, k, v, lw, u, inclusive=False, initial_state=s0)
-            after = launch_counts()
-            design_moved(before, after, "gla_chunk", 1, what)
-            design_moved(before, after, "gla_chunk_ssd", 0, what)
             r_out, r_fin = gla_chunk_ref(r, k, v, lw, u, inclusive=False,
                                          initial_state=s0)
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(out.float()).all()):
-                fail(f"{what}: output not finite")
-            state_errs.append(max_err(fin, r_fin, GLA_TOL,
-                                      what + " final state"))
-            errs.append(max(max_err(out, r_out, FLASH_TOL["bfloat16"], what),
-                            state_errs[-1]))
-    print(f"gla_chunk RWKV6 lag-1 + u [B {LM_BATCH}, H {h}, dk = dv {dk}] "
-          f"bf16, decay -exp(clip(x, -8, 4)) with channels at -e^4 (serial "
-          f"design), S in {{{LM_PROMPT}, {LM_PROMPT - LM_TAIL}, 1000}}, with "
-          f"and without an initial state: out within "
-          f"{FLASH_TOL['bfloat16']}, final state within {GLA_TOL} of the "
-          f"plain version, max abs err {max(errs):.3g} (final state "
-          f"{max(state_errs):.3g})")
-    del out, fin, r_out, r_fin
+            for design in ("auto", "serial"):
+                name = "serial" if design == "serial" else "rwkv6"
+                what = (f"gla_chunk rwkv6 bf16 S={s} state={with_state} "
+                        f"{name} design")
+                before = launch_counts()
+                out, fin = gla(r, k, v, lw, u, inclusive=False,
+                               initial_state=s0, design=design)
+                after = launch_counts()
+                design_moved(before, after, "gla_chunk", 1, what)
+                design_moved(before, after, "gla_chunk_ssd", 0, what)
+                design_moved(before, after, "gla_chunk_rwkv6",
+                             int(name == "rwkv6"), what)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(out.float()).all()):
+                    fail(f"{what}: output not finite")
+                state_errs[name].append(max_err(fin, r_fin, GLA_TOL,
+                                                what + " final state"))
+                errs[name].append(max(max_err(out, r_out,
+                                              FLASH_TOL["bfloat16"], what),
+                                      state_errs[name][-1]))
+                del out, fin
+            del r_out, r_fin
+    for name in ("rwkv6", "serial"):
+        print(f"gla_chunk RWKV6 lag-1 + u [B {LM_BATCH}, H {h}, dk = dv "
+              f"{dk}] bf16, decay -exp(clip(x, -8, 4)) with channels at "
+              f"-e^4 ({'RWKV6' if name == 'rwkv6' else 'serial'} design), S "
+              f"in {{{LM_PROMPT}, {LM_PROMPT - LM_TAIL}, 1000}}, with and "
+              f"without an initial state: out within "
+              f"{FLASH_TOL['bfloat16']}, final state within {GLA_TOL} of the"
+              f" plain version, max abs err {max(errs[name]):.3g} (final "
+              f"state {max(state_errs[name]):.3g})")
     r, k, v, lw, u = rwkv6_gla_inputs(LM_BATCH, LM_PROMPT, h, dk, dev, gen)
-    fn = lambda: gla(r, k, v, lw, u, inclusive=False)
-    t = {"ms": graph_ms(fn), "issue_ms": issue_ms(fn, reps=10),
-         "plain_ms": graph_ms(lambda: gla_chunk_ref(r, k, v, lw, u,
-                                                    inclusive=False),
-                              reps=2, rounds=3),
-         "library_ms": None,
-         "shape": f"RWKV6 lag-1 + u, r/k/v [{LM_BATCH}, {LM_PROMPT}, {h}, "
-                  f"{dk}] bf16, decay f32 (rwkv6-7b)"}
+    plain_ms = graph_ms(lambda: gla_chunk_ref(r, k, v, lw, u,
+                                              inclusive=False),
+                        reps=2, rounds=3)
     n_bytes = (sum(x.element_size() * x.numel() for x in (r, k, v, lw, u))
                + v.element_size() * v.numel()
                + 4 * LM_BATCH * h * dk * dk)
     ops = gla_work(r, v, False)
-    t["bound_ms"], t["bound_by"] = bound(n_bytes, ops, BF16_FLOP_PER_S)
-    print(f"  gla_chunk rwkv6 bf16 S={LM_PROMPT}, serial design: "
-          f"{t['ms']:.5f} ms kernel, {t['plain_ms']:.5f} ms plain (device, "
-          f"CUDA graph), {t['issue_ms']:.5f} ms per host-issued call, bound "
-          f"{t['bound_ms']:.6f} ms ({t['bound_by']}: {n_bytes} B, {ops:.4g} "
-          f"operations at the bf16 peak) [{card}]")
+    b_ms, b_by = bound(n_bytes, ops, BF16_FLOP_PER_S)
+    # the RWKV6 design's f32 chunk states: written (1), read and rewritten
+    # (2), read (3) — traffic the function's bound does not count
+    n_chunks = -(-LM_PROMPT // CHUNK)
+    scratch = 4 * 4 * LM_BATCH * h * n_chunks * dk * dk
+    rows = {}
+    for name in ("serial", "rwkv6", "rwkv6", "serial"):        # in turns
+        fn = lambda: gla(r, k, v, lw, u, inclusive=False, design=name)
+        t = {"ms": graph_ms(fn), "issue_ms": issue_ms(fn, reps=10)}
+        old = rows.get(name)
+        rows[name] = t if old is None else {key: min(old[key], t[key])
+                                            for key in t}
+    shape = (f"RWKV6 lag-1 + u, r/k/v [{LM_BATCH}, {LM_PROMPT}, {h}, {dk}] "
+             f"bf16, decay f32 (rwkv6-7b)")
+    for name in ("rwkv6", "serial"):
+        t = rows[name]
+        t.update(plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                 bound_by=b_by, shape=shape)
+        print(f"  gla_chunk rwkv6 bf16 S={LM_PROMPT}, "
+              f"{'RWKV6' if name == 'rwkv6' else 'serial'} design: "
+              f"{t['ms']:.5f} ms kernel, {plain_ms:.5f} ms plain (device, "
+              f"CUDA graph; the better of two turns), {t['issue_ms']:.5f} ms"
+              f" per host-issued call, bound {b_ms:.7f} ms ({b_by}: "
+              f"{n_bytes} B, {ops:.4g} operations at the bf16 peak)"
+              + (f"; chunk-state scratch {scratch} B more = "
+                 f"{scratch / HBM_BYTES_PER_S * 1e3:.6f} ms at the HBM peak"
+                 if name == "rwkv6" else "") + f" [{card}]")
+    rows["rwkv6"]["scratch_bytes"] = scratch
+    print(f"  gla_chunk rwkv6 bf16: the RWKV6 design "
+          f"{rows['serial']['ms'] / rows['rwkv6']['ms']:.3f} x faster than "
+          f"the serial design, timed in turns [{card}]")
+
+    def rwkv6_call():
+        gla(r, k, v, lw, u, inclusive=False)
+        torch.cuda.synchronize()
+    profile_run("gla_chunk RWKV6 design, one call (its three kernels)",
+                rwkv6_call, card)
     del r, k, v, lw, u
     torch.cuda.empty_cache()
-    return max(errs), t
+    return max(errs["serial"]), rows["serial"], {
+        "name": "gla_chunk_rwkv6", "max_abs_err": max(errs["rwkv6"]),
+        **rows["rwkv6"]}
 
 
 # ------------------------------------------------------------------ phase 9
@@ -2036,7 +2081,7 @@ def plain_versions(dtype=None):
 
 
 LM_KEYS = ("flash_attention", "flash_attention_tc", "gla_chunk",
-           "gla_chunk_ssd")
+           "gla_chunk_ssd", "gla_chunk_rwkv6")
 
 
 def lm_expected(model, bf16: bool = True, decode_steps: int = 0) -> dict:
@@ -2045,8 +2090,8 @@ def lm_expected(model, bf16: bool = True, decode_steps: int = 0) -> dict:
     (whisper: its encoder's self-attention and its decoder's self- and
     cross-attention), whisper's cross-attention once per decode step, the
     other families none in decode; in bf16 on the tensor-core design
-    (flash) and the SSD (Mamba2) or serial (RWKV6) one (gla), in f32 on
-    the CUDA-core and serial ones."""
+    (flash) and the SSD (Mamba2) or RWKV6 one (gla), in f32 on the
+    CUDA-core and serial ones."""
     cfg = model.cfg
     L = cfg.n_layers
     n_attn = {"dense": L, "moe": L, "vlm": L, "ssm": 0,
@@ -2058,7 +2103,8 @@ def lm_expected(model, bf16: bool = True, decode_steps: int = 0) -> dict:
             "flash_attention_tc": n_attn if bf16 else 0,
             "gla_chunk": n_gla,
             "gla_chunk_ssd": n_gla if bf16 and cfg.family == "hybrid"
-            else 0}
+            else 0,
+            "gla_chunk_rwkv6": n_gla if bf16 and cfg.family == "ssm" else 0}
 
 
 def decode_expected(model, steps: int) -> dict:
@@ -2077,8 +2123,10 @@ def by_design(counts) -> dict:
     return {"flash_attention": counts["flash_attention"]
             - counts["flash_attention_tc"],
             "flash_attention_tc": counts["flash_attention_tc"],
-            "gla_chunk": counts["gla_chunk"] - counts["gla_chunk_ssd"],
-            "gla_chunk_ssd": counts["gla_chunk_ssd"]}
+            "gla_chunk": counts["gla_chunk"] - counts["gla_chunk_ssd"]
+            - counts["gla_chunk_rwkv6"],
+            "gla_chunk_ssd": counts["gla_chunk_ssd"],
+            "gla_chunk_rwkv6": counts["gla_chunk_rwkv6"]}
 
 
 @contextlib.contextmanager
@@ -2668,7 +2716,8 @@ def run_train(arch: str, dev, card: str, fn_times: dict) -> dict:
     # under remat in the backward
     want = {"flash_attention": 2 * n_mb * n_attn,
             "flash_attention_tc": 2 * n_mb * n_attn,
-            "gla_chunk": 2 * n_mb * n_gla, "gla_chunk_ssd": 2 * n_mb * n_gla}
+            "gla_chunk": 2 * n_mb * n_gla, "gla_chunk_ssd": 2 * n_mb * n_gla,
+            "gla_chunk_rwkv6": 0}
     if any(c != want for c in counts):
         fail(f"{arch}: train steps launched {counts}, expected {want} each")
     step_s = statistics.median(times[1:])
@@ -2937,7 +2986,11 @@ def main() -> None:
                              "src/repro/kernels/gla_chunk/gla_chunk.py:82"),
                "gla_chunk_ssd": ("src/repro_torch/kernels/gla_chunk/csrc/"
                                  "gla_ssd.cu",
-                                 "src/repro/kernels/gla_chunk/gla_chunk.py:82")}
+                                 "src/repro/kernels/gla_chunk/gla_chunk.py:82"),
+               "gla_chunk_rwkv6": ("src/repro_torch/kernels/gla_chunk/csrc/"
+                                   "gla_rwkv6.cu",
+                                   "src/repro/kernels/gla_chunk/gla_chunk.py"
+                                   ":82")}
     kernels = []
     for r in results:
         name = r["name"]
@@ -2951,7 +3004,7 @@ def main() -> None:
                    **{p: c.get(name, 0) for p, c in train_counts.items()}}
         # the ETL kernels' main path is the cluster, the single-table
         # probe's the complex model; the LM designs' the six serve runs
-        # (the bf16 designs; rwkv6's serial gla), the six f32 prefills
+        # (the bf16 designs), the six f32 prefills
         # (the CUDA-core and serial designs) and the training runs
         if name in OFF_PATH:
             launches = 0
@@ -2965,9 +3018,12 @@ def main() -> None:
             launches = sum(c[name] for c in (*lm_counts.values(),
                                              *f32_counts.values(),
                                              *train_counts.values()))
-            if name == "gla_chunk" and lm_counts["lm_rwkv6"][name] <= 0:
-                fail("gla_chunk (serial) never launched on rwkv6's serve "
-                     "path")
+            if name == "gla_chunk_rwkv6" and (
+                    lm_counts["lm_rwkv6"][name] <= 0
+                    or lm_counts["lm_rwkv6"]["gla_chunk"] != 0):
+                fail(f"rwkv6's serve path launched "
+                     f"{lm_counts['lm_rwkv6']}: the RWKV6 design must take "
+                     f"every gla call, the serial design none")
             if name == "flash_attention_tc" and any(
                     lm_counts[p][name] <= 0 for p in (
                         "lm_qwen2moe", "lm_qwen2vl", "lm_whisper")):

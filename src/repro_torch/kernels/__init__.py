@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a): the ETL path's
 ``hash_join`` and ``segment_kpi`` families, and the LM serving path's
-``flash_attention`` and ``gla_chunk`` (two designs each: a tensor-core
-one for the models' bf16, the first CUDA-core one for the rest). Each
+``flash_attention`` and ``gla_chunk`` (tensor-core designs for the
+models' bf16 — one for flash, the SSD and RWKV6 ones for gla — and the
+first CUDA-core design of each for the rest). Each
 package holds ``csrc/`` (the kernels, each ``.cu`` with a plain C launch
 function), ``ops.py`` (the wrapper: checks, picks the design, allocates,
 launches on the current stream, counts launches; on a CPU tensor it runs

@@ -4,6 +4,8 @@
 // src/repro/kernels/gla_chunk/gla_chunk.py, in both of its regimes:
 //   inclusive (Mamba2/SSD):  o_t = q_t · S_t
 //   lag-1 with bonus u (RWKV6): o_t = q_t · S_{t-1} + (q_t·u·k_t) v_t
+// for f32 inputs and the bf16 calls no tensor-core design takes: bf16
+// Mamba2 runs on gla_ssd.cu, bf16 RWKV6 (the lag-1 read) on gla_rwkv6.cu.
 // with S_t = diag(exp(log_w_t)) S_{t-1} + k_t v_tᵀ, an f32 [dk, dv] state
 // per (batch, head). Per chunk of C = 64 tokens, all in f32 as the TPU
 // kernel: the cumulative log-decay L; the inter-chunk read

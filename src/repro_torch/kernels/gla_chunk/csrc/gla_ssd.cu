@@ -7,10 +7,10 @@
 // inclusive read (o_t = q_t · S_t), no bonus, bf16 q, k and v, one log-
 // decay per (token, head) broadcast over dk, q and k shared by every head
 // (models/blocks.py passes zero-stride views). RWKV6's lag-1 + bonus regime
-// and f32 inputs stay on gla_chunk.cu. The contract is that kernel's: out
-// [B, S, H, dv] in bf16, the f32 final state, an optional f32 initial
-// state, any S (the ragged tail padded with k = v = 0, log_w = 0 and not
-// stored), inputs read through strides.
+// runs on gla_rwkv6.cu in bf16; f32 inputs stay on gla_chunk.cu. The
+// contract is that kernel's: out [B, S, H, dv] in bf16, the f32 final
+// state, an optional f32 initial state, any S (the ragged tail padded with
+// k = v = 0, log_w = 0 and not stored), inputs read through strides.
 //
 // Per chunk c of C = 64 tokens and head h, with L_t the inclusive
 // cumulative log-decay inside the chunk and S_{c-1} the state at its start:
@@ -43,43 +43,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "gla_mma.cuh"
+
 namespace {
 
-constexpr int C = 64;          // chunk length (the model's)
 constexpr int NT = 128;        // 4 warps; warp w owns chunk rows 16w..+15
-constexpr int PAD = 8;         // bf16 row padding: conflict-free fragments
-constexpr int LC_ = C + PAD;
 constexpr int MAX_HG = 8;      // heads per CTA
-
-struct Strides {               // element strides of a [B, S, H, d] view
-  long long b, s, h, d;
-};
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// x = hi + lo to ~2^-16 relative, both bf16
-__device__ __forceinline__ void split(float x, __nv_bfloat16& hi,
-                                      __nv_bfloat16& lo) {
-  hi = __float2bfloat16_rn(x);
-  lo = __float2bfloat16_rn(x - __bfloat162float(hi));
-}
-
-// two neighbouring bf16 of a row as one 32-bit fragment register
-__device__ __forceinline__ uint32_t ld2(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // One warp: the inclusive cumulative log-decay of head h over the chunk's
 // tokens (0 past S), L[t] for t < 64; lane l owns tokens 2l and 2l + 1.
@@ -374,15 +343,6 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();                   // vt / sh / sl are rewritten next
   }
-}
-
-template <typename Kernel>
-int opt_in(Kernel kernel, size_t bytes, bool& done) {
-  if (done || bytes <= 48 * 1024) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) done = true;
-  return (int)err;
 }
 
 template <int DK, int DV>

@@ -1,20 +1,26 @@
 """Wrapper of the ``gla_chunk`` CUDA kernels: the chunked gated linear
 recurrence of RWKV6 (lag-1 read + bonus ``u``) and Mamba2/SSD (inclusive
-read), with an initial state in and the final state out, in two
+read), with an initial state in and the final state out, in three
 hand-written designs.
 
 * ``csrc/gla_ssd.cu`` — the chunk-parallel SSD form on the tensor cores
   (chunk states, state passing, chunk scan: three launches) for the
   regime zamba2 runs: bf16 q, k, v, inclusive, no bonus, q and k shared
   by every head and one decay per (token, head) (``takes_ssd``);
+* ``csrc/gla_rwkv6.cu`` — the same three-launch skeleton for the regime
+  rwkv6 runs: bf16 q, k, v, the lag-1 read, a bonus or none, per-head q
+  and k, one decay per (token, head, channel), the intra-chunk scores on
+  the tensor cores through per-sub-chunk anchors (``takes_rwkv6``);
 * ``csrc/gla_chunk.cu`` — one CTA per (batch, head) walking the chunks,
-  f32 on the CUDA cores, for every other call (RWKV6, f32 inputs).
+  f32 on the CUDA cores, for every other call (f32 inputs, the inclusive
+  read with per-head q and k).
 
 For CPU tensors ``gla`` runs the plain version (``ref.gla_chunk_ref``);
 for CUDA tensors it launches one of the designs on the current stream or
 raises. ``launches["gla_chunk"]`` counts calls that launched a kernel
 (one per call, whatever the design's number of kernels);
-``launches["gla_chunk_ssd"]`` those that took the SSD design.
+``launches["gla_chunk_ssd"]`` and ``launches["gla_chunk_rwkv6"]`` those
+that took the SSD and the RWKV6 design.
 
 Gradients: ``gla_fn`` (``GlaChunkFn``) runs ``gla`` forward and, backward,
 recomputes a plain version under autograd and returns its input gradients
@@ -41,10 +47,10 @@ MAX_DK = 64
 MAX_DV = 128
 SSD_DK = (16, 32, 64)
 SSD_DV = (16, 32, 64, 128)
-DESIGNS = ("auto", "ssd", "serial")
+DESIGNS = ("auto", "ssd", "rwkv6", "serial")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = {"gla_chunk": 0, "gla_chunk_ssd": 0}
+launches = {"gla_chunk": 0, "gla_chunk_ssd": 0, "gla_chunk_rwkv6": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,6 +75,15 @@ def _ssd_fn():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _rwkv6_fn():
+    from repro_torch.kernels._build import library
+    fn = library("gla_chunk").gla_rwkv6_launch
+    fn.argtypes = [_P] * 10 + [_I] * 5 + [_L] * 16 + [_P]
+    fn.restype = _I
+    return fn
+
+
 def _shared(t: torch.Tensor, axis: int) -> bool:
     """Whether ``t`` holds one value along ``axis`` (a zero-stride
     broadcast view, or a single entry)."""
@@ -85,6 +100,15 @@ def takes_ssd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (q.dtype == torch.bfloat16 and inclusive and u is None
             and q.shape[3] in SSD_DK and v.shape[3] in SSD_DV
             and _shared(q, 2) and _shared(k, 2) and _shared(log_w, 3))
+
+
+def takes_rwkv6(q: torch.Tensor, v: torch.Tensor, inclusive: bool) -> bool:
+    """Whether the RWKV6 design takes these (already checked) inputs: the
+    RWKV6 regime — bf16, the lag-1 read, a bonus ``u`` or none, q, k and
+    log_w per head and channel (read through their strides, so a shared
+    view is read as well) — at dk in ``SSD_DK`` and dv in ``SSD_DV``."""
+    return (q.dtype == torch.bfloat16 and not inclusive
+            and q.shape[3] in SSD_DK and v.shape[3] in SSD_DV)
 
 
 def gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -141,23 +165,34 @@ def gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     s0 = None if initial_state is None else initial_state.data_ptr()
     ssd = takes_ssd(q, k, v, log_w, u, inclusive)
+    rwkv6 = takes_rwkv6(q, v, inclusive)
     if design == "ssd" and not ssd:
         raise ValueError("the SSD design takes the Mamba2 regime in bf16 "
                          f"only, at dk in {SSD_DK} and dv in {SSD_DV}")
-    if ssd and design != "serial":
+    if design == "rwkv6" and not rwkv6:
+        raise ValueError("the RWKV6 design takes the lag-1 regime in bf16 "
+                         f"only, at dk in {SSD_DK} and dv in {SSD_DV}")
+    if (ssd or rwkv6) and design != "serial":
         n = -(-s // CHUNK)
         # the chunk states (ΔS, then each chunk's start state) and each
-        # chunk's total log-decay
+        # chunk's total log-decay (per channel for RWKV6)
         states = torch.empty((b, h, n, dk, dv), dtype=torch.float32,
                              device=dev)
-        lc = torch.empty((b, h, n), dtype=torch.float32, device=dev)
-        err = _ssd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        log_w.data_ptr(), s0, out.data_ptr(),
-                        final.data_ptr(), states.data_ptr(), lc.data_ptr(),
-                        b, s, h, dk, dv, *q.stride(), *k.stride(),
-                        *v.stride(), *log_w.stride(), stream)
-        raise_on(err, "gla_chunk_ssd")
-        count_launch(launches, "gla_chunk", "gla_chunk_ssd")
+        lc = torch.empty((b, h, n) + ((dk,) if rwkv6 else ()),
+                         dtype=torch.float32, device=dev)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr())
+        tail = (b, s, h, dk, dv, *q.stride(), *k.stride(), *v.stride(),
+                *log_w.stride(), stream)
+        if ssd:
+            err = _ssd_fn()(*ptrs, s0, out.data_ptr(), final.data_ptr(),
+                            states.data_ptr(), lc.data_ptr(), *tail)
+        else:
+            err = _rwkv6_fn()(*ptrs, None if u is None else u.data_ptr(),
+                              s0, out.data_ptr(), final.data_ptr(),
+                              states.data_ptr(), lc.data_ptr(), *tail)
+        name = "gla_chunk_ssd" if ssd else "gla_chunk_rwkv6"
+        raise_on(err, name)
+        count_launch(launches, "gla_chunk", name)
         return out, final
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
                 None if u is None else u.data_ptr(),
@@ -217,4 +252,4 @@ def gla_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 __all__ = ["GlaChunkFn", "gla", "gla_chunk_ref", "gla_fn", "launches",
-           "plain_for", "takes_ssd"]
+           "plain_for", "takes_rwkv6", "takes_ssd"]

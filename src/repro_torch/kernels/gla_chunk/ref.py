@@ -5,7 +5,8 @@ what ``ops.gla`` runs for CPU tensors: the chunked form of the JAX
 package's ``models/gla.py:gla_chunk`` in torch, with f32 decay ratios (the
 Pallas kernel's precision, the reference's ``ratio_dtype=jnp.float32``),
 an optional initial state and the final state returned. ``gla_ssd_ref``
-is the chunk-parallel decomposition of the SSD design, for the tests.
+and ``gla_rwkv6_ref`` are the chunk-parallel decompositions of the SSD
+and the RWKV6 design, for the tests.
 
 Recurrence per head (state S in R^{dk x dv}):
 
@@ -134,5 +135,86 @@ def gla_ssd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = (torch.einsum("bhnti,bhnij->bhntj", scores, vc)
            + torch.exp(L)[..., None] * torch.einsum(
                "bhntd,bhndj->bhntj", qc, torch.stack(starts, dim=2)))
+    out = out.permute(0, 2, 3, 1, 4).reshape(b, s, h, dv)
+    return out[:, :s_orig].to(v.dtype), S
+
+
+def gla_rwkv6_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  log_w: torch.Tensor, u: Optional[torch.Tensor] = None, *,
+                  chunk: int = 64, sub: int = 16,
+                  initial_state: Optional[torch.Tensor] = None,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunk-parallel decomposition that ``csrc/gla_rwkv6.cu``
+    computes, in plain f32 torch, for the tests: the RWKV6 regime (lag-1
+    read, bonus ``u`` or none, per-head q and k, one log-decay per
+    channel). Shapes and returns as ``gla_chunk_ref``. With L the
+    inclusive cumulative log-decay in a chunk and Lq = L − log_w:
+
+      1. chunk states: dS = (k∘exp(L_C − L))ᵀ v and L_C per channel;
+      2. state passing: S_c = exp(L_C)∘S_{c-1} + dS_c from the initial
+         state, keeping each chunk's start state;
+      3. chunk scan: out = (q∘exp(Lq))·S_{c-1} + A·v, where A over query
+         sub-chunk a (``sub`` tokens) and key sub-chunk b < a is
+         (q∘exp(Lq − Λ_a))·(k∘exp(Λ_a − L))ᵀ with the anchor Λ_a = Lq at
+         a's first token (both exponents <= 0; keys of b >= a are masked
+         before the exp), the diagonal blocks are exact, masked before the
+         exp (i < t), and the bonus q_t·u·k_t sits on the diagonal."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    s_orig = s
+    if s % chunk:
+        pad = chunk - s % chunk
+        q, k, v, log_w = (F.pad(x, (0, 0, 0, 0, 0, pad))
+                          for x in (q, k, v, log_w))
+        s += pad
+    n, m = s // chunk, chunk // sub
+    acc = torch.promote_types(q.dtype, torch.float32)
+
+    def chunks(x):                                # [b, h, n, C, d] f32
+        return x.reshape(b, n, chunk, h, -1).permute(0, 3, 1, 2, 4).to(acc)
+
+    qc, kc, vc, lw = chunks(q), chunks(k), chunks(v), chunks(log_w)
+    L = torch.cumsum(lw, dim=3)
+    Lq = L - lw
+    Lc = L[..., -1, :]                                        # [b,h,n,dk]
+    # 1. chunk states
+    d_state = torch.einsum("bhnid,bhnij->bhndj",
+                           kc * torch.exp(Lc[..., None, :] - L), vc)
+    # 2. state passing
+    S = (initial_state.to(acc) if initial_state is not None
+         else torch.zeros((b, h, dk, dv), dtype=acc, device=q.device))
+    starts = []
+    for c in range(n):
+        starts.append(S)
+        S = torch.exp(Lc[:, :, c])[..., None] * S + d_state[:, :, c]
+    # 3. chunk scan: inter
+    out = torch.einsum("bhntd,bhndj->bhntj", qc * torch.exp(Lq),
+                       torch.stack(starts, dim=2))
+    # off-diagonal sub-chunk pairs through the anchors
+    by_sub = lambda x: x.reshape(b, h, n, m, sub, -1)         # noqa: E731
+    qs, ks, Ls, Lqs = by_sub(qc), by_sub(kc), by_sub(L), by_sub(Lq)
+    anchor = Lqs[..., :1, :]                              # [b,h,n,m,1,dk]
+    q_sc = qs * torch.exp(Lqs - anchor)
+    key_sub = torch.arange(chunk, device=q.device) // sub
+    later = key_sub[None, :] >= torch.arange(m, device=q.device)[:, None]
+    k_exp = (anchor - L[:, :, :, None]).masked_fill(
+        later[:, :, None], NEG_INF)                       # [b,h,n,m,C,dk]
+    A = torch.einsum("bhnatd,bhnaid->bhnati", q_sc,
+                     kc[:, :, :, None] * torch.exp(k_exp))
+    # diagonal blocks, exact, and the bonus on their diagonal
+    t_idx = torch.arange(sub, device=q.device)
+    masked = t_idx[:, None] <= t_idx[None, :]                 # i >= t
+    diff = (Lqs[..., :, None, :] - Ls[..., None, :, :]).masked_fill(
+        masked[..., None], NEG_INF)
+    diag = (qs[..., :, None, :] * ks[..., None, :, :]
+            * torch.exp(diff)).sum(-1)                    # [b,h,n,m,t,i]
+    if u is not None:
+        bonus = (qs * u.to(acc)[None, :, None, None, None, :] * ks).sum(-1)
+        diag = diag + torch.diag_embed(bonus)
+    eye = torch.eye(m, dtype=acc, device=q.device)
+    A = A + (diag[..., None, :] * eye[:, None, :, None]).reshape(
+        b, h, n, m, sub, chunk)
+    out = out + torch.einsum("bhnti,bhnij->bhntj",
+                             A.reshape(b, h, n, chunk, chunk), vc)
     out = out.permute(0, 2, 3, 1, 4).reshape(b, s, h, dv)
     return out[:, :s_orig].to(v.dtype), S

@@ -258,9 +258,10 @@ def rwkv6_time_mix(p, x, cfg: ModelConfig, *, mode, cache):
         new_cache = cache
     else:
         init = cache["state"] if cache is not None else None
-        # the RWKV6 regime of the gla_chunk kernel (its serial design:
-        # per-head r/k, per-channel decay, the bonus u), f32-accurate as
-        # the reference's ratio_dtype=f32 here
+        # the RWKV6 regime of the gla_chunk kernel (per-head r/k,
+        # per-channel decay, the bonus u; in bf16 its chunk-parallel RWKV6
+        # design, in f32 the serial one), f32-accurate as the reference's
+        # ratio_dtype=f32 here
         out, final = gla.gla_chunk(r, k, v, log_w, u=p["u"],
                                    inclusive=False, initial_state=init)
         new_cache = (None if mode == "train"

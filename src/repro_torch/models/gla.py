@@ -16,7 +16,8 @@ The JAX package's ``models/gla.py:gla_chunk`` rounds q, k and the decay
 ratios of the intra-chunk term to ``ratio_dtype`` (bf16 by default, which
 Mamba2 uses); the port keeps f32 accuracy there, as the Pallas kernel
 does: the serial design computes in f32, the SSD design (Mamba2 in bf16)
-splits each f32 operand of its bf16 products into hi + lo parts.
+and the RWKV6 design (RWKV6 in bf16) split each f32 operand of their
+bf16 products into hi + lo parts.
 """
 from __future__ import annotations
 

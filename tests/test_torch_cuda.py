@@ -890,13 +890,125 @@ def test_gla_chunk_ssd_matches_plain(dev, s, with_state, h, dk, dv):
     torch.testing.assert_close(final, ref_final, rtol=2e-4, atol=2e-4)
 
 
+def _rwkv6_inputs(rng, dev, b, s, h, dk, dv):
+    """rwkv6's regime as its time mix hands it over: bf16 r, k, v, an f32
+    per-channel log decay -exp(clip(x, -8, 4)) with its first 4 channels
+    at the clip's -e^4 (a chunk's cumulative decay near -3,500), and the
+    f32 bonus u."""
+    r, k = (_lm_rand(rng, (b, s, h, dk), dev, torch.bfloat16)
+            for _ in range(2))
+    v = _lm_rand(rng, (b, s, h, dv), dev, torch.bfloat16)
+    x = _lm_rand(rng, (b, s, h, dk), dev) * 3
+    x[..., :4] = 4.0
+    return r, k, v, -torch.exp(torch.clamp(x, -8.0, 4.0)), \
+        _lm_rand(rng, (h, dk), dev)
+
+
+@pytest.mark.parametrize("s", [256, 130, 1000])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("h,dk,dv,use_u", [
+    (4, 64, 64, True), (3, 32, 128, True), (2, 16, 32, True),
+    (2, 64, 16, False), (2, 16, 128, False)])
+def test_gla_chunk_rwkv6_matches_plain(dev, s, with_state, h, dk, dv,
+                                       use_u):
+    """rwkv6's bf16 inputs on the chunk-parallel RWKV6 design (tensor-core
+    scores anchored per sub-chunk): out within 2e-2 (bf16), the final
+    state within 2e-4 of the plain version, at dk 16/32/64 and dv up to
+    128, ragged S, with and without an initial state and the bonus; one
+    launch counted for the design, none for the SSD design."""
+    from repro_torch.kernels.gla_chunk import ops as gl
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+    rng = np.random.default_rng(s + dk + dv + h + use_u)
+    r, k, v, lw, u = _rwkv6_inputs(rng, dev, 2, s, h, dk, dv)
+    u = u if use_u else None
+    s0 = _lm_rand(rng, (2, h, dk, dv), dev) if with_state else None
+    before = launch_counts()
+    out, final = gl.gla(r, k, v, lw, u, inclusive=False, initial_state=s0)
+    after = launch_counts()
+    assert after["gla_chunk"] == before["gla_chunk"] + 1
+    assert after["gla_chunk_rwkv6"] == before["gla_chunk_rwkv6"] + 1
+    assert after["gla_chunk_ssd"] == before["gla_chunk_ssd"]
+    ref_out, ref_final = gla_chunk_ref(r, k, v, lw, u, inclusive=False,
+                                       initial_state=s0)
+    assert out.dtype == torch.bfloat16 and out.shape == ref_out.shape
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(final, ref_final, rtol=2e-4, atol=2e-4)
+
+
+def test_gla_chunk_rwkv6_reads_strided_views(dev):
+    """Views the 16-byte loads cannot take (a channel stride of 2, a head
+    stride that is not a multiple of 8 elements, the model's [B, H, S, d]
+    transposed) are read element by element through their strides, with
+    the same result as their contiguous copies."""
+    from repro_torch.kernels.gla_chunk import ops as gl
+    rng = np.random.default_rng(41)
+    b, s, h, d = 2, 200, 3, 32
+    r = _lm_rand(rng, (b, s, h, 2 * d), dev, torch.bfloat16)[..., ::2]
+    k = _lm_rand(rng, (b, s, h * d + 4), dev, torch.bfloat16)[
+        ..., 4:].unflatten(-1, (h, d))                # token stride h·d + 4
+    v = _lm_rand(rng, (b, h, s, d), dev, torch.bfloat16).transpose(1, 2)
+    _, _, _, lw, u = _rwkv6_inputs(rng, dev, b, s, h, d, d)
+    lw = torch.cat([lw, lw], -1)[..., ::2]
+    s0 = _lm_rand(rng, (b, h, d, d), dev)
+    got = gl.gla(r, k, v, lw, u, inclusive=False, initial_state=s0)
+    want = gl.gla(r.contiguous(), k.contiguous(), v.contiguous(),
+                  lw.contiguous(), u, inclusive=False, initial_state=s0)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("design", ["rwkv6", "serial"])
+def test_gla_chunk_rwkv6_pinned_design_matches_plain(dev, design):
+    """Either design pinned on rwkv6's bf16 inputs (how chip_smoke.py times
+    them in turns) holds the plain version and counts as its own."""
+    from repro_torch.kernels.gla_chunk import ops as gl
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+    rng = np.random.default_rng(43)
+    r, k, v, lw, u = _rwkv6_inputs(rng, dev, 2, 200, 8, 64, 64)
+    s0 = _lm_rand(rng, (2, 8, 64, 64), dev)
+    before = launch_counts()["gla_chunk_rwkv6"]
+    out, final = gl.gla(r, k, v, lw, u, inclusive=False, initial_state=s0,
+                        design=design)
+    assert launch_counts()["gla_chunk_rwkv6"] == before + int(
+        design == "rwkv6")
+    ref_out, ref_final = gla_chunk_ref(r, k, v, lw, u, inclusive=False,
+                                       initial_state=s0)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(final, ref_final, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("case", ["f32", "inclusive", "dk 48", "dv 256"])
+def test_gla_chunk_rwkv6_pinned_outside_its_regime_raises(dev, case):
+    """``design="rwkv6"`` raises, launching nothing, where ``takes_rwkv6``
+    is false."""
+    from repro_torch.kernels.gla_chunk import ops as gl
+    rng = np.random.default_rng(47)
+    dk = 48 if case == "dk 48" else 64
+    dv = 256 if case == "dv 256" else 64
+    r, k, v, lw, u = _rwkv6_inputs(rng, dev, 1, 70, 2, dk, min(dv, 128))
+    if case == "dv 256":
+        v = _lm_rand(rng, (1, 70, 2, dv), dev, torch.bfloat16)
+    if case == "f32":
+        r, k, v = r.float(), k.float(), v.float()
+    assert not gl.takes_rwkv6(r, v, case == "inclusive")
+    before = launch_counts()
+    with pytest.raises(ValueError):
+        gl.gla(r, k, v, lw, u, inclusive=case == "inclusive",
+               design="rwkv6")
+    assert launch_counts() == before
+
+
 @pytest.mark.parametrize("case,ssd", [
     ("mamba2 bf16", True), ("mamba2 f32", False), ("rwkv6 bf16", False),
     ("per-head q, k bf16", False), ("lag-1 bf16", False)])
 def test_gla_chunk_routes_to_a_kernel(dev, case, ssd):
-    """Only the Mamba2 regime in bf16 takes the SSD design; f32, RWKV6's
-    lag-1 + bonus regime and per-head q, k launch the f32 design; none
-    runs the plain version on the card."""
+    """Only the Mamba2 regime in bf16 takes the SSD design; the lag-1 read
+    in bf16 (RWKV6's, with or without the bonus) takes the RWKV6 design;
+    f32 and the inclusive read with per-head q, k launch the f32 design;
+    none runs the plain version on the card."""
     from repro_torch.kernels.gla_chunk import ops as gl
     from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
     rng = np.random.default_rng(len(case))
@@ -911,6 +1023,9 @@ def test_gla_chunk_routes_to_a_kernel(dev, case, ssd):
     after = launch_counts()
     assert after["gla_chunk"] == before["gla_chunk"] + 1
     assert after["gla_chunk_ssd"] - before["gla_chunk_ssd"] == int(ssd)
+    rwkv6 = dtype == torch.bfloat16 and not inclusive
+    assert (after["gla_chunk_rwkv6"] - before["gla_chunk_rwkv6"]
+            == int(rwkv6))
     ref_out, ref_final = gla_chunk_ref(q, k, v, lw, u, inclusive=inclusive)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
@@ -968,6 +1083,8 @@ def test_lm_wrappers_raise_instead_of_running_the_plain_version(dev):
     with pytest.raises(ValueError):                      # ssd pinned, f32
         gl.gla(m.float(), m.float(), m.float(), lw, inclusive=True,
                design="ssd")
+    with pytest.raises(ValueError):                      # rwkv6 pinned, f32
+        gl.gla(m.float(), m.float(), m.float(), lw, design="rwkv6")
     with pytest.raises(ValueError):                      # no such design
         fa.mha(qb, qb, qb, design="wgmma")
     assert launch_counts() == before
@@ -1113,7 +1230,7 @@ def test_gla_chunk_rwkv6_bf16_regime(dev, s, with_state):
     """rwkv6's regime as its time mix hands it over: bf16 r, k, v, an f32
     per-channel log decay made as the model makes it, -exp(clip(x, -8,
     4)), with channels at -e^4 (a chunk's cumulative decay near -3,500),
-    and the bonus u — on the serial design: out within 2e-2 and the final
+    and the bonus u — on the RWKV6 design: out within 2e-2 and the final
     state within 2e-4 of the plain version."""
     from repro_torch.kernels.gla_chunk import ops as gl
     from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
@@ -1131,6 +1248,7 @@ def test_gla_chunk_rwkv6_bf16_regime(dev, s, with_state):
     after = launch_counts()
     assert after["gla_chunk"] == before["gla_chunk"] + 1
     assert after["gla_chunk_ssd"] == before["gla_chunk_ssd"]
+    assert after["gla_chunk_rwkv6"] == before["gla_chunk_rwkv6"] + 1
     ref_out, ref_final = gla_chunk_ref(r, k, v, lw, u, inclusive=False,
                                        initial_state=s0)
     assert bool(torch.isfinite(out.float()).all())

@@ -228,4 +228,4 @@ def test_build_hashes_every_file_of_a_kernel_package(tmp_path, monkeypatch):
     assert [p.name for p in _build.sources("flash_attention")] == [
         "flash_attention.cu", "flash_attention_tc.cu"]
     assert [p.name for p in _build.sources("gla_chunk")] == [
-        "gla_chunk.cu", "gla_ssd.cu"]
+        "gla_chunk.cu", "gla_rwkv6.cu", "gla_ssd.cu"]
