@@ -135,7 +135,17 @@ Phases, each fatal on failure (no fallback to the CPU):
    ``examples.train_lm`` (ETL-fed) for 30 steps: the loss falls,
    transform_kpi launched, its checkpoint restores bitwise; (e)
    ``manual_dp`` over NCCL at world size 1 against ``make_train_step``;
-   (f) ``examples.quickstart`` on the card against its CPU run.
+   (f) ``examples.quickstart`` on the card against its CPU run;
+11. the dry run held against the card (``launch.dryrun``,
+   ``launch.step_analysis``): for internlm2-1.8b and zamba2-1.2b, phase
+   9's prefill (4 x 2048) and phase 10c's train step (8 x 2048, 8
+   microbatches, remat) traced on ``meta`` tensors, then run once on the
+   card under ``analyze_step`` with seeded weights (the flash_attention_tc
+   and gla_ssd launches counted): (a) operations, bytes, aten ops and
+   kernel calls equal, exactly; (b) the dry run's peak estimate within
+   15% of the card's ``max_memory_allocated`` over the step; (c) its
+   roofline bound over phase 9's / 10c's measured time at most 1.05. The
+   (arch x shape) matrix runs from the CLI (``--all``), not here.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -1560,12 +1570,6 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 GLA_TOL = 2e-4
 
 
-def stored_elems(t) -> int:
-    """Elements a tensor's storage holds for it: broadcast (zero-stride)
-    axes count once."""
-    return math.prod(n for n, st in zip(t.shape, t.stride()) if st != 0)
-
-
 def max_err(got, want, tol: float, what: str) -> float:
     """Max |got - want|; fails unless every element is within tol + tol *
     |want| (numpy's allclose with rtol = atol = tol)."""
@@ -1589,14 +1593,13 @@ def flash_inputs(b, hq, hkv, s, d, dtype, dev, gen):
 
 
 def flash_bound(q, k, v, causal=True):
-    """Least time for one attention call: each input read once and the
-    output written once over HBM, against 4·B·Hq·Sq·Skv·D flops (full;
-    half of that causal, at Sq = Skv) over the input dtype's peak."""
+    """Least time for one attention call: the package's own count of it
+    (``flash_attention.ops.work``: each input read once and the output
+    written once, 4·B·Hq·Sq·Skv·D flops, half of that causal at Sq =
+    Skv) over HBM and the input dtype's peak."""
     import torch
-    b, hq, sq, d = q.shape
-    skv = k.shape[2]
-    n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    flops = (2 if causal else 4) * b * hq * sq * skv * d
+    from repro_torch.kernels.flash_attention.ops import work
+    flops, n_bytes = work(q, k, v, causal)
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     return bound(n_bytes, flops, peak)
 
@@ -1794,21 +1797,6 @@ def gla_inputs(b, s, h, dk, dv, dtype, dev, gen, *, mamba):
     return q, k, lm_rand((b, s, h, dv), dev, dtype, gen), lw
 
 
-def gla_work(q, v, inclusive: bool) -> float:
-    """Operations of one gla_chunk call, from its shapes: per chunk and
-    head, the intra scores (5 per (t, i, d) pair: sub, exp, 2 mul, add over
-    the unmasked pairs), the intra, inter and state products (2 each per
-    multiply-add), the decays (3 per element) and the cumsum."""
-    b, s, h, dk = q.shape
-    dv = v.shape[-1]
-    c = 64
-    n = -(-s // c)
-    pairs = c * (c + 1) // 2 if inclusive else c * (c - 1) // 2
-    per_chunk = (5 * pairs * dk + 2 * pairs * dv + 2 * c * dk * dv
-                 + 2 * c * dk * dv + 6 * c * dk + 3 * dk * dv)
-    return float(b * h * n * per_chunk)
-
-
 def check_gla(dev, gen, card) -> list:
     """Both gla_chunk designs against the plain version: f32 in both
     regimes (the serial design, 2e-4), then zamba2's bf16 Mamba2 inputs
@@ -1818,6 +1806,7 @@ def check_gla(dev, gen, card) -> list:
     import torch
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.gla_chunk.ops import CHUNK, gla
+    from repro_torch.kernels.gla_chunk.ops import work as gla_work
     from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
     from repro_torch.models import build_model
     cfg = build_model("zamba2-1.2b").cfg
@@ -1875,9 +1864,8 @@ def check_gla(dev, gen, card) -> list:
     del r_out, r_fin
     plain_ms = graph_ms(lambda: gla_chunk_ref(q, k, v, lw, inclusive=True),
                         reps=2, rounds=3)
-    n_bytes = (sum(x.element_size() * stored_elems(x) for x in (q, k, v, lw))
-               + out.element_size() * out.numel() + 4 * fin.numel())
-    b_ms, b_by = bound(n_bytes, gla_work(q, v, True), BF16_FLOP_PER_S)
+    ops, n_bytes = gla_work(q, k, v, lw, inclusive=True)
+    b_ms, b_by = bound(n_bytes, ops, BF16_FLOP_PER_S)
     # the SSD design's f32 chunk states: written (1), read and rewritten
     # (2), read (3) — traffic the function's bound does not count
     n_chunks = -(-LM_PROMPT // CHUNK)
@@ -1898,7 +1886,7 @@ def check_gla(dev, gen, card) -> list:
               f"{t['ms']:.5f} ms kernel, {plain_ms:.5f} ms plain (device, "
               f"CUDA graph; the better of two turns), {t['issue_ms']:.5f} ms "
               f"per host-issued call, bound {b_ms:.6f} ms ({b_by}: "
-              f"{n_bytes} B, {gla_work(q, v, True):.4g} operations at the "
+              f"{n_bytes} B, {ops:.4g} operations at the "
               f"bf16 peak)"
               + (f"; chunk-state scratch {scratch} B more = "
                  f"{scratch / HBM_BYTES_PER_S * 1e3:.6f} ms at the HBM peak"
@@ -1942,13 +1930,14 @@ def check_gla_rwkv6(dev, gen, card):
     out within 2e-2 and the final state within 2e-4 of the plain version
     and its launch counted as its own. Then both timed in turns (serial,
     RWKV6, RWKV6, serial) at S = 2048: device and issue time, the plain
-    version's, the bound (bytes / 3.35 TB/s or ``gla_work`` operations at
-    the bf16 peak) and the RWKV6 design's chunk-state scratch; its three
-    kernels under the profiler. Returns (the serial design's max error and
+    version's, the bound (``gla_chunk.ops.work``'s bytes / 3.35 TB/s or
+    its operations at the bf16 peak) and the RWKV6 design's chunk-state
+    scratch; its three kernels under the profiler. Returns (the serial design's max error and
     timed record, the RWKV6 design's record)."""
     import torch
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.gla_chunk.ops import CHUNK, gla
+    from repro_torch.kernels.gla_chunk.ops import work as gla_work
     from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
     from repro_torch.models import build_model
     cfg = build_model("rwkv6-7b").cfg
@@ -1998,10 +1987,7 @@ def check_gla_rwkv6(dev, gen, card):
     plain_ms = graph_ms(lambda: gla_chunk_ref(r, k, v, lw, u,
                                               inclusive=False),
                         reps=2, rounds=3)
-    n_bytes = (sum(x.element_size() * x.numel() for x in (r, k, v, lw, u))
-               + v.element_size() * v.numel()
-               + 4 * LM_BATCH * h * dk * dk)
-    ops = gla_work(r, v, False)
+    ops, n_bytes = gla_work(r, k, v, lw, u, inclusive=False)
     b_ms, b_by = bound(n_bytes, ops, BF16_FLOP_PER_S)
     # the RWKV6 design's f32 chunk states: written (1), read and rewritten
     # (2), read (3) — traffic the function's bound does not count
@@ -2304,8 +2290,8 @@ def rwkv6_f32_head(model, params, batch, prompt: int, got, want,
 
 
 def run_lm(arch: str, dev, card: str):
-    """Phase 9 for one model. Returns the serve run's launch counts and
-    the f32 prefill's."""
+    """Phase 9 for one model. Returns the serve run's launch counts, the
+    f32 prefill's and the serve run's prefill seconds."""
     import torch
     from repro_torch.examples.serve_lm import serve
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2393,6 +2379,7 @@ def run_lm(arch: str, dev, card: str):
             not bool(((toks >= 0) & (toks < cfg.vocab)).all()) or \
             not bool(torch.isfinite(out["logits"]).all()):
         fail(f"{arch}: serve returned bad tokens or logits")
+    out_prefill_s = out["prefill_s"]
     pre_tps = LM_BATCH * prompt / out["prefill_s"]
     dec_tps = LM_BATCH * LM_DECODE / out["decode_s"]
     print(f"{arch} serve [{card}]: prefill {LM_BATCH} x {prompt} tokens "
@@ -2498,7 +2485,7 @@ def run_lm(arch: str, dev, card: str):
               f"{errs / (0.02 * scale):.4f})")
     del params, got
     torch.cuda.empty_cache()
-    return counts, f32_counts
+    return counts, f32_counts, out_prefill_s
 
 
 # ----------------------------------------------------------------- phase 10
@@ -2649,7 +2636,28 @@ def smoke_train_parity(dev, card) -> None:
               f"{SMOKE_TOL})")
 
 
-def run_train(arch: str, dev, card: str, fn_times: dict) -> dict:
+def train_layers(model):
+    """(attention layers, Mamba2 layers) of a trained model (internlm2,
+    zamba2)."""
+    cfg = model.cfg
+    if cfg.family == "dense":
+        return cfg.n_layers, 0
+    return model.n_shared_apps(), cfg.n_layers
+
+
+def train_expected(model) -> dict:
+    """The LM kernels' launches of one train step: each layer's forward
+    runs twice per microbatch, once, then again under remat in the
+    backward (bf16: the tensor-core and SSD designs)."""
+    n_attn, n_gla = train_layers(model)
+    n_mb = model.cfg.microbatches
+    return {"flash_attention": 2 * n_mb * n_attn,
+            "flash_attention_tc": 2 * n_mb * n_attn,
+            "gla_chunk": 2 * n_mb * n_gla, "gla_chunk_ssd": 2 * n_mb * n_gla,
+            "gla_chunk_rwkv6": 0}
+
+
+def run_train(arch: str, dev, card: str, fn_times: dict):
     """Phase 10c: the full-width, full-depth model (seeded bf16 weights on
     the card) takes ``TRAIN_STEPS`` steps of batch 8 x 2048 tokens in the
     config's 8 microbatches with remat on. Every gradient leaf must be
@@ -2660,7 +2668,7 @@ def run_train(arch: str, dev, card: str, fn_times: dict) -> dict:
     launches per step, and the share of a step the recompute backwards of
     the LM kernels take at phase 10a's times (one backward per attention /
     Mamba2 layer per microbatch). Returns the kernel launches of the
-    run."""
+    run and the median step seconds."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
@@ -2709,15 +2717,8 @@ def run_train(arch: str, dev, card: str, fn_times: dict) -> dict:
     if not all(math.isfinite(x) for x in losses):
         fail(f"{arch}: train loss not finite: {losses}")
     n_mb = cfg.microbatches
-    n_attn = (cfg.n_layers if cfg.family == "dense"
-              else model.n_shared_apps())
-    n_gla = 0 if cfg.family == "dense" else cfg.n_layers
-    # each layer's forward runs twice per microbatch: once, then again
-    # under remat in the backward
-    want = {"flash_attention": 2 * n_mb * n_attn,
-            "flash_attention_tc": 2 * n_mb * n_attn,
-            "gla_chunk": 2 * n_mb * n_gla, "gla_chunk_ssd": 2 * n_mb * n_gla,
-            "gla_chunk_rwkv6": 0}
+    n_attn, n_gla = train_layers(model)
+    want = train_expected(model)
     if any(c != want for c in counts):
         fail(f"{arch}: train steps launched {counts}, expected {want} each")
     step_s = statistics.median(times[1:])
@@ -2741,7 +2742,7 @@ def run_train(arch: str, dev, card: str, fn_times: dict) -> dict:
           f" of a step")
     del params, opt, batch
     torch.cuda.empty_cache()
-    return {k: total[k] for k in total}
+    return {k: total[k] for k in total}, step_s
 
 
 def run_train_lm(card: str) -> dict:
@@ -2851,6 +2852,110 @@ def check_quickstart(card) -> None:
           f"{float(np.abs(gpu - cpu).max()):.3g})")
 
 
+# ----------------------------------------------------------------- phase 11
+PEAK_TOL = 0.15                    # the dry run's peak vs the card's
+SHARE_MAX = 1.05                   # bound / measured above this: impossible
+
+
+def check_dryrun(arch: str, dev, card: str, measured: dict) -> dict:
+    """Phase 11 for one model: phase 9's prefill (4 x 2048) and phase
+    10c's train step (8 x 2048, 8 microbatches, remat), each traced by the
+    dry run on ``meta`` tensors (``launch.dryrun``, timed) and run once on
+    the card under ``launch.step_analysis.analyze_step`` (untimed: the
+    counting adds host work), with fresh seeded weights. (a) the card
+    run's operations, bytes, aten ops and kernel calls equal the dry
+    run's exactly; (b) the dry run's peak estimate is within 15% of the
+    card's ``max_memory_allocated`` over the step (counted from
+    ``reset_peak_memory_stats``, less what was allocated before the
+    weights were drawn); (c) the dry run's roofline bound over phase 9's /
+    10c's measured time is at most 1.05. The LM kernels' launches of each
+    card run are checked (the bf16 designs). Returns the launches."""
+    import torch
+    from repro_torch.configs import ShapeSuite
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train.serve_step import make_prefill_step
+    from repro_torch.train.train_step import make_train_step
+    model = build_model(arch)
+    cfg = model.cfg
+    cells = (("prefill", LM_BATCH, LM_PROMPT, measured["prefill_s"],
+              lm_expected(model)),
+             ("train", TRAIN_BATCH, TRAIN_SEQ, measured["step_s"],
+              train_expected(model)))
+    total = {k: 0 for k in LM_KEYS}
+    for kind, batch_n, seq, measured_s, want in cells:
+        suite = ShapeSuite(f"phase_{kind}", seq, batch_n, kind)
+        fn, args, meta, comm = dryrun.build_cell(arch, suite.name,
+                                                 suite=suite)
+        t0 = time.perf_counter()
+        dry = dryrun.analyze_cell(fn, args, meta, comm)
+        trace_s = time.perf_counter() - t0
+        del fn, args
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = model.init(gen)
+        toks = torch.randint(0, cfg.vocab, (batch_n, seq), generator=gen,
+                             device=dev)
+        if kind == "prefill":
+            step, card_args = make_prefill_step(model), (params,
+                                                         {"tokens": toks})
+        else:
+            step = make_train_step(model, AdamWConfig())
+            card_args = (params, init_state(params),
+                         {"tokens": toks, "targets": torch.roll(toks, -1, 1)})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        out, got = analyze_step(step, *card_args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        counts = lm_launches(launch_counts())
+        del out, card_args, params, toks
+        torch.cuda.empty_cache()
+        if counts != want:
+            fail(f"{arch} {kind} under analyze_step launched {counts}, "
+                 f"expected {want}")
+        for k in LM_KEYS:
+            total[k] += counts[k]
+        cost = dry["cost"]
+        same = (got["flops"] == cost["flops_per_device"]
+                and got["bytes"] == cost["bytes_per_device"]
+                and got["ops"] == cost["ops"]
+                and got["kernels"] == dry["kernels"])
+        if not same:
+            fail(f"{arch} {kind}: the card run counted {got['flops']} "
+                 f"operations, {got['bytes']} B, {got['ops']} ops, kernels "
+                 f"{got['kernels']}; the dry run {cost}, {dry['kernels']}")
+        est = dry["memory"]["peak_estimate_bytes"]
+        if not abs(est - peak) <= PEAK_TOL * peak:
+            fail(f"{arch} {kind}: the dry run's peak estimate {est} B is not "
+                 f"within {PEAK_TOL:.0%} of the card's {peak} B")
+        roof = dry["roofline"]
+        share = roof["bound_s"] / measured_s
+        if not share <= SHARE_MAX:
+            fail(f"{arch} {kind}: roofline bound {roof['bound_s']} s over "
+                 f"the measured {measured_s} s = {share} > {SHARE_MAX}: an "
+                 f"impossible reading")
+        print(f"{arch} dry run of the {kind} [{batch_n} x {seq}] held "
+              f"against the card [{card}]: traced on meta in {trace_s:.2f} "
+              f"s (host); (a) operations {got['flops']} and bytes "
+              f"{got['bytes']} ({got['ops']} ops, kernels "
+              f"{ {k: v['calls'] for k, v in got['kernels'].items()} }) "
+              f"equal on the card and on meta; (b) peak estimate "
+              f"{est / 2**30:.3f} GiB vs the card's max_memory_allocated "
+              f"{peak / 2**30:.3f} GiB ({est / peak - 1:+.4f}); (c) roofline "
+              f"bound {roof['bound_s'] * 1e3:.3f} ms ({roof['dominant']}: "
+              f"compute {roof['t_compute_s'] * 1e3:.3f}, memory "
+              f"{roof['t_memory_s'] * 1e3:.3f} ms) over the measured "
+              f"{measured_s * 1e3:.3f} ms = {share:.4f}; launches {counts}")
+    return total
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_card()
@@ -2943,22 +3048,32 @@ def main() -> None:
 
     gen = torch.Generator(device=dev).manual_seed(0)           # phase 8
     results += check_flash(dev, gen, card) + check_gla(dev, gen, card)
-    lm_counts, f32_counts = {}, {}                             # phase 9
+    lm_counts, f32_counts, measured = {}, {}, {}               # phase 9
     for arch in LM_ARCHS:
         path = LM_PATHS[arch]
-        serve_counts, f32 = run_lm(arch, dev, card)
+        serve_counts, f32, prefill_s = run_lm(arch, dev, card)
         lm_counts[path] = by_design(serve_counts)
         f32_counts[path + "_f32_prefill"] = by_design(f32)
+        measured[arch] = {"prefill_s": prefill_s}
     fn_times = check_function_grads(dev, gen, card)            # phase 10
     smoke_train_parity(dev, card)
     train_counts = {}
     for arch in TRAIN_ARCHS:
-        train_counts["train_" + arch.split("-")[0]] = by_design(
-            run_train(arch, dev, card, fn_times))
+        counts, measured[arch]["step_s"] = run_train(arch, dev, card,
+                                                     fn_times)
+        train_counts["train_" + arch.split("-")[0]] = by_design(counts)
     lm_run = run_train_lm(card)
     train_counts["train_lm"] = {**lm_run, **by_design(lm_run)}
     check_manual_dp(dev, card)
     check_quickstart(card)
+    for arch in TRAIN_ARCHS:                                   # phase 11
+        train_counts["dryrun_" + arch.split("-")[0]] = by_design(
+            check_dryrun(arch, dev, card, measured[arch]))
+    print("the dry run's (arch x shape) matrix at one card runs from the "
+          "CLI (python -m repro_torch.launch.dryrun --all), not here: its "
+          "six train cells trace for longer than the 60 s of host time "
+          "this phase may take (see the trace times above); PERF.md holds "
+          "its table")
     for name, t in fn_times.items():
         next(r for r in results if r["name"] == name).update(
             train_forward_ms=t["fwd_ms"], recompute_backward_ms=t["bwd_ms"],

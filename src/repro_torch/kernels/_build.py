@@ -17,6 +17,14 @@ the argument and error checks every wrapper shares; ``no_graph_inputs``
 and ``recompute_grads`` serve the LM kernels' autograd Functions; ``count_launch`` is the
 one place a wrapper's launch counter moves, under a lock (the concurrent
 runtime's stage threads launch at the same time).
+
+``COUNTER`` is the work counter of a step under analysis
+(``launch.step_analysis.analyze_step``) or None. The LM kernel wrappers
+check it once per call; while it is set they run through
+``counted_call``, which records the call's work by the kernel's own
+formula (its ``ops.work``) and hides the ops inside the call from the
+counter, whichever route runs: the launch, the plain version on the CPU,
+or the ``meta`` route (outputs allocated, nothing launched).
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -210,3 +218,44 @@ def count_launch(launches: Dict[str, int], *ops: str) -> None:
     with COUNT_LOCK:
         for op in ops:
             launches[op] += 1
+
+
+# the work counter of a step under analysis, or None (set and cleared by
+# ``launch.step_analysis.analyze_step``)
+COUNTER = None
+
+
+def stored_bytes(t: Optional[torch.Tensor]) -> int:
+    """Bytes a tensor's storage holds for it: broadcast (zero-stride) axes
+    count once; 0 for None."""
+    if t is None:
+        return 0
+    n = 1
+    for size, st in zip(t.shape, t.stride()):
+        if st != 0:
+            n *= size
+    return n * t.element_size()
+
+
+def counted_call(name: str, run: Callable, work: Callable,
+                 scratch: int = 0):
+    """``run()`` as one kernel call of ``COUNTER``: the ops inside it are
+    not counted; ``work(outputs) -> (flops, bytes)`` is recorded for it,
+    and its outputs (and ``scratch`` bytes, live only during the call)
+    enter the counter's live bytes."""
+    counter = COUNTER
+    with counter.inside_kernel():
+        out = run()
+    flops, n_bytes = work(out)
+    counter.record_kernel(name, flops, n_bytes, scratch, out)
+    return out
+
+
+def like(t: torch.Tensor, g: Optional[torch.Tensor]
+         ) -> Optional[torch.Tensor]:
+    """``g`` in the layout ``torch.empty_like(t)`` has (a copy where it
+    differs): what a kernel route allocates, so that every route hands
+    the same layout to the ops after it."""
+    if g is None or g.stride() == torch.empty_like(t, device="meta").stride():
+        return g
+    return torch.empty_like(t).copy_(g)

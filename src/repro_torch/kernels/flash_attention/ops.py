@@ -9,10 +9,15 @@ streaming softmax, in two hand-written designs.
   inputs and for every bf16 call the first one does not take (head_dim 16
   or 32, unaligned views).
 
-For CPU tensors ``mha`` runs the plain version (``ref.attention_ref``);
-for CUDA tensors it launches one of the kernels on the current stream or
-raises. ``launches["flash_attention"]`` counts every kernel launch,
-``launches["flash_attention_tc"]`` those of the tensor-core design.
+For CPU tensors ``mha`` runs the plain version (``ref.attention_ref``,
+its output laid out as the kernel's); for CUDA tensors it launches one of
+the kernels on the current stream or raises; for ``meta`` tensors (the
+dry run, ``launch/dryrun.py``) it makes the kernel's checks, allocates
+its output and launches nothing. ``launches["flash_attention"]`` counts
+every kernel launch, ``launches["flash_attention_tc"]`` those of the
+tensor-core design. ``work`` is a call's operations and bytes from its
+shapes (``PERF.md``'s bound column and the dry run's count of a call);
+under a step's work counter (``_build.COUNTER``) every call records it.
 
 Gradients: ``attention`` (``FlashAttentionFn``) runs ``mha`` forward and,
 backward, recomputes the plain version under autograd and returns its
@@ -25,11 +30,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import (count_launch, no_graph_inputs,
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import (count_launch, like, no_graph_inputs,
                                        on_cuda, raise_on, recompute_grads)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -86,6 +92,32 @@ def takes_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
                     for t in (q, k, v)))
 
 
+def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         causal: bool = True) -> Tuple[int, int]:
+    """(operations, bytes) of one call, from its shapes: 4·B·Hq·Sq·Skv·D
+    (the QKᵀ and PV products), half of that causal at Sq = Skv (the
+    kernel skips the masked tiles); q, k and v read once and the output
+    written once."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    flops = (2 if causal and sq == skv else 4) * b * hq * sq * skv * d
+    return flops, q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+
+
+def backward_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                  ) -> Tuple[int, int]:
+    """(operations, bytes) of ``FlashAttentionFn``'s backward, which
+    recomputes the plain version and its gradient: the full (unmasked)
+    products once forward (4·B·Hq·Sq·Skv·D) and twice that backward;
+    q, k, v and the output's gradient read once, the three input
+    gradients written once."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    return (12 * b * hq * sq * skv * d,
+            q.element_size() * (3 * q.numel() + 2 * k.numel()
+                                + 2 * v.numel()))
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, scale: Optional[float] = None,
         design: str = "auto") -> torch.Tensor:
@@ -101,8 +133,16 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if design not in DESIGNS:
         raise ValueError(f"design {design!r} not in {DESIGNS}")
     no_graph_inputs("flash_attention", "attention", q, k, v)
-    if not on_cuda(q, "flash_attention"):
-        return attention_ref(q, k, v, causal=causal, scale=scale)
+    if _build.COUNTER is not None:
+        return _build.counted_call(
+            "flash_attention", lambda: _mha(q, k, v, causal, scale, design),
+            lambda out: work(q, k, v, causal))
+    return _mha(q, k, v, causal, scale, design)
+
+
+def _mha(q, k, v, causal, scale, design) -> torch.Tensor:
+    if q.device.type != "meta" and not on_cuda(q, "flash_attention"):
+        return like(q, attention_ref(q, k, v, causal=causal, scale=scale))
     dev = q.device
     for t, name in ((k, "k"), (v, "v")):
         if t.device != dev:
@@ -127,6 +167,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("head_dim must be the contiguous axis")
     out = torch.empty_like(q)
+    if dev.type == "meta":
+        return out
     scale = d ** -0.5 if scale is None else scale
     stream = torch.cuda.current_stream(dev).cuda_stream
     tc = takes_tc(q, k, v)
@@ -163,10 +205,25 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        grads = recompute_grads(
-            lambda q, k, v: attention_ref(q, k, v, causal=ctx.causal,
-                                          scale=ctx.scale),
-            ctx.saved_tensors, ctx.needs_input_grad, (grad_out,))
+        saved = ctx.saved_tensors
+
+        def run():
+            if grad_out.device.type == "meta":
+                grads = [torch.empty_like(t) if n else None
+                         for t, n in zip(saved, ctx.needs_input_grad)]
+            else:
+                grads = recompute_grads(
+                    lambda q, k, v: attention_ref(
+                        q, k, v, causal=ctx.causal, scale=ctx.scale),
+                    saved, ctx.needs_input_grad, (grad_out,))
+            return [like(t, g) for t, g in zip(saved, grads)]
+
+        if _build.COUNTER is not None:
+            grads = _build.counted_call(
+                "flash_attention_backward", run,
+                lambda grads: backward_work(*saved))
+        else:
+            grads = run()
         return (*grads, None, None)
 
 
@@ -178,5 +235,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return FlashAttentionFn.apply(q, k, v, causal, scale)
 
 
-__all__ = ["FlashAttentionFn", "attention", "attention_ref", "launches",
-           "mha", "takes_tc"]
+__all__ = ["FlashAttentionFn", "attention", "attention_ref",
+           "backward_work", "launches", "mha", "takes_tc", "work"]

@@ -15,10 +15,17 @@ hand-written designs.
   f32 on the CUDA cores, for every other call (f32 inputs, the inclusive
   read with per-head q and k).
 
-For CPU tensors ``gla`` runs the plain version (``ref.gla_chunk_ref``);
-for CUDA tensors it launches one of the designs on the current stream or
-raises. ``launches["gla_chunk"]`` counts calls that launched a kernel
-(one per call, whatever the design's number of kernels);
+For CPU tensors ``gla`` runs the plain version (``ref.gla_chunk_ref``,
+its outputs laid out as the kernels'); for CUDA tensors it launches one
+of the designs on the current stream or raises; for ``meta`` tensors (the
+dry run, ``launch/dryrun.py``) it makes the kernels' checks, allocates
+their outputs and the chunk-parallel designs' scratch and launches
+nothing. ``work`` is a call's operations and bytes from its shapes
+(``PERF.md``'s bound column and the dry run's count of a call); under a
+step's work counter (``_build.COUNTER``) every call records it, with the
+scratch its design allocates. ``launches["gla_chunk"]`` counts calls
+that launched a kernel (one per call, whatever the design's number of
+kernels);
 ``launches["gla_chunk_ssd"]`` and ``launches["gla_chunk_rwkv6"]`` those
 that took the SSD and the RWKV6 design.
 
@@ -38,8 +45,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import (check, count_launch, no_graph_inputs,
-                                       on_cuda, raise_on, recompute_grads)
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import (check, count_launch, like,
+                                       no_graph_inputs, on_cuda, raise_on,
+                                       recompute_grads, stored_bytes)
 from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref, gla_ssd_ref
 
 CHUNK = 64            # the kernel's chunk length (the model's)
@@ -111,6 +120,56 @@ def takes_rwkv6(q: torch.Tensor, v: torch.Tensor, inclusive: bool) -> bool:
             and q.shape[3] in SSD_DK and v.shape[3] in SSD_DV)
 
 
+def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         log_w: torch.Tensor, u: Optional[torch.Tensor] = None, *,
+         inclusive: bool = False, chunk: int = CHUNK,
+         initial_state: Optional[torch.Tensor] = None) -> Tuple[int, int]:
+    """(operations, bytes) of one call, from its shapes. Operations per
+    chunk and head: the intra scores (5 per unmasked (t, i, d) triple:
+    sub, exp, 2 mul, add), the intra, inter and state products (2 per
+    multiply-add each), the decays (6 per (t, d)) and the state's decay
+    (3 per element). Bytes: the inputs as stored (broadcast axes once)
+    read once, the output and the f32 final state written once."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    n = -(-s // chunk)
+    pairs = chunk * (chunk + 1) // 2 if inclusive else chunk * (chunk - 1) // 2
+    per_chunk = (5 * pairs * dk + 2 * pairs * dv + 4 * chunk * dk * dv
+                 + 6 * chunk * dk + 3 * dk * dv)
+    n_bytes = (sum(stored_bytes(t) for t in (q, k, v, log_w, u,
+                                             initial_state))
+               + v.element_size() * b * s * h * dv + 4 * b * h * dk * dv)
+    return b * h * n * per_chunk, n_bytes
+
+
+def backward_work(q, k, v, log_w, u, initial_state, *, inclusive: bool,
+                  chunk: int = CHUNK) -> Tuple[int, int]:
+    """(operations, bytes) of ``GlaChunkFn``'s backward, which recomputes
+    a plain version and its gradient: three times the forward's
+    operations (the forward once more, its gradient twice); the saved
+    inputs and the two output gradients read once, every input gradient
+    written once (dense)."""
+    flops, fwd_bytes = work(q, k, v, log_w, u, inclusive=inclusive,
+                            chunk=chunk, initial_state=initial_state)
+    inputs = [t for t in (q, k, v, log_w, u, initial_state) if t is not None]
+    return 3 * flops, fwd_bytes + sum(t.numel() * t.element_size()
+                                      for t in inputs)
+
+
+def scratch_bytes(q, k, v, log_w, u, inclusive: bool,
+                  design: str = "auto") -> int:
+    """Bytes of the f32 scratch a call allocates for its duration: the
+    chunk-parallel designs' chunk states and per-chunk log-decays; the
+    serial design (and the plain version) none."""
+    if design == "serial" or not (takes_ssd(q, k, v, log_w, u, inclusive)
+                                  or takes_rwkv6(q, v, inclusive)):
+        return 0
+    b, s, h, dk = q.shape
+    n = -(-s // CHUNK)
+    per_channel = dk if takes_rwkv6(q, v, inclusive) else 1
+    return 4 * b * h * n * (dk * v.shape[-1] + per_channel)
+
+
 def gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         log_w: torch.Tensor, u: Optional[torch.Tensor] = None, *,
         inclusive: bool = False, chunk: int = CHUNK,
@@ -127,9 +186,21 @@ def gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if design not in DESIGNS:
         raise ValueError(f"design {design!r} not in {DESIGNS}")
     no_graph_inputs("gla_chunk", "gla_fn", q, k, v, log_w, u, initial_state)
-    if not on_cuda(q, "gla_chunk"):
-        return gla_chunk_ref(q, k, v, log_w, u, inclusive=inclusive,
-                             chunk=chunk, initial_state=initial_state)
+    args = (q, k, v, log_w, u, inclusive, chunk, initial_state, design)
+    if _build.COUNTER is not None:
+        return _build.counted_call(
+            "gla_chunk", lambda: _gla(*args),
+            lambda out: work(q, k, v, log_w, u, inclusive=inclusive,
+                             chunk=chunk, initial_state=initial_state),
+            scratch_bytes(q, k, v, log_w, u, inclusive, design))
+    return _gla(*args)
+
+
+def _gla(q, k, v, log_w, u, inclusive, chunk, initial_state, design):
+    if q.device.type != "meta" and not on_cuda(q, "gla_chunk"):
+        out, final = gla_chunk_ref(q, k, v, log_w, u, inclusive=inclusive,
+                                   chunk=chunk, initial_state=initial_state)
+        return out.contiguous(), final.contiguous()
     dev = q.device
     if chunk != CHUNK:
         raise ValueError(f"the gla_chunk kernel runs chunk={CHUNK}, "
@@ -162,8 +233,6 @@ def gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               dev)
     out = torch.empty((b, s, h, dv), dtype=v.dtype, device=dev)
     final = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    s0 = None if initial_state is None else initial_state.data_ptr()
     ssd = takes_ssd(q, k, v, log_w, u, inclusive)
     rwkv6 = takes_rwkv6(q, v, inclusive)
     if design == "ssd" and not ssd:
@@ -172,7 +241,8 @@ def gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if design == "rwkv6" and not rwkv6:
         raise ValueError("the RWKV6 design takes the lag-1 regime in bf16 "
                          f"only, at dk in {SSD_DK} and dv in {SSD_DV}")
-    if (ssd or rwkv6) and design != "serial":
+    chunked = (ssd or rwkv6) and design != "serial"
+    if chunked:
         n = -(-s // CHUNK)
         # the chunk states (ΔS, then each chunk's start state) and each
         # chunk's total log-decay (per channel for RWKV6)
@@ -180,6 +250,11 @@ def gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              device=dev)
         lc = torch.empty((b, h, n) + ((dk,) if rwkv6 else ()),
                          dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return out, final
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    s0 = None if initial_state is None else initial_state.data_ptr()
+    if chunked:
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr())
         tail = (b, s, h, dk, dv, *q.stride(), *k.stride(), *v.stride(),
                 *log_w.stride(), stream)
@@ -234,9 +309,26 @@ class GlaChunkFn(torch.autograd.Function):
     def backward(ctx, grad_out, grad_final):
         saved = ctx.saved_tensors          # unpacked once (checkpointing)
         q, k, v, log_w, u, _ = saved
-        grads = recompute_grads(
-            plain_for(q, k, v, log_w, u, ctx.inclusive, ctx.chunk),
-            saved, ctx.needs_input_grad, (grad_out, grad_final))
+
+        def run():
+            if q.device.type == "meta":
+                grads = [torch.empty_like(t) if t is not None and n
+                         else None
+                         for t, n in zip(saved, ctx.needs_input_grad)]
+            else:
+                grads = recompute_grads(
+                    plain_for(q, k, v, log_w, u, ctx.inclusive, ctx.chunk),
+                    saved, ctx.needs_input_grad, (grad_out, grad_final))
+            return [None if t is None else like(t, g)
+                    for t, g in zip(saved, grads)]
+
+        if _build.COUNTER is not None:
+            grads = _build.counted_call(
+                "gla_chunk_backward", run,
+                lambda grads: backward_work(*saved, inclusive=ctx.inclusive,
+                                            chunk=ctx.chunk))
+        else:
+            grads = run()
         return (*grads, None, None)
 
 
@@ -251,5 +343,6 @@ def gla_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             chunk)
 
 
-__all__ = ["GlaChunkFn", "gla", "gla_chunk_ref", "gla_fn", "launches",
-           "plain_for", "takes_rwkv6", "takes_ssd"]
+__all__ = ["GlaChunkFn", "backward_work", "gla", "gla_chunk_ref", "gla_fn",
+           "launches", "plain_for", "scratch_bytes", "takes_rwkv6",
+           "takes_ssd", "work"]

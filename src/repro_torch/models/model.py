@@ -4,7 +4,9 @@
 
 ``Model(cfg)`` builds a ParamDef tree once (the JAX package's tree, leaf
 for leaf); ``init`` materializes it from a ``torch.Generator`` on that
-generator's device, ``init_cache`` allocates the decode cache. ``forward``
+generator's device, ``abstract`` gives it as ``meta`` tensors,
+``init_cache`` allocates the decode cache (on the CPU or the card; the
+dry run takes ``tree_abstract(cache_defs(...))``). ``forward``
 covers three modes:
 
   train   — full-sequence causal LM (or enc-dec) forward, returns logits;
@@ -33,7 +35,8 @@ from repro_torch.core.backend import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.layers import (embed, layernorm, rmsnorm,
                                        sinusoidal_pos, swiglu_mlp, unembed)
-from repro_torch.models.param import ParamDef, tree_init, tree_map
+from repro_torch.models.param import (ParamDef, tree_abstract, tree_init,
+                                      tree_map)
 
 
 def _layer(tree, i: int):
@@ -133,6 +136,11 @@ class Model:
     def init(self, generator: torch.Generator) -> Any:
         """Random weights on ``generator.device``."""
         return tree_init(self.defs, generator)
+
+    def abstract(self) -> Any:
+        """The parameters as ``meta`` tensors (no memory): what the dry
+        run (``launch/dryrun.py``) traces a step with."""
+        return tree_abstract(self.defs)
 
     # --------------------------------------------------------------- caches
     def n_shared_apps(self) -> int:

@@ -62,10 +62,25 @@ def assign_positions(expert_idx: torch.Tensor, n_experts: int, capacity: int
     Returns (position [..., S], keep_mask [..., S]): the position is the
     count of earlier assignments to the same expert; assignments at or
     beyond ``capacity`` are dropped."""
-    onehot = F.one_hot(expert_idx.long(), n_experts)          # [..., S, E]
+    idx = expert_idx.long()
+    # F.one_hot's own CUDA path: its CPU path first reads the indices'
+    # min and max on the host, so a step would count other ops there
+    onehot = torch.zeros((*idx.shape, n_experts), dtype=torch.long,
+                         device=idx.device).scatter_(-1, idx[..., None], 1)
     pos = torch.cumsum(onehot, dim=-2) - 1
     position = (pos * onehot).sum(dim=-1)
     return position, position < capacity
+
+
+def top1_counts(topi: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Tokens whose first choice is each expert, int64 [n_experts]: a
+    fixed-size count (``torch.bincount`` sizes its output from the
+    indices' max, a host sync per layer on the card, and has no ``meta``
+    kernel)."""
+    first = topi[..., 0].reshape(-1)
+    return torch.zeros(n_experts, dtype=torch.long,
+                       device=topi.device).scatter_add_(
+        0, first, torch.ones_like(first))
 
 
 class Routing(NamedTuple):
@@ -124,8 +139,7 @@ def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig
 
     # load-balancing aux loss (Switch): mean prob x mean top-1 assignment
     me = probs.mean(dim=(0, 1))                              # [e]
-    ce = torch.bincount(topi[..., 0].reshape(-1), minlength=e).float() \
-        / (g * gs)
+    ce = top1_counts(topi, e).float() / (g * gs)
     aux = (me * ce).sum() * e * cfg.router_aux_weight
 
     gate = topv * keep                                       # dropped -> 0

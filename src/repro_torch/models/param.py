@@ -2,8 +2,9 @@
 
 Every parameter is declared once as a ``ParamDef`` carrying its shape, its
 *logical* axis names and an init rule; one tree of ParamDefs (nested
-dicts) gives the materialized parameters (``tree_init``) and the decode
-cache (``Model.init_cache``). The trees have the JAX package's structure
+dicts) gives the materialized parameters (``tree_init``), their
+``meta``-tensor stand-ins (``tree_abstract``, what the dry run traces)
+and the decode cache (``Model.init_cache``). The trees have the JAX package's structure
 and leaf shapes, stacked ``[L, ...]`` layer axis included, so weights
 carry across leaf for leaf (``models/convert.py``).
 
@@ -99,6 +100,14 @@ def tree_init(defs, generator: torch.Generator) -> Any:
     if isinstance(defs, dict):
         return {k: tree_init(defs[k], generator) for k in sorted(defs)}
     return _materialize(defs, generator)
+
+
+def tree_abstract(defs) -> Any:
+    """A tree of ``meta`` tensors of each ParamDef's shape and dtype: no
+    memory, no values (the JAX package's ``ShapeDtypeStruct`` stand-ins,
+    ``models/param.py:tree_abstract``)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), defs)
 
 
 def count_params(defs) -> int:

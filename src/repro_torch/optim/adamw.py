@@ -60,6 +60,18 @@ def init_state(params) -> AdamWState:
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
+def abstract_state(abstract_params) -> AdamWState:
+    """``init_state``'s shapes and dtypes as ``meta`` tensors (the JAX
+    package's ``optim/adamw.py:abstract_state``): what the dry run traces
+    a train step with."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      mu=tree_map(f32, abstract_params),
+                      nu=tree_map(f32, abstract_params))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, leaves in the
     reference's order."""

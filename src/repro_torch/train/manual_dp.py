@@ -15,11 +15,15 @@ and the shard's sum of squared gradients) gives the loss and the global
 norm. Wire bytes per step: the bucket in f32 out, the parameters back —
 independent of the number of microbatches.
 
-NCCL on cards, gloo on the CPU (the tests).
+NCCL on cards, gloo on the CPU (the tests). ``collective_plan`` states
+the step's collectives and their sizes; the step issues them through a
+``Collectives`` (``torch.distributed``), and the dry run
+(``launch/dryrun.py``) traces it with a recorder in its place and holds
+what it issued against the plan.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -65,6 +69,43 @@ class FlatLayout:
         return flat[self.lo:self.lo + self.shard]
 
 
+def collective_plan(params, world: int) -> List[Dict[str, Any]]:
+    """The collectives one step issues at ``world`` ranks, in order, each
+    as {"op": the ``torch.distributed`` call, "kind", "dtype", and
+    "result_bytes": the tensor it leaves on a rank}: one reduce-scatter of
+    the f32 gradient bucket (its result one rank's shard), one all-reduce
+    of two f32 scalars (the loss and the shard's squared norm), one
+    all-gather of the updated shards in the parameters' dtype (its result
+    the whole bucket)."""
+    lay = FlatLayout(params, world, 0)
+    gathered = lay.dtype.itemsize * lay.padded
+    return [{"op": "reduce_scatter_tensor", "kind": "reduce-scatter",
+             "dtype": str(torch.float32), "result_bytes": 4 * lay.shard},
+            {"op": "all_reduce", "kind": "all-reduce",
+             "dtype": str(torch.float32), "result_bytes": 8},
+            {"op": "all_gather_into_tensor", "kind": "all-gather",
+             "dtype": str(lay.dtype), "result_bytes": gathered}]
+
+
+class Collectives:
+    """The step's three collectives over a ``torch.distributed`` group."""
+
+    def __init__(self, group=None):
+        self.group = group
+        self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+
+    def reduce_scatter_tensor(self, out: torch.Tensor, inp: torch.Tensor):
+        dist.reduce_scatter_tensor(out, inp, op=dist.ReduceOp.SUM,
+                                   group=self.group)
+
+    def all_reduce(self, t: torch.Tensor):
+        dist.all_reduce(t, group=self.group)
+
+    def all_gather_into_tensor(self, out: torch.Tensor, inp: torch.Tensor):
+        dist.all_gather_into_tensor(out, inp, group=self.group)
+
+
 def init_shard_state(params, group=None) -> AdamWState:
     """Step 0 and zero f32 moments for this rank's shard."""
     lay = FlatLayout(params, dist.get_world_size(group),
@@ -75,17 +116,30 @@ def init_shard_state(params, group=None) -> AdamWState:
                       z(), z())
 
 
+def abstract_zero_opt_state(params, world: int) -> AdamWState:
+    """``init_shard_state``'s shapes and dtypes on ``meta`` (the JAX
+    package's ``train/manual_dp.py:abstract_zero_opt_state``): the step
+    and one rank's f32 moment shards of the flat bucket."""
+    lay = FlatLayout(params, world, 0)
+    z = lambda: torch.empty(lay.shard, dtype=torch.float32, device="meta")
+    return AdamWState(torch.empty((), dtype=torch.int32, device="meta"),
+                      z(), z())
+
+
 def make_manual_dp_train_step(model: Model, opt_cfg: AdamWConfig,
-                              group=None) -> Callable:
+                              group=None, comm=None) -> Callable:
     """``step(params, shard_state, batch) -> (params, shard_state,
     metrics)``: ``batch`` is this rank's part of the global batch,
     ``shard_state`` this rank's ZeRO shard (``init_shard_state``). The
     parameters (replicated) are updated in place on every rank. Metrics:
-    the mean loss over ranks, the global grad norm, the learning rate."""
+    the mean loss over ranks, the global grad norm, the learning rate.
+    ``comm`` (default ``Collectives(group)``) issues the collectives of
+    ``collective_plan``; it has their three methods, ``world`` and
+    ``rank``."""
     cfg = model.cfg
     loss_fn = make_loss_fn(model)
-    world = dist.get_world_size(group)
-    rank = dist.get_rank(group)
+    comm = Collectives(group) if comm is None else comm
+    world, rank = comm.world, comm.rank
 
     def step(params, opt: AdamWState, batch: Dict[str, torch.Tensor]
              ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
@@ -105,13 +159,12 @@ def make_manual_dp_train_step(model: Model, opt_cfg: AdamWConfig,
         bucket.div_(n_mb)
         # ---- the one reduction: ZeRO reduce-scatter, then the mean
         g = torch.empty(lay.shard, dtype=torch.float32, device=lay.device)
-        dist.reduce_scatter_tensor(g, bucket, op=dist.ReduceOp.SUM,
-                                   group=group)
+        comm.reduce_scatter_tensor(g, bucket)
         g.div_(world)
         del bucket, views
         # loss and the global norm: the shards partition the bucket
         scalars = torch.stack([loss_sum / n_mb, torch.sum(torch.square(g))])
-        dist.all_reduce(scalars, group=group)
+        comm.all_reduce(scalars)
         loss, gnorm = scalars[0] / world, torch.sqrt(scalars[1])
         scale = torch.clamp(opt_cfg.clip_norm / (gnorm + 1e-9), max=1.0)
         new_step = opt.step + 1
@@ -127,8 +180,7 @@ def make_manual_dp_train_step(model: Model, opt_cfg: AdamWConfig,
                     b1c=b1c, b2c=b2c, decay=decay)
         # ---- the one gather of the updated shard
         full = torch.empty(lay.padded, dtype=lay.dtype, device=lay.device)
-        dist.all_gather_into_tensor(full, p.to(lay.dtype).contiguous(),
-                                    group=group)
+        comm.all_gather_into_tensor(full, p.to(lay.dtype).contiguous())
         with torch.no_grad():
             for x, view in zip(leaves, lay.views(full)):
                 x.copy_(view.reshape(x.shape))

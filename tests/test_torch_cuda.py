@@ -1469,3 +1469,57 @@ def test_train_lm_on_card(dev, tmp_path):
     for a, b in zip(flatten(got)[0], flatten(tree)[0]):
         if b is not None:
             assert torch.equal(a, b)
+
+
+def _meta_tree(tree):
+    """A tree (dicts, tuples, NamedTuples) with each tensor replaced by a
+    ``meta`` tensor of its shape, strides and dtype."""
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_strided(tree.shape, tree.stride(),
+                                   dtype=tree.dtype, device="meta")
+    if isinstance(tree, dict):
+        return {k: _meta_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_meta_tree(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_meta_tree(v) for v in tree)
+    return tree
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_step_analysis_on_card_counts_what_meta_counts(dev, arch, kind):
+    """A smoke model's step (bf16 weights on the card, the kernels
+    launched) under ``analyze_step`` counts exactly what the same step
+    counts on ``meta`` tensors: operations, bytes, aten ops, kernel calls
+    and the live-bytes peak."""
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step)
+    from repro_torch.train.train_step import make_train_step
+    model = build_model(arch, smoke=True)
+    cfg = model.cfg
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (4, 64)), device=dev)
+    batch = _smoke_batch(model, toks)
+    if "frames" in batch:
+        batch["frames"] = batch["frames"].to(dev, torch.bfloat16)
+    if kind == "prefill":
+        fn, args = make_prefill_step(model), (params, batch)
+    elif kind == "decode":
+        fn, args = make_decode_step(model), (
+            params, model.init_cache(4, 64, device=dev),
+            toks[:, :1].clone(), 63)
+    else:
+        batch["targets"] = torch.roll(toks, -1, 1)
+        fn = make_train_step(model, AdamWConfig())
+        args = (params, init_state(params), batch)
+    meta_args = _meta_tree(args)
+    _, card = analyze_step(fn, *args)
+    torch.cuda.synchronize()
+    _, met = analyze_step(fn, *meta_args)
+    for key in ("flops", "bytes", "ops", "kernels", "op_flops", "memory"):
+        assert card[key] == met[key], key

@@ -99,3 +99,63 @@ def test_two_ranks_match_one_process_on_the_whole_batch():
         for m, w in zip(metrics, want):
             for key in ("loss", "grad_norm", "lr"):
                 assert m[key] == pytest.approx(w[key], rel=1e-6, abs=1e-6)
+
+
+_KINDS = {"reduce_scatter_tensor": "reduce-scatter",
+          "all_reduce": "all-reduce",
+          "all_gather_into_tensor": "all-gather"}
+
+
+def _rank_plan(rank: int, port: int, out) -> None:
+    """One step with every collective the step issues recorded, in
+    ``collective_plan``'s form (the output tensor each leaves)."""
+    import torch.distributed as dist
+    from repro_torch.train import manual_dp
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=WORLD, rank=rank)
+    try:
+        issued = []
+        for name, kind in _KINDS.items():
+            def recorded(result, *a, _fn=getattr(dist, name), _name=name,
+                         _kind=kind, **kw):
+                issued.append({"op": _name, "kind": _kind,
+                               "dtype": str(result.dtype),
+                               "result_bytes": result.numel()
+                               * result.element_size()})
+                return _fn(result, *a, **kw)
+            setattr(dist, name, recorded)
+        model, params, batch = _setup()
+        params = tree_map(lambda p: p.bfloat16(), params)
+        mine = {k: v.chunk(WORLD)[rank] for k, v in batch.items()}
+        step = manual_dp.make_manual_dp_train_step(model, OPT)
+        step(params, manual_dp.init_shard_state(params), mine)
+        out.put((rank, issued))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_ranks_issue_exactly_the_collective_plan():
+    """Each of two gloo ranks issues exactly ``collective_plan``'s
+    collectives, in order, of its sizes and dtypes (bf16 parameters: the
+    gathered bucket travels in bf16, the gradient in f32)."""
+    from repro_torch.train.manual_dp import collective_plan
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_plan, args=(r, port, out))
+             for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(out.get(timeout=240) for _ in range(WORLD))
+    finally:
+        for p in procs:
+            p.join(60)
+    assert all(p.exitcode == 0 for p in procs)
+    model, params, _ = _setup()
+    plan = collective_plan(tree_map(lambda p: p.bfloat16(), params), WORLD)
+    assert [c["kind"] for c in plan] == ["reduce-scatter", "all-reduce",
+                                         "all-gather"]
+    assert plan[2]["dtype"] == "torch.bfloat16"
+    for r in range(WORLD):
+        assert got[r] == plan
