@@ -145,7 +145,27 @@ Phases, each fatal on failure (no fallback to the CPU):
    kernel calls equal, exactly; (b) the dry run's peak estimate within
    15% of the card's ``max_memory_allocated`` over the step; (c) its
    roofline bound over phase 9's / 10c's measured time at most 1.05. The
-   (arch x shape) matrix runs from the CLI (``--all``), not here.
+   (arch x shape) matrix runs from the CLI (``--all``), not here;
+12. the model axis: internlm2-1.8b, zamba2-1.2b and qwen2-moe-a2.7b at
+   full width and depth, seeded bf16 weights, prefill 4 x 2048 and 8
+   decode steps, first unsharded on the card (then freed), then on two
+   ranks (spawned processes on the one card, gloo staging the CUDA
+   tensors through the host; ``models/sharding.py``: heads, kv heads, MLP
+   columns, experts and vocab over a (1, 2) mesh) fed the same tokens:
+   every step's logits within 0.02 x max(|logits|, 1) of the unsharded
+   run's, or, where the model's own rounding witness (the ranks'
+   row-parallel arithmetic at one rank) misses that bound too, within
+   1.25x the witness's mean error; the greedy tokens' agreement; the
+   same in f32 (qwen2-moe at 8 of 24 layers), every step within 1e-3 x
+   max(|logits|, 1); rank 0's launches at half the heads, by the
+   wrappers' counts, the calls' shapes and torch.profiler, and its card
+   time by kind; each rank's peak memory within 15% of the dry run's
+   ``--cards 2 --model 2`` reckoning. Two ranks share one card's SMs:
+   their times are no tensor-parallel speedup. Before them, the
+   tensor-core flash and the SSD gla at the local head counts of M = 2
+   (the ranks'), 4 and 16 (GQA group 7 with one kv head; one head; 4
+   Mamba2 heads) against their plain versions, and a rank's
+   row-parallel products against the product of f32 copies.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -154,6 +174,7 @@ the JAX package.
 import contextlib
 import json
 import math
+import queue
 import shutil
 import statistics
 import subprocess
@@ -2956,6 +2977,582 @@ def check_dryrun(arch: str, dev, card: str, measured: dict) -> dict:
     return total
 
 
+# ----------------------------------------------------------------- phase 12
+TP_ARCHS = ("internlm2-1.8b", "zamba2-1.2b", "qwen2-moe-a2.7b")
+TP_PATHS = {"internlm2-1.8b": "tp_internlm2", "zamba2-1.2b": "tp_zamba2",
+            "qwen2-moe-a2.7b": "tp_qwen2moe"}
+TP_RANKS, TP_DECODE = 2, 8
+TP_TIMEOUT_S = 600                 # the two ranks' whole run
+# a bf16 miss of the bound is held within this many times the model's
+# own rounding witness, mean over the steps (phase 9's rule for rwkv6)
+TP_WITNESS_SLACK = 1.25
+# the kernels' device names (one ssd_scan_kernel per gla_ssd call)
+TP_PROFILED = {"flash_attention_tc": "flash_tc_kernel",
+               "gla_chunk_ssd": "ssd_scan_kernel"}
+
+
+def tp_draw(model, dev, ctx=None):
+    """Phase 9's seeded bf16 weights (this rank's slices of them under
+    ``ctx``, drawn leaf by leaf) and the prompts [4, 2048] drawn after
+    them from the same generator."""
+    import torch
+    from repro_torch.models.sharding import NULL_CTX
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, ctx or NULL_CTX)
+    prompts = torch.randint(0, model.cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev)
+    return params, prompts
+
+
+def tp_steps(model, params, prompts, feed=None, ctx=None) -> dict:
+    """Prefill the prompts, then 8 decode steps fed ``feed`` [4, 8] (None:
+    the greedy tokens as they come). Returns the prefill's last-position
+    logits and each step's, full (gathered over the ranks under ``ctx``),
+    f32 numpy, and the greedy tokens [4, 9]; under ``ctx`` also the
+    prefill's seconds, decode seconds and peak bytes over the prefill."""
+    import torch
+    from repro_torch.examples.serve_lm import fill_cache
+    from repro_torch.models.sharding import NULL_CTX
+    from repro_torch.train.serve_step import greedy, make_decode_step
+    ctx = ctx or NULL_CTX
+    dev = prompts.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logits, pre, _ = model.forward(params, {"tokens": prompts},
+                                   mode="prefill", ctx=ctx)
+    torch.cuda.synchronize()
+    out = {"prefill_s": time.perf_counter() - t0,
+           "peak": torch.cuda.max_memory_allocated(dev)}
+    got, toks = [logits[:, -1]], [greedy(model, logits[:, -1], ctx)]
+    del logits
+    cache = fill_cache(model.init_cache(LM_BATCH, LM_PROMPT + TP_DECODE,
+                                        dev, ctx), pre)
+    del pre
+    decode = make_decode_step(model, ctx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TP_DECODE):
+        tok = toks[-1] if feed is None else feed[:, i]
+        nxt, lg, cache = decode(params, cache, tok[:, None].long(),
+                                LM_PROMPT + i)
+        got.append(lg)
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    out["decode_s"] = time.perf_counter() - t0
+    del cache
+    out["logits"] = [model.gather_logits(t.float(), ctx).cpu().numpy()
+                     for t in got]
+    out["tokens"] = torch.stack(toks, 1).long().cpu().numpy()
+    return out
+
+
+@contextlib.contextmanager
+def rounding_witness():
+    """The two ranks' arithmetic at one rank: every row-parallel site
+    (``wo``, the MLPs' ``w_down``, Mamba2's ``out_proj``) computed as two
+    partial products over the halves of its inner dim in x's dtype (as
+    each of the two ranks computes its half), summed in f32 and rounded
+    once; the MoE's routed and shared sums are f32 in either case
+    (``moe_ffn``'s one ending). Yields the list of the sites it
+    computed: empty means the model no longer reached the patch."""
+    from repro_torch.models import blocks, layers
+    saved = blocks.row_parallel, layers.row_parallel
+    calls = []
+
+    def halves(x, w, ctx, axis):
+        h = w.shape[0] - w.shape[0] // 2      # rank 0 the larger share
+        calls.append(tuple(w.shape))
+        return ((x[..., :h].contiguous() @ w[:h]).float()
+                + (x[..., h:].contiguous() @ w[h:]).float()).to(x.dtype)
+    blocks.row_parallel = layers.row_parallel = halves
+    try:
+        yield calls
+    finally:
+        blocks.row_parallel, layers.row_parallel = saved
+
+
+def tp_f32(model, params):
+    """The model and its weights in f32 for phase 12's f32 check
+    (qwen2-moe cut to its first 8 layers, as phase 9's f32 check: f32
+    weights of all 24 would not leave room for two ranks)."""
+    from repro_torch.models.param import tree_map
+    if model.cfg.family == "moe":
+        model, params = first_layers(model, params, MOE_F32_LAYERS)
+    return model, tree_map(lambda t: t.float(), params)
+
+
+def tp_unsharded(arch: str, dev) -> dict:
+    """The unsharded card runs phase 12 holds the ranks against, as numpy
+    (the ranks get them by value): bf16 (free-running greedy decode) and
+    its rounding witness fed the same tokens, then the same in f32
+    (``tp_f32``). Frees the model before it returns."""
+    import torch
+    from repro_torch.models import build_model
+    model = build_model(arch)
+    params, prompts = tp_draw(model, dev)
+    out = {"prompts": prompts.cpu().numpy(),
+           "bf16": tp_steps(model, params, prompts)}
+    feed = torch.from_numpy(out["bf16"]["tokens"][:, :TP_DECODE]).to(dev)
+    with rounding_witness() as sites:
+        out["witness"] = tp_steps(model, params, prompts, feed)
+    if not sites:
+        fail(f"{arch}: the rounding witness reached no row-parallel site")
+    f_model, params = tp_f32(model, params)
+    out["f32"] = tp_steps(f_model, params, prompts)
+    del params, prompts, feed
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank: int, port: int, refs: dict, q) -> None:
+    """One of the two ranks of phase 12 (a spawned process on the one
+    card; gloo stages its CUDA tensors through the host): for each model,
+    its slices of the seeded weights (the ranks draw in turn, so that one
+    full leaf at a time is in flight on the card), the prefill and the
+    decode steps fed the unsharded run's tokens (bf16, then f32:
+    ``tp_f32``), the logits all-gathered over the vocab, the bf16 run
+    under ``torch.profiler`` (its times include the profiler's cost).
+    Rank 0 reports them, its launches, the kernel calls' shapes and the
+    profiler's kernel counts; every rank its peak memory over the bf16
+    prefill (from before its weights were drawn) and its times."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.gla_chunk import ops as gl
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import ShardingCtx, default_rules
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=TP_RANKS, rank=rank)
+    try:
+        ctx = ShardingCtx(make_mesh((1, TP_RANKS), ("data", "model")),
+                          default_rules())
+        shapes = []
+        saved = fa.mha, gl.gla
+
+        def mha(q_, k, v, **kw):
+            shapes.append(("flash", tuple(q_.shape), tuple(k.shape)))
+            return saved[0](q_, k, v, **kw)
+
+        def gla(q_, k, v, *a, **kw):
+            shapes.append(("gla", tuple(q_.shape), tuple(v.shape)))
+            return saved[1](q_, k, v, *a, **kw)
+
+        for arch in TP_ARCHS:
+            ref = refs[arch]
+            model = build_model(arch)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            for r in range(TP_RANKS):       # one rank draws at a time
+                if r == rank:
+                    params, prompts = tp_draw(model, dev, ctx)
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()   # the full leaves' blocks
+                dist.barrier()
+            if not bool((prompts.cpu().numpy() == ref["prompts"]).all()):
+                raise RuntimeError(f"{arch}: rank {rank} drew other prompts "
+                                   f"than the unsharded run")
+            shapes.clear()
+            reset_launch_counts()
+            fa.mha, gl.gla = mha, gla
+            feed = torch.from_numpy(ref["bf16"]["tokens"]).to(dev)
+            try:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    got = tp_steps(model, params, prompts, feed, ctx)
+            finally:
+                fa.mha, gl.gla = saved
+            got["peak"] -= base
+            counts = lm_launches(launch_counts())
+            spans = [(e.name, e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            names = [n for n, _, _ in spans]
+            out = {"rank": rank, "arch": arch, "bf16": got,
+                   "launches": counts, "shapes": sorted(set(shapes)),
+                   "calls": len(shapes),
+                   "profiled": {k: sum(n in e for e in names)
+                                for k, n in TP_PROFILED.items()},
+                   "traced": bool(names), "device": device_split(spans)}
+            f_model, params = tp_f32(model, params)
+            feed = torch.from_numpy(ref["f32"]["tokens"]).to(dev)
+            out["f32"] = tp_steps(f_model, params, prompts, feed, ctx)
+            if rank != 0:                   # the logits are rank 0's to send
+                for key in ("bf16", "f32"):
+                    if key in out:
+                        out[key] = {k: v for k, v in out[key].items()
+                                    if k not in ("logits", "tokens")}
+            q.put(out)
+            del params, prompts, feed, got
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+# cuBLAS's GEMM kernels by name (Hopper's nvjet and the xmma / CUTLASS
+# families; the f32 ones among them read "sgemm" or f32 inputs)
+GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
+F32_GEMM_MARKS = ("sgemm", "f32f32_f32f32", "_tf32", "simt")
+
+
+def device_split(spans) -> dict:
+    """A profiled run's CUDA kernels ((name, start us, end us)): the
+    card's busy time (the union of the spans), the summed time of the
+    cuBLAS GEMMs and of the f32 ones among them, of the copies and casts
+    (``copy_``/``to`` kernels) and the largest kernels (name, calls, us)."""
+    busy, end = 0.0, float("-inf")
+    for _, lo, hi in sorted(spans, key=lambda t: t[1]):
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    per = {}
+    for name, lo, hi in spans:
+        c, t = per.get(name, (0, 0.0))
+        per[name] = (c + 1, t + hi - lo)
+
+    def total(pred):
+        return sum(t for n, (_, t) in per.items() if pred(n.lower()))
+    gemm = total(lambda n: any(m in n for m in GEMM_MARKS))
+    return {"busy_us": busy, "gemm_us": gemm,
+            "f32_gemm_us": total(lambda n: any(m in n for m in GEMM_MARKS)
+                                 and any(m in n for m in F32_GEMM_MARKS)),
+            "copy_us": total(lambda n: "copy" in n),
+            "top": [(n[:70], c, t) for n, (c, t) in
+                    sorted(per.items(), key=lambda kv: -kv[1][1])[:6]]}
+
+
+def tp_local_shapes(model) -> set:
+    """The flash and gla calls' (q, k or v) shapes on rank 0 of two:
+    half the heads of each attention and Mamba2 layer."""
+    cfg = model.cfg
+    hd, m = cfg.resolved_head_dim, TP_RANKS
+    out = {("flash", (LM_BATCH, cfg.n_heads // m, LM_PROMPT, hd),
+            (LM_BATCH, cfg.n_kv_heads // m, LM_PROMPT, hd))}
+    if cfg.family == "hybrid":
+        from repro_torch.models.blocks import mamba_dims
+        _, nh, dv, st = mamba_dims(cfg)
+        out.add(("gla", (LM_BATCH, LM_PROMPT, nh // m, st),
+                 (LM_BATCH, LM_PROMPT, nh // m, dv)))
+    return out
+
+
+# the model axis's local shapes beyond the two-rank runs': (label, B,
+# Hq, Hkv, S, D) for flash, (label, B, S, H, dk, dv) for gla_ssd
+TP_LOCAL_FLASH = (("qwen2-vl at M = 4: GQA group 7, one kv head",
+                   LM_BATCH, 7, 1, LM_PROMPT, 128),
+                  ("qwen2-vl at M = 16, rank 3: q heads 6, 7 read kv 0, 1",
+                   LM_BATCH, 2, 2, LM_PROMPT, 128),
+                  ("internlm2 at M = 16: one q and one kv head",
+                   LM_BATCH, 1, 1, LM_PROMPT, 128))
+TP_LOCAL_GLA = (("zamba2 at M = 16: 4 Mamba2 heads", LM_BATCH, LM_PROMPT,
+                 4, 64, 64),)
+
+
+def tp_kernel_shapes() -> tuple:
+    """(flash, gla) in ``TP_LOCAL_FLASH`` / ``TP_LOCAL_GLA``'s form: the
+    shapes rank 0 of the two-rank runs gives the kernels
+    (``tp_local_shapes``), then the M = 4 and 16 ones."""
+    from repro_torch.models import build_model
+    flash, gla = [], []
+    for arch in TP_ARCHS:
+        for kind, a, b in sorted(tp_local_shapes(build_model(arch))):
+            label = f"{arch} at M = {TP_RANKS}"
+            if kind == "flash":
+                flash.append((label, a[0], a[1], b[1], a[2], a[3]))
+            else:
+                gla.append((label, a[0], a[1], a[2], a[3], b[3]))
+    return tuple(flash) + TP_LOCAL_FLASH, tuple(gla) + TP_LOCAL_GLA
+
+
+def check_local_kernels(dev, gen) -> None:
+    """The tensor-core flash and the SSD gla at the head counts the model
+    axis gives ranks (``tp_kernel_shapes``: the two-rank runs' at M = 2,
+    and M = 4 and 16's), against their plain versions (out 2e-2, gla's
+    final state 2e-4), each call taken by its design; their ``work``
+    formulas scale with the heads (the full model's count over M)."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.flash_attention.ops import work as flash_work
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gla_chunk.ops import gla
+    from repro_torch.kernels.gla_chunk.ops import work as gla_work
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+    flash_shapes, gla_shapes = tp_kernel_shapes()
+    for label, b, hq, hkv, s_, d in flash_shapes:
+        q, k, v = flash_inputs(b, hq, hkv, s_, d, torch.bfloat16, dev, gen)
+        before = launch_counts()
+        out = mha(q, k, v)
+        design_moved(before, launch_counts(), "flash_attention_tc", 1, label)
+        err = max_err(out, attention_ref(q, k, v), FLASH_TOL["bfloat16"],
+                      f"flash_attention_tc {label}")
+        one = flash_work(q[:, :1], k[:, :1], v[:, :1])[0]
+        if flash_work(q, k, v)[0] != hq * one:
+            fail(f"flash work at {label} is not {hq} x one head's")
+        print(f"flash_attention_tc at {label} (q {tuple(q.shape)}, k/v "
+              f"{tuple(k.shape)}): within 2e-2 of the plain version, max "
+              f"abs err {err:.3g}")
+    for label, b, s_, h, dk, dv in gla_shapes:
+        q, k, v, lw = gla_inputs(b, s_, h, dk, dv, torch.bfloat16, dev, gen,
+                                 mamba=True)
+        before = launch_counts()
+        out, fin = gla(q, k, v, lw, inclusive=True)
+        design_moved(before, launch_counts(), "gla_chunk_ssd", 1, label)
+        r_out, r_fin = gla_chunk_ref(q, k, v, lw, inclusive=True)
+        err = max(max_err(out, r_out, FLASH_TOL["bfloat16"], label),
+                  max_err(fin, r_fin, GLA_TOL, label + " final state"))
+        one = gla_work(q[:, :, :1], k[:, :, :1], v[:, :, :1], lw[:, :, :1],
+                       inclusive=True)[0]
+        if gla_work(q, k, v, lw, inclusive=True)[0] != h * one:
+            fail(f"gla work at {label} is not {h} x one head's")
+        print(f"gla_chunk_ssd at {label} (q/k/v {tuple(v.shape)}): out "
+              f"within 2e-2, final state within 2e-4 of the plain version, "
+              f"max abs err {err:.3g}")
+
+
+def tp_row_sites(model) -> list:
+    """The row-parallel products of one prefill on a rank of two:
+    (site, inner dim on the rank, calls per prefill). Their output is
+    d_model wide."""
+    cfg, m = model.cfg, TP_RANKS
+    wo, n = cfg.n_heads * cfg.resolved_head_dim // m, cfg.n_layers
+    if cfg.family == "hybrid":
+        from repro_torch.models.blocks import mamba_dims
+        apps = model.n_shared_apps()
+        return [("out_proj", mamba_dims(cfg)[0] // m, n), ("wo", wo, apps),
+                ("w_down", cfg.d_ff // m, apps)]
+    if cfg.moe is not None:
+        return [("wo", wo, n), ("shared w_down", cfg.moe.n_shared_experts
+                                * cfg.moe.d_ff_expert // m, n)]
+    return [("wo", wo, n), ("w_down", cfg.d_ff // m, n)]
+
+
+def check_row_products(model, plan, dev, gen, card: str) -> str:
+    """A rank's row-parallel partial products at one prefill's shapes
+    ([4 x 2048, K / 2] @ [K / 2, d_model], ``tp_row_sites``; their count
+    held against the dry run's ``plan``): the bf16 GEMM the ranks run
+    against the product of f32 copies (the design before it: an f32 GEMM
+    off the tensor cores, TF32 off), device ms per call (CUDA graph) and
+    their max abs difference over 2^-8 x max(|product|, 1) (the bf16
+    partial's one rounding); summed over one prefill's calls."""
+    import torch
+    cfg, rows = model.cfg, LM_BATCH * LM_PROMPT
+    sites = tp_row_sites(model)
+    act = 4 * rows * cfg.d_model
+    n_plan = sum(c["op"] == "all_reduce" and c["result_bytes"] == act
+                 for c in plan)
+    if n_plan != 1 + sum(c for _, _, c in sites):      # + the embedding's
+        fail(f"{cfg.name}: {sites} are not the dry run's {n_plan - 1} "
+             f"row-parallel all-reduces")
+    new_ms = old_ms = 0.0
+    notes = []
+    for site, k, calls in sites:
+        x = lm_rand((rows, k), dev, torch.bfloat16, gen)
+        w = lm_rand((k, cfg.d_model), dev, torch.bfloat16, gen) * k ** -0.5
+        got, want = x @ w, x.float() @ w.float()
+        rel = float((got.float() - want).abs().max()) / (
+            2 ** -8 * max(float(want.abs().max()), 1.0))
+        if not rel <= 1.0:
+            fail(f"the bf16 partial product at {site} [{rows}, {k}] @ "
+                 f"[{k}, {cfg.d_model}]: {rel:.4f} of 2^-8 x max")
+        t_new = graph_ms(lambda: x @ w, reps=3, rounds=3)
+        t_old = graph_ms(lambda: x.float() @ w.float(), reps=3, rounds=3)
+        new_ms, old_ms = new_ms + calls * t_new, old_ms + calls * t_old
+        notes.append(f"{site} K/2 = {k} x {calls}: {t_new:.4f} vs "
+                     f"{t_old:.4f} ms ({rel:.4f} of the bound)")
+        del x, w, got, want
+    return (f"row-parallel products per prefill on a rank [{card}]: bf16 "
+            f"GEMM {new_ms:.3f} ms, f32 copies' GEMM {old_ms:.3f} ms "
+            f"({'; '.join(notes)})")
+
+
+def tp_errors(got: dict, want: dict, bound: float) -> list:
+    """Per step (the prefill's last position, then each decode step) the
+    max |got - want| over ``bound`` x max(|want|, 1)."""
+    return [float(abs(a - b).max()) / (bound * max(float(abs(b).max()), 1.0))
+            for a, b in zip(got["logits"], want["logits"])]
+
+
+def check_tp(dev, card: str) -> dict:
+    """Phase 12: for internlm2-1.8b, zamba2-1.2b and qwen2-moe-a2.7b at
+    full width and depth, the unsharded card runs (then freed), then two
+    gloo ranks on the one card (tensor- and expert-parallel, vocab-parallel
+    logits) fed the same tokens. Held: (a) in bf16, every step's logits
+    within 0.02 x max(|logits|, 1) of the unsharded run's or, where the
+    model's own rounding witness (``rounding_witness``: the two ranks'
+    row-parallel sums at one rank, summed in another order than the
+    unsplit GEMM's) misses that bound too, the mean over the steps within
+    1.25x the witness's; the greedy tokens' agreement and the ranks'
+    distance from the witness reported; (b) in f32 (qwen2-moe at its
+    first 8 layers), every step's logits within 1e-3 x max(|logits|, 1);
+    (c) rank 0's launches (the bf16 designs, none in decode), at half
+    the heads (the calls' shapes, as many calls as launches) and as
+    torch.profiler counts them; (d) each rank's peak memory over the
+    bf16 prefill within 15% of the dry run's ``--cards 2 --model 2``
+    reckoning. Also the kernels at the local shapes
+    (``check_local_kernels``), the row-parallel products against the
+    design before them (``check_row_products``) and rank 0's device time by kind
+    (``device_split``). A rank's failure fails the run. Returns rank 0's
+    bf16 launches per model (its path in the kernels record)."""
+    import multiprocessing
+    import socket
+    import torch
+    from repro_torch.configs import ShapeSuite
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    gen = torch.Generator(device=dev).manual_seed(12)
+    check_local_kernels(dev, gen)
+    refs, peaks, rows = {}, {}, {}
+    for arch in TP_ARCHS:
+        t0 = time.perf_counter()
+        refs[arch] = tp_unsharded(arch, dev)
+        print(f"{arch} unsharded references on the card (bf16, its rounding"
+              f" witness, f32: prefill {LM_BATCH} x {LM_PROMPT}, {TP_DECODE} "
+              f"decode steps each) in {time.perf_counter() - t0:.2f} s")
+        suite = ShapeSuite("tp_prefill", LM_PROMPT, LM_BATCH, "prefill")
+        fn, args, meta, comm = dryrun.build_cell(
+            arch, suite.name, cards=TP_RANKS, model=TP_RANKS, suite=suite)
+        peaks[arch] = dryrun.analyze_cell(fn, args, meta, comm)
+        del fn, args
+        rows[arch] = check_row_products(build_model(arch), comm.plan, dev,
+                                        gen, card)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    mp = multiprocessing.get_context("spawn")
+    q = mp.Queue()
+    t0 = time.perf_counter()
+    procs = [mp.Process(target=tp_rank, args=(r, port, refs, q))
+             for r in range(TP_RANKS)]
+    for p in procs:
+        p.start()
+    got, broken = {}, None
+    while len(got) < TP_RANKS * len(TP_ARCHS) and broken is None:
+        try:
+            r = q.get(timeout=10)
+            got[(r["arch"], r["rank"])] = r
+        except queue.Empty:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                broken = "a rank failed"
+            elif time.perf_counter() - t0 > TP_TIMEOUT_S:
+                broken = f"the ranks took over {TP_TIMEOUT_S} s"
+    for p in procs:
+        p.join(60 if broken is None else 5)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if broken or any(p.exitcode != 0 for p in procs):
+        fail(f"phase 12: {broken or 'a rank failed'} (exit codes "
+             f"{[p.exitcode for p in procs]})")
+    print(f"phase 12: {TP_RANKS} gloo ranks on the one card ran "
+          f"{len(TP_ARCHS)} models in {time.perf_counter() - t0:.1f} s "
+          f"(spawn, imports and weights included)")
+    counts = {}
+    for arch in TP_ARCHS:
+        ref, r0 = refs[arch], got[(arch, 0)]
+        model = build_model(arch)
+        # (a) bf16, against the bound or the model's rounding witness
+        errs = tp_errors(r0["bf16"], ref["bf16"], 0.02)
+        wit = tp_errors(ref["witness"], ref["bf16"], 0.02)
+        mean, wmean = sum(errs) / len(errs), sum(wit) / len(wit)
+        if max(errs) < 1.0:
+            held = "within the bound"
+        elif max(wit) >= 1.0 and mean <= TP_WITNESS_SLACK * wmean:
+            held = (f"MISSED in bf16, as the model's own rounding witness "
+                    f"misses it (at most {max(wit):.4f} of the bound): mean "
+                    f"over the steps {mean:.4f}, {mean / wmean:.4f}x the "
+                    f"witness's {wmean:.4f} (held within "
+                    f"{TP_WITNESS_SLACK}x)")
+        else:
+            fail(f"{arch} two ranks (bf16): logits differ from the unsharded"
+                 f" run's by {max(errs):.4f} of 0.02 x max(|logits|, 1) "
+                 f"(mean {mean:.4f}); the rounding witness by {max(wit):.4f}"
+                 f" (mean {wmean:.4f})")
+        agree = float((r0["bf16"]["tokens"] == ref["bf16"]["tokens"]).mean())
+        near = max(tp_errors(r0["bf16"], ref["witness"], 0.02))
+        # (b) f32
+        f32 = tp_errors(r0["f32"], ref["f32"], 1e-3)
+        pre, dec = f32[0], f32[1:]
+        if not max(f32) <= 1.0:
+            fail(f"{arch} two ranks (f32): prefill {pre:.4f}, decode steps "
+                 f"at most {max(dec):.4f} of 1e-3 x max(|logits|, 1)")
+        f32_agree = float((r0["f32"]["tokens"] == ref["f32"]["tokens"]
+                           ).mean())
+        cut = " (8 of 24 layers)" if model.cfg.family == "moe" else ""
+        f32_note = (f"; in f32{cut} the prefill's logits {pre:.4f} of "
+                    f"1e-3 x max(|logits|, 1), the decode steps' at most "
+                    f"{max(dec):.4f} of it (greedy tokens agree "
+                    f"{f32_agree:.4f})")
+        # (c) launches at the local shapes
+        want = lm_expected(model, decode_steps=TP_DECODE)
+        if r0["launches"] != want:
+            fail(f"{arch} rank 0 launched {r0['launches']} (prefill and "
+                 f"{TP_DECODE} decode steps); expected {want}")
+        if set(r0["shapes"]) != tp_local_shapes(model) or \
+                r0["calls"] != (r0["launches"]["flash_attention"]
+                                + r0["launches"]["gla_chunk"]):
+            fail(f"{arch} rank 0's {r0['calls']} kernel calls had shapes "
+                 f"{r0['shapes']}, expected {tp_local_shapes(model)} and "
+                 f"one call per launch ({r0['launches']})")
+        if r0["traced"]:
+            for key, n in r0["profiled"].items():
+                if n != want[key]:
+                    fail(f"{arch}: the profiler saw {n} {key} launches on "
+                         f"rank 0, the counters {want[key]}")
+            d, run = r0["device"], r0["bf16"]
+            wall = (run["prefill_s"] + run["decode_s"]) * 1e3
+            traced = (f"the profiler counted {r0['profiled']}; rank 0's "
+                      f"card busy {d['busy_us'] / 1e3:.3f} ms of the bf16 "
+                      f"run's {wall:.1f} ms, cuBLAS "
+                      f"GEMMs {d['gemm_us'] / 1e3:.3f} ms (f32 ones "
+                      f"{d['f32_gemm_us'] / 1e3:.3f}), copies and casts "
+                      f"{d['copy_us'] / 1e3:.3f} ms; largest "
+                      + ", ".join(f"{n} {c} x {t / c:.1f} us"
+                                  for n, c, t in d["top"]))
+        else:
+            traced = "the profiler recorded no CUDA events (not measured)"
+        # (d) memory against the dry run's reckoning
+        est = peaks[arch]["memory"]["peak_estimate_bytes"]
+        for rank in range(TP_RANKS):
+            peak = got[(arch, rank)]["bf16"]["peak"]
+            if not abs(est - peak) <= PEAK_TOL * peak:
+                fail(f"{arch} rank {rank}: peak {peak} B over the prefill, "
+                     f"the dry run's --cards 2 --model 2 reckoning {est} B: "
+                     f"not within {PEAK_TOL:.0%}")
+        runs = [got[(arch, k)]["bf16"] for k in range(TP_RANKS)]
+        times = "; ".join(
+            f"rank {k}: prefill {r['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{r['decode_s'] / TP_DECODE * 1e3:.2f} ms/step, peak "
+            f"{r['peak'] / 2**30:.3f} GiB ({r['peak'] / est - 1:+.4f})"
+            for k, r in enumerate(runs))
+        print(f"{arch} on two ranks (tensor/expert-parallel, gloo) vs the "
+              f"unsharded card run [{card}]: bf16 logits per step "
+              f"{[round(e, 4) for e in errs]} of 0.02 x max(|logits|, 1) "
+              f"(the rounding witness {[round(e, 4) for e in wit]}; the "
+              f"ranks from the witness at most {near:.4f}): {held}; "
+              f"greedy tokens agree {agree:.4f} ({LM_BATCH} x "
+              f"{TP_DECODE + 1}){f32_note}; rank 0 launched "
+              f"{r0['launches']} (prefill, none in decode) at shapes "
+              f"{r0['shapes']}; {traced}; the dry run reckons "
+              f"{est / 2**30:.3f} GiB per rank ({times}); {rows[arch]}. "
+              f"Two ranks share "
+              f"one card's SMs and gloo stages every all-reduce through the "
+              f"host: these times are no tensor-parallel speedup")
+        counts[TP_PATHS[arch]] = r0["launches"]
+    return counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_card()
@@ -3074,6 +3671,8 @@ def main() -> None:
           "six train cells trace for longer than the 60 s of host time "
           "this phase may take (see the trace times above); PERF.md holds "
           "its table")
+    tp_counts = {path: by_design(c)                            # phase 12
+                 for path, c in check_tp(dev, card).items()}
     for name, t in fn_times.items():
         next(r for r in results if r["name"] == name).update(
             train_forward_ms=t["fwd_ms"], recompute_backward_ms=t["bwd_ms"],
@@ -3116,7 +3715,8 @@ def main() -> None:
                    COMPLEX_PATH: complex_counts.get(name, 0),
                    **{p: c.get(name, 0) for p, c in lm_counts.items()},
                    **{p: c.get(name, 0) for p, c in f32_counts.items()},
-                   **{p: c.get(name, 0) for p, c in train_counts.items()}}
+                   **{p: c.get(name, 0) for p, c in train_counts.items()},
+                   **{p: c.get(name, 0) for p, c in tp_counts.items()}}
         # the ETL kernels' main path is the cluster, the single-table
         # probe's the complex model; the LM designs' the six serve runs
         # (the bf16 designs), the six f32 prefills
@@ -3132,7 +3732,8 @@ def main() -> None:
         else:
             launches = sum(c[name] for c in (*lm_counts.values(),
                                              *f32_counts.values(),
-                                             *train_counts.values()))
+                                             *train_counts.values(),
+                                             *tp_counts.values()))
             if name == "gla_chunk_rwkv6" and (
                     lm_counts["lm_rwkv6"][name] <= 0
                     or lm_counts["lm_rwkv6"]["gla_chunk"] != 0):
@@ -3143,6 +3744,10 @@ def main() -> None:
                     lm_counts[p][name] <= 0 for p in (
                         "lm_qwen2moe", "lm_qwen2vl", "lm_whisper")):
                 fail("flash_attention_tc missing on a serve path")
+            if name in TP_PROFILED and any(
+                    c[name] <= 0 for p, c in tp_counts.items()
+                    if name == "flash_attention_tc" or p == "tp_zamba2"):
+                fail(f"{name} missing on a two-rank path: {tp_counts}")
         if launches <= 0 and name not in OFF_PATH:
             fail(f"{name} never launched on its path")
         kernels.append({"name": name, "route": "cuda", "source": path,

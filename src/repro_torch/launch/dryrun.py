@@ -1,33 +1,50 @@
 """Dry run: trace every (architecture x input-shape) cell on ``meta``
 tensors and reckon, per card, its memory, operations, bytes,
 collectives, the three roofline terms and model flops over counted
-flops — the JAX package's ``launch/dryrun.py`` without its mesh.
+flops — the JAX package's ``launch/dryrun.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2-1.8b \\
-        --shape prefill_32k [--cards N] [--out build/dryrun] [--tag T] \\
-        [--override key=value ...]
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--cards N]
+        --shape prefill_32k [--cards N] [--model M] [--out build/dryrun] \\
+        [--tag T] [--override key=value ...]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--cards N] \\
+        [--model M]
 
 The JAX package lowers and compiles each cell against a 512-chip mesh on
 forced host devices; here the step runs once on ``meta`` tensors (no
 memory, no card, no CUDA module) under ``launch.step_analysis``, the LM
-kernels counted by their own formulas. The layout over ``--cards N`` is
-``train/manual_dp.py``'s: parameters replicated, AdamW moments
-ZeRO-sharded N ways, the batch split N ways; a train cell at N > 1
-traces ``make_manual_dp_train_step`` with a recorder in place of its
-collectives and holds what it issued against ``collective_plan``; at
-N = 1 it traces ``make_train_step`` (one card issues no collective).
-Prefill and decode cells are replicas: each card serves its part of the
-batch, with no collective.
+kernels counted by their own formulas, as rank 0 of the layout.
 
-Exit code 0 and a JSON artifact per cell for "ok" and "skipped" cells
-(decode for archs without a decoder, long_500k for quadratic attention),
-as the JAX package's rules skip them. Overrides as in the JAX CLI:
-``microbatches``, ``moe_group``, ``moe_capacity`` and any config field;
-20B+ models get 16 microbatches at train_4k. ``fsdp``, ``seq_parallel``,
-``second_matmul`` and ``dp_mode`` other than "manual" name a mesh layout
-the port does not have, and raise. The numbers are reckonings from
-counted work, not measurements.
+``--model M`` (default 1) is the model axis beside ``--cards N``: a
+(data = N / M, model = M) mesh in its process-free form
+(``launch.mesh.make_mesh(..., rank=0)``), with the reference's rules per
+cell (``src/repro/launch/dryrun.py:84-94``: ``kv_seq`` on "model" for
+prefill and decode when the kv heads are fewer than the model axis,
+which the port holds whole: ROADMAP C). At M > 1 a prefill or decode
+cell of the dense, MoE, VLM and hybrid families traces rank 0's
+``make_prefill_step`` / ``make_decode_step`` with its parameters and
+cache (``Model.abstract(ctx)``, ``local_defs``) and a
+``RecordedCollectives`` in place of ``torch.distributed``; what it
+issued is held against ``model_axis_plan``, and the cell's JSON gives
+each collective's bytes. rwkv6 and whisper at M > 1, every train cell
+at M > 1, ``long_500k`` at M > 1 (the reference shards ``kv_seq`` over
+data there), the ``fsdp`` / ``seq_parallel`` / ``second_matmul="col"``
+overrides and ``dp_mode`` other than "manual" report
+``status: "not_ported"`` with the ROADMAP item as the reason.
+
+At M = 1 the layout over ``--cards N`` is ``train/manual_dp.py``'s:
+parameters replicated, AdamW moments ZeRO-sharded N ways, the batch split
+N ways; a train cell at N > 1 traces ``make_manual_dp_train_step`` with a
+recorder in place of its collectives and holds what it issued against
+``collective_plan``; at N = 1 it traces ``make_train_step`` (one card
+issues no collective). Prefill and decode cells at M = 1 are replicas:
+each card serves its part of the batch, with no collective.
+
+Exit code 0 and a JSON artifact per cell for "ok", "skipped" (decode for
+archs without a decoder, long_500k for quadratic attention, as the JAX
+package's rules skip them) and "not_ported" cells. Overrides as in the
+JAX CLI: ``microbatches``, ``moe_group``, ``moe_capacity`` and any config
+field; 20B+ models get 16 microbatches at train_4k. The numbers are
+reckonings from counted work, not measurements.
 """
 import argparse
 import dataclasses
@@ -41,10 +58,13 @@ import torch
 
 from repro_torch.configs import SHAPE_SUITES, ShapeSuite, get_config
 from repro_torch.launch import specs as S
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.step_analysis import (CARD_BYTES, analyze_step,
                                               roofline_terms)
-from repro_torch.models.model import Model
-from repro_torch.models.param import tree_leaves
+from repro_torch.models.model import TP_FAMILIES, Model
+from repro_torch.models.param import tree_leaves, tree_paths
+from repro_torch.models.sharding import (ShardingCtx, default_rules,
+                                         held_differently)
 from repro_torch.optim import AdamWConfig, abstract_state
 from repro_torch.train.manual_dp import (abstract_zero_opt_state,
                                          collective_plan,
@@ -52,48 +72,123 @@ from repro_torch.train.manual_dp import (abstract_zero_opt_state,
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 from repro_torch.train.train_step import make_train_step
 
-# overrides that need a mesh layout the port lacks
-MESH_OVERRIDES = ("fsdp", "seq_parallel", "second_matmul")
+# the ROADMAP item each layout the port lacks waits for
+NOT_PORTED = {
+    "train": "A: tensor parallelism in training (differentiable "
+             "collectives, manual_dp's model axis)",
+    "family": "A: rwkv6 and whisper under tensor parallelism",
+    "long_500k": "A: kv_seq sharding (the reference shards the cache's "
+                 "sequence over data at long_500k)",
+    "layout": "A: fsdp / seq_parallel / second_matmul=\"col\"",
+    "dp_mode": "A: dp_mode \"auto\" (GSPMD's ZeRO) has no counterpart; "
+               "the port's data-parallel training is manual_dp",
+}
 
 
 class RecordedCollectives:
-    """``manual_dp``'s collectives for a traced step, as rank 0 of
-    ``world``: each call is recorded in ``collective_plan``'s form and
-    moves nothing (its tensors are ``meta``)."""
+    """The collectives of a traced step, as rank 0: ``manual_dp``'s
+    (``torch.distributed``'s signatures, recorded in ``collective_plan``'s
+    form) and the model axis's (``all_reduce`` / ``all_gather`` with a
+    ``group``: a process-free mesh's ``AxisGroup``, recorded with its axis
+    and size). Nothing moves (the tensors are ``meta``)."""
 
-    def __init__(self, world: int):
+    def __init__(self, world: int, plan: Optional[List[Dict]] = None):
         self.world, self.rank = world, 0
+        self.plan = plan or []      # what the step should issue
         self.issued: List[Dict[str, Any]] = []
 
-    def _record(self, op: str, kind: str, out: torch.Tensor) -> None:
-        self.issued.append({"op": op, "kind": kind, "dtype": str(out.dtype),
-                            "result_bytes": out.numel() * out.element_size()})
+    def _record(self, op: str, kind: str, out, group=None) -> None:
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        rec = {"op": op, "kind": kind, "dtype": str(outs[0].dtype),
+               "result_bytes": sum(t.numel() * t.element_size()
+                                   for t in outs)}
+        if group is not None:
+            rec.update(axis=group.axis, group=group.size)
+        self.issued.append(rec)
 
     def reduce_scatter_tensor(self, out, inp):
         self._record("reduce_scatter_tensor", "reduce-scatter", out)
 
-    def all_reduce(self, t):
-        self._record("all_reduce", "all-reduce", t)
+    def all_reduce(self, t, group=None):
+        self._record("all_reduce", "all-reduce", t, group)
 
     def all_gather_into_tensor(self, out, inp):
         self._record("all_gather_into_tensor", "all-gather", out)
+
+    def all_gather(self, out_list, t, group=None):
+        self._record("all_gather", "all-gather", out_list, group)
+
+
+def cell_rules(cfg, suite: ShapeSuite, model_axis: int) -> Dict[str, Any]:
+    """The reference's rules for a serving cell
+    (``src/repro/launch/dryrun.py:84-94``)."""
+    rules = default_rules()
+    if suite.name == "long_500k":
+        # B=1 cannot shard over data; shard the KV sequence there instead
+        rules["batch"] = None
+        rules["kv_seq"] = "data"
+    elif suite.kind in ("decode", "prefill") and cfg.n_kv_heads < model_axis:
+        # kv_heads cannot absorb the model axis -> shard cache seq over it
+        rules["kv_seq"] = "model"
+    return rules
+
+
+def model_axis_plan(model: Model, suite: ShapeSuite, batch: int,
+                    ctx: ShardingCtx) -> List[Dict[str, Any]]:
+    """The collectives rank 0 issues in one serving step of ``batch``
+    sequences (its part of the batch) under ``ctx``, in order, reckoned
+    from the config: the embedding's all-reduce; per decoder block the
+    attention's and the MLP's (MoE: the load balance's over a split batch,
+    then the experts'); per Mamba2 layer its gated norm's and its
+    ``out_proj``'s, and the shared block's two after each group; then the
+    greedy token's all-gather. All f32."""
+    cfg = model.cfg
+    m, s = ctx.size("heads"), (1 if suite.kind == "decode"
+                               else suite.seq_len)
+
+    def ar(n, axis="model", size=m):
+        return {"op": "all_reduce", "kind": "all-reduce", "dtype":
+                "torch.float32", "result_bytes": 4 * n, "axis": axis,
+                "group": size}
+
+    act = batch * s * cfg.d_model
+    plan = [ar(act)]
+    if cfg.family == "hybrid":
+        k = cfg.shared_attn_every
+        for i in range(cfg.n_layers):
+            plan += [ar(batch * s), ar(act)]
+            if (i + 1) % k == 0 and (i + 1) // k <= model.n_shared_apps():
+                plan += [ar(act), ar(act)]
+    else:
+        data = ctx.size("batch")
+        for _ in range(cfg.n_layers):
+            plan.append(ar(act))
+            if cfg.moe is not None and data > 1:
+                plan.append(ar(2 * cfg.moe.padded_experts, "data", data))
+            plan.append(ar(act))
+    plan.append({"op": "all_gather", "kind": "all-gather",
+                 "dtype": "torch.float32", "result_bytes": m * batch * 2 * 4,
+                 "axis": "model", "group": m})
+    return plan
 
 
 def model_param_count(abstract_params) -> int:
     return int(sum(x.numel() for x in tree_leaves(abstract_params)))
 
 
+def _not_ported(overrides: Dict[str, Any]) -> Optional[str]:
+    """The ROADMAP item a mesh override waits for, or None."""
+    for key, off in (("fsdp", False), ("seq_parallel", False),
+                     ("second_matmul", "row"), ("dp_mode", "manual")):
+        if key in overrides and overrides[key] != off:
+            return NOT_PORTED["dp_mode" if key == "dp_mode" else "layout"]
+    return None
+
+
 def _config(arch: str, shape: str, overrides: Optional[Dict[str, Any]]):
     overrides = dict(overrides) if overrides else {}
-    for key in MESH_OVERRIDES:
-        if key in overrides:
-            raise ValueError(f"override {key!r} needs a device mesh; the "
-                             f"port's only layout across cards is "
-                             f"manual_dp's (--cards)")
-    dp_mode = overrides.pop("dp_mode", "manual")
-    if dp_mode != "manual":
-        raise ValueError(f"dp_mode {dp_mode!r} needs a device mesh; the "
-                         f"port has dp_mode 'manual' only")
+    for key in ("fsdp", "seq_parallel", "second_matmul", "dp_mode"):
+        overrides.pop(key, None)
     moe_group = overrides.pop("moe_group", None)
     moe_cap = overrides.pop("moe_capacity", None)
     cfg = get_config(arch)
@@ -111,24 +206,42 @@ def _config(arch: str, shape: str, overrides: Optional[Dict[str, Any]]):
     return cfg
 
 
-def build_cell(arch: str, shape: str, *, cards: int = 1,
+def build_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
                overrides: Optional[Dict[str, Any]] = None,
                suite: Optional[ShapeSuite] = None):
     """Returns (step_fn, abstract_args, meta, comm) for one dry-run cell;
     ``suite`` replaces ``SHAPE_SUITES[shape]`` (a cell at another batch or
-    length). ``comm`` records a train step's collectives at cards > 1
-    (None otherwise); step_fn is None for a skipped cell."""
+    length). ``comm`` records a train step's collectives at cards > 1 and
+    a serving step's at model > 1 (None otherwise), and holds the step's
+    ``plan``; step_fn is None for a skipped or not-ported cell."""
     cfg = _config(arch, shape, overrides)
     suite = suite or SHAPE_SUITES[shape]
 
-    # ---- applicability (the JAX package's rules)
-    skip = {"status": "skipped", "arch": arch, "shape": suite.name,
-            "cards": cards}
+    # ---- applicability (the JAX package's rules, then the port's)
+    head = {"arch": arch, "shape": suite.name, "cards": cards,
+            "model_axis": model}
     if suite.kind == "decode" and not cfg.supports_decode:
-        return None, None, {**skip, "reason": "no decode path"}, None
+        return None, None, {**head, "status": "skipped",
+                            "reason": "no decode path"}, None
     if suite.name == "long_500k" and not cfg.subquadratic:
-        return None, None, {**skip, "reason": "quadratic attention at 500k"
-                            }, None
+        return None, None, {**head, "status": "skipped",
+                            "reason": "quadratic attention at 500k"}, None
+    if model < 1 or cards % model:
+        raise ValueError(f"a model axis of {model} does not divide {cards} "
+                         f"cards")
+    reason = _not_ported(overrides or {})
+    if reason is None and model > 1:
+        if suite.kind == "train":
+            reason = NOT_PORTED["train"]
+        elif cfg.family not in TP_FAMILIES:
+            reason = NOT_PORTED["family"]
+        elif suite.name == "long_500k":
+            reason = NOT_PORTED["long_500k"]
+    if reason is not None:
+        return None, None, {**head, "status": "not_ported",
+                            "reason": f"ROADMAP {reason}"}, None
+    if model > 1:
+        return model_axis_cell(cfg, suite, cards, model, head)
     if cards < 1 or suite.global_batch % cards:
         raise ValueError(f"batch {suite.global_batch} does not split over "
                          f"{cards} cards")
@@ -137,8 +250,7 @@ def build_cell(arch: str, shape: str, *, cards: int = 1,
     model = Model(cfg)
     params = model.abstract()
     meta = {
-        "status": "ok", "arch": arch, "shape": suite.name,
-        "cards": cards, "batch_per_card": per_card,
+        **head, "status": "ok", "batch_per_card": per_card,
         "params": model_param_count(params),
         "active_params": cfg.active_param_count(),
         "kind": suite.kind,
@@ -152,7 +264,7 @@ def build_cell(arch: str, shape: str, *, cards: int = 1,
             meta["layout"] = "one card: make_train_step"
             fn = make_train_step(model, AdamWConfig())
             return fn, (params, abstract_state(params), batch), meta, None
-        comm = RecordedCollectives(cards)
+        comm = RecordedCollectives(cards, collective_plan(params, cards))
         meta["layout"] = (f"manual_dp: parameters replicated, moments "
                           f"ZeRO-sharded over {cards} cards")
         fn = make_manual_dp_train_step(model, AdamWConfig(), comm=comm)
@@ -171,6 +283,63 @@ def build_cell(arch: str, shape: str, *, cards: int = 1,
     return make_decode_step(model), (params, cache, token, index), meta, None
 
 
+def model_axis_cell(cfg, suite: ShapeSuite, cards: int, m: int,
+                    head: Dict[str, Any]):
+    """``build_cell``'s result for a prefill or decode cell of ``cfg`` on
+    a (cards / m, m) mesh, as rank 0; ``head`` starts its meta."""
+    data = cards // m
+    if suite.global_batch % data:
+        raise ValueError(f"batch {suite.global_batch} does not split over "
+                         f"a data axis of {data}")
+    comm = RecordedCollectives(cards)
+    ctx = ShardingCtx(make_mesh((data, m), ("data", "model"), rank=0),
+                      cell_rules(cfg, suite, m), comm=comm)
+    model = Model(cfg)
+    params = model.abstract(ctx)
+    per_card = suite.global_batch // data
+    meta = {
+        **head, "status": "ok", "batch_per_card": per_card,
+        "mesh": f"{data}x{m}",
+        "params": model_param_count(model.abstract()),
+        "params_per_card": model_param_count(params),
+        "active_params": cfg.active_param_count(),
+        "kind": suite.kind,
+        "layout": (f"data {data} x model {m}: heads, kv heads (as the q "
+                   f"heads read them), MLP columns, experts and vocab "
+                   f"over the model axis; the batch over data"),
+        "layout_differences": layout_differences(model, suite, ctx),
+    }
+    comm.plan = model_axis_plan(model, suite, per_card, ctx)
+    if suite.kind == "prefill":
+        batch, _ = S.train_batch_specs(cfg, suite, per_card)
+        batch.pop("targets")
+        meta["tokens_per_step"] = suite.global_batch * suite.seq_len
+        return make_prefill_step(model, ctx), (params, batch), meta, comm
+    _, cache, token, index, _ = S.decode_inputs(model, suite, per_card,
+                                                ctx=ctx)
+    meta["tokens_per_step"] = suite.global_batch
+    return (make_decode_step(model, ctx), (params, cache, token, index),
+            meta, comm)
+
+
+def layout_differences(model: Model, suite: ShapeSuite,
+                       ctx: ShardingCtx) -> Dict[str, Any]:
+    """Every parameter and cache leaf whose bytes on a card differ from
+    the reference's layout (``sharding.held_differently``): its reason
+    and both byte counts."""
+    b = suite.global_batch
+    trees = {"params": model.defs}
+    if suite.kind == "decode":
+        trees["cache"] = model.cache_defs(b, suite.seq_len)
+    out = {}
+    for name, defs in trees.items():
+        for path, d in tree_paths(defs):
+            got = held_differently(d, ctx)
+            if got is not None:
+                out[f"{name}/{path}"] = got
+    return out
+
+
 def model_flops(meta: Dict[str, Any]) -> int:
     """6·N_active·D for a train cell, 2·N_active·D for inference."""
     mult = 6 if meta["kind"] == "train" else 2
@@ -183,7 +352,7 @@ def analyze_cell(fn, args, meta: Dict[str, Any], comm=None
     memory, cost, collectives and roofline (the keys of the JAX
     package's result)."""
     n = meta["cards"]
-    plan = [] if comm is None else collective_plan(args[0], n)
+    plan = [] if comm is None else comm.plan
     t0 = time.time()
     _, a = analyze_step(fn, *args, collectives=plan, world=n)
     result = {"trace_s": round(time.time() - t0, 2)}
@@ -214,12 +383,12 @@ def analyze_cell(fn, args, meta: Dict[str, Any], comm=None
     return result
 
 
-def run_cell(arch: str, shape: str, *, cards: int = 1,
+def run_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
              out_dir: str = "build/dryrun", tag: str = "",
              overrides: Optional[Dict[str, Any]] = None,
              suite: Optional[ShapeSuite] = None) -> Dict[str, Any]:
     t0 = time.time()
-    fn, args, meta, comm = build_cell(arch, shape, cards=cards,
+    fn, args, meta, comm = build_cell(arch, shape, cards=cards, model=model,
                                       overrides=overrides, suite=suite)
     result = dict(meta)
     if meta["status"] == "ok":
@@ -231,14 +400,15 @@ def run_cell(arch: str, shape: str, *, cards: int = 1,
             result["traceback"] = traceback.format_exc()[-4000:]
         result["total_s"] = round(time.time() - t0, 2)
     if out_dir:
-        _write(out_dir, arch, shape, cards, result, tag)
+        _write(out_dir, arch, shape, cards, result, tag, model)
     return result
 
 
-def _write(out_dir, arch, shape, cards, result, tag=""):
+def _write(out_dir, arch, shape, cards, result, tag="", model=1):
     os.makedirs(out_dir, exist_ok=True)
     safe_arch = arch.replace(".", "p").replace("/", "_")
-    suffix = f"_{tag}" if tag else ""
+    suffix = (f"_model{model}" if model > 1 else "") + (f"_{tag}" if tag
+                                                         else "")
     path = os.path.join(out_dir,
                         f"{safe_arch}__{shape}__{cards}card{suffix}.json")
     with open(path, "w") as f:
@@ -247,9 +417,9 @@ def _write(out_dir, arch, shape, cards, result, tag=""):
 
 def brief(res: Dict[str, Any]) -> Dict[str, Any]:
     """The one-line summary of a cell the CLI prints last."""
-    out = {k: res.get(k) for k in ("arch", "shape", "cards", "status",
-                                   "trace_s", "fits", "model_flops_ratio",
-                                   "error")}
+    out = {k: res.get(k) for k in ("arch", "shape", "cards", "model_axis",
+                                   "status", "trace_s", "fits",
+                                   "model_flops_ratio", "reason", "error")}
     if "roofline" in res:
         out.update(res["roofline"])
     if "memory" in res:
@@ -259,29 +429,39 @@ def brief(res: Dict[str, Any]) -> Dict[str, Any]:
 
 def matrix_line(res: Dict[str, Any]) -> str:
     """One cell of the matrix: status, peak GiB, fits, dominant term,
-    bound seconds."""
+    bound seconds, collective bytes."""
     head = f"{res['arch']:>16} {res['shape']:>12}: {res['status']}"
     if "roofline" not in res:
         return head + (f" ({res.get('reason') or res.get('error')})")
     roof = res["roofline"]
     return (f"{head}, peak {res['memory']['peak_estimate_bytes'] / 2**30:.2f}"
             f" GiB, fits {res['fits']}, {roof['dominant']}-bound, bound "
-            f"{roof['bound_s']:.6g} s, model/counted flops "
-            f"{res['model_flops_ratio']:.4f}, traced in {res['trace_s']} s")
+            f"{roof['bound_s']:.6g} s, collectives "
+            f"{res['collective_result_bytes_per_device'] / 2**20:.2f} MiB "
+            f"(wire {res['collective_wire_bytes_per_device'] / 2**20:.2f} "
+            f"MiB), model/counted flops {res['model_flops_ratio']:.4f}, "
+            f"traced in {res['trace_s']} s")
 
 
-def run_matrix(cards: int = 1, out_dir: str = "build/dryrun") -> bool:
+STATUSES_OK = ("ok", "skipped", "not_ported")
+
+
+def run_matrix(cards: int = 1, out_dir: str = "build/dryrun",
+               model: int = 1) -> bool:
     """Every arch x ``shape_cells()`` cell, one line each, then the host
-    seconds the matrix took. True when every cell is ok or skipped."""
+    seconds the matrix took. True when every cell is ok, skipped or not
+    ported."""
     from repro_torch.configs import list_archs
     t0 = time.time()
     ok = True
     for arch in list_archs():
         for shape in SHAPE_SUITES:
-            res = run_cell(arch, shape, cards=cards, out_dir=out_dir)
-            ok &= res["status"] in ("ok", "skipped")
+            res = run_cell(arch, shape, cards=cards, model=model,
+                           out_dir=out_dir)
+            ok &= res["status"] in STATUSES_OK
             print(matrix_line(res), flush=True)
-    print(f"matrix at {cards} card(s): {time.time() - t0:.1f} s of host time")
+    print(f"matrix at {cards} card(s), model axis {model}: "
+          f"{time.time() - t0:.1f} s of host time")
     return ok
 
 
@@ -292,24 +472,27 @@ def main(argv=None):
     ap.add_argument("--arch")
     ap.add_argument("--shape", choices=list(SHAPE_SUITES))
     ap.add_argument("--cards", type=int, default=1)
+    ap.add_argument("--model", type=int, default=1,
+                    help="the model axis (data = cards / model)")
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--tag", default="")
     ap.add_argument("--override", action="append", default=[],
                     help="cfg override key=value (int/float/bool)")
     args = ap.parse_args(argv)
     if args.all:
-        raise SystemExit(0 if run_matrix(args.cards, args.out) else 1)
+        raise SystemExit(0 if run_matrix(args.cards, args.out, args.model)
+                         else 1)
     if not (args.arch and args.shape):
         ap.error("--arch and --shape are required without --all")
     overrides = {}
     for ov in args.override:
         k, v = ov.split("=", 1)
         overrides[k] = json.loads(v)
-    res = run_cell(args.arch, args.shape, cards=args.cards,
+    res = run_cell(args.arch, args.shape, cards=args.cards, model=args.model,
                    out_dir=args.out, tag=args.tag,
                    overrides=overrides or None)
     print(json.dumps(brief(res)))
-    raise SystemExit(0 if res["status"] in ("ok", "skipped") else 1)
+    raise SystemExit(0 if res["status"] in STATUSES_OK else 1)
 
 
 if __name__ == "__main__":

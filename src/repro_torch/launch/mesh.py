@@ -1,5 +1,17 @@
-"""The sharded serving plane's device mesh (the JAX package's
-``launch/mesh.py``, only ``make_shard_mesh`` and ``mesh_devices``).
+"""Meshes (the JAX package's ``launch/mesh.py``): the model's
+("data", "model") mesh (``make_mesh``, ``make_production_mesh``) and the
+sharded serving plane's (``make_shard_mesh``, ``mesh_devices``).
+
+A model mesh (``Mesh``) holds the axis names, their sizes, this rank's
+coordinates (row-major: on ("data", "model") the ranks of one model
+group are consecutive) and one process group per axis for the rank's
+group along it, made with ``torch.distributed.new_group`` once the
+default group is initialized (gloo or NCCL; the caller gives
+``init_process_group`` its address, world size and rank). Its
+process-free form (``rank=`` given, no groups) is what the dry run traces
+with on ``meta``: ``group(axis)`` then returns an ``AxisGroup`` stand-in
+that a recorder of collectives reads. The reference's mesh of 256 TPU
+chips becomes a 16 x 16 mesh of ranks, one per card.
 
 A mesh here is a plain object that holds one ``torch.device`` per serving
 shard along one axis, ``shards``. It places nothing: the torch backend
@@ -12,7 +24,9 @@ counterpart.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import itertools
+import math
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -52,4 +66,98 @@ def mesh_devices(mesh: ShardMesh) -> int:
     return len(mesh.devices)
 
 
-__all__ = ["ShardMesh", "make_shard_mesh", "mesh_devices"]
+class AxisGroup(NamedTuple):
+    """The group of a process-free mesh's axis: its name and size."""
+    axis: str
+    size: int
+
+
+class Mesh:
+    """An n-D mesh of ranks: ``shape`` (sizes per axis), ``axis_names``,
+    ``rank``, its coordinates ``coord(axis)`` and ``group(axis)``."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 rank: int, groups: Optional[Dict[str, object]] = None):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {shape} for axes {axis_names}")
+        self.shape = tuple(int(n) for n in shape)
+        self.axis_names = tuple(axis_names)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        self.rank = rank
+        coords, rest = {}, rank
+        for name, n in reversed(list(zip(self.axis_names, self.shape))):
+            rest, coords[name] = divmod(rest, n)
+        self.coords = {a: coords[a] for a in self.axis_names}
+        self.groups = groups
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def coord(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def group(self, axis: str):
+        if self.groups is None:
+            return AxisGroup(axis, self.shape[self.axis_names.index(axis)])
+        return self.groups[axis]
+
+    def __repr__(self) -> str:
+        return (f"Mesh({dict(zip(self.axis_names, self.shape))}, rank "
+                f"{self.rank}{'' if self.groups else ', process-free'})")
+
+
+def _axis_ranks(shape: Tuple[int, ...], axis: int) -> list:
+    """Every group of ranks along ``axis`` (row-major rank order), in a
+    fixed order: each rank must create every group, in the same order."""
+    others = [range(n) for i, n in enumerate(shape) if i != axis]
+    strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+    groups = []
+    for rest in itertools.product(*others):
+        coord = list(rest)
+        coord.insert(axis, 0)
+        base = sum(c * s for c, s in zip(coord, strides))
+        groups.append([base + j * strides[axis] for j in range(shape[axis])])
+    return groups
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
+              rank: Optional[int] = None) -> Mesh:
+    """A mesh of ``shape`` over ``axes``. With ``rank`` given: the
+    process-free form for that rank. Else the default process group must
+    be initialized with ``prod(shape)`` ranks: one group per axis is made
+    for this rank (``torch.distributed.new_group``; every rank calls this
+    with the same arguments)."""
+    shape = tuple(shape)
+    if rank is not None:
+        return Mesh(shape, axes, rank)
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialized process group "
+                           "(or rank= for the process-free form)")
+    if dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks, "
+                         f"the process group has {dist.get_world_size()}")
+    me = dist.get_rank()
+    groups = {}
+    for i, name in enumerate(axes):
+        for ranks in _axis_ranks(shape, i):
+            g = dist.new_group(ranks)
+            if me in ranks:
+                groups[name] = g
+    return Mesh(shape, axes, me, groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         rank: Optional[int] = None) -> Mesh:
+    """Single pod: (data=16, model=16) = 256 ranks, one per card.
+    Multi-pod: (pod=2, data=16, model=16) = 512. ``rank`` as in
+    ``make_mesh`` (the dry run: the process-free form at rank 0)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, rank=rank)
+
+
+__all__ = ["AxisGroup", "Mesh", "ShardMesh", "make_mesh",
+           "make_production_mesh", "make_shard_mesh", "mesh_devices"]

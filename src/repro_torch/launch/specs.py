@@ -7,9 +7,9 @@ traces — ``train_step`` for train shapes, ``prefill_step`` for prefill,
 ``decode_step`` for decode/long shapes — with the same logical-axes
 dicts. Token ids are int64 (torch's index dtype, what the port's entry
 points draw; the JAX package uses int32). ``batch_pspecs`` has no
-counterpart: the port has no ``PartitionSpec``, and its one data layout
-across cards is ``train/manual_dp.py``'s (the batch split over the
-cards, the moments ZeRO-sharded), which ``launch/dryrun.py`` builds.
+counterpart: the batch's layout is the caller's (``train/manual_dp.py``
+splits it over the cards; under a model axis ``ShardingCtx.shard`` cuts
+the rank's sequences), which ``launch/dryrun.py`` builds.
 
 Modality frontends are stubs, as in the JAX package: whisper cells carry
 precomputed conv-stem frame embeddings [B, 1500, d_model]; qwen2-vl text
@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSuite
 from repro_torch.models.model import Model
-from repro_torch.models.param import tree_abstract
+from repro_torch.models.param import local_defs, tree_abstract
+from repro_torch.models.sharding import NULL_CTX, ShardingCtx
 
 TOKEN_DTYPE = torch.int64
 
@@ -58,16 +59,18 @@ def train_batch_specs(cfg: ModelConfig, suite: ShapeSuite,
     return out, axes
 
 
-def decode_inputs(model: Model, suite: ShapeSuite, per_card: int = 0):
+def decode_inputs(model: Model, suite: ShapeSuite, per_card: int = 0,
+                  ctx: ShardingCtx = NULL_CTX):
     """(cache_defs, cache, token, index, token_axes) for a decode cell:
     the cache as ``meta`` tensors of ``model.cache_defs`` (seq_len deep,
-    ``per_card`` sequences), one token per sequence, and the index
-    decoded at — the cache's last position (the port's decode takes it as
-    a Python int; the JAX package traces an abstract scalar), so that the
-    step attends over the whole cache."""
+    ``per_card`` sequences; under a sharded ``ctx`` the rank's part of
+    it), one token per sequence, and the index decoded at — the cache's
+    last position (the port's decode takes it as a Python int; the JAX
+    package traces an abstract scalar), so that the step attends over the
+    whole cache."""
     b = per_card or suite.global_batch
-    cache_defs = model.cache_defs(b, suite.seq_len)
-    cache = tree_abstract(cache_defs)
+    cache_defs = model.cache_defs(b * ctx.size("batch"), suite.seq_len)
+    cache = tree_abstract(local_defs(cache_defs, ctx))
     token = sds((b, 1), TOKEN_DTYPE)
     index = suite.seq_len - 1
     token_axes = ("batch", None)

@@ -23,8 +23,11 @@ CPU or CUDA tensors to hold the count against a real run.
     storage an op allocates while it lives (a kernel call's outputs, and
     its scratch during the call, by its formula) — the JAX package's
     argument + output + temp split of ``memory_analysis``;
-  * collectives: the step's ``collective_plan`` (``train/manual_dp.py``),
-    as the JAX package reports them, with its ring multipliers.
+  * collectives: the step's plan (``train/manual_dp.py``'s
+    ``collective_plan``, ``launch/dryrun.py``'s ``model_axis_plan``), as
+    the JAX package reports them, with its ring multipliers over each
+    one's group. A collective a real run issues (``c10d`` ops) is neither
+    an operation nor bytes here: it is the plan's.
 
 ``roofline_terms`` keeps the JAX function's signature and keys with an
 H100 SXM's constants. Nothing here imports a CUDA module.
@@ -112,16 +115,18 @@ def _wire_multiplier(kind: str, n: int) -> float:
 def collective_summary(issued: List[Dict[str, Any]], world: int
                        ) -> Dict[str, Dict[str, float]]:
     """Collectives in the JAX package's format: per kind the count, the
-    result bytes, the ring wire bytes per device and the largest group."""
+    result bytes, the ring wire bytes per device and the largest group
+    (a collective's ``group`` size where it names one, else ``world``)."""
     out: Dict[str, Dict[str, float]] = {}
     for c in issued:
+        n = c.get("group", world)
         rec = out.setdefault(c["kind"], {"count": 0, "result_bytes": 0.0,
                                          "wire_bytes": 0.0, "max_group": 0})
         rec["count"] += 1
         rec["result_bytes"] += c["result_bytes"]
         rec["wire_bytes"] += c["result_bytes"] * _wire_multiplier(
-            c["kind"], world)
-        rec["max_group"] = max(rec["max_group"], world)
+            c["kind"], n)
+        rec["max_group"] = max(rec["max_group"], n)
     return out
 
 
@@ -203,7 +208,7 @@ class StepCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         if func in _META_QUERIES:
             return NotImplemented
-        if self.depth:
+        if self.depth or func.namespace == "c10d":
             return func(*args, **kwargs)
         packet = func._overloadpacket
         if packet not in flop_registry:

@@ -17,6 +17,18 @@ Cache conventions (decode):
 Prefill returns a fresh per-layer cache; decode writes the new token's
 entries into the cache it is given, in place (the JAX package donates the
 cache and returns an updated copy), and returns that cache.
+
+Under a sharded ``ctx`` (the dense / MoE / VLM decoder block, zamba2's
+Mamba2 block and its shared attention block) a rank holds its q heads,
+the kv heads they read, its MLP columns and experts, and its Mamba2
+heads: ``wq`` / ``wk`` / ``wv`` are column-parallel, ``wo``, the MLP's
+``w_down`` and Mamba2's ``out_proj`` row-parallel
+(``layers.row_parallel``: one f32 all-reduce of the partial products;
+``bo`` added once, after it); the head counts come from the
+local weights, so the caches and the kernels' calls are the rank's.
+Mamba2's ``in_proj`` is split by meaning: z, x and dt by head, B and C
+(one state shared by every head) whole on every rank; its gated norm
+all-reduces its variance over the heads.
 """
 from __future__ import annotations
 
@@ -31,8 +43,9 @@ from repro_torch.models.attention import attend_decode, attend_prefill
 from repro_torch.models.layers import (apply_mrope, apply_rope, gelu_mlp,
                                        gelu_mlp_defs, groupnorm_heads,
                                        layernorm, mlp_defs, rmsnorm,
-                                       swiglu_mlp)
+                                       row_parallel, swiglu_mlp)
 from repro_torch.models.param import ParamDef
+from repro_torch.models.sharding import NULL_CTX, Part, ShardingCtx
 
 KV_CACHE_DTYPE = torch.bfloat16      # prefill stores K/V in bf16 always
 
@@ -52,22 +65,36 @@ def attn_defs(cfg: ModelConfig, layers: Optional[int] = None,
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     lead = () if layers is None else (layers,)
     lax_ = () if layers is None else ("layers",)
+    q_heads = (Part(hq * hd, hq),)
+    kv_heads = (Part(hkv * hd, hkv, kv_of=hq),)
     defs = {
-        "wq": ParamDef(lead + (d, hq * hd), lax_ + ("embed", "heads")),
-        "wk": ParamDef(lead + (d, hkv * hd), lax_ + ("embed", "kv_heads")),
-        "wv": ParamDef(lead + (d, hkv * hd), lax_ + ("embed", "kv_heads")),
-        "wo": ParamDef(lead + (hq * hd, d), lax_ + ("heads2", "embed_out")),
+        "wq": ParamDef(lead + (d, hq * hd), lax_ + ("embed", "heads"),
+                       parts=q_heads),
+        "wk": ParamDef(lead + (d, hkv * hd), lax_ + ("embed", "kv_heads"),
+                       parts=kv_heads),
+        "wv": ParamDef(lead + (d, hkv * hd), lax_ + ("embed", "kv_heads"),
+                       parts=kv_heads),
+        "wo": ParamDef(lead + (hq * hd, d), lax_ + ("heads2", "embed_out"),
+                       parts=q_heads),
     }
     if bias:                         # whisper: q, v and output biases
         defs["bq"] = ParamDef(lead + (hq * hd,), lax_ + ("heads",),
-                              init="zeros")
+                              init="zeros", parts=q_heads)
         defs["bv"] = ParamDef(lead + (hkv * hd,), lax_ + ("kv_heads",),
-                              init="zeros")
+                              init="zeros", parts=kv_heads)
         defs["bo"] = ParamDef(lead + (d,), lax_ + ("embed",), init="zeros")
     return defs
 
 
-def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig):
+def kv_parts(cfg: ModelConfig):
+    """The kv-head dim of a K/V cache, as ``attn_defs``' ``wk`` holds it."""
+    return (Part(cfg.n_kv_heads, cfg.n_kv_heads, kv_of=cfg.n_heads),)
+
+
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
+                 ctx: ShardingCtx = NULL_CTX):
+    """q [B, S, Hq, hd] and k, v [B, S, Hkv, hd] at this rank's head
+    counts (those of its weights)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = x @ params["wq"]
@@ -76,9 +103,11 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig):
     if "bq" in params:
         q = q + params["bq"]
         v = v + params["bv"]
-    return (q.reshape(b, s, cfg.n_heads, hd),
-            k.reshape(b, s, cfg.n_kv_heads, hd),
-            v.reshape(b, s, cfg.n_kv_heads, hd))
+    k, v = (ctx.constrain(t.reshape(b, s, -1, hd),
+                          ("batch", None, "kv_heads", None),
+                          (None, None, cfg.n_kv_heads, None), kv_parts(cfg))
+            for t in (k, v))
+    return q.reshape(b, s, -1, hd), k, v
 
 
 def _apply_pos(q, k, cfg: ModelConfig, positions):
@@ -91,9 +120,12 @@ def _apply_pos(q, k, cfg: ModelConfig, positions):
     return q, k
 
 
-def _out_proj(params, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _out_proj(params, out: torch.Tensor, cfg: ModelConfig,
+              ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
+    """Row-parallel ``wo`` over the rank's heads, all-reduced, then
+    ``bo`` once."""
     b, s = out.shape[:2]
-    y = out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim) @ params["wo"]
+    y = row_parallel(out.reshape(b, s, -1), params["wo"], ctx, "heads")
     if "bo" in params:
         y = y + params["bo"]
     return y
@@ -101,11 +133,12 @@ def _out_proj(params, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def self_attention(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                    positions: Optional[torch.Tensor], cache=None,
-                   cache_index=None, causal: bool = True):
+                   cache_index=None, causal: bool = True,
+                   ctx: ShardingCtx = NULL_CTX):
     """mode: train | prefill | decode; positions per ``cfg.pos_scheme``
     (RoPE [.., S], M-RoPE [.., S, 3], none for sinusoidal). Returns (y,
     new_cache)."""
-    q, k, v = _project_qkv(params, x, cfg)
+    q, k, v = _project_qkv(params, x, cfg, ctx)
     q, k = _apply_pos(q, k, cfg, positions)
 
     new_cache = cache
@@ -121,7 +154,7 @@ def self_attention(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         out = attend_prefill(q, k, v, causal=causal)
         if mode == "prefill":
             new_cache = {"k": k.to(KV_CACHE_DTYPE), "v": v.to(KV_CACHE_DTYPE)}
-    return _out_proj(params, out, cfg), new_cache
+    return _out_proj(params, out, cfg, ctx), new_cache
 
 
 def cross_attention(params, x: torch.Tensor, enc_kv, cfg: ModelConfig):
@@ -162,18 +195,20 @@ def decoder_block_defs(cfg: ModelConfig, layers: int):
 
 
 def decoder_block(params, x, cfg: ModelConfig, *, mode, positions,
-                  cache=None, cache_index=None):
+                  cache=None, cache_index=None, ctx: ShardingCtx = NULL_CTX):
     h = rmsnorm(x, params["ln1"], cfg.norm_eps)
     a, new_cache = self_attention(params["attn"], h, cfg, mode=mode,
                                   positions=positions, cache=cache,
-                                  cache_index=cache_index)
+                                  cache_index=cache_index, ctx=ctx)
     x = x + a
     h = rmsnorm(x, params["ln2"], cfg.norm_eps)
     if "moe" in params:
-        f, aux = moe.moe_ffn(params["moe"], h, cfg.moe)
+        f, aux = moe.moe_ffn(params["moe"], h, cfg.moe, ctx)
     else:
-        f, aux = swiglu_mlp(params["mlp"], h), _no_aux(x)
-    return x + f, new_cache, aux
+        f, aux = swiglu_mlp(params["mlp"], h, ctx), _no_aux(x)
+    x = ctx.constrain(x + f, ("batch", "seq", "act_embed"),
+                      (None, None, cfg.d_model))
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -318,17 +353,30 @@ def mamba2_block_defs(cfg: ModelConfig, layers: int):
     la = ("layers",)
     # in_proj emits [z (d_in), x (d_in), B (st), C (st), dt (nh)]
     proj_out = 2 * d_in + 2 * st + nh
+    heads = Part(d_in, nh)
     return {
         "ln": ParamDef((L, d), la + ("embed",), init="ones"),
-        "in_proj": ParamDef((L, d, proj_out), la + ("embed", "heads")),
+        "in_proj": ParamDef((L, d, proj_out), la + ("embed", "heads"),
+                            parts=(heads, heads, Part(st), Part(st),
+                                   Part(nh, nh))),
         "conv_w": ParamDef((L, cfg.ssm.conv_kernel, d_in + 2 * st),
-                           la + (None, "heads"), scale=0.5),
+                           la + (None, "heads"), scale=0.5,
+                           parts=conv_parts(cfg)),
         "a_log": ParamDef((L, nh), la + ("heads",), init="zeros"),
         "dt_bias": ParamDef((L, nh), la + ("heads",), init="zeros"),
         "d_skip": ParamDef((L, nh), la + ("heads",), init="ones"),
-        "norm": ParamDef((L, d_in), la + ("heads",), init="ones"),
-        "out_proj": ParamDef((L, d_in, d), la + ("heads", "embed")),
+        "norm": ParamDef((L, d_in), la + ("heads",), init="ones",
+                         parts=(heads,)),
+        "out_proj": ParamDef((L, d_in, d), la + ("heads", "embed"),
+                             parts=(heads,)),
     }
+
+
+def conv_parts(cfg: ModelConfig):
+    """The conv's channels [x (d_in) | B (st) | C (st)]: x by head, B
+    and C whole."""
+    d_in, nh, _, st = mamba_dims(cfg)
+    return (Part(d_in, nh), Part(st), Part(st))
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -347,9 +395,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(y.float()).to(x.dtype), new_state
 
 
-def mamba2_block(params, x, cfg: ModelConfig, *, mode, cache=None):
+def mamba2_block(params, x, cfg: ModelConfig, *, mode, cache=None,
+                 ctx: ShardingCtx = NULL_CTX):
     b, s, d = x.shape
-    d_in, nh, hd, st = mamba_dims(cfg)
+    d_in_full, _, hd, st = mamba_dims(cfg)
+    nh = params["a_log"].shape[-1]              # this rank's heads
+    d_in = nh * hd
 
     h = rmsnorm(x, params["ln"], cfg.norm_eps)
     zxbcdt = h @ params["in_proj"]
@@ -388,10 +439,13 @@ def mamba2_block(params, x, cfg: ModelConfig, *, mode, cache=None):
 
     y = out.reshape(b, s, d_in) + xin * torch.repeat_interleave(
         params["d_skip"], hd, dim=-1).to(x.dtype)[None, None]
-    y = rmsnorm(y, params["norm"], cfg.norm_eps)
+    y = rmsnorm(y, params["norm"], cfg.norm_eps, ctx=ctx, axis="heads",
+                width=d_in_full)
     y = y * F.silu(z.float()).to(x.dtype)
-    y = y @ params["out_proj"]
-    return x + y, new_cache, _no_aux(x)
+    y = row_parallel(y, params["out_proj"], ctx, "heads")
+    x = ctx.constrain(x + y, ("batch", "seq", "act_embed"),
+                      (None, None, cfg.d_model))
+    return x, new_cache, _no_aux(x)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ shapes — the port keeps the stacked ``[L, ...]`` layer axis — so the
 conversion is leaf for leaf, checked against the port's ParamDefs. An
 ``AdamWState`` (step, mu, nu as numpy) carries across the same way
 (``opt_from_reference``), so both packages can start from one optimizer
-state."""
+state. ``param.shard_tree(from_reference(defs, tree), defs, ctx)`` is
+one rank's part of the reference's weights under a sharded ``ctx``."""
 from __future__ import annotations
 
 from typing import Any

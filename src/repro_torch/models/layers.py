@@ -3,6 +3,14 @@ GroupNorm), positions (RoPE, M-RoPE, sinusoidal), the SwiGLU and GELU
 MLPs, embedding/unembedding. Pure functions over explicit param trees, as in
 the JAX package's ``models/layers.py``: norms, activations and softmaxes
 compute in f32, tensors stay in the parameters' dtype (bf16 by default).
+
+Under a sharded ``ctx`` (``models/sharding.py``) the parameters are this
+rank's slices: the MLP is column- then row-parallel (``row_parallel``:
+its partial products all-reduced in f32 over "ff"), the embedding and
+unembedding vocab-parallel (the embedding masks the ids outside the
+rank's rows, then all-reduces; the unembedding returns the rank's logits
+columns), and ``rmsnorm`` over a split dim all-reduces its sum of
+squares in f32.
 """
 from __future__ import annotations
 
@@ -12,12 +20,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.param import ParamDef
+from repro_torch.models.sharding import NULL_CTX, ShardingCtx
 
 
-def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5, *,
+            ctx: ShardingCtx = NULL_CTX, axis: Optional[str] = None,
+            width: int = 0) -> torch.Tensor:
+    """RMSNorm over the last dim. ``axis`` and ``width``: the dim is split
+    over ``axis``'s ranks, ``width`` wide in full; its sum of squares is
+    all-reduced in f32."""
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    if axis is not None and ctx.size(axis) > 1:
+        ss = ctx.all_reduce(xf.square().sum(dim=-1, keepdim=True), axis)
+        var = ss / width
+    else:
+        var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
 
@@ -107,11 +124,22 @@ def mlp_defs(d_model: int, d_ff: int, layers: Optional[int] = None):
     }
 
 
-def swiglu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+def row_parallel(x: torch.Tensor, w: torch.Tensor, ctx: ShardingCtx,
+                 axis: str) -> torch.Tensor:
+    """``x @ w`` where x's last dim and w's rows are this rank's part of
+    a dim split over ``axis``: each rank's partial product in x's dtype
+    (in bf16 a tensor-core GEMM, rounded once more than the unsplit
+    product), all-reduced in f32 and rounded once to x's dtype; ``x @ w``
+    itself where ``axis`` is not split."""
+    return ctx.all_reduce(x @ w, axis)
+
+
+def swiglu_mlp(params, x: torch.Tensor,
+               ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ params["w_down"]
+    return row_parallel(h, params["w_down"], ctx, "ff")
 
 
 def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
@@ -132,10 +160,21 @@ def gelu_mlp_defs(d_model: int, d_ff: int, layers: Optional[int] = None):
     }
 
 
-def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids]
+def embed(table: torch.Tensor, ids: torch.Tensor,
+          ctx: ShardingCtx = NULL_CTX, vocab: int = 0) -> torch.Tensor:
+    """Rows ``ids`` of the table. Vocab-parallel (``table`` this rank's
+    rows of ``vocab``): ids outside them give zeros, and the ranks' rows
+    are all-reduced (exact: one rank holds each id)."""
+    if ctx.size("vocab") == 1:
+        return table[ids]
+    v0, v1 = ctx.range("vocab", vocab)
+    local = ids - v0
+    hit = (local >= 0) & (local < v1 - v0)
+    rows = table[local.clamp(0, v1 - v0 - 1)] * hit[..., None].to(
+        table.dtype)
+    return ctx.all_reduce(rows, "vocab")
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Logits in f32."""
+    """Logits in f32 (vocab-parallel: this rank's columns)."""
     return x.float() @ table.float().T

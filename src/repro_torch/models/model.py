@@ -21,6 +21,17 @@ Prefill and decode run without a graph.
 The stacks loop over the stacked ``[L, ...]`` layer params (the JAX
 package scans them), unbound once per forward so that the backward stacks
 the layers' gradients in one step.
+
+The model axis (serving): ``specs`` gives the reference's PartitionSpecs;
+under a ``ShardingCtx`` with a mesh (``models/sharding.py``),
+``init(generator, ctx)`` draws this rank's slices, ``local_defs``
+describes them, ``init_cache(..., ctx=ctx)`` allocates the rank's cache
+and ``forward(..., ctx=ctx)`` runs the rank's part of prefill and decode
+for the dense, MoE, VLM and hybrid families (tensor- and
+expert-parallel, vocab-parallel embedding and logits: the logits it
+returns are the rank's vocab columns, padding dropped). rwkv6 and
+whisper under a split model axis, and training under one, raise
+``NotImplementedError`` (ROADMAP A).
 """
 from __future__ import annotations
 
@@ -35,8 +46,9 @@ from repro_torch.core.backend import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.layers import (embed, layernorm, rmsnorm,
                                        sinusoidal_pos, swiglu_mlp, unembed)
-from repro_torch.models.param import (ParamDef, tree_abstract, tree_init,
-                                      tree_map)
+from repro_torch.models.param import (ParamDef, local_defs, tree_abstract,
+                                      tree_init, tree_map, tree_specs)
+from repro_torch.models.sharding import NULL_CTX, ShardingCtx
 
 
 def _layer(tree, i: int):
@@ -80,6 +92,8 @@ def _stack(caches):
 
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+# the families whose model axis is ported (serving)
+TP_FAMILIES = ("dense", "moe", "vlm", "hybrid")
 
 
 class Model:
@@ -133,14 +147,30 @@ class Model:
         return d
 
     # -------------------------------------------------------------- params
-    def init(self, generator: torch.Generator) -> Any:
-        """Random weights on ``generator.device``."""
-        return tree_init(self.defs, generator)
+    def init(self, generator: torch.Generator,
+             ctx: ShardingCtx = NULL_CTX) -> Any:
+        """Random weights on ``generator.device`` (this rank's slices of
+        them under a sharded ``ctx``)."""
+        self.check_ctx(ctx)
+        return tree_init(self.defs, generator, ctx)
 
-    def abstract(self) -> Any:
-        """The parameters as ``meta`` tensors (no memory): what the dry
-        run (``launch/dryrun.py``) traces a step with."""
-        return tree_abstract(self.defs)
+    def abstract(self, ctx: ShardingCtx = NULL_CTX) -> Any:
+        """The parameters (this rank's) as ``meta`` tensors (no memory):
+        what the dry run (``launch/dryrun.py``) traces a step with."""
+        self.check_ctx(ctx)
+        return tree_abstract(local_defs(self.defs, ctx))
+
+    def specs(self, rules, mesh=None) -> Any:
+        """The parameters' PartitionSpecs (the reference's
+        ``Model.specs``)."""
+        return tree_specs(self.defs, rules, mesh)
+
+    def check_ctx(self, ctx: ShardingCtx) -> None:
+        """Raises where the port has no model axis for this family."""
+        if ctx.size("heads") > 1 and self.cfg.family not in TP_FAMILIES:
+            raise NotImplementedError(
+                f"the {self.cfg.family} family has no model axis in the "
+                f"port yet (ROADMAP A): {ctx.size('heads')} ranks")
 
     # --------------------------------------------------------------- caches
     def n_shared_apps(self) -> int:
@@ -160,7 +190,8 @@ class Model:
         def kv(layers, s, h, names=("k", "v")):
             axes = ("layers", "batch", "kv_seq", "kv_heads", None)
             return {n: ParamDef((layers, batch, s, h, hd), axes,
-                                init="zeros") for n in names}
+                                init="zeros", parts=blocks.kv_parts(cfg))
+                    for n in names}
 
         if fam in ("dense", "moe", "vlm"):
             return kv(L, seq, cfg.n_kv_heads)
@@ -187,7 +218,7 @@ class Model:
                 "conv": ParamDef((L, batch, cfg.ssm.conv_kernel - 1,
                                   d_in + 2 * st),
                                  ("layers", "batch", None, "heads"),
-                                 init="zeros"),
+                                 init="zeros", parts=blocks.conv_parts(cfg)),
             },
         }
         napp = self.n_shared_apps()
@@ -195,18 +226,22 @@ class Model:
             cache["shared"] = kv(napp, seq, cfg.n_kv_heads)
         return cache
 
-    def init_cache(self, batch: int, seq: int, device=None) -> Any:
+    def init_cache(self, batch: int, seq: int, device=None,
+                   ctx: ShardingCtx = NULL_CTX) -> Any:
         """The zeroed decode cache on ``device``: the card unless the
         caller asks for the CPU (``core.backend.resolve_device``; raises
-        when CUDA is absent)."""
+        when CUDA is absent). ``batch``: the global batch; under a
+        sharded ``ctx``, this rank's part of the cache."""
         dev = resolve_device(device)
+        self.check_ctx(ctx)
         return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
                                               device=dev),
-                        self.cache_defs(batch, seq))
+                        local_defs(self.cache_defs(batch, seq), ctx))
 
     # -------------------------------------------------------------- forward
     def forward(self, params, batch: Dict[str, torch.Tensor], *, mode: str,
-                cache=None, cache_index: Optional[int] = None
+                cache=None, cache_index: Optional[int] = None,
+                ctx: ShardingCtx = NULL_CTX
                 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
         """Returns (logits f32 [B, S, vocab], new_cache, aux), as the JAX
         package's ``Model.forward`` does. ``batch`` holds ``tokens`` [B,
@@ -217,17 +252,44 @@ class Model:
         (the MoE load balance; 0 for the other families). In decode mode
         the logits cover the single new token, ``cache_index`` is the
         position it is decoded at and ``cache`` is updated in place.
-        Only train mode records a graph."""
+        Only train mode records a graph. Under a sharded ``ctx``:
+        ``params``, ``batch`` and ``cache`` are this rank's, and so are the
+        logits (its vocab columns; ``vocab_range`` gives which)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
+        self.check_ctx(ctx)
+        if mode == "train" and ctx.size("heads") > 1:
+            raise NotImplementedError("training under a model axis is not "
+                                      "ported yet (ROADMAP A)")
         if mode != "train":
             with torch.no_grad():
                 return self._forward(params, batch, mode=mode, cache=cache,
-                                     cache_index=cache_index)
+                                     cache_index=cache_index, ctx=ctx)
         return self._forward(params, batch, mode=mode, cache=cache,
-                             cache_index=cache_index)
+                             cache_index=cache_index, ctx=ctx)
 
-    def _forward(self, params, batch, *, mode, cache, cache_index):
+    def vocab_range(self, ctx: ShardingCtx = NULL_CTX) -> Tuple[int, int]:
+        """The vocab ids [start, stop) of this rank's logits columns."""
+        v0, v1 = ctx.range("act_vocab", self.cfg.padded_vocab)
+        return v0, max(v0, min(v1, self.cfg.vocab))
+
+    def gather_logits(self, logits: torch.Tensor,
+                      ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
+        """Every rank's logits columns [..., V] all-gathered into the full
+        [..., vocab] (a collective: every rank of the model axis calls
+        it)."""
+        if ctx.size("act_vocab") == 1:
+            return logits
+        v0, v1 = ctx.range("act_vocab", self.cfg.padded_vocab)
+        pad = list(logits.shape)
+        pad[-1] = v1 - v0 - logits.shape[-1]          # the padding dropped
+        if pad[-1]:
+            logits = torch.cat([logits, logits.new_zeros(pad)], -1)
+        parts = ctx.all_gather(logits, "act_vocab",
+                               full=self.cfg.padded_vocab)
+        return torch.cat(parts, -1)[..., :self.cfg.vocab]
+
+    def _forward(self, params, batch, *, mode, cache, cache_index, ctx):
         cfg = self.cfg
         tokens = batch["tokens"]
         s = tokens.shape[1]
@@ -237,7 +299,7 @@ class Model:
                 params, batch, mode=mode, cache=cache,
                 cache_index=cache_index)
         else:
-            x = embed(params["embed"], tokens)
+            x = embed(params["embed"], tokens, ctx, cfg.padded_vocab)
             positions = batch.get("positions")
             if positions is None:
                 positions = _positions_for(cfg, s, offset, tokens.device)
@@ -245,13 +307,16 @@ class Model:
                 else self._scan_stack
             x, new_cache, aux = stack(params, x, mode=mode,
                                       positions=positions, cache=cache,
-                                      cache_index=cache_index)
+                                      cache_index=cache_index, ctx=ctx)
 
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-        logits = unembed(table, x)
-        if cfg.padded_vocab != cfg.vocab:
-            logits = logits[..., :cfg.vocab]   # drop the padding columns
+        logits = ctx.constrain(unembed(table, x),
+                               ("batch", "seq", "act_vocab"),
+                               (None, None, cfg.padded_vocab))
+        v0, v1 = self.vocab_range(ctx)
+        if v1 - v0 != logits.shape[-1]:
+            logits = logits[..., :v1 - v0]     # drop the padding columns
         return logits, new_cache, aux
 
     # ------------------------------------------------------------ stacks
@@ -261,7 +326,7 @@ class Model:
         return mode == "train" and self.cfg.remat and torch.is_grad_enabled()
 
     def _scan_stack(self, params, x, *, mode, positions, cache,
-                    cache_index):
+                    cache_index, ctx=NULL_CTX):
         """The dense / MoE / VLM decoder blocks or the RWKV6 blocks, their
         aux losses summed. Blocks return no cache in train mode, a fresh
         per-layer cache in prefill mode (stacked here) and the updated
@@ -274,7 +339,7 @@ class Model:
             def block(p, h, c=None):
                 return blocks.decoder_block(p, h, cfg, mode=mode,
                                             positions=positions, cache=c,
-                                            cache_index=cache_index)
+                                            cache_index=cache_index, ctx=ctx)
         remat = self._remat(mode)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         fresh = []
@@ -291,12 +356,13 @@ class Model:
         return x, cache if mode == "decode" else None, aux
 
     def _hybrid_stack(self, params, x, *, mode, positions, cache,
-                      cache_index):
+                      cache_index, ctx=NULL_CTX):
         """Zamba2: Mamba2 backbone with a single *shared* attention block
         applied after every ``shared_attn_every`` layers. The shared block
         consumes concat(hidden, initial_embedding); the trailing
         ``n_layers % shared_attn_every`` layers have no shared block after
-        them. No aux loss."""
+        them. No aux loss. Under a sharded ``ctx`` the shared block is
+        split as a decoder block; ``fuse`` stays whole on every rank."""
         cfg = self.cfg
         k = cfg.shared_attn_every
         napp = self.n_shared_apps()
@@ -311,10 +377,10 @@ class Model:
             hh = rmsnorm(z, shared_p["ln1"], cfg.norm_eps)
             a, new_sc = blocks.self_attention(
                 shared_p["attn"], hh, cfg, mode=mode, positions=positions,
-                cache=sc, cache_index=cache_index)
+                cache=sc, cache_index=cache_index, ctx=ctx)
             z = z + a
             hh = rmsnorm(z, shared_p["ln2"], cfg.norm_eps)
-            z = z + swiglu_mlp(shared_p["mlp"], hh)
+            z = z + swiglu_mlp(shared_p["mlp"], hh, ctx)
             return h + z, new_sc
 
         remat = self._remat(mode)
@@ -332,7 +398,8 @@ class Model:
                 continue
             x, lc, _ = blocks.mamba2_block(
                 lp, x, cfg, mode=mode,
-                cache=None if m_cache is None else _layer(m_cache, i))
+                cache=None if m_cache is None else _layer(m_cache, i),
+                ctx=ctx)
             m_fresh.append(lc)
             if shared_after:
                 x, sc = apply_shared(

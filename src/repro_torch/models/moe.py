@@ -13,6 +13,17 @@ The Switch load-balancing loss comes back as ``aux``. The dispatch and
 the combine run under ``torch.profiler`` ranges "moe.dispatch" and
 "moe.combine", so a profiled run reads their share.
 
+Expert-parallel under a sharded ``ctx`` (``models/sharding.py``): a rank
+holds its experts (a contiguous range of the padded experts, rank 0 the
+largest share) and its columns of the shared experts; the router is
+replicated, so every rank routes every token alike (capacity and
+positions come from the global routing) and dispatches to its own
+experts only; its routed and shared partial outputs are summed in f32
+and all-reduced once. Unsplit, the same ending: one f32 sum, rounded
+once (the reference rounds the routed output before it adds the shared
+experts' product). ``aux`` is equal on every rank: over a split
+batch its two means are all-reduced over "batch" first.
+
 DOD-ETL tie-in: a token is a message, the router's expert choice its
 business key, experts are partitions and capacity is the consumer's
 per-partition buffer (``core/partitioning.py``).
@@ -27,6 +38,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.param import ParamDef
+from repro_torch.models.sharding import NULL_CTX, ShardingCtx
 
 NEG_INF = -1e30
 
@@ -126,49 +138,77 @@ def route(params, x: torch.Tensor, cfg: MoEConfig) -> Routing:
                    keep.reshape(g, k, gs).transpose(1, 2), capacity)
 
 
-def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig
+def load_balance(r: Routing, cfg: MoEConfig,
+                 ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
+    """The Switch load-balancing loss: mean router probability x mean
+    top-1 assignment per expert, over every token of the (global)
+    batch."""
+    e = cfg.padded_experts
+    g, gs = r.xt.shape[:2]
+    if ctx.size("batch") == 1:
+        me = r.probs.mean(dim=(0, 1))                        # [e]
+        ce = top1_counts(r.topi, e).float() / (g * gs)
+    else:
+        sums = torch.stack([r.probs.sum(dim=(0, 1)),
+                            top1_counts(r.topi, e).float()])
+        sums = ctx.all_reduce(sums, "batch") / (g * gs * ctx.size("batch"))
+        me, ce = sums.unbind(0)
+    return (me * ce).sum() * e * cfg.router_aux_weight
+
+
+def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig,
+            ctx: ShardingCtx = NULL_CTX
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (out [B, S, D], aux_loss f32 scalar).
 
     Grouped dispatch: [G, gs, D] -> one-hot dispatch [G, gs, E, C] ->
-    expert compute [E, G, C, D] -> combine."""
+    expert compute [E, G, C, D] -> combine (E: this rank's experts)."""
     b, s, d = x.shape
     e = cfg.padded_experts
-    xt, probs, topv, topi, position, keep, capacity = route(params, x, cfg)
+    r = route(params, x, cfg)
+    xt, topv, topi, position, keep, capacity = (
+        r.xt, r.topv, r.topi, r.position, r.keep, r.capacity)
     g, gs = xt.shape[:2]
-
-    # load-balancing aux loss (Switch): mean prob x mean top-1 assignment
-    me = probs.mean(dim=(0, 1))                              # [e]
-    ce = top1_counts(topi, e).float() / (g * gs)
-    aux = (me * ce).sum() * e * cfg.router_aux_weight
+    aux = load_balance(r, cfg, ctx)
 
     gate = topv * keep                                       # dropped -> 0
     # the one-hot dispatch and combine tensors [g, gs, e, c], written by
     # scatter: a token's k experts differ, so each (e, c) cell holds at
     # most one of the reference's summed one-hot products (a dropped
     # assignment writes a zero at its expert's last slot); the same
-    # values without the [g, gs, k, e, c] intermediate
+    # values without the [g, gs, k, e, c] intermediate. Expert-parallel,
+    # the rank's experts [e0, e0 + el) only: the others' assignments
+    # write into one column past the end, cut off
+    e0, e1 = ctx.range("experts", e)
+    el, split = e1 - e0, e1 - e0 != e
+    cells = el * capacity
     cell = topi * capacity + position.clamp(max=capacity - 1)
+    if split:
+        cell = torch.where((topi >= e0) & (topi < e1),
+                           cell - e0 * capacity, cells)
+    width = cells + split
     with record_function("moe.dispatch"):
-        disp = torch.zeros((g, gs, e * capacity), dtype=x.dtype,
+        disp = torch.zeros((g, gs, width), dtype=x.dtype,
                            device=x.device).scatter(-1, cell,
                                                     keep.to(x.dtype))
         xe = torch.einsum("gsd,gsec->egcd", xt,
-                          disp.view(g, gs, e, capacity))     # [e, g, c, d]
+                          disp[..., :cells].view(g, gs, el, capacity))
     h_g = torch.einsum("egcd,edf->egcf", xe, params["w_gate"])
     h_u = torch.einsum("egcd,edf->egcf", xe, params["w_up"])
     h = F.silu(h_g.float()).to(x.dtype) * h_u
     ye = torch.einsum("egcf,efd->egcd", h, params["w_down"])
     with record_function("moe.combine"):
-        comb = torch.zeros((g, gs, e * capacity), dtype=torch.float32,
+        comb = torch.zeros((g, gs, width), dtype=torch.float32,
                            device=x.device).scatter(-1, cell, gate)
         out = torch.einsum("egcd,gsec->gsd", ye.float(),
-                           comb.view(g, gs, e, capacity))
-    out = out.reshape(b, s, d).to(x.dtype)
+                           comb[..., :cells].view(g, gs, el, capacity))
+    out = out.reshape(b, s, d)
 
     if cfg.n_shared_experts:
         sh = params["shared"]
         hsh = F.silu((x @ sh["w_gate"]).float()).to(x.dtype) \
             * (x @ sh["w_up"])
-        out = out + hsh @ sh["w_down"]
-    return out, aux
+        out = out + (hsh @ sh["w_down"]).float()
+    # the routed and shared (partial) sums in f32, all-reduced once where
+    # the experts are split, rounded once
+    return ctx.all_reduce(out, "experts").to(x.dtype), aux

@@ -8,9 +8,20 @@ and the decode cache (``Model.init_cache``). The trees have the JAX package's st
 and leaf shapes, stacked ``[L, ...]`` layer axis included, so weights
 carry across leaf for leaf (``models/convert.py``).
 
-Logical axis vocabulary (the reference's; the port shards nothing yet):
-  "vocab", "embed", "heads", "kv_heads", "head_dim", "ff", "layers",
-  "state", "batch", "seq", None
+From the same tree and a ``models.sharding.ShardingCtx``: the
+PartitionSpecs (``tree_specs``, the reference's function), one rank's
+slices of a full tree (``shard_tree``), its local ParamDefs
+(``local_defs``: the shapes the dry run allocates on ``meta``) and its
+weights drawn directly (``tree_init(..., ctx)``: each full leaf drawn
+in turn from the one generator and cut to the rank's slice, so every
+rank holds the slices of the one full tree and no more than one full
+leaf at a time). A ParamDef's ``parts`` describe how its head-axis dim
+is packed (``sharding.Part``), so it is split by meaning.
+
+Logical axis vocabulary (the reference's, mapped to mesh axes by
+``models/sharding.py``'s rules):
+  "vocab", "embed", "heads", "kv_heads", "head_dim", "ff", "ff_expert",
+  "experts", "layers", "state", "batch", "seq", "kv_seq", None
 """
 from __future__ import annotations
 
@@ -19,6 +30,8 @@ import math
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+
+from repro_torch.models.sharding import NULL_CTX, Part, ShardingCtx
 
 Shape = Tuple[int, ...]
 Axes = Tuple[Optional[str], ...]
@@ -33,6 +46,7 @@ class ParamDef:
     init: str = "normal"      # "normal" | "zeros" | "ones"
     scale: float = 1.0
     dtype: torch.dtype = torch.bfloat16
+    parts: Optional[Tuple[Part, ...]] = None   # packing of the head dim
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -52,6 +66,14 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_paths(tree, prefix: str = "") -> list:
+    """(path "a/b/c", leaf) pairs in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_paths(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
 
 
 def tree_unflatten(like, leaves):
@@ -89,17 +111,22 @@ def _materialize(defn: ParamDef, generator: torch.Generator) -> torch.Tensor:
     # truncated-normal fan-in scaling
     fan_in = defn.shape[-2] if len(defn.shape) >= 2 else defn.shape[-1]
     std = defn.scale / math.sqrt(max(fan_in, 1))
-    return (_truncated_normal(defn.shape, generator) * std).to(defn.dtype)
+    return _truncated_normal(defn.shape, generator).mul_(std).to(defn.dtype)
 
 
-def tree_init(defs, generator: torch.Generator) -> Any:
+def tree_init(defs, generator: torch.Generator,
+              ctx: ShardingCtx = NULL_CTX) -> Any:
     """Materialize a tree of ParamDefs on ``generator.device``, drawing the
     leaves in sorted-key order from the one generator (the JAX package
     draws from ``jax.random``, so the numbers differ: tests carry the
-    reference's weights across with ``models/convert.py``)."""
+    reference's weights across with ``models/convert.py``). With a
+    sharded ``ctx``, each leaf is cut to this rank's slice as it is drawn
+    (the slices of the tree drawn without one)."""
     if isinstance(defs, dict):
-        return {k: tree_init(defs[k], generator) for k in sorted(defs)}
-    return _materialize(defs, generator)
+        return {k: tree_init(defs[k], generator, ctx) for k in sorted(defs)}
+    full = _materialize(defs, generator)
+    local = ctx.shard(full, defs.axes, defs.parts)
+    return full if local is full else local.clone()
 
 
 def tree_abstract(defs) -> Any:
@@ -108,6 +135,31 @@ def tree_abstract(defs) -> Any:
     ``models/param.py:tree_abstract``)."""
     return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
                                           device="meta"), defs)
+
+
+def tree_specs(defs, rules, mesh=None):
+    """Logical-axis names -> a PartitionSpec (a tuple of mesh axes per
+    dim) via the rule table, the reference's function: with ``mesh``
+    given (anything with ``axis_names`` and ``shape``), a mesh axis is
+    dropped for any dim *smaller* than the axis size."""
+    ctx = ShardingCtx(mesh=mesh, rules=rules)
+    return tree_map(lambda d: ctx.spec_for_shape(d.axes, d.shape)
+                    if mesh is not None else ctx.spec(d.axes), defs)
+
+
+def local_defs(defs, ctx: ShardingCtx):
+    """The ParamDefs of this rank's slices (no ``parts``: they describe
+    full leaves)."""
+    return tree_map(lambda d: dataclasses.replace(
+        d, shape=ctx.local_shape(d.axes, d.shape, d.parts), parts=None),
+        defs)
+
+
+def shard_tree(params, defs, ctx: ShardingCtx):
+    """This rank's slices of a full tree ``params`` shaped as ``defs``
+    (views where a slice is a contiguous range)."""
+    return tree_map(lambda p, d: ctx.shard(p, d.axes, d.parts), params,
+                    defs)
 
 
 def count_params(defs) -> int:

@@ -1,0 +1,387 @@
+"""Sharding context: one table mapping *logical* axis names to mesh axes
+(the JAX package's ``models/sharding.py``), and the explicit layout a
+PyTorch process needs to hold its own part of every tensor.
+
+The rule table (``default_rules``) and the spec functions (``spec``,
+``spec_for_shape``) are the reference's, option for option: what GSPMD
+reads there, ``models/param.py:tree_specs`` reads here. GSPMD then
+partitions a program itself; an eager PyTorch rank instead holds slices
+and issues collectives, so the context adds:
+
+  * ``range(axis, n)`` — this rank's units of a dim of ``n`` units along
+    a logical axis: contiguous, uneven where ``n`` does not divide, rank 0
+    taking the largest share (28 q heads over 16 ranks: 2 each on ranks
+    0-11, 1 on ranks 12-15);
+  * ``indices(axis, n, parts)`` — the same by meaning for a packed dim
+    (``Part``): Mamba2's ``in_proj`` columns [z | x | B | C | dt] give z,
+    x and dt by head and B, C whole to every rank; kv heads follow the q
+    heads (a rank holds the kv heads its q heads read, one per q head where
+    they read them unevenly);
+  * ``shard(x, axes, parts)`` — this rank's slice of a full tensor;
+  * ``constrain(x, axes, full)`` — asserts a local tensor has the layout
+    the rules give, raising on a mismatch (with no mesh it is the
+    identity, as the reference's);
+  * ``all_reduce`` / ``all_gather`` over a logical axis's mesh axes,
+    issued through ``comm`` (``torch.distributed`` by default; the dry run
+    passes ``launch.dryrun.RecordedCollectives``). A collective over mesh
+    axes of size 1 is not issued. Partial sums are reduced in f32 and
+    rounded once to their dtype.
+
+The port honours the mesh axes of "batch", "heads", "kv_heads",
+"heads2", "ff", "ff2", "experts", "vocab" and "act_vocab" (TP, EP,
+vocab-parallel embedding and logits, and the data axis). "kv_seq" is
+held whole by design (the cache's sequence is not split: ROADMAP C);
+any other logical axis on a mesh axis of size > 1 ("embed" under FSDP,
+"seq" under sequence parallelism, "embed_out" under
+``second_matmul="col"``) raises ``NotImplementedError``.
+
+Default rule table (single pod, mesh ("data", "model")):
+    batch      -> data            DP: batch / business-key partitions
+    seq        -> None            (or "model" under sequence-parallel resid)
+    embed      -> None            (or "data" under FSDP for params)
+    heads      -> model           TP attention
+    kv_heads   -> model
+    ff         -> model           TP mlp
+    ff_expert  -> None            (expert-parallel already splits experts)
+    experts    -> model           EP
+    vocab      -> model
+    layers     -> None
+    state      -> None
+    kv_seq     -> None            (or "model": SP KV cache for 500k decode)
+
+Multi-pod meshes extend "batch" to ("pod", "data").
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+Spec = Tuple[Any, ...]            # mesh axes per dim (a PartitionSpec)
+
+# logical axes the explicit layout splits, and the one it holds whole
+SPLIT_AXES = ("batch", "heads", "kv_heads", "heads2", "ff", "ff2",
+              "experts", "vocab", "act_vocab")
+HELD_WHOLE = ("kv_seq",)
+
+
+def default_rules(multi_pod: bool = False, *,
+                  fsdp: bool = False,
+                  seq_parallel: bool = False,
+                  second_matmul: str = "row",
+                  kv_seq_shard: bool = False) -> Dict[str, Any]:
+    batch = ("pod", "data") if multi_pod else "data"
+    rules: Dict[str, Any] = {
+        "batch": batch,
+        "seq": "model" if seq_parallel else None,
+        "embed": "data" if fsdp else None,   # param input dim (FSDP/ZeRO-3)
+        "act_embed": None,                   # activation feature dim
+        # logits vocab dim: TP normally; under SP the seq dim owns "model"
+        "act_vocab": None if seq_parallel else "model",
+        "heads": "model",
+        "kv_heads": "model",
+        "head_dim": None,
+        "ff": "model",
+        # second matmul of each pair (wo / w_down): "row" = Megatron
+        # (input dim sharded, output all-reduced); "col" = output-dim
+        # sharded (activation gathers instead of weight gathers)
+        "ff2": "model" if second_matmul == "row" else None,
+        "heads2": "model" if second_matmul == "row" else None,
+        "embed_out": "model" if second_matmul == "col" else None,
+        "ff_expert": None,
+        "experts": "model",
+        "vocab": "model",
+        "layers": None,
+        "state": None,
+        "kv_seq": "model" if kv_seq_shard else None,
+        None: None,
+    }
+    return rules
+
+
+@dataclasses.dataclass(frozen=True)
+class Part:
+    """One segment of a packed dim: ``width`` elements holding ``units``
+    units split over the ranks (heads, experts; 0: the segment is whole on
+    every rank). ``kv_of``: the segment is ``units`` kv heads read by
+    ``kv_of`` q heads, held as the q heads' split needs them."""
+    width: int
+    units: int = 0
+    kv_of: int = 0
+
+
+def split_range(n: int, parts: int, i: int) -> Tuple[int, int]:
+    """Part ``i`` of ``n`` units over ``parts``: contiguous, the first
+    ``n % parts`` parts one unit larger."""
+    base, extra = divmod(n, parts)
+    start = i * base + min(i, extra)
+    return start, start + base + (i < extra)
+
+
+def kv_heads_read(n_q: int, n_kv: int, q0: int, q1: int) -> List[int]:
+    """The kv heads q heads [q0, q1) read, in local order: each once when
+    every one of them is read by as many of the q heads (a uniform local
+    GQA group), else one per q head (group 1)."""
+    group = n_q // n_kv
+    per_q = [q // group for q in range(q0, q1)]
+    heads = sorted(set(per_q))
+    counts = {h: per_q.count(h) for h in heads}
+    if len(set(counts.values())) == 1:
+        return heads
+    return per_q
+
+
+@dataclasses.dataclass
+class ShardingCtx:
+    mesh: Any = None
+    rules: Dict[str, Any] = dataclasses.field(default_factory=default_rules)
+    comm: Any = None              # collectives; None: torch.distributed
+
+    # ------------------------------------------------ the reference's specs
+    def spec(self, axes: Sequence[Optional[str]]) -> Spec:
+        return tuple(self.rules.get(a, None) for a in axes)
+
+    @property
+    def _axis_sizes(self) -> Dict[str, int]:
+        cached = self.__dict__.get("_axis_sizes_cache")
+        if cached is None:
+            cached = {} if self.mesh is None else \
+                dict(zip(self.mesh.axis_names, self.mesh.shape))
+            self.__dict__["_axis_sizes_cache"] = cached
+        return cached
+
+    def _axis_size(self, mesh_axes) -> int:
+        if mesh_axes is None:
+            return 1
+        if isinstance(mesh_axes, str):
+            mesh_axes = (mesh_axes,)
+        size = 1
+        for a in mesh_axes:
+            size *= self._axis_sizes.get(a, 1)
+        return size
+
+    def spec_for_shape(self, axes: Sequence[Optional[str]],
+                       shape: Sequence[int]) -> Spec:
+        """Like ``spec`` but drops a mesh axis whenever the tensor dim is
+        *smaller* than it (the reference's rule)."""
+        out = []
+        for a, dim in zip(axes, shape):
+            mesh_axes = self.rules.get(a, None)
+            if mesh_axes is not None and dim < self._axis_size(mesh_axes):
+                mesh_axes = None
+            out.append(mesh_axes)
+        return tuple(out)
+
+    # ----------------------------------------------------- explicit layout
+    def size(self, axis: Optional[str]) -> int:
+        """Ranks a logical axis is split over (1 without a mesh)."""
+        if self.mesh is None:
+            return 1
+        return self._axis_size(self.rules.get(axis, None))
+
+    def index(self, axis: Optional[str]) -> int:
+        """This rank's coordinate along a logical axis's mesh axes
+        (row-major over several)."""
+        mesh_axes = None if self.mesh is None else self.rules.get(axis)
+        if mesh_axes is None:
+            return 0
+        if isinstance(mesh_axes, str):
+            mesh_axes = (mesh_axes,)
+        i = 0
+        for a in mesh_axes:
+            i = i * self._axis_sizes.get(a, 1) + self.mesh.coord(a)
+        return i
+
+    def _split(self, axis: Optional[str]) -> bool:
+        """Whether this layout splits ``axis`` (raises for a mesh layout
+        the port does not have)."""
+        if self.size(axis) == 1 or axis in HELD_WHOLE:
+            return False
+        if axis not in SPLIT_AXES:
+            raise NotImplementedError(
+                f"logical axis {axis!r} on mesh axes {self.rules[axis]!r}: "
+                f"the port does not split it (ROADMAP A)")
+        return True
+
+    def range(self, axis: Optional[str], n: int) -> Tuple[int, int]:
+        """This rank's units [start, stop) of a dim of ``n`` units."""
+        if not self._split(axis):
+            return 0, n
+        parts = self.size(axis)
+        if n < parts:
+            raise NotImplementedError(
+                f"{n} units of {axis!r} over {parts} ranks: a rank would "
+                f"hold none")
+        return split_range(n, parts, self.index(axis))
+
+    def indices(self, axis: Optional[str], n: int,
+                parts: Optional[Sequence[Part]] = None) -> List[int]:
+        """This rank's elements of a dim of ``n`` elements along ``axis``,
+        by ``parts`` (default: ``n`` units of one element)."""
+        if not self._split(axis):
+            return list(range(n))
+        parts = parts or (Part(n, n),)
+        if sum(p.width for p in parts) != n:
+            raise ValueError(f"parts {parts} do not cover {n} elements")
+        out, base = [], 0
+        for p in parts:
+            w = p.width // p.units if p.units else p.width
+            if not p.units:
+                units = [0]
+            elif p.kv_of:
+                q0, q1 = self.range(axis, p.kv_of)
+                units = kv_heads_read(p.kv_of, p.units, q0, q1)
+            else:
+                units = list(range(*self.range(axis, p.units)))
+            for u in units:
+                out.extend(range(base + u * w, base + (u + 1) * w))
+            base += p.width
+        return out
+
+    def local_shape(self, axes: Sequence[Optional[str]],
+                    shape: Sequence[int],
+                    parts: Optional[Sequence[Part]] = None) -> Tuple[int, ...]:
+        """The local shape of a full ``shape`` (``parts``: the packing of
+        its head-axis dim, ``head_dim`` of the ParamDef)."""
+        hd = head_dim(axes)
+        return tuple(len(self.indices(a, n, parts if i == hd else None))
+                     for i, (a, n) in enumerate(zip(axes, shape)))
+
+    def shard(self, x: torch.Tensor, axes: Sequence[Optional[str]],
+              parts: Optional[Sequence[Part]] = None) -> torch.Tensor:
+        """This rank's slice of the full tensor ``x`` (a view where every
+        split dim is a contiguous range, else a gathered copy)."""
+        if len(axes) != x.dim():
+            raise ValueError(f"axes {axes} for shape {tuple(x.shape)}")
+        hd = head_dim(axes)
+        for i, a in enumerate(axes):
+            idx = self.indices(a, x.shape[i], parts if i == hd else None)
+            if len(idx) == x.shape[i]:
+                continue
+            if idx == list(range(idx[0], idx[0] + len(idx))):
+                x = x.narrow(i, idx[0], len(idx))
+            else:
+                x = x.index_select(i, torch.tensor(idx, device=x.device))
+        return x
+
+    def constrain(self, x: torch.Tensor, axes: Sequence[Optional[str]],
+                  full: Sequence[Optional[int]],
+                  parts: Optional[Sequence[Part]] = None) -> torch.Tensor:
+        """``x`` unchanged; with a mesh, raises unless ``x`` is this rank's
+        part of a tensor of shape ``full`` (None: a dim not checked;
+        ``parts`` as in ``local_shape``)."""
+        if self.mesh is None:
+            return x
+        if len(axes) != x.dim() or len(full) != x.dim():
+            raise ValueError(f"axes {axes} / full {full} for "
+                             f"{tuple(x.shape)}")
+        hd = head_dim(axes)
+        for i, (a, n) in enumerate(zip(axes, full)):
+            if n is None:
+                continue
+            want = len(self.indices(a, n, parts if i == hd else None))
+            if x.shape[i] != want:
+                raise ValueError(
+                    f"dim {i} ({a!r}) of {tuple(x.shape)} is {x.shape[i]}; "
+                    f"the layout gives this rank {want} of {n}")
+        return x
+
+    # --------------------------------------------------------- collectives
+    def _comm(self):
+        if self.comm is not None:
+            return self.comm
+        import torch.distributed as dist
+        return dist
+
+    def _group(self, axis: str):
+        mesh_axes = self.rules.get(axis)
+        if isinstance(mesh_axes, tuple):
+            if len(mesh_axes) != 1:
+                raise NotImplementedError(
+                    f"a collective over mesh axes {mesh_axes}")
+            mesh_axes = mesh_axes[0]
+        return self.mesh.group(mesh_axes)
+
+    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of ``x`` over the ranks of ``axis``: reduced in f32,
+        returned in ``x``'s dtype (in place when ``x`` is f32 and
+        contiguous: the ranks' layouts of a tensor may differ, the
+        collective reads memory in order); ``x`` itself where the axis is
+        not split."""
+        if self.size(axis) == 1:
+            return x
+        buf = x.float().contiguous()
+        self._comm().all_reduce(buf, group=self._group(axis))
+        return buf.to(x.dtype)
+
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int = -1,
+                   full: Optional[int] = None) -> List[torch.Tensor]:
+        """Every rank's ``x`` along ``axis``, in rank order. ``full``: the
+        size of the dim ``dim`` split over the ranks, whose parts may
+        differ by one (each is padded to the largest for the collective,
+        then cut back); None: every rank's ``x`` has this one's shape."""
+        n = self.size(axis)
+        if n == 1:
+            return [x]
+        dim = dim % x.dim()
+        sizes = ([x.shape[dim]] * n if full is None else
+                 [b - a for a, b in (split_range(full, n, i)
+                                     for i in range(n))])
+        pad = list(x.shape)
+        pad[dim] = max(sizes) - x.shape[dim]
+        buf = torch.cat([x, x.new_zeros(pad)], dim) if pad[dim] else \
+            x.contiguous()
+        out = [torch.empty_like(buf) for _ in range(n)]
+        self._comm().all_gather(out, buf, group=self._group(axis))
+        return [t.narrow(dim, 0, s) for t, s in zip(out, sizes)]
+
+
+def held_differently(d, ctx: ShardingCtx) -> Optional[Dict[str, Any]]:
+    """Whether rank 0 holds a ParamDef ``d`` in other bytes than the
+    reference's layout gives a card (its spec, each split dim padded to
+    an even split, as GSPMD pads): None, or the reason and both byte
+    counts. Raises for a difference no rule of the layout explains."""
+    item = torch.empty((), dtype=d.dtype).element_size()
+    mine = math.prod(ctx.local_shape(d.axes, d.shape, d.parts)) * item
+    ref = item
+    for mesh_axes, n in zip(ctx.spec_for_shape(d.axes, d.shape), d.shape):
+        ref *= -(-n // ctx._axis_size(mesh_axes))
+    if mine == ref:
+        return None
+    reasons = []
+    if any(a in HELD_WHOLE and ctx.size(a) > 1 for a in d.axes):
+        reasons.append("the cache's sequence (kv_seq) is held whole, "
+                       "not split (ROADMAP A: kv_seq sharding)")
+    for p in d.parts or ():
+        if p.kv_of:
+            reasons.append("kv heads are held whole, as the rank's q heads "
+                           "read them (the reference splits the kv "
+                           "columns, cutting heads where the model axis "
+                           "exceeds them)")
+        elif not p.units:
+            reasons.append("B and C (one state shared by every head) are "
+                           "whole on every rank, z, x and dt split by head "
+                           "(the reference splits the packed columns "
+                           "contiguously)")
+        elif p.units % ctx.size(d.axes[head_dim(d.axes)]):
+            reasons.append("whole heads are split unevenly, rank 0 taking "
+                           "the largest share (the reference pads the "
+                           "columns to an even split)")
+    if not reasons:
+        raise ValueError(f"{d}: {mine} B on rank 0, the reference's layout "
+                         f"{ref} B, and no rule says why")
+    return {"reason": "; ".join(dict.fromkeys(reasons)), "bytes": mine,
+            "reference_bytes": ref}
+
+
+def head_dim(axes: Sequence[Optional[str]]) -> Optional[int]:
+    """The dim a ParamDef's ``parts`` describe: its first head axis."""
+    for i, a in enumerate(axes):
+        if a in ("heads", "kv_heads", "heads2"):
+            return i
+    return None
+
+
+NULL_CTX = ShardingCtx()

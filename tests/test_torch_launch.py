@@ -17,9 +17,9 @@
   the live-bytes tracker on a hand-made sequence; the kernels' work
   formulas at ``PERF.md``'s bound rows; the collectives a traced
   ``manual_dp`` step issues against ``collective_plan``; the CLI (one
-  full-width cell, a skipped one, an override that needs a mesh) with
-  ``jax`` blocked; the MoE load-balance term bitwise the old
-  ``bincount`` form's.
+  full-width cell, a skipped one, an override whose mesh layout the port
+  lacks: "not_ported") with ``jax`` blocked; the MoE load-balance term
+  bitwise the old ``bincount`` form's.
 """
 import json
 import math
@@ -313,11 +313,18 @@ def test_cli_skips_and_refuses(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1])["status"] == \
         "skipped"
-    for ov in ("fsdp=true", "seq_parallel=true", 'dp_mode="auto"',
-               'second_matmul="col"'):
-        with pytest.raises(ValueError):
-            dryrun.build_cell("internlm2-1.8b", "train_4k",
-                              overrides=dict([ov.split("=")]))
+    for key, value in (("fsdp", True), ("seq_parallel", True),
+                       ("dp_mode", "auto"), ("second_matmul", "col")):
+        fn, _, meta, _ = dryrun.build_cell("internlm2-1.8b", "train_4k",
+                                           overrides={key: value})
+        assert fn is None and meta["status"] == "not_ported"
+        assert meta["reason"].startswith("ROADMAP A")
+    out = _cli("--arch", "internlm2-1.8b", "--shape", "train_4k",
+               "--override", "fsdp=true", "--out", str(tmp_path),
+               tmp_path=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1])["status"] == \
+        "not_ported"
 
 
 def test_moe_top1_count_is_bincount_and_aux_unchanged():

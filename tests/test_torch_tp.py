@@ -1,0 +1,384 @@
+"""Tensor- and expert-parallel serving in spawned gloo ranks on the CPU,
+against the port's unsharded model and the JAX package's sharded forward.
+
+One subprocess runs the JAX package with 4 host devices: for the f32
+smoke configs of internlm2, zamba2, qwen2-moe and qwen2-vl, its weights
+(``Model.init``, cast to f32), then ``Model.forward`` under
+``ShardingCtx`` on an Auto (data 2, model 2) mesh with the parameters
+placed by ``model.specs`` (Mamba2 with f32 decay ratios, the port's
+precision): the prefill logits and ``aux`` of a [4, 32] batch, and 4
+decode steps of seeded tokens, each step's input cache saved. The port
+then runs the same weights over (data, model) = (1, 2), (1, 4) and
+(2, 2) ranks (``models/sharding.py``; the M = 4 layouts give
+internlm2-smoke's 2 kv heads and qwen2-moe-smoke's 6 experts unevenly),
+each decode step from the reference's saved cache cut to the rank's
+part, so that every step is checked on the same inputs:
+
+* against the port's unsharded forward on the whole inputs at 1e-5
+  (f32; only the ranks' partial sums are added in another order), each
+  decode step from that cache in f32;
+* against the JAX package's sharded forward at 1e-4 (the tolerance of
+  the port's other model tests, ``tests/test_torch_lm.py``), each decode
+  step from the bf16 cache the reference keeps.
+
+The greedy tokens (the all-gathered argmax of ``serve_step.greedy``)
+equal the unsharded ones and the reference's, every step and over 4
+free-running decode steps from each run's own caches. Why the steps
+start from one saved cache, and the 1e-5 check from it in f32: a partial
+sum added in another order can round a new K/V entry to the
+neighbouring bf16 value, which moves the logits by up to ~1e-4 in both
+packages alike (the decode writes its token's K/V in the cache's
+dtype).
+
+Then the dry run of internlm2-smoke and zamba2-smoke prefill at
+``--cards 4 --model 2``: rank 0 of a gloo CPU run of the same step
+(bf16, its collectives real) counts exactly the dry run's operations,
+bytes, aten ops, kernel calls and memory, and both issue
+``model_axis_plan``'s collectives.
+"""
+import json
+import multiprocessing
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.models import build_model
+from repro_torch.models.convert import from_reference
+from repro_torch.models.param import shard_tree, tree_map
+from repro_torch.models.sharding import NULL_CTX
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = ["internlm2-1.8b", "zamba2-1.2b", "qwen2-moe-a2.7b", "qwen2-vl-7b"]
+LAYOUTS = [(1, 2), (1, 4), (2, 2)]
+B, P, T = 4, 32, 4
+TOL_PORT, TOL_JAX = 1e-5, 1e-4
+
+_JAX_SCRIPT = r"""
+import functools, sys
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.models import build_model, gla
+from repro.models.sharding import ShardingCtx, default_rules
+gla.gla_chunk = functools.partial(gla.gla_chunk, ratio_dtype=jnp.float32)
+out = sys.argv[1]
+B, P_, T = (int(a) for a in sys.argv[2:5])
+mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+rules = default_rules()
+ctx = ShardingCtx(mesh, rules)
+
+def flat(tree, prefix, into):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flat(v, f"{prefix}/{k}", into)
+    elif tree.dtype == jnp.bfloat16:          # kept bit for bit
+        into[prefix + "@bf16"] = np.asarray(tree).view(np.int16)
+    else:
+        into[prefix] = np.asarray(tree)
+
+def pad(c):
+    if isinstance(c, dict):
+        return {k: (pad(v) if isinstance(v, dict) or k not in ("k", "v")
+                    else np.pad(np.asarray(v), [(0, 0), (0, 0), (0, T),
+                                                (0, 0), (0, 0)]))
+                for k, v in c.items()}
+    return np.asarray(c)
+
+for arch in sys.argv[5:]:
+    jm = build_model(arch, smoke=True)
+    params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                          jax.jit(jm.init)(jax.random.PRNGKey(0)))
+    placed = jax.tree.map(
+        lambda a, s: jax.device_put(a, NamedSharding(mesh, s)), params,
+        jm.specs(rules, mesh), is_leaf=lambda x: isinstance(x, P))
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, jm.cfg.vocab, (B, P_), dtype=np.int32)
+    feed = rng.integers(0, jm.cfg.vocab, (B, T), dtype=np.int32)
+    res = {"tokens": toks, "feed": feed}
+    flat(params, "params", res)
+    prefill = jax.jit(lambda p, t: jm.forward(p, {"tokens": t},
+                                              mode="prefill", ctx=ctx))
+    decode = jax.jit(lambda p, c, t, i: jm.forward(
+        p, {"tokens": t}, mode="decode", cache=c, cache_index=i, ctx=ctx))
+    logits, cache, aux = prefill(placed, toks)
+    res["logits"], res["aux"] = np.asarray(logits[:, -1]), np.asarray(aux)
+    cache = pad(cache)
+    for i in range(T):
+        flat(cache, f"cache{i}", res)
+        lg, cache, a = decode(placed, cache, feed[:, i:i + 1],
+                              jnp.int32(P_ + i))
+        cache = jax.tree.map(np.asarray, cache)
+        res[f"logits{i}"], res[f"aux{i}"] = np.asarray(lg[:, 0]), np.asarray(a)
+    np.savez(f"{out}/{arch}.npz", **res)
+"""
+
+
+def _nest(npz, prefix):
+    """The arrays under ``prefix/`` as nested dicts (bf16 ones, saved as
+    their bits, as ml_dtypes' bf16: ``from_reference`` takes those)."""
+    import ml_dtypes
+    out = {}
+    for key in npz.files:
+        if not key.startswith(prefix + "/"):
+            continue
+        node, parts = out, key.split("/")[1:]
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        name, bf16 = parts[-1].removesuffix("@bf16"), key.endswith("@bf16")
+        node[name] = npz[key].view(ml_dtypes.bfloat16) if bf16 else npz[key]
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The JAX package's sharded runs, one npz per arch."""
+    out = tmp_path_factory.mktemp("tp_ref")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    got = subprocess.run(
+        [sys.executable, "-c", _JAX_SCRIPT, str(out), str(B), str(P),
+         str(T), *ARCHS], capture_output=True, text=True, env=env,
+        timeout=600)
+    assert got.returncode == 0, got.stderr[-3000:]
+    return out
+
+
+def _load(ref_dir, arch):
+    """(model, full f32 params, the reference's arrays)."""
+    z = np.load(Path(ref_dir) / f"{arch}.npz")
+    model = build_model(arch, smoke=True)
+    return model, from_reference(model.defs, _nest(z, "params")), z
+
+
+def _steps(model, params, z, ctx):
+    """This rank's part of: the prefill's last-position logits, aux and
+    greedy token, and per decode step (from the reference's cache of that
+    step) the logits, aux and greedy token; then the greedy tokens of 4
+    free-running decode steps from its own caches."""
+    from repro_torch.examples.serve_lm import fill_cache
+    from repro_torch.train.serve_step import (greedy, make_decode_step,
+                                              make_prefill_step)
+    rows = ("batch", None)
+    toks = ctx.shard(torch.from_numpy(z["tokens"]).long(), rows)
+    feed = ctx.shard(torch.from_numpy(z["feed"]).long(), rows)
+    logits, cache, aux = model.forward(params, {"tokens": toks},
+                                       mode="prefill", ctx=ctx)
+    out = {"logits": [logits[:, -1]], "aux": [aux],
+           "greedy": [greedy(model, logits[:, -1], ctx)]}
+    out["logits32"] = [logits[:, -1]]
+    cdefs = model.cache_defs(B, P + T)
+    for i in range(T):
+        # fresh copies: a decode updates its cache in place
+        full = _nest(z, f"cache{i}")
+        for key, cache in (("logits", from_reference(cdefs, full)),
+                           ("logits32", tree_map(lambda t: t.float(),
+                                                 from_reference(cdefs,
+                                                                full)))):
+            lg, _, a = model.forward(params, {"tokens": feed[:, i:i + 1]},
+                                     mode="decode",
+                                     cache=shard_tree(cache, cdefs, ctx),
+                                     cache_index=P + i, ctx=ctx)
+            out[key].append(lg[:, 0])
+            if key == "logits":
+                out["aux"].append(a)
+                out["greedy"].append(greedy(model, lg[:, 0], ctx))
+    tok, pre = make_prefill_step(model, ctx)(params, {"tokens": toks})
+    cache = fill_cache(model.init_cache(B, P + T, "cpu", ctx), pre)
+    decode, free = make_decode_step(model, ctx), [tok]
+    for i in range(T):
+        tok, _, cache = decode(params, cache, free[-1][:, None], P + i)
+        free.append(tok)
+    out["free"] = free
+    return out
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, port, shape, ref_dir, q) -> None:
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import ShardingCtx, default_rules
+    torch.set_num_threads(1)
+    world = shape[0] * shape[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(shape, ("data", "model"))
+        ctx = ShardingCtx(mesh, default_rules())
+        res = {}
+        for arch in ARCHS:
+            model, params, z = _load(ref_dir, arch)
+            got = _steps(model, shard_tree(params, model.defs, ctx), z, ctx)
+            # every rank takes part in the gathers; model rank 0 reports
+            for key in ("logits", "logits32"):
+                got[key] = [model.gather_logits(lg, ctx).numpy()
+                            for lg in got[key]]
+            res[arch] = {k: [np.asarray(t) for t in v]
+                         for k, v in got.items()}
+        q.put((mesh.coord("data"), mesh.coord("model"), res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(target, world, *args):
+    """``target(rank, port, *args, queue)`` in ``world`` spawned ranks;
+    returns what each put on the queue (one item per rank)."""
+    ctx = multiprocessing.get_context("spawn")
+    q, port = ctx.Queue(), _free_port()
+    procs = [ctx.Process(target=target, args=(r, port, *args, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        got = [q.get(timeout=300) for _ in range(world)]
+    finally:
+        for p in procs:
+            p.join(60)
+    assert all(p.exitcode == 0 for p in procs)
+    return got
+
+
+@pytest.fixture(scope="module")
+def tp_runs(reference):
+    """{layout: {arch: each output, the data ranks' rows concatenated}},
+    one layout at a time."""
+    runs = {}
+    for shape in LAYOUTS:
+        got = _spawn(_rank_main, shape[0] * shape[1], shape, str(reference))
+        rows = sorted(((d, res) for d, m, res in got if m == 0),
+                      key=lambda x: x[0])
+        runs[shape] = {arch: {k: [np.concatenate([r[arch][k][i]
+                                                  for _, r in rows])
+                                  for i in range(len(rows[0][1][arch][k]))]
+                              for k in ("logits", "logits32", "greedy",
+                                        "free")}
+                       for arch in ARCHS}
+        for arch in ARCHS:              # aux: equal on every rank
+            auxes = {tuple(float(a) for a in res[arch]["aux"])
+                     for _, _, res in got}
+            assert len(auxes) == 1, (shape, arch, auxes)
+            runs[shape][arch]["aux"] = list(auxes.pop())
+    return runs
+
+
+@pytest.fixture(scope="module")
+def unsharded(reference):
+    """The port's unsharded run of the same steps."""
+    out = {}
+    for arch in ARCHS:
+        model, params, z = _load(reference, arch)
+        got = _steps(model, params, z, NULL_CTX)
+        out[arch] = {k: [np.asarray(t, dtype=np.float64 if k == "aux"
+                                    else None) for t in v]
+                     for k, v in got.items()}
+    return out
+
+
+def _close(got, want, tol, what):
+    np.testing.assert_allclose(np.asarray(got, np.float64),
+                               np.asarray(want, np.float64), rtol=tol,
+                               atol=tol, err_msg=what)
+
+
+@pytest.mark.parametrize("shape", LAYOUTS, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp_serving_matches_unsharded_and_reference(arch, shape, tp_runs,
+                                                    unsharded, reference):
+    got, want = tp_runs[shape][arch], unsharded[arch]
+    z = np.load(Path(reference) / f"{arch}.npz")
+    jax_logits = [z["logits"]] + [z[f"logits{i}"] for i in range(T)]
+    jax_aux = [z["aux"]] + [z[f"aux{i}"] for i in range(T)]
+    for i in range(T + 1):
+        what = f"{arch} {shape} {'prefill' if i == 0 else f'step {i}'}"
+        _close(got["logits32"][i], want["logits32"][i], TOL_PORT, what)
+        _close(got["aux"][i], want["aux"][i], TOL_PORT, what + " aux")
+        _close(got["logits"][i], jax_logits[i], TOL_JAX, what + " vs JAX")
+        _close(got["aux"][i], jax_aux[i], TOL_JAX, what + " aux vs JAX")
+        np.testing.assert_array_equal(got["greedy"][i], want["greedy"][i])
+        np.testing.assert_array_equal(got["greedy"][i],
+                                      jax_logits[i].argmax(-1))
+    for a, b in zip(got["free"], want["free"]):
+        np.testing.assert_array_equal(a, b)
+    if arch == "qwen2-moe-a2.7b":
+        assert got["aux"][0] > 0
+
+
+# ------------------------------------------------------------ the dry run
+def _dry_rank(rank, port, arch, q) -> None:
+    """Rank ``rank`` of a (2, 2) gloo run of the smoke prefill cell under
+    ``analyze_step``, its collectives recorded as they are issued."""
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSuite
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.models.sharding import ShardingCtx
+    from repro_torch.launch.dryrun import cell_rules
+    from repro_torch.train.serve_step import make_prefill_step
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=4, rank=rank)
+    try:
+        issued = []
+
+        class Recorded:
+            def all_reduce(self, t, group=None):
+                issued.append(("all_reduce", t.dtype, t.numel()
+                               * t.element_size(), dist.get_world_size(group)))
+                dist.all_reduce(t, group=group)
+
+            def all_gather(self, out, t, group=None):
+                issued.append(("all_gather", t.dtype, sum(
+                    o.numel() * o.element_size() for o in out),
+                    dist.get_world_size(group)))
+                dist.all_gather(out, t, group=group)
+
+        model = build_model(arch, smoke=True)
+        suite = ShapeSuite("tp_prefill", 32, 4, "prefill")
+        ctx = ShardingCtx(make_mesh((2, 2), ("data", "model")),
+                          cell_rules(model.cfg, suite, 2), comm=Recorded())
+        params = model.init(torch.Generator().manual_seed(0), ctx)
+        toks = ctx.shard(torch.from_numpy(np.random.default_rng(5).integers(
+            0, model.cfg.vocab, (4, 32))), ("batch", None)).clone()
+        _, got = analyze_step(make_prefill_step(model, ctx), params,
+                              {"tokens": toks})
+        q.put((rank, {k: got[k] for k in ("flops", "bytes", "ops",
+                                          "kernels", "memory")},
+               [(op, str(dt), n, g) for op, dt, n, g in issued]))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-1.2b"])
+def test_dry_run_of_a_model_axis_cell_counts_the_gloo_run(arch):
+    from repro_torch.configs import ShapeSuite, get_smoke_config
+    from repro_torch.launch import dryrun
+    suite = ShapeSuite("tp_prefill", 32, 4, "prefill")
+    head = {"arch": arch, "shape": suite.name, "cards": 4, "model_axis": 2}
+    fn, args, meta, comm = dryrun.model_axis_cell(get_smoke_config(arch),
+                                                  suite, 4, 2, head)
+    res = dryrun.analyze_cell(fn, args, meta, comm)   # raises off the plan
+    plan = comm.plan
+    assert comm.issued == plan and len(plan) > 2
+    assert meta["mesh"] == "2x2" and meta["batch_per_card"] == 2
+    got = {r: rest for r, *rest in _spawn(_dry_rank, 4, arch)}
+    counts, issued = got[0]
+    assert counts["flops"] == res["cost"]["flops_per_device"]
+    assert counts["bytes"] == res["cost"]["bytes_per_device"]
+    assert counts["ops"] == res["cost"]["ops"]
+    assert counts["kernels"] == res["kernels"]
+    assert counts["memory"] == res["memory"]
+    assert [(c["op"], c["dtype"], c["result_bytes"], c["group"])
+            for c in plan] == issued
+    assert json.dumps(res["collectives"])         # the cell's JSON
+    wire = res["collective_wire_bytes_per_device"]
+    assert wire == sum(c["result_bytes"] * (1.0 if c["op"] == "all_reduce"
+                                            else 0.5) for c in plan)
