@@ -19,15 +19,17 @@ kernels counted by their own formulas, as rank 0 of the layout.
 (``launch.mesh.make_mesh(..., rank=0)``), with the reference's rules per
 cell (``src/repro/launch/dryrun.py:84-94``: ``kv_seq`` on "model" for
 prefill and decode when the kv heads are fewer than the model axis,
-which the port holds whole: ROADMAP C). At M > 1 a prefill or decode
-cell of the dense, MoE, VLM and hybrid families traces rank 0's
-``make_prefill_step`` / ``make_decode_step`` with its parameters and
-cache (``Model.abstract(ctx)``, ``local_defs``) and a
-``RecordedCollectives`` in place of ``torch.distributed``; what it
-issued is held against ``model_axis_plan``, and the cell's JSON gives
-each collective's bytes. rwkv6 and whisper at M > 1, every train cell
-at M > 1, ``long_500k`` at M > 1 (the reference shards ``kv_seq`` over
-data there), the ``fsdp`` / ``seq_parallel`` / ``second_matmul="col"``
+which the port holds whole: ROADMAP C). At M > 1 a cell of the dense,
+MoE, VLM and hybrid families traces rank 0's step with its parameters
+(``Model.abstract(ctx)``, ``local_defs``) and a ``RecordedCollectives``
+in place of ``torch.distributed``: ``make_prefill_step`` /
+``make_decode_step`` with its cache, or, for a train cell,
+``make_manual_dp_train_step`` over the data axis beside the model axis
+(its ZeRO shard over data of its slices' moments, its part of the
+batch); what it issued is held against ``model_axis_plan``, and the
+cell's JSON gives each collective's bytes. rwkv6 and whisper at M > 1,
+``long_500k`` at M > 1 (the reference shards ``kv_seq`` over data
+there), the ``fsdp`` / ``seq_parallel`` / ``second_matmul="col"``
 overrides and ``dp_mode`` other than "manual" report
 ``status: "not_ported"`` with the ROADMAP item as the reason.
 
@@ -49,10 +51,11 @@ reckonings from counted work, not measurements.
 import argparse
 import dataclasses
 import json
+import math
 import os
 import time
 import traceback
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -74,8 +77,6 @@ from repro_torch.train.train_step import make_train_step
 
 # the ROADMAP item each layout the port lacks waits for
 NOT_PORTED = {
-    "train": "A: tensor parallelism in training (differentiable "
-             "collectives, manual_dp's model axis)",
     "family": "A: rwkv6 and whisper under tensor parallelism",
     "long_500k": "A: kv_seq sharding (the reference shards the cache's "
                  "sequence over data at long_500k)",
@@ -92,8 +93,7 @@ class RecordedCollectives:
     ``group``: a process-free mesh's ``AxisGroup``, recorded with its axis
     and size). Nothing moves (the tensors are ``meta``)."""
 
-    def __init__(self, world: int, plan: Optional[List[Dict]] = None):
-        self.world, self.rank = world, 0
+    def __init__(self, plan: Optional[List[Dict]] = None):
         self.plan = plan or []      # what the step should issue
         self.issued: List[Dict[str, Any]] = []
 
@@ -106,14 +106,14 @@ class RecordedCollectives:
             rec.update(axis=group.axis, group=group.size)
         self.issued.append(rec)
 
-    def reduce_scatter_tensor(self, out, inp):
-        self._record("reduce_scatter_tensor", "reduce-scatter", out)
+    def reduce_scatter_tensor(self, out, inp, group=None):
+        self._record("reduce_scatter_tensor", "reduce-scatter", out, group)
 
-    def all_reduce(self, t, group=None):
+    def all_reduce(self, t, group=None, op=None):
         self._record("all_reduce", "all-reduce", t, group)
 
-    def all_gather_into_tensor(self, out, inp):
-        self._record("all_gather_into_tensor", "all-gather", out)
+    def all_gather_into_tensor(self, out, inp, group=None):
+        self._record("all_gather_into_tensor", "all-gather", out, group)
 
     def all_gather(self, out_list, t, group=None):
         self._record("all_gather", "all-gather", out_list, group)
@@ -133,43 +133,109 @@ def cell_rules(cfg, suite: ShapeSuite, model_axis: int) -> Dict[str, Any]:
     return rules
 
 
-def model_axis_plan(model: Model, suite: ShapeSuite, batch: int,
-                    ctx: ShardingCtx) -> List[Dict[str, Any]]:
-    """The collectives rank 0 issues in one serving step of ``batch``
-    sequences (its part of the batch) under ``ctx``, in order, reckoned
-    from the config: the embedding's all-reduce; per decoder block the
-    attention's and the MLP's (MoE: the load balance's over a split batch,
-    then the experts'); per Mamba2 layer its gated norm's and its
-    ``out_proj``'s, and the shared block's two after each group; then the
-    greedy token's all-gather. All f32."""
-    cfg = model.cfg
-    m, s = ctx.size("heads"), (1 if suite.kind == "decode"
-                               else suite.seq_len)
+def _ar(n_bytes: int, axis: str = "model", size: int = 0
+        ) -> Dict[str, Any]:
+    """One f32 all-reduce of ``n_bytes`` in the plan's form."""
+    return {"op": "all_reduce", "kind": "all-reduce",
+            "dtype": "torch.float32", "result_bytes": n_bytes, "axis": axis,
+            "group": size}
+
+
+def layer_bodies(model: Model, b: int, s: int, ctx: ShardingCtx
+                 ) -> List[Tuple[list, int, list]]:
+    """Rank 0's all-reduces of each layer body (one decoder block, one
+    Mamba2 layer, one application of zamba2's shared block) on ``b`` x
+    ``s`` tokens under ``ctx``, in forward order: (the forward's, how
+    many of them a remat re-forward issues again, the backward's). A
+    re-forward (``torch.utils.checkpoint``, non-reentrant) stops once it
+    has recomputed the last tensor the backward saved, so it skips each
+    body's closing row-parallel all-reduce; the backward's are the
+    ``copy`` Functions' (the MoE's gates before its tokens, Mamba2's norm,
+    then B and C, then its input). The MoE's load balance is all-reduced
+    where ``ctx`` splits "batch"."""
+    cfg, m = model.cfg, ctx.size("heads")
+    act = 4 * b * s * cfg.d_model
 
     def ar(n, axis="model", size=m):
-        return {"op": "all_reduce", "kind": "all-reduce", "dtype":
-                "torch.float32", "result_bytes": 4 * n, "axis": axis,
-                "group": size}
+        return _ar(n, axis, size)
 
-    act = batch * s * cfg.d_model
-    plan = [ar(act)]
+    bodies = []
     if cfg.family == "hybrid":
         k = cfg.shared_attn_every
+        st = cfg.ssm.state_size
         for i in range(cfg.n_layers):
-            plan += [ar(batch * s), ar(act)]
+            bodies.append(([ar(4 * b * s), ar(act)], 1,
+                           [ar(4 * b * s), ar(4 * b * s * 2 * st),
+                            ar(act)]))
             if (i + 1) % k == 0 and (i + 1) // k <= model.n_shared_apps():
-                plan += [ar(act), ar(act)]
-    else:
-        data = ctx.size("batch")
-        for _ in range(cfg.n_layers):
-            plan.append(ar(act))
-            if cfg.moe is not None and data > 1:
-                plan.append(ar(2 * cfg.moe.padded_experts, "data", data))
-            plan.append(ar(act))
-    plan.append({"op": "all_gather", "kind": "all-gather",
-                 "dtype": "torch.float32", "result_bytes": m * batch * 2 * 4,
-                 "axis": "model", "group": m})
-    return plan
+                bodies.append(([ar(act), ar(act)], 1, [ar(act), ar(act)]))
+        return bodies
+    data = ctx.size("batch")
+    for _ in range(cfg.n_layers):
+        fwd = [ar(act)]
+        if cfg.moe is not None and data > 1:
+            fwd.append(ar(2 * 4 * cfg.moe.padded_experts, "data", data))
+        fwd.append(ar(act))
+        ffn = ([ar(4 * b * s * cfg.moe.top_k), ar(act)]
+               if cfg.moe is not None else [ar(act)])
+        bwd = ffn + [ar(act)]                         # then the attention's
+        bodies.append((fwd, len(fwd) - 1, bwd))
+    return bodies
+
+
+def model_axis_plan(model: Model, suite: ShapeSuite, batch: int,
+                    ctx: ShardingCtx) -> List[Dict[str, Any]]:
+    """The collectives rank 0 issues in one step of ``batch`` sequences
+    (its part of the batch) under ``ctx``, in order, reckoned from the
+    config. All f32.
+
+    Serving: the embedding's all-reduce; per decoder block the
+    attention's and the MLP's (MoE: the load balance's over a split
+    batch, then the experts'); per Mamba2 layer its gated norm's and its
+    ``out_proj``'s, and the shared block's two after each group; then the
+    greedy token's all-gather.
+
+    Training (``manual_dp`` over the data axis, ``batch`` split into the
+    config's microbatches): per microbatch the forward's (as serving's,
+    the load balance the microbatch's own), the cross-entropy's three
+    (max, sum of exponentials, gold logit), then the backward's: the
+    logits' input's, and per layer body from the last, its remat
+    re-forward's and its ``copy`` Functions' (``layer_bodies``); then once
+    per step the kv heads' sum where several ranks hold one (every such
+    leaf full along its kv dim) and ``manual_dp``'s reduce-scatter,
+    all-reduce and all-gather (``collective_plan``)."""
+    cfg = model.cfg
+    m = ctx.size("heads")
+    if suite.kind != "train":
+        s = 1 if suite.kind == "decode" else suite.seq_len
+        plan = [_ar(4 * batch * s * cfg.d_model, size=m)]
+        for fwd, _, _ in layer_bodies(model, batch, s, ctx):
+            plan += fwd
+        plan.append({"op": "all_gather", "kind": "all-gather",
+                     "dtype": "torch.float32",
+                     "result_bytes": m * batch * 2 * 4, "axis": "model",
+                     "group": m})
+        return plan
+    n_mb = max(cfg.microbatches, 1)
+    b, s = batch // n_mb, suite.seq_len
+    local = ctx.batch_local()
+    bodies = layer_bodies(model, b, s, local)
+    act = _ar(4 * b * s * cfg.d_model, size=m)
+    tok = _ar(4 * b * s, size=m)
+    step = [act]
+    for fwd, _, _ in bodies:
+        step += fwd
+    step += [tok, tok, tok, act]
+    for fwd, rerun, bwd in reversed(bodies):
+        step += (fwd[:rerun] if cfg.remat else []) + bwd
+    plan = step * n_mb
+    defs = tree_leaves(model.defs)
+    shared = local.shared_leaves(defs)
+    if shared:
+        plan.append(_ar(4 * sum(math.prod(defs[i].shape)
+                                for i, _, _ in shared), size=m))
+    data = ctx.size("batch")
+    return plan + collective_plan(model.abstract(ctx), data, m)
 
 
 def model_param_count(abstract_params) -> int:
@@ -231,9 +297,7 @@ def build_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
                          f"cards")
     reason = _not_ported(overrides or {})
     if reason is None and model > 1:
-        if suite.kind == "train":
-            reason = NOT_PORTED["train"]
-        elif cfg.family not in TP_FAMILIES:
+        if cfg.family not in TP_FAMILIES:
             reason = NOT_PORTED["family"]
         elif suite.name == "long_500k":
             reason = NOT_PORTED["long_500k"]
@@ -264,10 +328,13 @@ def build_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
             meta["layout"] = "one card: make_train_step"
             fn = make_train_step(model, AdamWConfig())
             return fn, (params, abstract_state(params), batch), meta, None
-        comm = RecordedCollectives(cards, collective_plan(params, cards))
+        comm = RecordedCollectives(collective_plan(params, cards))
         meta["layout"] = (f"manual_dp: parameters replicated, moments "
                           f"ZeRO-sharded over {cards} cards")
-        fn = make_manual_dp_train_step(model, AdamWConfig(), comm=comm)
+        ctx = ShardingCtx(make_mesh((cards, 1), ("data", "model"), rank=0),
+                          default_rules(), comm=comm)
+        fn = make_manual_dp_train_step(model, AdamWConfig(), comm=comm,
+                                       ctx=ctx)
         opt = abstract_zero_opt_state(params, cards)
         return fn, (params, opt, batch), meta, comm
 
@@ -285,13 +352,15 @@ def build_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
 
 def model_axis_cell(cfg, suite: ShapeSuite, cards: int, m: int,
                     head: Dict[str, Any]):
-    """``build_cell``'s result for a prefill or decode cell of ``cfg`` on
-    a (cards / m, m) mesh, as rank 0; ``head`` starts its meta."""
+    """``build_cell``'s result for a cell of ``cfg`` on a (cards / m, m)
+    mesh, as rank 0; ``head`` starts its meta. A train cell traces rank
+    0's ``make_manual_dp_train_step`` (its slices, its ZeRO shard over
+    data of their moments, its part of the batch)."""
     data = cards // m
     if suite.global_batch % data:
         raise ValueError(f"batch {suite.global_batch} does not split over "
                          f"a data axis of {data}")
-    comm = RecordedCollectives(cards)
+    comm = RecordedCollectives()
     ctx = ShardingCtx(make_mesh((data, m), ("data", "model"), rank=0),
                       cell_rules(cfg, suite, m), comm=comm)
     model = Model(cfg)
@@ -310,6 +379,17 @@ def model_axis_cell(cfg, suite: ShapeSuite, cards: int, m: int,
         "layout_differences": layout_differences(model, suite, ctx),
     }
     comm.plan = model_axis_plan(model, suite, per_card, ctx)
+    if suite.kind == "train":
+        batch, _ = S.train_batch_specs(cfg, suite, per_card)
+        meta["tokens_per_step"] = suite.global_batch * suite.seq_len
+        meta["microbatches"] = cfg.microbatches
+        meta["layout"] = (f"manual_dp over data {data}, moments ZeRO-"
+                          f"sharded over it, beside model {m}: "
+                          + meta["layout"].split(": ", 1)[1])
+        fn = make_manual_dp_train_step(model, AdamWConfig(), comm=comm,
+                                       ctx=ctx)
+        return fn, (params, abstract_zero_opt_state(params, data),
+                    batch), meta, comm
     if suite.kind == "prefill":
         batch, _ = S.train_batch_specs(cfg, suite, per_card)
         batch.pop("targets")

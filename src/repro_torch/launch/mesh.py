@@ -103,6 +103,16 @@ class Mesh:
             return AxisGroup(axis, self.shape[self.axis_names.index(axis)])
         return self.groups[axis]
 
+    def world_group(self):
+        """The group of every rank of the mesh: the default group (None)
+        of a mesh with processes; for the process-free form an
+        ``AxisGroup`` named by its axes of size > 1 ("data+model")."""
+        if self.groups is not None:
+            return None
+        name = "+".join(a for a, n in zip(self.axis_names, self.shape)
+                        if n > 1) or self.axis_names[0]
+        return AxisGroup(name, self.size)
+
     def __repr__(self) -> str:
         return (f"Mesh({dict(zip(self.axis_names, self.shape))}, rank "
                 f"{self.rank}{'' if self.groups else ', process-free'})")

@@ -29,6 +29,17 @@ local weights, so the caches and the kernels' calls are the rank's.
 Mamba2's ``in_proj`` is split by meaning: z, x and dt by head, B and C
 (one state shared by every head) whole on every rank; its gated norm
 all-reduces its variance over the heads.
+
+Training under the model axis (``sharding.ShardingCtx.copy`` /
+``reduce``): the normed input enters ``wq`` / ``wk`` / ``wv`` and the
+MLP through ``copy`` (their gradients' partial sums over the ranks'
+heads all-reduced), the row-parallel outputs leave through ``reduce``.
+Mamba2 computes B and C alike on every rank (replicated computation
+from the normed input, its columns of ``in_proj`` and ``conv_w`` whole),
+so under a model axis they are projected apart from the rank's z, x and
+dt (whose input goes through ``copy``) and pass through ``copy`` after
+the conv, where the rank's heads read them: their gradient, and that of
+their columns, is then whole on every rank.
 """
 from __future__ import annotations
 
@@ -97,6 +108,7 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     counts (those of its weights)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    x = ctx.copy(x, "heads")
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
@@ -403,13 +415,25 @@ def mamba2_block(params, x, cfg: ModelConfig, *, mode, cache=None,
     d_in = nh * hd
 
     h = rmsnorm(x, params["ln"], cfg.norm_eps)
-    zxbcdt = h @ params["in_proj"]
-    z, xin, Bc, Cc, dt = torch.split(zxbcdt, [d_in, d_in, st, st, nh],
-                                     dim=-1)
+    if ctx.size("heads") > 1:
+        # B and C from h as it is (every rank computes them alike), the
+        # rank's z, x and dt through copy (their gradient is partial)
+        w_zx, w_bc, w_dt = torch.split(params["in_proj"],
+                                       [2 * d_in, 2 * st, nh], dim=-1)
+        hc = ctx.copy(h, "heads")
+        z, xin = torch.split(hc @ w_zx, [d_in, d_in], dim=-1)
+        Bc, Cc = torch.split(h @ w_bc, [st, st], dim=-1)
+        dt = hc @ w_dt
+    else:
+        zxbcdt = h @ params["in_proj"]
+        z, xin, Bc, Cc, dt = torch.split(zxbcdt, [d_in, d_in, st, st, nh],
+                                         dim=-1)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
     conv_state = cache["conv"] if cache is not None else None
     conv_out, new_conv = _causal_conv(conv_in, params["conv_w"], conv_state)
-    xin, Bc, Cc = torch.split(conv_out, [d_in, st, st], dim=-1)
+    xin = conv_out[..., :d_in]
+    Bc, Cc = torch.split(ctx.copy(conv_out[..., d_in:], "heads"), [st, st],
+                         dim=-1)
 
     dt = F.softplus(dt.float() + params["dt_bias"].float())   # [B,S,nh]
     a = -torch.exp(params["a_log"].float())                   # [nh]

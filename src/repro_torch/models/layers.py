@@ -5,12 +5,15 @@ the JAX package's ``models/layers.py``: norms, activations and softmaxes
 compute in f32, tensors stay in the parameters' dtype (bf16 by default).
 
 Under a sharded ``ctx`` (``models/sharding.py``) the parameters are this
-rank's slices: the MLP is column- then row-parallel (``row_parallel``:
-its partial products all-reduced in f32 over "ff"), the embedding and
+rank's slices: the MLP is column- then row-parallel (its input through
+``ctx.copy``; ``row_parallel``: its partial products through
+``ctx.reduce``, an f32 all-reduce over "ff"), the embedding and
 unembedding vocab-parallel (the embedding masks the ids outside the
-rank's rows, then all-reduces; the unembedding returns the rank's logits
-columns), and ``rmsnorm`` over a split dim all-reduces its sum of
-squares in f32.
+rank's rows, then reduces, so its gradient reaches the rank's own rows
+only; the unembedding returns the rank's logits columns), and
+``rmsnorm`` over a split dim reduces its sum of squares in f32, which
+the rank's split part then consumes (so its gradient is all-reduced
+back).
 """
 from __future__ import annotations
 
@@ -31,8 +34,8 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5, *,
     all-reduced in f32."""
     xf = x.float()
     if axis is not None and ctx.size(axis) > 1:
-        ss = ctx.all_reduce(xf.square().sum(dim=-1, keepdim=True), axis)
-        var = ss / width
+        ss = ctx.reduce(xf.square().sum(dim=-1, keepdim=True), axis)
+        var = ctx.copy(ss, axis) / width
     else:
         var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
@@ -131,11 +134,12 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, ctx: ShardingCtx,
     (in bf16 a tensor-core GEMM, rounded once more than the unsplit
     product), all-reduced in f32 and rounded once to x's dtype; ``x @ w``
     itself where ``axis`` is not split."""
-    return ctx.all_reduce(x @ w, axis)
+    return ctx.reduce(x @ w, axis)
 
 
 def swiglu_mlp(params, x: torch.Tensor,
                ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
+    x = ctx.copy(x, "ff")
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     h = F.silu(g.float()).to(x.dtype) * u
@@ -172,7 +176,7 @@ def embed(table: torch.Tensor, ids: torch.Tensor,
     hit = (local >= 0) & (local < v1 - v0)
     rows = table[local.clamp(0, v1 - v0 - 1)] * hit[..., None].to(
         table.dtype)
-    return ctx.all_reduce(rows, "vocab")
+    return ctx.reduce(rows, "vocab")
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

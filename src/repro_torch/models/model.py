@@ -22,16 +22,18 @@ The stacks loop over the stacked ``[L, ...]`` layer params (the JAX
 package scans them), unbound once per forward so that the backward stacks
 the layers' gradients in one step.
 
-The model axis (serving): ``specs`` gives the reference's PartitionSpecs;
-under a ``ShardingCtx`` with a mesh (``models/sharding.py``),
+The model axis: ``specs`` gives the reference's PartitionSpecs; under a
+``ShardingCtx`` with a mesh (``models/sharding.py``),
 ``init(generator, ctx)`` draws this rank's slices, ``local_defs``
 describes them, ``init_cache(..., ctx=ctx)`` allocates the rank's cache
-and ``forward(..., ctx=ctx)`` runs the rank's part of prefill and decode
-for the dense, MoE, VLM and hybrid families (tensor- and
+and ``forward(..., ctx=ctx)`` runs the rank's part of train, prefill and
+decode for the dense, MoE, VLM and hybrid families (tensor- and
 expert-parallel, vocab-parallel embedding and logits: the logits it
-returns are the rank's vocab columns, padding dropped). rwkv6 and
-whisper under a split model axis, and training under one, raise
-``NotImplementedError`` (ROADMAP A).
+returns are the rank's vocab columns, padding dropped; in train mode
+its gradients flow through the context's ``reduce`` / ``copy``
+Functions, and ``train/train_step.py``'s vocab-parallel cross-entropy
+reads those columns as they are). rwkv6 and whisper under a split model
+axis raise ``NotImplementedError`` (ROADMAP A).
 """
 from __future__ import annotations
 
@@ -92,7 +94,7 @@ def _stack(caches):
 
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
-# the families whose model axis is ported (serving)
+# the families whose model axis is ported (serving and training)
 TP_FAMILIES = ("dense", "moe", "vlm", "hybrid")
 
 
@@ -258,9 +260,6 @@ class Model:
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         self.check_ctx(ctx)
-        if mode == "train" and ctx.size("heads") > 1:
-            raise NotImplementedError("training under a model axis is not "
-                                      "ported yet (ROADMAP A)")
         if mode != "train":
             with torch.no_grad():
                 return self._forward(params, batch, mode=mode, cache=cache,
@@ -309,7 +308,8 @@ class Model:
                                       positions=positions, cache=cache,
                                       cache_index=cache_index, ctx=ctx)
 
-        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        x = ctx.copy(rmsnorm(x, params["final_norm"], cfg.norm_eps),
+                     "act_vocab")
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
         logits = ctx.constrain(unembed(table, x),
                                ("batch", "seq", "act_vocab"),
@@ -392,7 +392,7 @@ class Model:
                 # the shared block's parameters enter every application,
                 # so their gradient sums over the applications
                 x = _body(remat, lambda p, h: blocks.mamba2_block(
-                    p, h, cfg, mode=mode)[0], lp, x)
+                    p, h, cfg, mode=mode, ctx=ctx)[0], lp, x)
                 if shared_after:
                     x = _body(remat, lambda h: apply_shared(h, None)[0], x)
                 continue

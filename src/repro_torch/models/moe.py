@@ -22,7 +22,15 @@ experts only; its routed and shared partial outputs are summed in f32
 and all-reduced once. Unsplit, the same ending: one f32 sum, rounded
 once (the reference rounds the routed output before it adds the shared
 experts' product). ``aux`` is equal on every rank: over a split
-batch its two means are all-reduced over "batch" first.
+batch its two means are all-reduced over "batch" first (``manual_dp``'s
+forward sees no split batch, so there it is the rank's microbatch's, as
+the reference's inside ``shard_map``).
+
+In training the router's computation is replicated: its gradient comes
+out whole and equal on every rank because what the rank's experts
+consume of it, the gates, and the tokens they and the shared experts
+read pass through ``ctx.copy`` (their partial gradients all-reduced),
+while the load balance, computed alike on every rank, does not.
 
 DOD-ETL tie-in: a token is a message, the router's expert choice its
 business key, experts are partitions and capacity is the consumer's
@@ -151,7 +159,7 @@ def load_balance(r: Routing, cfg: MoEConfig,
     else:
         sums = torch.stack([r.probs.sum(dim=(0, 1)),
                             top1_counts(r.topi, e).float()])
-        sums = ctx.all_reduce(sums, "batch") / (g * gs * ctx.size("batch"))
+        sums = ctx.reduce(sums, "batch") / (g * gs * ctx.size("batch"))
         me, ce = sums.unbind(0)
     return (me * ce).sum() * e * cfg.router_aux_weight
 
@@ -166,12 +174,14 @@ def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig,
     b, s, d = x.shape
     e = cfg.padded_experts
     r = route(params, x, cfg)
-    xt, topv, topi, position, keep, capacity = (
-        r.xt, r.topv, r.topi, r.position, r.keep, r.capacity)
-    g, gs = xt.shape[:2]
+    topv, topi, position, keep, capacity = (
+        r.topv, r.topi, r.position, r.keep, r.capacity)
+    g, gs = r.xt.shape[:2]
     aux = load_balance(r, cfg, ctx)
-
-    gate = topv * keep                                       # dropped -> 0
+    # what the rank's experts read of the (replicated) tokens and gates
+    x = ctx.copy(x, "experts")
+    xt = x.reshape(g, gs, d)
+    gate = ctx.copy(topv * keep, "experts")                  # dropped -> 0
     # the one-hot dispatch and combine tensors [g, gs, e, c], written by
     # scatter: a token's k experts differ, so each (e, c) cell holds at
     # most one of the reference's summed one-hot products (a dropped
@@ -211,4 +221,4 @@ def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig,
         out = out + (hsh @ sh["w_down"]).float()
     # the routed and shared (partial) sums in f32, all-reduced once where
     # the experts are split, rounded once
-    return ctx.all_reduce(out, "experts").to(x.dtype), aux
+    return ctx.reduce(out, "experts").to(x.dtype), aux

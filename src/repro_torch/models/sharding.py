@@ -21,11 +21,34 @@ and issues collectives, so the context adds:
   * ``constrain(x, axes, full)`` — asserts a local tensor has the layout
     the rules give, raising on a mismatch (with no mesh it is the
     identity, as the reference's);
-  * ``all_reduce`` / ``all_gather`` over a logical axis's mesh axes,
+  * ``reduce`` / ``all_gather`` over a logical axis's mesh axes,
     issued through ``comm`` (``torch.distributed`` by default; the dry run
     passes ``launch.dryrun.RecordedCollectives``). A collective over mesh
     axes of size 1 is not issued. Partial sums are reduced in f32 and
     rounded once to their dtype.
+
+Training differentiates through the layout with Megatron's pair of
+autograd Functions over a logical axis:
+
+  * ``reduce`` — forward the f32 all-reduce, backward the identity: a sum
+    of partials whose result every rank then uses alike (row-parallel
+    outputs, the vocab-parallel embedding, the cross-entropy's sums);
+  * ``copy`` — forward the identity, backward the f32 all-reduce: a
+    replicated tensor that rank-local (split) computation consumes (the
+    normed input of column-parallel weights, Mamba2's B and C, the MoE's
+    gates).
+
+Both keep one invariant: on every rank the gradient of every replicated
+activation is the whole gradient, so the gradient of a replicated leaf
+(a norm weight, the router, B and C's columns) comes out whole and
+bitwise equal on every rank. A kv head several ranks hold (the model
+axis above the kv heads, or q heads split unevenly) gets a partial
+gradient on each holder: ``sum_shared`` adds them once per step.
+``held_pieces`` gives how many ranks of the model axis hold each part of
+a leaf, which the global norm divides by. ``batch_local`` is the context
+of ``train/manual_dp.py``'s forward: "batch" not split, each rank's
+microbatch its own, as the reference's forward under ``NULL_CTX``
+inside ``shard_map``.
 
 The port honours the mesh axes of "batch", "heads", "kv_heads",
 "heads2", "ff", "ff2", "experts", "vocab" and "act_vocab" (TP, EP,
@@ -53,6 +76,7 @@ Multi-pod meshes extend "batch" to ("pod", "data").
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -205,8 +229,10 @@ class ShardingCtx:
                 f"the port does not split it (ROADMAP A)")
         return True
 
-    def range(self, axis: Optional[str], n: int) -> Tuple[int, int]:
-        """This rank's units [start, stop) of a dim of ``n`` units."""
+    def range(self, axis: Optional[str], n: int,
+              at: Optional[int] = None) -> Tuple[int, int]:
+        """This rank's units [start, stop) of a dim of ``n`` units (``at``:
+        those of the rank at that coordinate along ``axis`` instead)."""
         if not self._split(axis):
             return 0, n
         parts = self.size(axis)
@@ -214,12 +240,14 @@ class ShardingCtx:
             raise NotImplementedError(
                 f"{n} units of {axis!r} over {parts} ranks: a rank would "
                 f"hold none")
-        return split_range(n, parts, self.index(axis))
+        return split_range(n, parts, self.index(axis) if at is None else at)
 
     def indices(self, axis: Optional[str], n: int,
-                parts: Optional[Sequence[Part]] = None) -> List[int]:
+                parts: Optional[Sequence[Part]] = None,
+                at: Optional[int] = None) -> List[int]:
         """This rank's elements of a dim of ``n`` elements along ``axis``,
-        by ``parts`` (default: ``n`` units of one element)."""
+        by ``parts`` (default: ``n`` units of one element; ``at`` as in
+        ``range``)."""
         if not self._split(axis):
             return list(range(n))
         parts = parts or (Part(n, n),)
@@ -231,10 +259,10 @@ class ShardingCtx:
             if not p.units:
                 units = [0]
             elif p.kv_of:
-                q0, q1 = self.range(axis, p.kv_of)
+                q0, q1 = self.range(axis, p.kv_of, at)
                 units = kv_heads_read(p.kv_of, p.units, q0, q1)
             else:
-                units = list(range(*self.range(axis, p.units)))
+                units = list(range(*self.range(axis, p.units, at)))
             for u in units:
                 out.extend(range(base + u * w, base + (u + 1) * w))
             base += p.width
@@ -304,17 +332,148 @@ class ShardingCtx:
             mesh_axes = mesh_axes[0]
         return self.mesh.group(mesh_axes)
 
-    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """The sum of ``x`` over the ranks of ``axis``: reduced in f32,
-        returned in ``x``'s dtype (in place when ``x`` is f32 and
-        contiguous: the ranks' layouts of a tensor may differ, the
-        collective reads memory in order); ``x`` itself where the axis is
-        not split."""
+    def _reduced(self, x: torch.Tensor, axis: str, *, fresh: bool = False,
+                 op: str = "sum") -> torch.Tensor:
+        """The all-reduce (``op``: "sum" or "max") of ``x`` over the ranks
+        of ``axis`` in f32, rounded once to ``x``'s dtype. The buffer is
+        ``x`` itself where ``x`` is f32 and contiguous, unless ``fresh``
+        (a tensor autograd may hold); the ranks' layouts of a tensor may
+        differ, and the collective reads memory in order."""
+        buf = x.float().contiguous()
+        if fresh and buf is x:
+            buf = buf.clone()
+        kw = {}
+        if op == "max":
+            import torch.distributed as dist
+            kw["op"] = dist.ReduceOp.MAX
+        self._comm().all_reduce(buf, group=self._group(axis), **kw)
+        return buf.to(x.dtype)
+
+    def reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of ``x`` over the ranks of ``axis`` (f32, rounded once to
+        ``x``'s dtype); its gradient the identity: each rank's partial
+        gets the whole gradient of the sum, which every rank uses alike.
+        ``x`` itself where the axis is not split."""
         if self.size(axis) == 1:
             return x
-        buf = x.float().contiguous()
-        self._comm().all_reduce(buf, group=self._group(axis))
-        return buf.to(x.dtype)
+        if not torch.is_grad_enabled():
+            return self._reduced(x, axis)
+        return _Reduce.apply(x, self, axis)
+
+    def copy(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x`` (replicated over the ranks of ``axis``) as split
+        computation consumes it: the identity, whose gradient is the sum
+        of the ranks' partial gradients (an f32 all-reduce in the
+        backward). ``x`` itself where no graph is recorded."""
+        if self.size(axis) == 1 or not (torch.is_grad_enabled()
+                                        and x.requires_grad):
+            return x
+        return _Copy.apply(x, self, axis)
+
+    def reduce_max(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The elementwise max of ``x`` over the ranks of ``axis``, with no
+        gradient (the cross-entropy's shift)."""
+        if self.size(axis) == 1:
+            return x.detach()
+        return self._reduced(x.detach(), axis, fresh=True, op="max")
+
+    def batch_local(self) -> "ShardingCtx":
+        """This layout with "batch" not split: each rank's batch its own
+        (``manual_dp``'s forward)."""
+        return dataclasses.replace(self, rules={**self.rules,
+                                                "batch": None})
+
+    # ------------------------------------------------- leaves held twice
+    def _holding(self, axes: Sequence[Optional[str]], shape: Sequence[int],
+                 parts: Optional[Sequence[Part]] = None):
+        """(the dim the model axis splits or None, this rank's indices
+        along it, every rank's count of each index along it)."""
+        model = self.rules.get("heads")
+        hd = head_dim(axes)
+        for i, (a, n) in enumerate(zip(axes, shape)):
+            if not self._split(a):
+                continue
+            if self.rules.get(a) != model:
+                raise NotImplementedError(
+                    f"a parameter dim on {a!r} ({self.rules.get(a)!r}), "
+                    f"not the model axis {model!r}")
+            p = parts if i == hd else None
+            total = collections.Counter()
+            for j in range(self.size(a)):
+                total.update(self.indices(a, n, p, at=j))
+            return i, self.indices(a, n, p), total
+        return None, None, None
+
+    def held_pieces(self, x: torch.Tensor, axes: Sequence[Optional[str]],
+                    shape: Sequence[int],
+                    parts: Optional[Sequence[Part]] = None
+                    ) -> List[Tuple[torch.Tensor, int]]:
+        """``x`` (of this rank's local shape of a leaf ``shape`` over
+        ``axes``) cut along the dim the model axis splits into views, each
+        with the number of ranks of the model axis holding its elements
+        (a kv head a rank holds twice counts twice; a leaf the model axis
+        does not split is one piece, held by every rank of it)."""
+        dim, mine, total = self._holding(axes, shape, parts)
+        if dim is None:
+            return [(x, self.size("heads"))]
+        out, start = [], 0
+        for i in range(1, len(mine) + 1):
+            if i == len(mine) or total[mine[i]] != total[mine[start]]:
+                out.append((x.narrow(dim, start, i - start),
+                            total[mine[start]]))
+                start = i
+        return out
+
+    def shared_leaves(self, defs: Sequence) -> List[Tuple[int, int,
+                                                         List[int]]]:
+        """The ParamDefs of ``defs`` with a kv head that several copies
+        hold (on one rank or several): (position, the kv dim, this rank's
+        indices along it), for ``sum_shared``."""
+        picks = []
+        for i, d in enumerate(defs):
+            if not any(p.kv_of for p in d.parts or ()):
+                continue
+            dim, mine, total = self._holding(d.axes, d.shape, d.parts)
+            if dim is not None and max(total.values()) > 1:
+                picks.append((i, dim, mine))
+        return picks
+
+    def sum_shared(self, grads: List[torch.Tensor], defs: Sequence
+                   ) -> List[torch.Tensor]:
+        """``grads`` (this rank's, one per ParamDef of ``defs``, in order)
+        with the gradient of each kv head that several copies hold summed
+        over them all (each holder's is partial: the q heads it serves),
+        written back into every copy: one f32 all-reduce over the model
+        axis of those leaves, full along their kv dim. Other leaves are
+        returned as they are."""
+        picks = self.shared_leaves(defs)
+        if not picks:
+            return grads
+        shapes = []
+        for i, dim, _ in picks:
+            shape = list(grads[i].shape)
+            shape[dim] = defs[i].shape[dim]
+            shapes.append(shape)
+        flat = torch.zeros(sum(math.prod(s) for s in shapes),
+                           dtype=torch.float32,
+                           device=grads[picks[0][0]].device)
+        fulls, base = [], 0
+        for shape in shapes:
+            fulls.append(flat[base:base + math.prod(shape)].view(shape))
+            base += math.prod(shape)
+        runs = [_runs(mine) for _, _, mine in picks]
+        for (i, dim, _), full, rs in zip(picks, fulls, runs):
+            for local, glob, n in rs:
+                full.narrow(dim, glob, n).add_(
+                    grads[i].narrow(dim, local, n).float())
+        flat = self._reduced(flat, "heads")
+        out = list(grads)
+        for (i, dim, _), full, rs in zip(picks, fulls, runs):
+            g = torch.empty_like(grads[i])
+            for local, glob, n in rs:
+                g.narrow(dim, local, n).copy_(full.narrow(dim, glob, n))
+            out[i] = g
+        return out
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int = -1,
                    full: Optional[int] = None) -> List[torch.Tensor]:
@@ -336,6 +495,43 @@ class ShardingCtx:
         out = [torch.empty_like(buf) for _ in range(n)]
         self._comm().all_gather(out, buf, group=self._group(axis))
         return [t.narrow(dim, 0, s) for t, s in zip(out, sizes)]
+
+
+def _runs(idx: Sequence[int]) -> List[Tuple[int, int, int]]:
+    """Local indices ``idx`` (global index per local position) as runs
+    (local start, global start, length) of consecutive indices."""
+    out = []
+    for pos, g in enumerate(idx):
+        if out and out[-1][1] + out[-1][2] == g:
+            out[-1][2] += 1
+        else:
+            out.append([pos, g, 1])
+    return [tuple(r) for r in out]
+
+
+class _Reduce(torch.autograd.Function):
+    """``ShardingCtx.reduce``: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(fctx, x, sctx, axis):
+        return sctx._reduced(x, axis, fresh=fctx.needs_input_grad[0])
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None, None
+
+
+class _Copy(torch.autograd.Function):
+    """``ShardingCtx.copy``: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(fctx, x, sctx, axis):
+        fctx.sctx, fctx.axis = sctx, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.sctx._reduced(g, fctx.axis, fresh=True), None, None
 
 
 def held_differently(d, ctx: ShardingCtx) -> Optional[Dict[str, Any]]:

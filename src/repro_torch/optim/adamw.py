@@ -7,6 +7,13 @@ to the parameter's dtype; decoupled weight decay applies to matrices only
 (``ndim >= 2``). Where the reference returns new arrays, ``apply_updates``
 writes the new parameters and moments into the tensors it is given (one
 copy of each fewer on the card); the step counter is a new tensor.
+
+Under a sharded ``ShardingCtx`` the trees are this rank's slices, and the
+global norm counts every element of the global parameter once: each
+rank's sum of squares weights an element by 1 / the number of ranks of
+the model axis that hold it (``ShardingCtx.held_pieces``: a leaf held
+whole by all of them, a kv head by each rank that reads it), and the
+sums are all-reduced over the model axis.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.models.param import tree_leaves, tree_map
+from repro_torch.models.sharding import NULL_CTX, ShardingCtx
 
 
 class AdamWState(NamedTuple):
@@ -72,12 +80,44 @@ def abstract_state(abstract_params) -> AdamWState:
                       nu=tree_map(f32, abstract_params))
 
 
-def global_norm(tree) -> torch.Tensor:
+def held_weight(leaf: torch.Tensor, d, ctx: ShardingCtx):
+    """1 / the number of ranks of the model axis holding each element of
+    ``leaf`` (this rank's slice of ParamDef ``d``; ``held_pieces``): a
+    number where one count holds for the whole leaf, else a flat f32
+    tensor of the leaf's size."""
+    pieces = ctx.held_pieces(leaf, d.axes, d.shape, d.parts)
+    if len(pieces) == 1:
+        return 1.0 / pieces[0][1]
+    dim = next(k for k, (a, b) in enumerate(zip(pieces[0][0].shape,
+                                                 leaf.shape)) if a != b)
+    return torch.cat([torch.full(p.shape, 1.0 / n, dtype=torch.float32,
+                                 device=leaf.device) for p, n in pieces],
+                     dim).reshape(-1)
+
+
+def held_square_sum(g: torch.Tensor, w) -> torch.Tensor:
+    """The f32 sum of squares of the flat ``g``, each element weighted by
+    its ``held_weight`` ``w`` (a number, or a tensor of ``g``'s size)."""
+    g = g.reshape(-1).to(torch.float32)
+    if isinstance(w, torch.Tensor):
+        return torch.dot(g * w, g)
+    return torch.dot(g, g) * w
+
+
+def global_norm(tree, ctx: ShardingCtx = NULL_CTX, defs=None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, leaves in the
-    reference's order."""
-    sq = sum(torch.sum(torch.square(g.to(torch.float32)))
-             for g in tree_leaves(tree))
-    return torch.sqrt(sq)
+    reference's order. Under a model axis (``ctx``), of the global tree
+    of which ``tree`` is this rank's slices (``defs``: the tree's
+    ParamDefs): a collective every rank of the model axis calls."""
+    if ctx.size("heads") == 1:
+        sq = sum(torch.sum(torch.square(g.to(torch.float32)))
+                 for g in tree_leaves(tree))
+        return torch.sqrt(sq)
+    # summed over the ranks, every element of the global tree counts once
+    sq = sum(held_square_sum(g, held_weight(g, d, ctx))
+             for g, d in zip(tree_leaves(tree), tree_leaves(defs)))
+    return torch.sqrt(ctx.reduce(sq.reshape(1), "heads")[0])
 
 
 def step_scalars(cfg: AdamWConfig, step: torch.Tensor
@@ -92,28 +132,27 @@ def update_leaf(cfg: AdamWConfig, p: torch.Tensor, g: torch.Tensor,
                 m: torch.Tensor, v: torch.Tensor, *, scale, lr, b1c, b2c,
                 decay) -> None:
     """One AdamW update of ``p`` (any dtype) and its f32 moments ``m``,
-    ``v``, in place. ``decay``: True (a matrix), False, or an f32 mask of
-    ``p``'s shape (1 where weight decay applies), as ``manual_dp``'s flat
-    shards need."""
+    ``v``, in place. ``decay``: whether weight decay applies (a matrix;
+    ``manual_dp`` passes each leaf's part of its flat shard)."""
     g = g.to(torch.float32) * scale
     m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
     v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
     delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
     pf = p.to(torch.float32)
-    if isinstance(decay, torch.Tensor):
-        delta = delta + cfg.weight_decay * pf * decay
-    elif decay:
+    if decay:
         delta = delta + cfg.weight_decay * pf
     p.copy_((pf - lr * delta).to(p.dtype))
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState
+def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState, *,
+                  ctx: ShardingCtx = NULL_CTX, defs=None
                   ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """Clip by the global norm, then one AdamW step. Writes the new
     parameters and moments in place; returns (params, the new state,
-    metrics {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+    metrics {"grad_norm", "lr"}). Under a model axis the trees are this
+    rank's slices of ``defs`` (``global_norm``)."""
+    gnorm = global_norm(grads, ctx, defs)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr, b1c, b2c = step_scalars(cfg, step)

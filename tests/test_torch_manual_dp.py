@@ -108,7 +108,8 @@ _KINDS = {"reduce_scatter_tensor": "reduce-scatter",
 
 def _rank_plan(rank: int, port: int, out) -> None:
     """One step with every collective the step issues recorded, in
-    ``collective_plan``'s form (the output tensor each leaves)."""
+    ``collective_plan``'s form (the output tensor each leaves, and the
+    size of the group it ran over)."""
     import torch.distributed as dist
     from repro_torch.train import manual_dp
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
@@ -121,7 +122,9 @@ def _rank_plan(rank: int, port: int, out) -> None:
                 issued.append({"op": _name, "kind": _kind,
                                "dtype": str(result.dtype),
                                "result_bytes": result.numel()
-                               * result.element_size()})
+                               * result.element_size(),
+                               "group": dist.get_world_size(
+                                   kw.get("group"))})
                 return _fn(result, *a, **kw)
             setattr(dist, name, recorded)
         model, params, batch = _setup()
@@ -136,8 +139,9 @@ def _rank_plan(rank: int, port: int, out) -> None:
 
 def test_two_ranks_issue_exactly_the_collective_plan():
     """Each of two gloo ranks issues exactly ``collective_plan``'s
-    collectives, in order, of its sizes and dtypes (bf16 parameters: the
-    gathered bucket travels in bf16, the gradient in f32)."""
+    collectives, in order, of its sizes, dtypes and group sizes (bf16
+    parameters: the gathered bucket travels in bf16, the gradient in
+    f32; without a mesh every collective runs over the one data axis)."""
     from repro_torch.train.manual_dp import collective_plan
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
@@ -157,5 +161,7 @@ def test_two_ranks_issue_exactly_the_collective_plan():
     assert [c["kind"] for c in plan] == ["reduce-scatter", "all-reduce",
                                          "all-gather"]
     assert plan[2]["dtype"] == "torch.bfloat16"
+    assert {c["axis"] for c in plan} == {"data"}
     for r in range(WORLD):
-        assert got[r] == plan
+        assert got[r] == [{k: v for k, v in c.items() if k != "axis"}
+                          for c in plan]

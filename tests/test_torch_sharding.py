@@ -306,11 +306,11 @@ def test_vocab_parallel_logits_and_greedy_across_padded_vocab():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_dry_run_statuses_at_the_reference_mesh(arch):
     """``--cards 256 --model 16`` (the reference's 16 x 16): the dense,
-    MoE, VLM and hybrid families' prefill_32k and decode_32k cells are
-    built (rank 0's parameters and cache on ``meta``), every train cell,
-    rwkv6's and whisper's serving cells and zamba2's long_500k are
-    not_ported with a ROADMAP reason, and the reference's own rules still
-    skip what they skip."""
+    MoE, VLM and hybrid families' train_4k, prefill_32k and decode_32k
+    cells are built (rank 0's parameters, and its cache or its ZeRO shard
+    of the moments, on ``meta``), rwkv6's and whisper's cells and
+    zamba2's long_500k are not_ported with a ROADMAP reason, and the
+    reference's own rules still skip what they skip."""
     from repro_torch.configs import SHAPE_SUITES
     from repro_torch.launch import dryrun
     cfg = get_config(arch)
@@ -320,7 +320,8 @@ def test_dry_run_statuses_at_the_reference_mesh(arch):
         if (suite.kind == "decode" and not cfg.supports_decode) or (
                 shape == "long_500k" and not cfg.subquadratic):
             want = "skipped"
-        elif arch in TP_ARCHS and shape in ("prefill_32k", "decode_32k"):
+        elif arch in TP_ARCHS and shape in ("train_4k", "prefill_32k",
+                                            "decode_32k"):
             want = "ok"
         else:
             want = "not_ported"
