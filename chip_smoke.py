@@ -181,7 +181,18 @@ Phases, each fatal on failure (no fallback to the CPU):
    within 15% of that cell's reckoning; and in f32 at full width
    (internlm2 at 4, zamba2 at 6, qwen2-moe at 2 layers) each rank's
    gradient leaves within 1e-4 x max |g| of the unsharded card
-   gradient's slice.
+   gradient's slice;
+14. rwkv6-7b and whisper-small under the model axis: the RWKV6 gla design
+   at rwkv6's local heads (32 / 16 / 4 of 64 at a prefill of 4 x 2048,
+   32 at a training microbatch of 1 x 2048) and the serial design in f32
+   at both, both flash designs at whisper's (6 / 3 / 1 of 12) in its
+   full, causal and cross regimes and at its training microbatch of 1,
+   against their plain versions, and a rank holding
+   no heads launching nothing; then phase 12's serving check (whisper:
+   4 x 1500 frames and a 416-token prompt; rwkv6's f32 run at 8 of 32
+   layers) and phase 13's training check (rwkv6 at 8 of 32 layers,
+   whisper at full depth on 2 x 416 tokens; f32 cuts: rwkv6 at 2 layers,
+   whisper at full depth) for both models on two gloo ranks.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -1592,6 +1603,9 @@ LM_PATHS = {"internlm2-1.8b": "lm_internlm2", "zamba2-1.2b": "lm_zamba2",
             "rwkv6-7b": "lm_rwkv6", "qwen2-moe-a2.7b": "lm_qwen2moe",
             "qwen2-vl-7b": "lm_qwen2vl", "whisper-small": "lm_whisper"}
 LM_BATCH, LM_PROMPT, LM_DECODE, LM_TAIL = 4, 2048, 32, 4
+# decode steps of the profiled serve run (the timed one takes LM_DECODE):
+# reading the profiler's events back costs host time in proportion
+LM_PROFILE_DECODE = 8
 # whisper's decoder prompt: 416 tokens + 32 decode steps fill its 448-token
 # text context (arXiv:2212.04356)
 WHISPER_PROMPT = 416
@@ -2428,9 +2442,11 @@ def run_lm(arch: str, dev, card: str):
           f"launches {counts}; peak memory of the serve run "
           f"{peak / 2**30:.2f} GiB")
     ranges = ("moe.dispatch", "moe.combine") if fam == "moe" else ()
-    prof = profile_run(f"serve {arch}", lambda: serve(
-        model, params, prompts, gen_len=LM_DECODE + 1,
-        max_len=prompt + LM_DECODE, frames=frames), card, ranges)
+    prof = profile_run(f"serve {arch} ({LM_PROFILE_DECODE} decode steps)",
+                       lambda: serve(model, params, prompts,
+                                     gen_len=LM_PROFILE_DECODE + 1,
+                                     max_len=prompt + LM_PROFILE_DECODE,
+                                     frames=frames), card, ranges)
     if prof is not None and ranges:
         shares = {r: prof[r] / prof["busy_us"] for r in ranges}
         print(f"{arch}: the one-hot MoE products' share of the profiled "
@@ -2674,24 +2690,32 @@ def smoke_train_parity(dev, card) -> None:
 
 
 def train_layers(model):
-    """(attention layers, Mamba2 layers) of a trained model (internlm2,
-    zamba2)."""
+    """(attention calls, gla calls) of one forward of a trained model:
+    internlm2's attention layers; zamba2's shared block's applications
+    and Mamba2 layers; rwkv6's RWKV6 layers; whisper's encoder layers and
+    its decoder's self- and cross-attention."""
     cfg = model.cfg
-    if cfg.family == "dense":
-        return cfg.n_layers, 0
-    return model.n_shared_apps(), cfg.n_layers
+    if cfg.family == "hybrid":
+        return model.n_shared_apps(), cfg.n_layers
+    if cfg.family == "ssm":
+        return 0, cfg.n_layers
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers, 0
+    return cfg.n_layers, 0
 
 
 def train_expected(model) -> dict:
     """The LM kernels' launches of one train step: each layer's forward
     runs twice per microbatch, once, then again under remat in the
-    backward (bf16: the tensor-core and SSD designs)."""
+    backward (bf16: the tensor-core, SSD and RWKV6 designs)."""
     n_attn, n_gla = train_layers(model)
     n_mb = model.cfg.microbatches
+    ssm = model.cfg.family == "ssm"
     return {"flash_attention": 2 * n_mb * n_attn,
             "flash_attention_tc": 2 * n_mb * n_attn,
-            "gla_chunk": 2 * n_mb * n_gla, "gla_chunk_ssd": 2 * n_mb * n_gla,
-            "gla_chunk_rwkv6": 0}
+            "gla_chunk": 2 * n_mb * n_gla,
+            "gla_chunk_ssd": 0 if ssm else 2 * n_mb * n_gla,
+            "gla_chunk_rwkv6": 2 * n_mb * n_gla if ssm else 0}
 
 
 def run_train(arch: str, dev, card: str, fn_times: dict):
@@ -2996,7 +3020,8 @@ def check_dryrun(arch: str, dev, card: str, measured: dict) -> dict:
 # ----------------------------------------------------------------- phase 12
 TP_ARCHS = ("internlm2-1.8b", "zamba2-1.2b", "qwen2-moe-a2.7b")
 TP_PATHS = {"internlm2-1.8b": "tp_internlm2", "zamba2-1.2b": "tp_zamba2",
-            "qwen2-moe-a2.7b": "tp_qwen2moe"}
+            "qwen2-moe-a2.7b": "tp_qwen2moe", "rwkv6-7b": "tp_rwkv6",
+            "whisper-small": "tp_whisper"}
 TP_RANKS, TP_DECODE = 2, 8
 TP_TIMEOUT_S = 600                 # the two ranks' whole run
 # a bf16 miss of the bound is held within this many times the model's
@@ -3004,54 +3029,76 @@ TP_TIMEOUT_S = 600                 # the two ranks' whole run
 TP_WITNESS_SLACK = 1.25
 # the kernels' device names (one ssd_scan_kernel per gla_ssd call)
 TP_PROFILED = {"flash_attention_tc": "flash_tc_kernel",
-               "gla_chunk_ssd": "ssd_scan_kernel"}
+               "gla_chunk_ssd": "ssd_scan_kernel",
+               "gla_chunk_rwkv6": "rwkv6_scan_kernel"}
+
+
+def tp_prompt(model) -> int:
+    """The prompt length of a two-rank run: whisper's 416-token decoder
+    prompt, the others' 2048."""
+    return WHISPER_PROMPT if model.cfg.family == "encdec" else LM_PROMPT
 
 
 def tp_draw(model, dev, ctx=None):
     """Phase 9's seeded bf16 weights (this rank's slices of them under
-    ``ctx``, drawn leaf by leaf) and the prompts [4, 2048] drawn after
-    them from the same generator."""
+    ``ctx``, drawn leaf by leaf) and the prefill's batch drawn after them
+    from the same generator: the prompts [4, 2048] (whisper's [4, 416]
+    and its frames [4, 1500, 768], as phase 9 draws them)."""
     import torch
     from repro_torch.models.sharding import NULL_CTX
+    cfg = model.cfg
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model.init(gen, ctx or NULL_CTX)
-    prompts = torch.randint(0, model.cfg.vocab, (LM_BATCH, LM_PROMPT),
-                            generator=gen, device=dev)
-    return params, prompts
+    batch = {"tokens": torch.randint(0, cfg.vocab,
+                                     (LM_BATCH, tp_prompt(model)),
+                                     generator=gen, device=dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((LM_BATCH, cfg.enc_seq, cfg.d_model),
+                                      generator=gen, device=dev).to(
+                                          torch.bfloat16)
+    return params, batch
 
 
-def tp_steps(model, params, prompts, feed=None, ctx=None) -> dict:
-    """Prefill the prompts, then 8 decode steps fed ``feed`` [4, 8] (None:
-    the greedy tokens as they come). Returns the prefill's last-position
-    logits and each step's, full (gathered over the ranks under ``ctx``),
-    f32 numpy, and the greedy tokens [4, 9]; under ``ctx`` also the
-    prefill's seconds, decode seconds and peak bytes over the prefill."""
+def tp_steps(model, params, batch, feed=None, ctx=None) -> dict:
+    """Prefill the batch's prompts, then 8 decode steps fed ``feed`` [4,
+    8] (None: the greedy tokens as they come). Returns the prefill's
+    last-position logits and each step's, full (gathered over the ranks
+    under ``ctx``), f32 numpy, and the greedy tokens [4, 9]; under
+    ``ctx`` also the prefill's seconds, decode seconds and peak bytes
+    over the prefill, and, where ``ctx``'s ``comm`` records them
+    (``TptComm``), the collectives the prefill step issued (its greedy
+    token's all-gather included)."""
     import torch
     from repro_torch.examples.serve_lm import fill_cache
     from repro_torch.models.sharding import NULL_CTX
     from repro_torch.train.serve_step import greedy, make_decode_step
     ctx = ctx or NULL_CTX
+    prompts = batch["tokens"]
+    n = prompts.shape[1]
     dev = prompts.device
+    issued = getattr(ctx.comm, "issued", None)
+    if issued is not None:
+        issued.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    logits, pre, _ = model.forward(params, {"tokens": prompts},
-                                   mode="prefill", ctx=ctx)
+    logits, pre, _ = model.forward(params, batch, mode="prefill", ctx=ctx)
     torch.cuda.synchronize()
     out = {"prefill_s": time.perf_counter() - t0,
            "peak": torch.cuda.max_memory_allocated(dev)}
     got, toks = [logits[:, -1]], [greedy(model, logits[:, -1], ctx)]
+    if issued is not None:
+        out["prefill_issued"] = list(issued)
     del logits
-    cache = fill_cache(model.init_cache(LM_BATCH, LM_PROMPT + TP_DECODE,
-                                        dev, ctx), pre)
+    cache = fill_cache(model.init_cache(LM_BATCH, n + TP_DECODE, dev, ctx),
+                       pre)
     del pre
     decode = make_decode_step(model, ctx)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(TP_DECODE):
         tok = toks[-1] if feed is None else feed[:, i]
-        nxt, lg, cache = decode(params, cache, tok[:, None].long(),
-                                LM_PROMPT + i)
+        nxt, lg, cache = decode(params, cache, tok[:, None].long(), n + i)
         got.append(lg)
         toks.append(nxt)
     torch.cuda.synchronize()
@@ -3088,14 +3135,27 @@ def rounding_witness():
         blocks.row_parallel, layers.row_parallel = saved
 
 
-def tp_f32(model, params):
-    """The model and its weights in f32 for phase 12's f32 check
-    (qwen2-moe cut to its first 8 layers, as phase 9's f32 check: f32
-    weights of all 24 would not leave room for two ranks)."""
+def tp_f32(model, params, batch):
+    """The model, its weights and the batch (whisper's frames) in f32 for
+    phase 12's and 14's f32 checks (qwen2-moe cut to its first 8 layers,
+    as phase 9's f32 check, and rwkv6 to its first ``TP_RWKV6_F32_LAYERS``:
+    f32 weights of all their layers would not leave room for two
+    ranks)."""
     from repro_torch.models.param import tree_map
-    if model.cfg.family == "moe":
-        model, params = first_layers(model, params, MOE_F32_LAYERS)
-    return model, tree_map(lambda t: t.float(), params)
+    cut = {"moe": MOE_F32_LAYERS, "ssm": TP_RWKV6_F32_LAYERS}.get(
+        model.cfg.family)
+    if cut:
+        model, params = first_layers(model, params, cut)
+    return model, tree_map(lambda t: t.float(), params), {
+        k: t.float() if t.is_floating_point() else t
+        for k, t in batch.items()}
+
+
+def f32_cut(model) -> str:
+    """The depth cut of ``tp_f32``, as a note."""
+    cut = {"moe": MOE_F32_LAYERS, "ssm": TP_RWKV6_F32_LAYERS}.get(
+        model.cfg.family)
+    return f" ({cut} of {model.cfg.n_layers} layers)" if cut else ""
 
 
 def tp_unsharded(arch: str, dev) -> dict:
@@ -3106,25 +3166,26 @@ def tp_unsharded(arch: str, dev) -> dict:
     import torch
     from repro_torch.models import build_model
     model = build_model(arch)
-    params, prompts = tp_draw(model, dev)
-    out = {"prompts": prompts.cpu().numpy(),
-           "bf16": tp_steps(model, params, prompts)}
+    params, batch = tp_draw(model, dev)
+    out = {"prompts": batch["tokens"].cpu().numpy(),
+           "bf16": tp_steps(model, params, batch)}
     feed = torch.from_numpy(out["bf16"]["tokens"][:, :TP_DECODE]).to(dev)
     with rounding_witness() as sites:
-        out["witness"] = tp_steps(model, params, prompts, feed)
+        out["witness"] = tp_steps(model, params, batch, feed)
     if not sites:
         fail(f"{arch}: the rounding witness reached no row-parallel site")
-    f_model, params = tp_f32(model, params)
-    out["f32"] = tp_steps(f_model, params, prompts)
-    del params, prompts, feed
+    f_model, params, batch = tp_f32(model, params, batch)
+    out["f32"] = tp_steps(f_model, params, batch)
+    del params, batch, feed
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out
 
 
-def tp_rank(rank: int, port: int, refs: dict, q) -> None:
-    """One of the two ranks of phase 12 (a spawned process on the one
-    card; gloo stages its CUDA tensors through the host): for each model,
+def tp_rank(rank: int, port: int, archs: tuple, refs: dict, q) -> None:
+    """One of the two ranks of phase 12 or 14 (a spawned process on the
+    one card; gloo stages its CUDA tensors through the host): for each
+    model of ``archs``,
     its slices of the seeded weights (the ranks draw in turn, so that one
     full leaf at a time is in flight on the card), the prefill and the
     decode steps fed the unsharded run's tokens (bf16, then f32:
@@ -3150,7 +3211,7 @@ def tp_rank(rank: int, port: int, refs: dict, q) -> None:
                             world_size=TP_RANKS, rank=rank)
     try:
         ctx = ShardingCtx(make_mesh((1, TP_RANKS), ("data", "model")),
-                          default_rules())
+                          default_rules(), comm=TptComm())
         shapes = []
         saved = fa.mha, gl.gla
 
@@ -3162,7 +3223,7 @@ def tp_rank(rank: int, port: int, refs: dict, q) -> None:
             shapes.append(("gla", tuple(q_.shape), tuple(v.shape)))
             return saved[1](q_, k, v, *a, **kw)
 
-        for arch in TP_ARCHS:
+        for arch in archs:
             ref = refs[arch]
             model = build_model(arch)
             torch.cuda.synchronize()
@@ -3170,11 +3231,12 @@ def tp_rank(rank: int, port: int, refs: dict, q) -> None:
             base = torch.cuda.memory_allocated(dev)
             for r in range(TP_RANKS):       # one rank draws at a time
                 if r == rank:
-                    params, prompts = tp_draw(model, dev, ctx)
+                    params, batch = tp_draw(model, dev, ctx)
                     torch.cuda.synchronize()
                     torch.cuda.empty_cache()   # the full leaves' blocks
                 dist.barrier()
-            if not bool((prompts.cpu().numpy() == ref["prompts"]).all()):
+            if not bool((batch["tokens"].cpu().numpy()
+                         == ref["prompts"]).all()):
                 raise RuntimeError(f"{arch}: rank {rank} drew other prompts "
                                    f"than the unsharded run")
             shapes.clear()
@@ -3183,7 +3245,7 @@ def tp_rank(rank: int, port: int, refs: dict, q) -> None:
             feed = torch.from_numpy(ref["bf16"]["tokens"]).to(dev)
             try:
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    got = tp_steps(model, params, prompts, feed, ctx)
+                    got = tp_steps(model, params, batch, feed, ctx)
             finally:
                 fa.mha, gl.gla = saved
             got["peak"] -= base
@@ -3198,16 +3260,16 @@ def tp_rank(rank: int, port: int, refs: dict, q) -> None:
                    "profiled": {k: sum(n in e for e in names)
                                 for k, n in TP_PROFILED.items()},
                    "traced": bool(names), "device": device_split(spans)}
-            f_model, params = tp_f32(model, params)
+            f_model, params, batch = tp_f32(model, params, batch)
             feed = torch.from_numpy(ref["f32"]["tokens"]).to(dev)
-            out["f32"] = tp_steps(f_model, params, prompts, feed, ctx)
+            out["f32"] = tp_steps(f_model, params, batch, feed, ctx)
             if rank != 0:                   # the logits are rank 0's to send
                 for key in ("bf16", "f32"):
                     if key in out:
                         out[key] = {k: v for k, v in out[key].items()
                                     if k not in ("logits", "tokens")}
             q.put(out)
-            del params, prompts, feed, got
+            del params, batch, feed, got
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             dist.barrier()
@@ -3248,9 +3310,21 @@ def device_split(spans) -> dict:
 
 def tp_local_shapes(model) -> set:
     """The flash and gla calls' (q, k or v) shapes on rank 0 of two:
-    half the heads of each attention and Mamba2 layer."""
+    half the heads of each attention, Mamba2 and RWKV6 layer (whisper:
+    its encoder's full attention over the frames, its decoder's causal
+    self-attention and its cross-attention from the prompt and from each
+    decode step's token)."""
     cfg = model.cfg
     hd, m = cfg.resolved_head_dim, TP_RANKS
+    if cfg.family == "ssm":
+        h = cfg.ssm.n_ssm_heads // m
+        dk = cfg.d_model // cfg.ssm.n_ssm_heads
+        return {("gla", (LM_BATCH, LM_PROMPT, h, dk),
+                 (LM_BATCH, LM_PROMPT, h, dk))}
+    if cfg.family == "encdec":
+        h, e, p = cfg.n_heads // m, cfg.enc_seq, WHISPER_PROMPT
+        return {("flash", (LM_BATCH, h, sq, hd), (LM_BATCH, h, skv, hd))
+                for sq, skv in ((e, e), (p, p), (p, e), (1, e))}
     out = {("flash", (LM_BATCH, cfg.n_heads // m, LM_PROMPT, hd),
             (LM_BATCH, cfg.n_kv_heads // m, LM_PROMPT, hd))}
     if cfg.family == "hybrid":
@@ -3474,8 +3548,10 @@ def tp_errors(got: dict, want: dict, bound: float) -> list:
             for a, b in zip(got["logits"], want["logits"])]
 
 
-def check_tp(dev, card: str) -> dict:
-    """Phase 12: for internlm2-1.8b, zamba2-1.2b and qwen2-moe-a2.7b at
+def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
+             row_products: bool = True) -> dict:
+    """Phase 12 (and phase 14, ``archs`` rwkv6-7b and whisper-small): for
+    internlm2-1.8b, zamba2-1.2b and qwen2-moe-a2.7b at
     full width and depth, the unsharded card runs (then freed), then two
     gloo ranks on the one card (tensor- and expert-parallel, vocab-parallel
     logits) fed the same tokens. Held: (a) in bf16, every step's logits
@@ -3485,14 +3561,17 @@ def check_tp(dev, card: str) -> dict:
     unsplit GEMM's) misses that bound too, the mean over the steps within
     1.25x the witness's; the greedy tokens' agreement and the ranks'
     distance from the witness reported; (b) in f32 (qwen2-moe at its
-    first 8 layers), every step's logits within 1e-3 x max(|logits|, 1);
-    (c) rank 0's launches (the bf16 designs, none in decode), at half
+    first 8 layers, rwkv6 at its first 8), every step's logits within
+    1e-3 x max(|logits|, 1);
+    (c) rank 0's launches (the bf16 designs; in decode only whisper's
+    cross-attention), at half
     the heads (the calls' shapes, as many calls as launches) and as
-    torch.profiler counts them; (d) each rank's peak memory over the
+    torch.profiler counts them, and its prefill step's collectives
+    exactly the dry run's plan; (d) each rank's peak memory over the
     bf16 prefill within 15% of the dry run's ``--cards 2 --model 2``
-    reckoning. Also the kernels at the local shapes
-    (``check_local_kernels``), the row-parallel products against the
-    design before them (``check_row_products``) and rank 0's device time by kind
+    reckoning. Also, with ``row_products`` (phase 12), the row-parallel
+    products against the design before them (``check_row_products``),
+    and rank 0's device time by kind
     (``device_split``). A rank's failure fails the run. Returns rank 0's
     bf16 launches per model (its path in the kernels record)."""
     import multiprocessing
@@ -3502,21 +3581,25 @@ def check_tp(dev, card: str) -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.models import build_model
     gen = torch.Generator(device=dev).manual_seed(12)
-    check_local_kernels(dev, gen)
     refs, peaks, rows = {}, {}, {}
-    for arch in TP_ARCHS:
+    for arch in archs:
         t0 = time.perf_counter()
         refs[arch] = tp_unsharded(arch, dev)
+        n = tp_prompt(build_model(arch))
         print(f"{arch} unsharded references on the card (bf16, its rounding"
-              f" witness, f32: prefill {LM_BATCH} x {LM_PROMPT}, {TP_DECODE} "
+              f" witness, f32: prefill {LM_BATCH} x {n}, {TP_DECODE} "
               f"decode steps each) in {time.perf_counter() - t0:.2f} s")
-        suite = ShapeSuite("tp_prefill", LM_PROMPT, LM_BATCH, "prefill")
+        suite = ShapeSuite("tp_prefill", n, LM_BATCH, "prefill")
         fn, args, meta, comm = dryrun.build_cell(
             arch, suite.name, cards=TP_RANKS, model=TP_RANKS, suite=suite)
         peaks[arch] = dryrun.analyze_cell(fn, args, meta, comm)
+        peaks[arch]["plan"] = [(c["op"], c["dtype"], c["result_bytes"],
+                                c["group"]) for c in comm.plan]
         del fn, args
-        rows[arch] = check_row_products(build_model(arch), comm.plan, dev,
-                                        gen, card)
+        rows[arch] = (check_row_products(build_model(arch), comm.plan, dev,
+                                         gen, card) if row_products else
+                      "row-parallel products not timed (phase 12 times "
+                      "them)")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     with socket.socket() as sk:
@@ -3525,12 +3608,12 @@ def check_tp(dev, card: str) -> dict:
     mp = multiprocessing.get_context("spawn")
     q = mp.Queue()
     t0 = time.perf_counter()
-    procs = [mp.Process(target=tp_rank, args=(r, port, refs, q))
+    procs = [mp.Process(target=tp_rank, args=(r, port, archs, refs, q))
              for r in range(TP_RANKS)]
     for p in procs:
         p.start()
     got, broken = {}, None
-    while len(got) < TP_RANKS * len(TP_ARCHS) and broken is None:
+    while len(got) < TP_RANKS * len(archs) and broken is None:
         try:
             r = q.get(timeout=10)
             got[(r["arch"], r["rank"])] = r
@@ -3545,13 +3628,15 @@ def check_tp(dev, card: str) -> dict:
             p.kill()
             p.join()
     if broken or any(p.exitcode != 0 for p in procs):
-        fail(f"phase 12: {broken or 'a rank failed'} (exit codes "
+        fail(f"serving {', '.join(archs)} on {TP_RANKS} ranks: "
+             f"{broken or 'a rank failed'} (exit codes "
              f"{[p.exitcode for p in procs]})")
-    print(f"phase 12: {TP_RANKS} gloo ranks on the one card ran "
-          f"{len(TP_ARCHS)} models in {time.perf_counter() - t0:.1f} s "
+    print(f"serving {', '.join(archs)}: {TP_RANKS} gloo ranks on the one "
+          f"card ran "
+          f"{len(archs)} models in {time.perf_counter() - t0:.1f} s "
           f"(spawn, imports and weights included)")
     counts = {}
-    for arch in TP_ARCHS:
+    for arch in archs:
         ref, r0 = refs[arch], got[(arch, 0)]
         model = build_model(arch)
         # (a) bf16, against the bound or the model's rounding witness
@@ -3581,8 +3666,8 @@ def check_tp(dev, card: str) -> dict:
                  f"at most {max(dec):.4f} of 1e-3 x max(|logits|, 1)")
         f32_agree = float((r0["f32"]["tokens"] == ref["f32"]["tokens"]
                            ).mean())
-        cut = " (8 of 24 layers)" if model.cfg.family == "moe" else ""
-        f32_note = (f"; in f32{cut} the prefill's logits {pre:.4f} of "
+        f32_note = (f"; in f32{f32_cut(model)} the prefill's logits "
+                    f"{pre:.4f} of "
                     f"1e-3 x max(|logits|, 1), the decode steps' at most "
                     f"{max(dec):.4f} of it (greedy tokens agree "
                     f"{f32_agree:.4f})")
@@ -3614,6 +3699,11 @@ def check_tp(dev, card: str) -> dict:
                                   for n, c, t in d["top"]))
         else:
             traced = "the profiler recorded no CUDA events (not measured)"
+        plan = peaks[arch]["plan"]
+        if r0["bf16"]["prefill_issued"] != plan:
+            fail(f"{arch} rank 0's prefill issued "
+                 f"{r0['bf16']['prefill_issued']}, the dry run's plan is "
+                 f"{plan}")
         # (d) memory against the dry run's reckoning
         est = peaks[arch]["memory"]["peak_estimate_bytes"]
         for rank in range(TP_RANKS):
@@ -3635,8 +3725,10 @@ def check_tp(dev, card: str) -> dict:
               f"ranks from the witness at most {near:.4f}): {held}; "
               f"greedy tokens agree {agree:.4f} ({LM_BATCH} x "
               f"{TP_DECODE + 1}){f32_note}; rank 0 launched "
-              f"{r0['launches']} (prefill, none in decode) at shapes "
-              f"{r0['shapes']}; {traced}; the dry run reckons "
+              f"{r0['launches']} (prefill and {TP_DECODE} decode steps) at "
+              f"shapes {r0['shapes']}; its prefill's {len(plan)} "
+              f"collectives exactly the dry run's plan; {traced}; the dry "
+              f"run reckons "
               f"{est / 2**30:.3f} GiB per rank ({times}); {rows[arch]}. "
               f"Two ranks share "
               f"one card's SMs and gloo stages every all-reduce through the "
@@ -3646,9 +3738,8 @@ def check_tp(dev, card: str) -> dict:
 
 
 # ----------------------------------------------------------------- phase 13
-TPT_ARCHS = ("internlm2-1.8b", "zamba2-1.2b")
-TPT_PATHS = {"internlm2-1.8b": "tp_train_internlm2",
-             "zamba2-1.2b": "tp_train_zamba2"}
+# (arch, layers; 0: full depth)
+TPT_ARCHS = (("internlm2-1.8b", 0), ("zamba2-1.2b", 0))
 # the families' training local shapes (``tp_train_shapes``)
 TPT_SHAPE_ARCHS = ("internlm2-1.8b", "qwen2-moe-a2.7b", "qwen2-vl-7b",
                    "zamba2-1.2b")
@@ -3672,25 +3763,40 @@ def tpt_model(arch: str, layers: int = 0):
     return Model(cfg)
 
 
+def tpt_seq(model) -> int:
+    """A training sequence's tokens: whisper's 416 (its decoder prompt),
+    the others' 2048."""
+    return WHISPER_PROMPT if model.cfg.family == "encdec" else TRAIN_SEQ
+
+
 def tpt_batch(model, dev, rows: int = TPT_BATCH) -> dict:
-    """The step's seeded tokens [rows, 2048] and their next tokens."""
+    """The step's seeded tokens [rows, 2048] (whisper's [rows, 416], and
+    its frames [rows, 1500, 768] drawn after them) and their next
+    tokens."""
     import torch
+    cfg = model.cfg
     gen = torch.Generator(device=dev).manual_seed(13)
-    toks = torch.randint(0, model.cfg.vocab, (TPT_BATCH, TRAIN_SEQ),
-                         generator=gen, device=dev)[:rows]
-    return {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    toks = torch.randint(0, cfg.vocab, (TPT_BATCH, tpt_seq(model)),
+                         generator=gen, device=dev)
+    out = {"tokens": toks[:rows], "targets": torch.roll(toks, -1, 1)[:rows]}
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((TPT_BATCH, cfg.enc_seq, cfg.d_model),
+                                    generator=gen, device=dev).to(
+                                        torch.bfloat16)[:rows]
+    return out
 
 
-def tpt_unsharded(arch: str, dev) -> dict:
+def tpt_unsharded(arch: str, dev, layers: int = 0) -> dict:
     """The unsharded card step phase 13 holds the ranks against (seeded
     bf16 weights, ``make_train_step``, zero moments), then the same under
     ``rounding_witness`` (the ranks' row-parallel sums at one rank), each
     from freshly drawn weights: loss, grad norm and step seconds. Frees
     what it drew."""
     import torch
+    from repro_torch.models.param import tree_leaves
     from repro_torch.optim import AdamWConfig, init_state
     from repro_torch.train.train_step import make_train_step
-    model = tpt_model(arch)
+    model = tpt_model(arch, layers)
     out = {}
     for name, patch in (("bf16", contextlib.nullcontext),
                         ("witness", rounding_witness)):
@@ -3701,9 +3807,14 @@ def tpt_unsharded(arch: str, dev) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with patch() as sites:
-            _, _, met = step(params, opt, batch)
+            _, opt, met = step(params, opt, batch)
             got = {k: float(met[k]) for k in ("loss", "grad_norm")}
         got["step_s"] = time.perf_counter() - t0
+        # the leaves whose gradient is zero (a step from zero moments
+        # leaves mu = (1 - b1) x the clipped gradient): rwkv6's w_lora_a
+        # at init, behind the zero-init w_lora_b
+        got["zero"] = [i for i, m in enumerate(tree_leaves(opt.mu))
+                       if not bool((m != 0).any())]
         if name == "witness" and not sites:
             fail(f"{arch}: the rounding witness reached no row-parallel "
                  f"site in training")
@@ -3715,10 +3826,11 @@ def tpt_unsharded(arch: str, dev) -> dict:
 
 
 class TptComm:
-    """Phase 13's collectives over gloo, each recorded as (op, dtype,
-    result bytes, group size) as it is issued; the reduce-scatter and the
-    all-gather staged through host tensors explicitly (gloo's all-reduce
-    stages a CUDA tensor itself)."""
+    """Phase 13's and 14's collectives over gloo, each recorded as (op,
+    dtype, result bytes, group size) as it is issued; the reduce-scatter
+    and the all-gather into one tensor staged through host tensors
+    explicitly (gloo's all-reduce and list all-gather stage a CUDA tensor
+    themselves)."""
 
     def __init__(self):
         self.issued = []
@@ -3747,18 +3859,27 @@ class TptComm:
         dist.all_gather_into_tensor(host, inp.cpu(), group=group)
         out.copy_(host)
 
+    def all_gather(self, out, t, group=None):
+        import torch.distributed as dist
+        self.issued.append(("all_gather", str(t.dtype), sum(
+            o.numel() * o.element_size() for o in out),
+            dist.get_world_size(group)))
+        dist.all_gather(out, t, group=group)
 
-def tpt_rank(rank: int, port: int, q) -> None:
-    """One of the two ranks of phase 13 (a spawned process on the one
-    card, a (1, 2) mesh over gloo). (a) For internlm2-1.8b and zamba2-1.2b
-    at full width and depth in bf16 with remat: its slices of the seeded
+
+def tpt_rank(rank: int, port: int, archs: tuple, f32_cuts: tuple,
+             q) -> None:
+    """One of the two ranks of phase 13 or 14 (a spawned process on the
+    one card, a (1, 2) mesh over gloo). (a) For each (arch, layers) of
+    ``archs`` (phase 13: internlm2-1.8b and zamba2-1.2b at full depth)
+    at full width in bf16 with remat: its slices of the seeded
     weights (the ranks draw in turn), zero moments, one ``manual_dp``
     step of the 2 x 2048 batch in 2 microbatches; its metrics, step
     seconds, peak memory over the step (from before its weights), the
     kernels' launches, the collectives it issued and the gradient leaves
     that were not finite or all zero (read from the first moment the step
     leaves). (b) For each f32 cut of
-    ``TPT_F32``: in turn, the unsharded gradient of one microbatch
+    ``f32_cuts``: in turn, the unsharded gradient of one microbatch
     (1 x 2048) on this rank from the full weights, kept as its slices;
     then its own gradient under the model axis (``sync_grads``), each
     leaf's max |difference| over max |unsharded slice|."""
@@ -3784,8 +3905,8 @@ def tpt_rank(rank: int, port: int, q) -> None:
         comm = TptComm()
         ctx = ShardingCtx(make_mesh((1, TP_RANKS), ("data", "model")),
                           default_rules(), comm=comm)
-        for arch in TPT_ARCHS:
-            model = tpt_model(arch)
+        for arch, layers in archs:
+            model = tpt_model(arch, layers)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             base = torch.cuda.memory_allocated(dev)
@@ -3817,16 +3938,17 @@ def tpt_rank(rank: int, port: int, q) -> None:
             # gradient: a leaf's gradient is finite and nonzero where its
             # part of mu is (a data axis of 1: the shard is the bucket)
             mus = manual_dp.FlatLayout(params, 1, 0).views(opt.mu)
-            out["bad"] = [i for i, m in enumerate(mus)
-                          if not bool(torch.isfinite(m).all())
-                          or not bool((m != 0).any())]
+            out["nonfinite"] = [i for i, m in enumerate(mus)
+                                if not bool(torch.isfinite(m).all())]
+            out["zero"] = [i for i, m in enumerate(mus)
+                           if not bool((m != 0).any())]
             out["leaves"] = len(mus)
             q.put(out)
             del params, opt, batch, met, step, mus
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             dist.barrier()
-        for arch, layers in TPT_F32:
+        for arch, layers in f32_cuts:
             model = tpt_model(arch, layers)
             defs = tree_leaves(model.defs)
             batch = tpt_batch(model, dev, rows=1)
@@ -3835,6 +3957,8 @@ def tpt_rank(rank: int, port: int, q) -> None:
                 if r == rank:
                     full = tree_map(lambda t: t.float(), model.init(
                         torch.Generator(device=dev).manual_seed(0)))
+                    batch = {k: t.float() if t.is_floating_point() else t
+                             for k, t in batch.items()}
                     g, (_, loss1, aux1) = loss_and_grads(
                         make_loss_fn(model), full, batch)
                     want = [ctx.shard(x, d.axes, d.parts).clone()
@@ -3874,53 +3998,58 @@ def tpt_f32_expected(model) -> dict:
     """Launches of one f32 forward and backward of one microbatch on the
     CUDA-core flash and serial gla designs (the cut configs keep the
     config's remat: each layer's kernels run again in the backward)."""
-    cfg = model.cfg
-    hybrid = cfg.family == "hybrid"
-    n_attn = model.n_shared_apps() if hybrid else cfg.n_layers
-    n_gla = cfg.n_layers if hybrid else 0
-    runs = 2 if cfg.remat else 1
+    n_attn, n_gla = train_layers(model)
+    runs = 2 if model.cfg.remat else 1
     return {"flash_attention": runs * n_attn, "flash_attention_tc": 0,
             "gla_chunk": runs * n_gla, "gla_chunk_ssd": 0,
             "gla_chunk_rwkv6": 0}
 
 
-def check_tp_train(dev, card: str) -> dict:
+def check_tp_train(dev, card: str, archs: tuple = TPT_ARCHS,
+                   f32_cuts: tuple = TPT_F32) -> dict:
     """Phase 13: training under the model axis, two gloo ranks on the one
-    card. The kernels at the training local shapes first
-    (``check_local_kernels(train=True)``). Then, for internlm2-1.8b and
+    card. For internlm2-1.8b and
     zamba2-1.2b at full width and depth in bf16 with remat, the unsharded
     card step and its rounding witness (then freed) and the dry run's
     ``--cards 2 --model 2`` cell of the same step, then the two ranks
     (``tpt_rank``). Held: (a) each rank's loss and grad norm within 1e-2
     (relative) of the unsharded step's or, where the rounding witness
     misses that too, within 1.25x the witness's difference; every
-    gradient leaf finite and nonzero; (b) in f32 (``TPT_F32``'s cuts),
+    gradient leaf finite, and all zero on the ranks exactly where it is in
+    the unsharded step (none for these two; rwkv6's ``w_lora_a`` at init,
+    behind its zero-init ``w_lora_b``); (b) in f32 (``TPT_F32``'s cuts),
     every rank's gradient leaves within 1e-4 x max |g| of the unsharded
     card gradient's slice; (c) each rank's peak within 15% of the dry
     run's reckoning; rank 0's launches (2 microbatches x 2 with remat per
     attention and Mamba2 layer) and its collectives, exactly the dry
-    run's plan. Returns rank 0's launches per path."""
+    run's plan. Phase 14 holds rwkv6-7b (at ``TPT14_RWKV6_LAYERS``
+    layers: the depth the dry run's ``--cards 2 --model 2`` reckoning
+    lets two ranks on one card hold) and whisper-small (full depth, 2 x
+    416 tokens and their frames) so, with its f32 cuts
+    (``TPT14_F32``). Returns rank 0's launches per path."""
     import multiprocessing
     import socket
     import torch
     from repro_torch.configs import ShapeSuite
     from repro_torch.launch import dryrun
-    gen = torch.Generator(device=dev).manual_seed(13)
-    check_local_kernels(dev, gen, train=True)
+    from repro_torch.models.param import tree_paths
     refs, cells = {}, {}
-    for arch in TPT_ARCHS:
+    for arch, layers in archs:
         t0 = time.perf_counter()
-        refs[arch] = tpt_unsharded(arch, dev)
-        suite = ShapeSuite("tp_train", TRAIN_SEQ, TPT_BATCH, "train")
+        refs[arch] = tpt_unsharded(arch, dev, layers)
+        seq = tpt_seq(tpt_model(arch))
+        suite = ShapeSuite("tp_train", seq, TPT_BATCH, "train")
         fn, args, meta, comm = dryrun.build_cell(
             arch, suite.name, cards=TP_RANKS, model=TP_RANKS, suite=suite,
-            overrides={"microbatches": TPT_MB})
+            overrides={"microbatches": TPT_MB,
+                       **({"n_layers": layers} if layers else {})})
         cells[arch] = (dryrun.analyze_cell(fn, args, meta, comm),
                        [(c["op"], c["dtype"], c["result_bytes"], c["group"])
                         for c in comm.plan])
         del fn, args
         print(f"{arch} unsharded train step on the card (bf16, remat, "
-              f"{TPT_BATCH} x {TRAIN_SEQ} in {TPT_MB} microbatches) and its "
+              f"{TPT_BATCH} x {seq} in {TPT_MB} microbatches"
+              + (f", {layers} layers" if layers else "") + ") and its "
               f"rounding witness, and the dry run's --cards 2 --model 2 "
               f"cell, in {time.perf_counter() - t0:.2f} s")
     torch.cuda.synchronize()
@@ -3931,11 +4060,11 @@ def check_tp_train(dev, card: str) -> dict:
     mp = multiprocessing.get_context("spawn")
     q = mp.Queue()
     t0 = time.perf_counter()
-    procs = [mp.Process(target=tpt_rank, args=(r, port, q))
+    procs = [mp.Process(target=tpt_rank, args=(r, port, archs, f32_cuts, q))
              for r in range(TP_RANKS)]
     for p in procs:
         p.start()
-    want_items = TP_RANKS * (len(TPT_ARCHS) + len(TPT_F32))
+    want_items = TP_RANKS * (len(archs) + len(f32_cuts))
     got, broken = {}, None
     while len(got) < want_items and broken is None:
         try:
@@ -3952,16 +4081,19 @@ def check_tp_train(dev, card: str) -> dict:
             p.kill()
             p.join()
     if broken or any(p.exitcode != 0 for p in procs):
-        fail(f"phase 13: {broken or 'a rank failed'} (exit codes "
+        names = ", ".join(a for a, _ in archs)
+        fail(f"training {names} on {TP_RANKS} ranks: "
+             f"{broken or 'a rank failed'} (exit codes "
              f"{[p.exitcode for p in procs]})")
-    print(f"phase 13: {TP_RANKS} gloo ranks on the one card trained "
-          f"{len(TPT_ARCHS)} models and {len(TPT_F32)} f32 cuts in "
+    print(f"training {', '.join(a for a, _ in archs)}: {TP_RANKS} gloo "
+          f"ranks on the one card trained "
+          f"{len(archs)} models and {len(f32_cuts)} f32 cuts in "
           f"{time.perf_counter() - t0:.1f} s (spawn, imports and weights "
           f"included)")
     counts = {}
-    for arch in TPT_ARCHS:
+    for arch, layers in archs:
         ref, (cell, plan) = refs[arch], cells[arch]
-        model = tpt_model(arch)
+        model = tpt_model(arch, layers)
         ranks = [got[(arch, "bf16", k)] for k in range(TP_RANKS)]
         notes = []
         for key in ("loss", "grad_norm"):
@@ -3984,10 +4116,18 @@ def check_tp_train(dev, card: str) -> dict:
                              f"{rel:.3g}, {held})")
             notes.append(f"unsharded {key} {want:.6f}, witness "
                          f"{ref['witness'][key]:.6f} (relative {wit:.3g})")
+        # a leaf may be all zero only where the unsharded step's is too
+        zero = ref["bf16"]["zero"]
         for k, r in enumerate(ranks):
-            if r["bad"]:
-                fail(f"{arch} rank {k}: gradient leaves {r['bad']} of "
-                     f"{r['leaves']} not finite or all zero")
+            if r["nonfinite"] or r["zero"] != zero:
+                fail(f"{arch} rank {k}: gradient leaves {r['nonfinite']} of "
+                     f"{r['leaves']} not finite, {r['zero']} all zero (the "
+                     f"unsharded step's all zero: {zero})")
+        if zero:
+            paths = [p for p, _ in tree_paths(model.defs)]
+            notes.append(f"gradient leaves all zero on the ranks as in the "
+                         f"unsharded step: {[paths[i] for i in zero]} (its "
+                         f"zero-init partner leaves it no gradient at init)")
         r0 = ranks[0]
         want = train_expected(model)
         if r0["launches"] != want:
@@ -4008,9 +4148,12 @@ def check_tp_train(dev, card: str) -> dict:
             f"rank {k}: step {r['step_s'] * 1e3:.1f} ms, peak "
             f"{r['peak'] / 2**30:.3f} GiB ({r['peak'] / est - 1:+.4f})"
             for k, r in enumerate(ranks))
-        print(f"{arch} train step on two ranks (tensor-parallel, manual_dp "
-              f"over a (1, 2) mesh, gloo) vs the unsharded card step "
-              f"[{card}]: {'; '.join(notes)}; every gradient leaf finite "
+        cut = (f" at {layers} of {build_model_layers(arch)} layers"
+               if layers else "")
+        print(f"{arch}{cut} train step on two ranks (tensor-parallel, "
+              f"manual_dp over a (1, 2) mesh, gloo) vs the unsharded card "
+              f"step [{card}]: {'; '.join(notes)}; every "
+              f"{'other ' if zero else ''}gradient leaf finite "
               f"and nonzero ({r0['leaves']} per rank); rank 0 launched "
               f"{r0['launches']}; its {len(plan)} collectives ({n_ar} "
               f"all-reduces, {mib:.2f} MiB of results) exactly the dry "
@@ -4019,8 +4162,8 @@ def check_tp_train(dev, card: str) -> dict:
               f"{ref['bf16']['step_s'] * 1e3:.1f} ms. Two ranks share one "
               f"card's SMs and gloo stages every collective through the "
               f"host: no tensor-parallel speedup")
-        counts[TPT_PATHS[arch]] = r0["launches"]
-    for arch, layers in TPT_F32:
+        counts[f"tp_train_{arch.split('-')[0]}"] = r0["launches"]
+    for arch, layers in f32_cuts:
         model = tpt_model(arch, layers)
         ranks = [got[(arch, "f32", k)] for k in range(TP_RANKS)]
         for k, r in enumerate(ranks):
@@ -4037,8 +4180,9 @@ def check_tp_train(dev, card: str) -> dict:
         if r0["launches"] != want:
             fail(f"{arch} f32 rank 0 launched {r0['launches']}; expected "
                  f"{want}")
-        print(f"{arch} at {layers} of {build_model_layers(arch)} layers, "
-              f"full width, f32, on two ranks [{card}]: every gradient leaf "
+        print(f"{arch} at {layers} of {build_model_layers(arch)} "
+              f"(decoder) layers, full width, f32, on two ranks [{card}]: "
+              f"every gradient leaf "
               f"within 1e-4 x max |g| of the unsharded card gradient's "
               f"slice (worst {max(r['worst'] for r in ranks):.3g}, "
               f"{r0['worst_leaf']} on rank 0); loss {r0['loss']:.6f} vs "
@@ -4046,6 +4190,151 @@ def check_tp_train(dev, card: str) -> dict:
               f"{r0['unsharded_aux']:.6g}; rank 0 launched {r0['launches']}")
         counts[f"tp_train_{arch.split('-')[0]}_f32"] = r0["launches"]
     return counts
+
+
+# ----------------------------------------------------------------- phase 14
+TP14_ARCHS = ("rwkv6-7b", "whisper-small")
+# rwkv6's f32 serving check at full width, cut in depth: f32 weights of
+# its 32 layers (30 GB) would not leave room for the unsharded run's
+# activations beside two ranks' slices
+TP_RWKV6_F32_LAYERS = 8
+# rwkv6's bf16 train step at 8 of 32 layers: the dry run's --cards 2
+# --model 2 reckoning of the step is 25.67 GiB per rank at 8 layers,
+# 36.01 at 12 (two ranks on the one card: 51.3 / 72.0 GiB of its 80 GB,
+# beside two CUDA contexts and gloo's host-staged buffers), and the
+# unsharded step the ranks are held against 39.0 GiB at 8 layers
+TPT14_RWKV6_LAYERS = 8
+TPT14 = (("rwkv6-7b", TPT14_RWKV6_LAYERS), ("whisper-small", 0))
+TPT14_F32 = (("rwkv6-7b", 2), ("whisper-small", 12))
+# the local head counts of M = 2, 4 and 16: rwkv6-7b's 64 heads,
+# whisper-small's 12 (at M = 16 ranks 0-11 hold one, 12-15 none)
+TP14_RWKV6_HEADS = (32, 16, 4)
+TP14_WHISPER_HEADS = (6, 3, 1)
+
+
+def check_local_kernels_14(dev, gen) -> None:
+    """Phase 14's kernels at the shapes the model axis gives rank 0 of
+    rwkv6-7b and whisper-small, against their plain versions: the RWKV6
+    gla design (bf16; lag-1 read, bonus u, per-channel decay) at a
+    prefill of 4 x 2048 at 32, 16 and 4 heads and at a training
+    microbatch of 1 x 2048 at 32, out within 2e-2 and the final state
+    within 2e-4, and the serial design in f32 (the f32 cuts' dtype) at
+    the prefill's and the microbatch's shapes at 32 heads (out and state
+    within 2e-4); both flash designs (bf16 tensor-core within 2e-2, f32
+    CUDA-core within 2e-5) in whisper's regimes, serving at 6, 3 and 1
+    heads (the encoder's full attention [4, h, 1500, 64], the decoder's
+    causal [4, h, 416, 64], its cross-attention from 416 queries and
+    from 1, a decode step, against the 1500 frames' keys) and training's
+    microbatch at 6 heads (full [1, 6, 1500, 64], causal [1, 6, 416, 64],
+    cross [1, 6, 416, 64] against [1, 6, 1500, 64]). Each call taken by
+    its design; at the training shapes the autograd Functions' input
+    gradients also bitwise the plain versions'. Then a rank holding no
+    heads: the model's attention (``models.attention.attend_prefill``)
+    on 0 heads launches nothing, and the kernel's wrapper still refuses
+    0 kv heads."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention.ops import attention, mha
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gla_chunk.ops import gla, gla_fn
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import attend_prefill
+    r_cfg, w_cfg = (build_model(a).cfg for a in TP14_ARCHS)
+    dk = r_cfg.d_model // r_cfg.ssm.n_ssm_heads
+    grads = "; the Function's input gradients bitwise the plain version's"
+    cases = [(f"rwkv6 prefill at M = {64 // h}", LM_BATCH, h,
+              torch.bfloat16, False) for h in TP14_RWKV6_HEADS]
+    cases += [("rwkv6 training microbatch at M = 2", 1, 32, torch.bfloat16,
+               True),
+              ("rwkv6 prefill at M = 2, f32 (serial design)", LM_BATCH, 32,
+               torch.float32, False),
+              ("rwkv6 training microbatch at M = 2, f32 (serial design)", 1,
+               32, torch.float32, True)]
+    for label, b, h, dtype, train in cases:
+        bf16 = dtype == torch.bfloat16
+        r, k, v, lw, u = rwkv6_gla_inputs(b, LM_PROMPT, h, dk, dev, gen)
+        r, k, v = (t.to(dtype) for t in (r, k, v))
+        before = launch_counts()
+        out, fin = gla(r, k, v, lw, u, inclusive=False)
+        after = launch_counts()
+        design_moved(before, after, "gla_chunk", 1, label)
+        design_moved(before, after, "gla_chunk_rwkv6", int(bf16), label)
+        design_moved(before, after, "gla_chunk_ssd", 0, label)
+        r_out, r_fin = gla_chunk_ref(r, k, v, lw, u, inclusive=False)
+        tol = FLASH_TOL["bfloat16"] if bf16 else GLA_TOL
+        err = max(max_err(out, r_out, tol, label),
+                  max_err(fin, r_fin, GLA_TOL, label + " final state"))
+        if train:
+            function_grads_bitwise(
+                lambda *x: gla_fn(*x, inclusive=False)[0],
+                lambda *x: gla_chunk_ref(*x, inclusive=False)[0],
+                (r, k, v, lw, u),
+                torch.randn(v.shape, generator=gen, device=dev).to(dtype),
+                f"GlaChunkFn at {label}")
+        print(f"gla_chunk {'RWKV6' if bf16 else 'serial'} design at {label}"
+              f" (r/k/v {tuple(v.shape)}): out within {tol}, final state "
+              f"within {GLA_TOL} of the plain version, max abs err "
+              f"{err:.3g}{grads if train else ''}")
+        del r, k, v, lw, u, out, fin, r_out, r_fin
+    hd, e, p = w_cfg.resolved_head_dim, w_cfg.enc_seq, WHISPER_PROMPT
+    regimes = (("encoder, full", e, e, False), ("decoder, causal", p, p, True),
+               ("cross", p, e, False), ("cross, a decode step", 1, e, False))
+    # (batch, heads, regimes, train): serving at M = 2, 4, 16, then the
+    # training microbatch at M = 2 (no decode step)
+    runs = [(LM_BATCH, h, regimes, False) for h in TP14_WHISPER_HEADS]
+    runs.append((1, TP14_WHISPER_HEADS[0], regimes[:3], True))
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        bf16 = dtype == torch.bfloat16
+        worst = 0.0
+        for b, h, regs, train in runs:
+            for regime, sq, skv, causal in regs:
+                label = (f"whisper {'training ' if train else ''}{regime} "
+                         f"at M = {12 // h} ({h} heads, batch {b}), {name}")
+                q = lm_rand((b, sq, h, hd), dev, dtype, gen).transpose(1, 2)
+                k, v = (lm_rand((b, skv, h, hd), dev, dtype,
+                                gen).transpose(1, 2) for _ in range(2))
+                before = launch_counts()
+                out = mha(q, k, v, causal=causal)
+                after = launch_counts()
+                design_moved(before, after, "flash_attention", 1, label)
+                design_moved(before, after, "flash_attention_tc", int(bf16),
+                             label)
+                worst = max(worst, max_err(out, attention_ref(
+                    q, k, v, causal=causal), FLASH_TOL[name], label))
+                if train:
+                    function_grads_bitwise(
+                        lambda *x, c=causal: attention(*x, causal=c),
+                        lambda *x, c=causal: attention_ref(*x, causal=c),
+                        (q, k, v), torch.randn(q.shape, generator=gen,
+                                               device=dev).to(dtype),
+                        f"FlashAttentionFn at {label}")
+        print(f"flash_attention {'tensor-core' if bf16 else 'CUDA-core'} "
+              f"design ({name}) at whisper-small's local heads "
+              f"{TP14_WHISPER_HEADS} (M = 2, 4, 16), full [{LM_BATCH}, h, "
+              f"{e}, {hd}], causal [{LM_BATCH}, h, {p}, {hd}], cross from "
+              f"{p} and 1 queries against {e} keys, and training's "
+              f"microbatch at {TP14_WHISPER_HEADS[0]} heads (full [1, "
+              f"{TP14_WHISPER_HEADS[0]}, {e}, {hd}], causal, cross from "
+              f"{p} queries): within {FLASH_TOL[name]} of the plain "
+              f"version, max abs err {worst:.3g}{grads} at the training "
+              f"shapes")
+    q0 = lm_rand((LM_BATCH, p, 0, hd), dev, torch.bfloat16, gen)
+    k0 = lm_rand((LM_BATCH, e, 0, hd), dev, torch.bfloat16, gen)
+    before = launch_counts()
+    out = attend_prefill(q0, k0, k0, causal=False)
+    if launch_counts() != before or out.shape != q0.shape:
+        fail("a rank holding no heads launched the attention kernel")
+    try:
+        mha(q0.transpose(1, 2), k0.transpose(1, 2), k0.transpose(1, 2))
+    except ValueError:
+        pass
+    else:
+        fail("flash_attention's wrapper took 0 kv heads")
+    print("a rank holding no heads (whisper-small at M = 16, ranks 12-15): "
+          "the model's attention launched nothing and returned its empty "
+          "output; the kernel's wrapper refuses 0 kv heads")
 
 
 def build_model_layers(arch: str) -> int:
@@ -4062,6 +4351,11 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+
+    def stamp(phases: str) -> None:
+        print(f"phases {phases} done at {time.perf_counter() - t_start:.1f}"
+              f" s [{card}]")
+
     rng = np.random.default_rng(0)
     results = [check_hash_join(rng, dev), check_hash_join_pair(rng, dev),
                check_transform_kpi(rng, dev), check_segment_kpi(rng, dev),
@@ -4077,6 +4371,7 @@ def main() -> None:
                       f"{backend_fold_ms(dev, rng, d):.4f} ms"
                       for d in (1, 5)) + f" [{card}]")
     check_uploads(rng, dev, card)
+    stamp("1-2")
 
     # the sequential main path (phase 3/4)
     reset_launch_counts()
@@ -4112,6 +4407,7 @@ def main() -> None:
         fail("complex model facts on the card differ from the CPU run's")
     print(f"complex model (join depth 8): {cx_done} records, facts "
           f"byte-identical to the CPU run; launches {complex_counts}")
+    stamp("3-4")
 
     # the cluster path (phase 5): every ETL kernel must launch in it
     reset_launch_counts()
@@ -4142,9 +4438,11 @@ def main() -> None:
           f"{r['bound_ms']:.7f} ms ({r['bound_by']}) at {r['shape']}; "
           f"{r['cluster_facts_ms']:.7f} ms at the cluster's facts [{card}]")
     check_durability(clu)                                      # phase 7
+    stamp("5-7")
 
     gen = torch.Generator(device=dev).manual_seed(0)           # phase 8
     results += check_flash(dev, gen, card) + check_gla(dev, gen, card)
+    stamp("8")
     lm_counts, f32_counts, measured = {}, {}, {}               # phase 9
     for arch in LM_ARCHS:
         path = LM_PATHS[arch]
@@ -4152,6 +4450,7 @@ def main() -> None:
         lm_counts[path] = by_design(serve_counts)
         f32_counts[path + "_f32_prefill"] = by_design(f32)
         measured[arch] = {"prefill_s": prefill_s}
+    stamp("9")
     fn_times = check_function_grads(dev, gen, card)            # phase 10
     smoke_train_parity(dev, card)
     train_counts = {}
@@ -4163,6 +4462,7 @@ def main() -> None:
     train_counts["train_lm"] = {**lm_run, **by_design(lm_run)}
     check_manual_dp(dev, card)
     check_quickstart(card)
+    stamp("10")
     for arch in TRAIN_ARCHS:                                   # phase 11
         train_counts["dryrun_" + arch.split("-")[0]] = by_design(
             check_dryrun(arch, dev, card, measured[arch]))
@@ -4171,10 +4471,25 @@ def main() -> None:
           "six train cells trace for longer than the 60 s of host time "
           "this phase may take (see the trace times above); PERF.md holds "
           "its table")
-    tp_counts = {path: by_design(c)                            # phase 12
+    check_local_kernels(dev, torch.Generator(                  # phase 12
+        device=dev).manual_seed(12))
+    stamp("11")
+    tp_counts = {path: by_design(c)
                  for path, c in check_tp(dev, card).items()}
-    tp_counts.update({path: by_design(c)                       # phase 13
+    stamp("12")
+    check_local_kernels(dev, torch.Generator(                  # phase 13
+        device=dev).manual_seed(13), train=True)
+    tp_counts.update({path: by_design(c)
                       for path, c in check_tp_train(dev, card).items()})
+    stamp("13")
+    t14 = time.perf_counter()                                  # phase 14
+    check_local_kernels_14(dev, torch.Generator(device=dev).manual_seed(14))
+    tp_counts.update({path: by_design(c) for path, c in check_tp(
+        dev, card, archs=TP14_ARCHS, row_products=False).items()})
+    tp_counts.update({path: by_design(c) for path, c in check_tp_train(
+        dev, card, archs=TPT14, f32_cuts=TPT14_F32).items()})
+    print(f"phase 14 (rwkv6-7b and whisper-small under the model axis) in "
+          f"{time.perf_counter() - t14:.1f} s [{card}]")
     for name, t in fn_times.items():
         next(r for r in results if r["name"] == name).update(
             train_forward_ms=t["fwd_ms"], recompute_backward_ms=t["bwd_ms"],
@@ -4246,11 +4561,14 @@ def main() -> None:
                     lm_counts[p][name] <= 0 for p in (
                         "lm_qwen2moe", "lm_qwen2vl", "lm_whisper")):
                 fail("flash_attention_tc missing on a serve path")
-            if name in TP_PROFILED and any(
-                    c[name] <= 0 for p, c in tp_counts.items()
-                    if not p.endswith("_f32") and (
-                        name == "flash_attention_tc"
-                        or p in ("tp_zamba2", "tp_train_zamba2"))):
+            # the bf16 two-rank paths each design must take
+            need = {"flash_attention_tc": ("internlm2", "zamba2", "qwen2moe",
+                                           "whisper"),
+                    "gla_chunk_ssd": ("zamba2",),
+                    "gla_chunk_rwkv6": ("rwkv6",)}.get(name, ())
+            if any(c[name] <= 0 for p, c in tp_counts.items()
+                   if not p.endswith("_f32")
+                   and p.split("_")[-1] in need):
                 fail(f"{name} missing on a two-rank path: {tp_counts}")
         if launches <= 0 and name not in OFF_PATH:
             fail(f"{name} never launched on its path")

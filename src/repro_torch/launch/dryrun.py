@@ -19,19 +19,21 @@ kernels counted by their own formulas, as rank 0 of the layout.
 (``launch.mesh.make_mesh(..., rank=0)``), with the reference's rules per
 cell (``src/repro/launch/dryrun.py:84-94``: ``kv_seq`` on "model" for
 prefill and decode when the kv heads are fewer than the model axis,
-which the port holds whole: ROADMAP C). At M > 1 a cell of the dense,
-MoE, VLM and hybrid families traces rank 0's step with its parameters
+which the port holds whole: ROADMAP C). At M > 1 a cell of any family
+traces rank 0's step with its parameters
 (``Model.abstract(ctx)``, ``local_defs``) and a ``RecordedCollectives``
 in place of ``torch.distributed``: ``make_prefill_step`` /
 ``make_decode_step`` with its cache, or, for a train cell,
 ``make_manual_dp_train_step`` over the data axis beside the model axis
 (its ZeRO shard over data of its slices' moments, its part of the
 batch); what it issued is held against ``model_axis_plan``, and the
-cell's JSON gives each collective's bytes. rwkv6 and whisper at M > 1,
-``long_500k`` at M > 1 (the reference shards ``kv_seq`` over data
-there), the ``fsdp`` / ``seq_parallel`` / ``second_matmul="col"``
-overrides and ``dp_mode`` other than "manual" report
-``status: "not_ported"`` with the ROADMAP item as the reason.
+cell's JSON gives each collective's bytes. ``long_500k`` at M > 1 runs
+under the reference's rule there (the batch of 1 whole on each data
+rank) where the model holds no K/V cache (rwkv6's state is fixed-size);
+a model with one (zamba2's shared attention: the reference shards
+``kv_seq`` over data), the ``fsdp`` / ``seq_parallel`` /
+``second_matmul="col"`` overrides and ``dp_mode`` other than "manual"
+report ``status: "not_ported"`` with the ROADMAP item as the reason.
 
 At M = 1 the layout over ``--cards N`` is ``train/manual_dp.py``'s:
 parameters replicated, AdamW moments ZeRO-sharded N ways, the batch split
@@ -64,7 +66,7 @@ from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.step_analysis import (CARD_BYTES, analyze_step,
                                               roofline_terms)
-from repro_torch.models.model import TP_FAMILIES, Model
+from repro_torch.models.model import Model
 from repro_torch.models.param import tree_leaves, tree_paths
 from repro_torch.models.sharding import (ShardingCtx, default_rules,
                                          held_differently)
@@ -77,7 +79,6 @@ from repro_torch.train.train_step import make_train_step
 
 # the ROADMAP item each layout the port lacks waits for
 NOT_PORTED = {
-    "family": "A: rwkv6 and whisper under tensor parallelism",
     "long_500k": "A: kv_seq sharding (the reference shards the cache's "
                  "sequence over data at long_500k)",
     "layout": "A: fsdp / seq_parallel / second_matmul=\"col\"",
@@ -141,25 +142,40 @@ def _ar(n_bytes: int, axis: str = "model", size: int = 0
             "group": size}
 
 
-def layer_bodies(model: Model, b: int, s: int, ctx: ShardingCtx
-                 ) -> List[Tuple[list, int, list]]:
-    """Rank 0's all-reduces of each layer body (one decoder block, one
-    Mamba2 layer, one application of zamba2's shared block) on ``b`` x
-    ``s`` tokens under ``ctx``, in forward order: (the forward's, how
-    many of them a remat re-forward issues again, the backward's). A
-    re-forward (``torch.utils.checkpoint``, non-reentrant) stops once it
-    has recomputed the last tensor the backward saved, so it skips each
-    body's closing row-parallel all-reduce; the backward's are the
-    ``copy`` Functions' (the MoE's gates before its tokens, Mamba2's norm,
-    then B and C, then its input). The MoE's load balance is all-reduced
-    where ``ctx`` splits "batch"."""
+def _ag(n_bytes: int, dtype: str, size: int) -> Dict[str, Any]:
+    """One all-gather over "model" with ``n_bytes`` of results."""
+    return {"op": "all_gather", "kind": "all-gather", "dtype": dtype,
+            "result_bytes": n_bytes, "axis": "model", "group": size}
+
+
+def layer_bodies(model: Model, b: int, s: int, ctx: ShardingCtx,
+                 decode: bool = False) -> List[Tuple[list, int, list]]:
+    """Rank 0's collectives of each piece of a step on ``b`` x ``s``
+    tokens under ``ctx``, in forward order: the embedding's all-reduce,
+    and each layer body (one decoder block, one Mamba2 layer, one
+    application of zamba2's shared block, one RWKV6 block, one whisper
+    encoder or decoder layer), each as (the forward's, how many of them
+    a remat re-forward issues again, the backward's). A re-forward
+    (``torch.utils.checkpoint``, non-reentrant) stops once it has
+    recomputed the last tensor the backward saved, so it skips each
+    body's closing row-parallel all-reduce (RWKV6's body ends on the
+    product of its gathered gate and its channel mix's sum, both of
+    which the backward saves: it reissues all three); the backward's are
+    the ``copy`` Functions' (the MoE's gates before its tokens, Mamba2's
+    norm, then B and C, then its input; RWKV6's channel-mix gate, then
+    its k input, then the time mix's LoRA hidden and its r / k / v / g
+    mixes; whisper's MLP input, then the cross-attention's and the self-
+    attention's). Whisper's encoder layers (at ``enc_seq`` frames) come
+    first where ``decode`` is False, then its output's ``copy`` into the
+    decoder's K/V projections (one all-reduce in the backward). The MoE's
+    load balance is all-reduced where ``ctx`` splits "batch"."""
     cfg, m = model.cfg, ctx.size("heads")
     act = 4 * b * s * cfg.d_model
 
     def ar(n, axis="model", size=m):
         return _ar(n, axis, size)
 
-    bodies = []
+    bodies = [([ar(act)], 0, [])]                       # the embedding's
     if cfg.family == "hybrid":
         k = cfg.shared_attn_every
         st = cfg.ssm.state_size
@@ -170,6 +186,22 @@ def layer_bodies(model: Model, b: int, s: int, ctx: ShardingCtx
             if (i + 1) % k == 0 and (i + 1) // k <= model.n_shared_apps():
                 bodies.append(([ar(act), ar(act)], 1, [ar(act), ar(act)]))
         return bodies
+    if cfg.family == "ssm":
+        from repro_torch.models.blocks import RWKV_LORA, rwkv6_heads
+        dtype = model.defs["embed"].dtype
+        cols = len(ctx.indices("heads", cfg.d_model, rwkv6_heads(cfg),
+                               at=0))
+        gate = _ag(m * cols * b * s * dtype.itemsize, str(dtype), m)
+        body = ([ar(act), ar(act), gate], 3,
+                [ar(act), ar(act), ar(4 * b * s * RWKV_LORA), ar(4 * act)])
+        return bodies + [body] * cfg.n_layers
+    if cfg.family == "encdec":
+        layer = ([ar(act)] * 3, 2, [ar(act)] * 3)
+        if decode:
+            return bodies + [layer] * cfg.n_layers
+        enc = 4 * b * cfg.enc_seq * cfg.d_model
+        return ([([ar(enc)] * 2, 1, [ar(enc)] * 2)] * cfg.n_enc_layers
+                + [([], 0, [ar(enc)])] + bodies + [layer] * cfg.n_layers)
     data = ctx.size("batch")
     for _ in range(cfg.n_layers):
         fwd = [ar(act)]
@@ -187,29 +219,35 @@ def model_axis_plan(model: Model, suite: ShapeSuite, batch: int,
                     ctx: ShardingCtx) -> List[Dict[str, Any]]:
     """The collectives rank 0 issues in one step of ``batch`` sequences
     (its part of the batch) under ``ctx``, in order, reckoned from the
-    config. All f32.
+    config (``layer_bodies``). All f32 but RWKV6's gathered gate (the
+    activations' dtype).
 
     Serving: the embedding's all-reduce; per decoder block the
     attention's and the MLP's (MoE: the load balance's over a split
     batch, then the experts'); per Mamba2 layer its gated norm's and its
-    ``out_proj``'s, and the shared block's two after each group; then the
+    ``out_proj``'s, and the shared block's two after each group; per
+    RWKV6 block the time mix's, the channel mix's and its gate's
+    all-gather; whisper's two per encoder layer (prefill), then per
+    decoder layer three (self-attention, cross-attention, MLP); then the
     greedy token's all-gather.
 
     Training (``manual_dp`` over the data axis, ``batch`` split into the
     config's microbatches): per microbatch the forward's (as serving's,
     the load balance the microbatch's own), the cross-entropy's three
     (max, sum of exponentials, gold logit), then the backward's: the
-    logits' input's, and per layer body from the last, its remat
-    re-forward's and its ``copy`` Functions' (``layer_bodies``); then once
-    per step the kv heads' sum where several ranks hold one (every such
-    leaf full along its kv dim) and ``manual_dp``'s reduce-scatter,
-    all-reduce and all-gather (``collective_plan``)."""
+    logits' input's, and per piece from the last, its remat re-forward's
+    and its ``copy`` Functions' (``layer_bodies``); then once per step
+    the sum of the leaves several ranks hold a part of (each such kv
+    head's, full along its kv dim, and RWKV6's vectors held whole) and
+    ``manual_dp``'s reduce-scatter, all-reduce and all-gather
+    (``collective_plan``)."""
     cfg = model.cfg
     m = ctx.size("heads")
     if suite.kind != "train":
         s = 1 if suite.kind == "decode" else suite.seq_len
-        plan = [_ar(4 * batch * s * cfg.d_model, size=m)]
-        for fwd, _, _ in layer_bodies(model, batch, s, ctx):
+        plan = []
+        for fwd, _, _ in layer_bodies(model, batch, s, ctx,
+                                      decode=suite.kind == "decode"):
             plan += fwd
         plan.append({"op": "all_gather", "kind": "all-gather",
                      "dtype": "torch.float32",
@@ -222,7 +260,7 @@ def model_axis_plan(model: Model, suite: ShapeSuite, batch: int,
     bodies = layer_bodies(model, b, s, local)
     act = _ar(4 * b * s * cfg.d_model, size=m)
     tok = _ar(4 * b * s, size=m)
-    step = [act]
+    step = []
     for fwd, _, _ in bodies:
         step += fwd
     step += [tok, tok, tok, act]
@@ -296,11 +334,12 @@ def build_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
         raise ValueError(f"a model axis of {model} does not divide {cards} "
                          f"cards")
     reason = _not_ported(overrides or {})
-    if reason is None and model > 1:
-        if cfg.family not in TP_FAMILIES:
-            reason = NOT_PORTED["family"]
-        elif suite.name == "long_500k":
-            reason = NOT_PORTED["long_500k"]
+    if reason is None and model > 1 and suite.name == "long_500k" and any(
+            "kv_seq" in d.axes for d in tree_leaves(
+                Model(cfg).cache_defs(1, 1))):
+        # a K/V cache's sequence sharded over data: rwkv6's cache is its
+        # fixed-size state, which the rule leaves as it is
+        reason = NOT_PORTED["long_500k"]
     if reason is not None:
         return None, None, {**head, "status": "not_ported",
                             "reason": f"ROADMAP {reason}"}, None
@@ -357,15 +396,16 @@ def model_axis_cell(cfg, suite: ShapeSuite, cards: int, m: int,
     0's ``make_manual_dp_train_step`` (its slices, its ZeRO shard over
     data of their moments, its part of the batch)."""
     data = cards // m
-    if suite.global_batch % data:
-        raise ValueError(f"batch {suite.global_batch} does not split over "
-                         f"a data axis of {data}")
     comm = RecordedCollectives()
     ctx = ShardingCtx(make_mesh((data, m), ("data", "model"), rank=0),
                       cell_rules(cfg, suite, m), comm=comm)
+    split = ctx.size("batch")        # 1 where the rules hold the batch whole
+    if suite.global_batch % split:
+        raise ValueError(f"batch {suite.global_batch} does not split over "
+                         f"a data axis of {data}")
     model = Model(cfg)
     params = model.abstract(ctx)
-    per_card = suite.global_batch // data
+    per_card = suite.global_batch // split
     meta = {
         **head, "status": "ok", "batch_per_card": per_card,
         "mesh": f"{data}x{m}",
@@ -375,7 +415,9 @@ def model_axis_cell(cfg, suite: ShapeSuite, cards: int, m: int,
         "kind": suite.kind,
         "layout": (f"data {data} x model {m}: heads, kv heads (as the q "
                    f"heads read them), MLP columns, experts and vocab "
-                   f"over the model axis; the batch over data"),
+                   f"over the model axis; the batch "
+                   + ("over data" if split > 1 else "whole on each data "
+                      "rank")),
         "layout_differences": layout_differences(model, suite, ctx),
     }
     comm.plan = model_axis_plan(model, suite, per_card, ctx)

@@ -18,7 +18,10 @@
                          mask, plain torch (the JAX package has no kernel
                          for it).
 
-All paths compute the softmax in f32 and respect GQA head grouping.
+All paths compute the softmax in f32 and respect GQA head grouping. A
+rank of the model axis that holds no heads (``q`` with 0 heads) skips
+the attention: its output is empty (``q``'s shape) and no kernel is
+called (the kernel takes at least one kv head).
 """
 from __future__ import annotations
 
@@ -44,9 +47,20 @@ def attend_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     design) the probabilities are rounded to bf16 before PV, as
     ``attend_full`` rounds them; in f32 they stay f32 (as the TPU kernel
     keeps them)."""
+    if q.shape[2] == 0:
+        return _headless(q, k, v)
     out = flash_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal)
     return out.transpose(1, 2)
+
+
+def _headless(q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """The attention of a rank holding no heads: ``q`` (empty), tied to
+    the empty ``k`` and ``v`` so that what they are computed from (whisper's
+    encoder output) stays in the graph and the backward issues the same
+    collectives on every rank."""
+    return q + (k.sum() + v.sum()).to(q.dtype) * 0
 
 
 def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -74,6 +88,8 @@ def attend_decode(q: torch.Tensor, k_cache: torch.Tensor,
     is promoted to q's, as JAX's einsum promotes."""
     b, _, hq, d = q.shape
     _, s, hkv, _ = k_cache.shape
+    if hq == 0:
+        return q
     scale = d ** -0.5
     dt = torch.promote_types(q.dtype, k_cache.dtype)
     qg = _group(q, hkv)[:, 0].to(dt)                        # [B, Hkv, G, d]

@@ -18,17 +18,26 @@ Prefill returns a fresh per-layer cache; decode writes the new token's
 entries into the cache it is given, in place (the JAX package donates the
 cache and returns an updated copy), and returns that cache.
 
-Under a sharded ``ctx`` (the dense / MoE / VLM decoder block, zamba2's
-Mamba2 block and its shared attention block) a rank holds its q heads,
-the kv heads they read, its MLP columns and experts, and its Mamba2
-heads: ``wq`` / ``wk`` / ``wv`` are column-parallel, ``wo``, the MLP's
-``w_down`` and Mamba2's ``out_proj`` row-parallel
+Under a sharded ``ctx`` (every block) a rank holds its q heads, the kv
+heads they read, its MLP columns and experts, its Mamba2 heads and its
+RWKV6 heads: ``wq`` / ``wk`` / ``wv`` (and RWKV6's ``wr`` / ``wk`` /
+``wv`` / ``wg``) are column-parallel, ``wo``, the MLPs' ``w_down``,
+Mamba2's ``out_proj`` and RWKV6's channel-mix ``wv`` row-parallel
 (``layers.row_parallel``: one f32 all-reduce of the partial products;
 ``bo`` added once, after it); the head counts come from the
-local weights, so the caches and the kernels' calls are the rank's.
+local weights, so the caches and the kernels' calls are the rank's. A
+rank may hold no heads (whisper-small's 12 over 16 ranks): its
+attention is skipped (``models/attention.py``; no kernel call) and its
+row-parallel partial is zero.
 Mamba2's ``in_proj`` is split by meaning: z, x and dt by head, B and C
 (one state shared by every head) whole on every rank; its gated norm
-all-reduces its variance over the heads.
+all-reduces its variance over the heads. RWKV6's per-channel vectors
+(``w_base``, ``w_lora_b``, ``ln_x_w``, ``ln_x_b``) are held whole, as
+the reference's specs replicate them, and each rank reads its heads'
+channels of them (``ParamDef.read_by_heads``); its channel mix's gate
+``r`` is column-split and all-gathered (``ShardingCtx.gather``) before
+it multiplies the replicated ``kv``. Whisper's encoder K/V cache is held
+by kv head, its 1500 frames whole.
 
 Training under the model axis (``sharding.ShardingCtx.copy`` /
 ``reduce``): the normed input enters ``wq`` / ``wk`` / ``wv`` and the
@@ -39,7 +48,12 @@ from the normed input, its columns of ``in_proj`` and ``conv_w`` whole),
 so under a model axis they are projected apart from the rank's z, x and
 dt (whose input goes through ``copy``) and pass through ``copy`` after
 the conv, where the rank's heads read them: their gradient, and that of
-their columns, is then whole on every rank.
+their columns, is then whole on every rank. RWKV6 likewise computes its
+token-shift mixes (``mu``) and its LoRA's hidden (``w_lora_a``) alike on
+every rank, so ``copy`` goes after them: on the r / k / v / g mixes (one
+copy of the four), the LoRA's hidden and the channel mix's k and r
+inputs; the RWKV6 vectors held whole get partial gradients, which
+``sum_shared`` adds up once per step.
 """
 from __future__ import annotations
 
@@ -115,11 +129,11 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     if "bq" in params:
         q = q + params["bq"]
         v = v + params["bv"]
-    k, v = (ctx.constrain(t.reshape(b, s, -1, hd),
+    k, v = (ctx.constrain(t.reshape(b, s, t.shape[-1] // hd, hd),
                           ("batch", None, "kv_heads", None),
                           (None, None, cfg.n_kv_heads, None), kv_parts(cfg))
             for t in (k, v))
-    return q.reshape(b, s, -1, hd), k, v
+    return q.reshape(b, s, q.shape[-1] // hd, hd), k, v
 
 
 def _apply_pos(q, k, cfg: ModelConfig, positions):
@@ -136,8 +150,7 @@ def _out_proj(params, out: torch.Tensor, cfg: ModelConfig,
               ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
     """Row-parallel ``wo`` over the rank's heads, all-reduced, then
     ``bo`` once."""
-    b, s = out.shape[:2]
-    y = row_parallel(out.reshape(b, s, -1), params["wo"], ctx, "heads")
+    y = row_parallel(out.flatten(2), params["wo"], ctx, "heads")
     if "bo" in params:
         y = y + params["bo"]
     return y
@@ -169,22 +182,24 @@ def self_attention(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     return _out_proj(params, out, cfg, ctx), new_cache
 
 
-def cross_attention(params, x: torch.Tensor, enc_kv, cfg: ModelConfig):
+def cross_attention(params, x: torch.Tensor, enc_kv, cfg: ModelConfig,
+                    ctx: ShardingCtx = NULL_CTX):
     """Whisper's decoder cross-attention against precomputed encoder K/V
-    (``enc_kv``: {"k", "v": [B, enc_seq, Hkv, hd]}), full (not causal),
-    through the flash_attention kernel in every mode: in decode one query
-    against the encoder's keys. K/V held in another dtype than x (the
-    bf16 cache of an f32 model) are promoted to x's, as JAX's einsum
-    promotes."""
+    (``enc_kv``: {"k", "v": [B, enc_seq, Hkv, hd]}, the rank's kv heads),
+    full (not causal), through the flash_attention kernel in every mode:
+    in decode one query against the encoder's keys. K/V held in another
+    dtype than x (the bf16 cache of an f32 model) are promoted to x's, as
+    JAX's einsum promotes."""
     b, s, _ = x.shape
-    q = x @ params["wq"]
+    hd = cfg.resolved_head_dim
+    q = ctx.copy(x, "heads") @ params["wq"]
     if "bq" in params:
         q = q + params["bq"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
+    q = q.reshape(b, s, q.shape[-1] // hd, hd)
     dt = torch.promote_types(q.dtype, enc_kv["k"].dtype)
     out = attend_prefill(q.to(dt), enc_kv["k"].to(dt), enc_kv["v"].to(dt),
                          causal=False).to(x.dtype)
-    return _out_proj(params, out, cfg)
+    return _out_proj(params, out, cfg, ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +245,19 @@ def decoder_block(params, x, cfg: ModelConfig, *, mode, positions,
 RWKV_LORA = 32
 
 
+def rwkv6_heads(cfg: ModelConfig):
+    """The packing of a d_model-wide dim of RWKV6's by head (its
+    ``n_ssm_heads`` heads of ``d_model / n_ssm_heads`` channels)."""
+    return (Part(cfg.d_model, cfg.ssm.n_ssm_heads),)
+
+
+def rwkv6_channels(cfg: ModelConfig, ctx: ShardingCtx = NULL_CTX) -> slice:
+    """This rank's channels of d_model: those of its heads."""
+    dk = cfg.d_model // cfg.ssm.n_ssm_heads
+    h0, h1 = ctx.range("heads", cfg.ssm.n_ssm_heads)
+    return slice(h0 * dk, h1 * dk)
+
+
 def rwkv6_block_defs(cfg: ModelConfig, layers: int):
     d = cfg.d_model
     h = cfg.ssm.n_ssm_heads
@@ -237,31 +265,35 @@ def rwkv6_block_defs(cfg: ModelConfig, layers: int):
     f = cfg.d_ff
     L = layers
     la = ("layers",)
+    heads = rwkv6_heads(cfg)
     return {
         "ln1": ParamDef((L, d), la + ("embed",), init="ones"),
         "ln2": ParamDef((L, d), la + ("embed",), init="ones"),
         "tm": {
             # token-shift interpolation coefficients for r, k, v, w, g
             "mu": ParamDef((L, 5, d), la + (None, "embed")),
-            "w_base": ParamDef((L, d), la + ("embed",)),   # decay base
+            "w_base": ParamDef((L, d), la + ("embed",),    # decay base
+                               read_by_heads=True),
             "w_lora_a": ParamDef((L, d, RWKV_LORA), la + ("embed", None)),
             "w_lora_b": ParamDef((L, RWKV_LORA, d), la + (None, "embed"),
-                                 init="zeros"),
+                                 init="zeros", read_by_heads=True),
             "u": ParamDef((L, h, dk), la + ("heads", None)),   # bonus
-            "wr": ParamDef((L, d, d), la + ("embed", "heads")),
-            "wk": ParamDef((L, d, d), la + ("embed", "heads")),
-            "wv": ParamDef((L, d, d), la + ("embed", "heads")),
-            "wg": ParamDef((L, d, d), la + ("embed", "heads")),
-            "wo": ParamDef((L, d, d), la + ("heads", "embed")),
-            "ln_x_w": ParamDef((L, d), la + ("embed",), init="ones"),
-            "ln_x_b": ParamDef((L, d), la + ("embed",), init="zeros"),
+            "wr": ParamDef((L, d, d), la + ("embed", "heads"), parts=heads),
+            "wk": ParamDef((L, d, d), la + ("embed", "heads"), parts=heads),
+            "wv": ParamDef((L, d, d), la + ("embed", "heads"), parts=heads),
+            "wg": ParamDef((L, d, d), la + ("embed", "heads"), parts=heads),
+            "wo": ParamDef((L, d, d), la + ("heads", "embed"), parts=heads),
+            "ln_x_w": ParamDef((L, d), la + ("embed",), init="ones",
+                               read_by_heads=True),
+            "ln_x_b": ParamDef((L, d), la + ("embed",), init="zeros",
+                               read_by_heads=True),
         },
         "cm": {
             "mu_k": ParamDef((L, d), la + ("embed",)),
             "mu_r": ParamDef((L, d), la + ("embed",)),
             "wk": ParamDef((L, d, f), la + ("embed", "ff")),
             "wv": ParamDef((L, f, d), la + ("ff", "embed")),
-            "wr": ParamDef((L, d, d), la + ("embed", "heads")),
+            "wr": ParamDef((L, d, d), la + ("embed", "heads"), parts=heads),
         },
     }
 
@@ -274,25 +306,34 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]):
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
-def rwkv6_time_mix(p, x, cfg: ModelConfig, *, mode, cache):
+def rwkv6_time_mix(p, x, cfg: ModelConfig, *, mode, cache,
+                   ctx: ShardingCtx = NULL_CTX):
     """Returns (y, new_cache): decode updates ``cache``'s state and
-    ``shift_tm`` in place; prefill returns fresh ones; train None."""
+    ``shift_tm`` in place; prefill returns fresh ones; train None. Under
+    a sharded ``ctx``: the rank's heads (``u``'s), their channels of the
+    vectors held whole, ``wo`` row-parallel."""
     b, s, d = x.shape
-    h = cfg.ssm.n_ssm_heads
-    dk = d // h
+    dk = d // cfg.ssm.n_ssm_heads
+    h = p["u"].shape[0]                         # this rank's heads
+    cols = rwkv6_channels(cfg, ctx)
     prev = cache["shift_tm"] if cache is not None else None
     xs = _token_shift(x, prev)
-    mix = x[:, :, None, :] + (xs - x)[:, :, None, :] * p["mu"][None, None]
-    xr, xk, xv, xw, xg = mix.unbind(2)
+    mu = p["mu"]
+    # the r, k, v and g mixes (mu rows 0, 1, 2, 4), which the rank's
+    # columns read, then the decay's (row 3), which the LoRA reads whole
+    mix = x[:, :, None, :] + (xs - x)[:, :, None, :] * \
+        torch.cat([mu[:3], mu[4:]])[None, None]
+    xr, xk, xv, xg = ctx.copy(mix, "heads").unbind(2)
+    xw = x + (xs - x) * mu[3]
     r = (xr @ p["wr"]).reshape(b, s, h, dk)
     k = (xk @ p["wk"]).reshape(b, s, h, dk)
     v = (xv @ p["wv"]).reshape(b, s, h, dk)
     g = xg @ p["wg"]
     # data-dependent decay: w = exp(-exp(base + lora(xw))), as a log
     # decay of down to -e^4 per token (the kernel masks before its exps)
-    lora = torch.tanh((xw @ p["w_lora_a"]).float()).to(x.dtype) \
-        @ p["w_lora_b"]
-    log_w = -torch.exp(torch.clamp(p["w_base"].float() + lora.float(),
+    hidden = torch.tanh((xw @ p["w_lora_a"]).float()).to(x.dtype)
+    lora = ctx.copy(hidden, "heads") @ p["w_lora_b"][:, cols]
+    log_w = -torch.exp(torch.clamp(p["w_base"][cols].float() + lora.float(),
                                    -8.0, 4.0)).reshape(b, s, h, dk)
 
     if mode == "decode":
@@ -313,37 +354,48 @@ def rwkv6_time_mix(p, x, cfg: ModelConfig, *, mode, cache):
                                    inclusive=False, initial_state=init)
         new_cache = (None if mode == "train"
                      else {"state": final, "shift_tm": x[:, -1].clone()})
-    y = groupnorm_heads(out.reshape(b, s, d), p["ln_x_w"], p["ln_x_b"], h)
+    y = groupnorm_heads(out.reshape(b, s, h * dk), p["ln_x_w"][cols],
+                        p["ln_x_b"][cols], h)
     y = y * F.silu(g.float()).to(x.dtype)
-    return y @ p["wo"], new_cache
+    return row_parallel(y, p["wo"], ctx, "heads"), new_cache
 
 
-def rwkv6_channel_mix(p, x, *, cache):
-    """Returns (y, x's last token: the next call's shift)."""
+def rwkv6_channel_mix(p, x, cfg: ModelConfig, *, cache,
+                      ctx: ShardingCtx = NULL_CTX):
+    """Returns (y, x's last token: the next call's shift). Under a
+    sharded ``ctx``: ``wk`` column- and ``wv``
+    row-parallel over "ff" (one all-reduce of ``kv``), the gate ``r``
+    over the rank's channels, all-gathered before it multiplies ``kv``."""
     prev = cache["shift_cm"] if cache is not None else None
     xs = _token_shift(x, prev)
     xk = x + (xs - x) * p["mu_k"]
     xr = x + (xs - x) * p["mu_r"]
-    k = torch.square(F.relu((xk @ p["wk"]).float())).to(x.dtype)
-    kv = k @ p["wv"]
-    r = torch.sigmoid((xr @ p["wr"]).float())
-    return r.to(x.dtype) * kv, x[:, -1]
+    k = torch.square(F.relu((ctx.copy(xk, "ff") @ p["wk"]).float())).to(
+        x.dtype)
+    kv = row_parallel(k, p["wv"], ctx, "ff")
+    r = torch.sigmoid((ctx.copy(xr, "heads") @ p["wr"]).float()).to(x.dtype)
+    r = ctx.gather(r, "heads", cfg.d_model, rwkv6_heads(cfg))
+    return r * kv, x[:, -1]
 
 
-def rwkv6_block(params, x, cfg: ModelConfig, *, mode, cache=None):
+def rwkv6_block(params, x, cfg: ModelConfig, *, mode, cache=None,
+                ctx: ShardingCtx = NULL_CTX):
     h = rmsnorm(x, params["ln1"], cfg.norm_eps)
     a, tm_cache = rwkv6_time_mix(params["tm"], h, cfg, mode=mode,
-                                 cache=cache)
+                                 cache=cache, ctx=ctx)
     x = x + a
     h = rmsnorm(x, params["ln2"], cfg.norm_eps)
-    f, shift_cm = rwkv6_channel_mix(params["cm"], h, cache=cache)
+    f, shift_cm = rwkv6_channel_mix(params["cm"], h, cfg, cache=cache,
+                                    ctx=ctx)
     if mode == "decode":
         cache["shift_cm"].copy_(shift_cm)
         new_cache = cache
     else:
         new_cache = (None if mode == "train"
                      else dict(tm_cache, shift_cm=shift_cm.clone()))
-    return x + f, new_cache, _no_aux(x)
+    x = ctx.constrain(x + f, ("batch", "seq", "act_embed"),
+                      (None, None, cfg.d_model))
+    return x, new_cache, _no_aux(x)
 
 
 # ---------------------------------------------------------------------------
@@ -490,15 +542,17 @@ def encoder_block_defs(cfg: ModelConfig, layers: int):
     }
 
 
-def encoder_block(params, x, cfg: ModelConfig):
+def encoder_block(params, x, cfg: ModelConfig, ctx: ShardingCtx = NULL_CTX):
     """Self-attention over the frames, not causal (the flash kernel's full
     regime)."""
     h = layernorm(x, params["ln1_w"], params["ln1_b"], cfg.norm_eps)
     a, _ = self_attention(params["attn"], h, cfg, mode="train",
-                          positions=None, causal=False)
+                          positions=None, causal=False, ctx=ctx)
     x = x + a
     h = layernorm(x, params["ln2_w"], params["ln2_b"], cfg.norm_eps)
-    return x + gelu_mlp(params["mlp"], h)
+    return ctx.constrain(x + gelu_mlp(params["mlp"], h, ctx),
+                         ("batch", "seq", "act_embed"),
+                         (None, None, cfg.d_model))
 
 
 def decoder_xattn_block_defs(cfg: ModelConfig, layers: int):
@@ -518,13 +572,17 @@ def decoder_xattn_block_defs(cfg: ModelConfig, layers: int):
 
 
 def decoder_xattn_block(params, x, enc_kv, cfg: ModelConfig, *, mode,
-                        cache=None, cache_index=None):
+                        cache=None, cache_index=None,
+                        ctx: ShardingCtx = NULL_CTX):
     h = layernorm(x, params["ln1_w"], params["ln1_b"], cfg.norm_eps)
     a, new_cache = self_attention(params["attn"], h, cfg, mode=mode,
                                   positions=None, cache=cache,
-                                  cache_index=cache_index)
+                                  cache_index=cache_index, ctx=ctx)
     x = x + a
     h = layernorm(x, params["lnx_w"], params["lnx_b"], cfg.norm_eps)
-    x = x + cross_attention(params["xattn"], h, enc_kv, cfg)
+    x = x + cross_attention(params["xattn"], h, enc_kv, cfg, ctx)
     h = layernorm(x, params["ln2_w"], params["ln2_b"], cfg.norm_eps)
-    return x + gelu_mlp(params["mlp"], h), new_cache, _no_aux(x)
+    x = ctx.constrain(x + gelu_mlp(params["mlp"], h, ctx),
+                      ("batch", "seq", "act_embed"),
+                      (None, None, cfg.d_model))
+    return x, new_cache, _no_aux(x)

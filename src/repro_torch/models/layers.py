@@ -146,12 +146,15 @@ def swiglu_mlp(params, x: torch.Tensor,
     return row_parallel(h, params["w_down"], ctx, "ff")
 
 
-def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(params, x: torch.Tensor,
+             ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
     """2-matrix GELU MLP (whisper); the tanh approximation, as
-    ``jax.nn.gelu``'s default."""
+    ``jax.nn.gelu``'s default. Column- then row-parallel over "ff", as
+    ``swiglu_mlp``."""
+    x = ctx.copy(x, "ff")
     h = x @ params["w_up"]
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return h @ params["w_down"]
+    return row_parallel(h, params["w_down"], ctx, "ff")
 
 
 def gelu_mlp_defs(d_model: int, d_ff: int, layers: Optional[int] = None):

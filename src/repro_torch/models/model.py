@@ -27,13 +27,14 @@ The model axis: ``specs`` gives the reference's PartitionSpecs; under a
 ``init(generator, ctx)`` draws this rank's slices, ``local_defs``
 describes them, ``init_cache(..., ctx=ctx)`` allocates the rank's cache
 and ``forward(..., ctx=ctx)`` runs the rank's part of train, prefill and
-decode for the dense, MoE, VLM and hybrid families (tensor- and
-expert-parallel, vocab-parallel embedding and logits: the logits it
-returns are the rank's vocab columns, padding dropped; in train mode
-its gradients flow through the context's ``reduce`` / ``copy``
-Functions, and ``train/train_step.py``'s vocab-parallel cross-entropy
-reads those columns as they are). rwkv6 and whisper under a split model
-axis raise ``NotImplementedError`` (ROADMAP A).
+decode for every family (tensor- and expert-parallel, vocab-parallel
+embedding and logits: the logits it returns are the rank's vocab
+columns, padding dropped; in train mode its gradients flow through the
+context's ``reduce`` / ``copy`` / ``gather`` Functions, and
+``train/train_step.py``'s vocab-parallel cross-entropy reads those
+columns as they are). Whisper's encoder runs under the model axis too,
+and its output enters the decoder layers' K/V projections through one
+``copy``.
 """
 from __future__ import annotations
 
@@ -94,8 +95,6 @@ def _stack(caches):
 
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
-# the families whose model axis is ported (serving and training)
-TP_FAMILIES = ("dense", "moe", "vlm", "hybrid")
 
 
 class Model:
@@ -153,26 +152,17 @@ class Model:
              ctx: ShardingCtx = NULL_CTX) -> Any:
         """Random weights on ``generator.device`` (this rank's slices of
         them under a sharded ``ctx``)."""
-        self.check_ctx(ctx)
         return tree_init(self.defs, generator, ctx)
 
     def abstract(self, ctx: ShardingCtx = NULL_CTX) -> Any:
         """The parameters (this rank's) as ``meta`` tensors (no memory):
         what the dry run (``launch/dryrun.py``) traces a step with."""
-        self.check_ctx(ctx)
         return tree_abstract(local_defs(self.defs, ctx))
 
     def specs(self, rules, mesh=None) -> Any:
         """The parameters' PartitionSpecs (the reference's
         ``Model.specs``)."""
         return tree_specs(self.defs, rules, mesh)
-
-    def check_ctx(self, ctx: ShardingCtx) -> None:
-        """Raises where the port has no model axis for this family."""
-        if ctx.size("heads") > 1 and self.cfg.family not in TP_FAMILIES:
-            raise NotImplementedError(
-                f"the {self.cfg.family} family has no model axis in the "
-                f"port yet (ROADMAP A): {ctx.size('heads')} ranks")
 
     # --------------------------------------------------------------- caches
     def n_shared_apps(self) -> int:
@@ -235,7 +225,6 @@ class Model:
         when CUDA is absent). ``batch``: the global batch; under a
         sharded ``ctx``, this rank's part of the cache."""
         dev = resolve_device(device)
-        self.check_ctx(ctx)
         return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
                                               device=dev),
                         local_defs(self.cache_defs(batch, seq), ctx))
@@ -259,7 +248,6 @@ class Model:
         logits (its vocab columns; ``vocab_range`` gives which)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
-        self.check_ctx(ctx)
         if mode != "train":
             with torch.no_grad():
                 return self._forward(params, batch, mode=mode, cache=cache,
@@ -296,7 +284,7 @@ class Model:
         if cfg.family == "encdec":
             x, new_cache, aux = self._encdec_stack(
                 params, batch, mode=mode, cache=cache,
-                cache_index=cache_index)
+                cache_index=cache_index, ctx=ctx)
         else:
             x = embed(params["embed"], tokens, ctx, cfg.padded_vocab)
             positions = batch.get("positions")
@@ -334,7 +322,8 @@ class Model:
         cfg = self.cfg
         if cfg.family == "ssm":
             def block(p, h, c=None):
-                return blocks.rwkv6_block(p, h, cfg, mode=mode, cache=c)
+                return blocks.rwkv6_block(p, h, cfg, mode=mode, cache=c,
+                                          ctx=ctx)
         else:
             def block(p, h, c=None):
                 return blocks.decoder_block(p, h, cfg, mode=mode,
@@ -415,15 +404,17 @@ class Model:
             new_cache["shared"] = _stack(s_fresh)
         return x, new_cache, aux
 
-    def _encdec_stack(self, params, batch, *, mode, cache, cache_index):
+    def _encdec_stack(self, params, batch, *, mode, cache, cache_index,
+                      ctx=NULL_CTX):
         """Whisper: in train and prefill the frames (plus sinusoidal
         positions) through the encoder stack and its final LayerNorm, then
-        each decoder layer's encoder K/V (``wk``; ``wv`` plus ``bv``); in
-        decode the K/V the prefill cached in bf16. The decoder's tokens
-        get sinusoidal positions from the decode offset. Returns the
-        decoder's last hidden state, the cache (prefill: the layers'
-        self-attention K/V and the encoder K/V ``xk`` / ``xv`` in bf16)
-        and aux."""
+        each decoder layer's encoder K/V (``wk``; ``wv`` plus ``bv``; the
+        rank's kv heads, from the encoder's output through one ``copy``);
+        in decode the K/V the prefill cached in bf16. The decoder's tokens
+        (a vocab-parallel embedding) get sinusoidal positions from the
+        decode offset. Returns the decoder's last hidden state, the cache
+        (prefill: the layers' self-attention K/V and the encoder K/V
+        ``xk`` / ``xv`` in bf16) and aux."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -437,21 +428,28 @@ class Model:
                                         ).to(frames.dtype)[None]
             for lp in _unstack(params["enc_layers"], cfg.n_enc_layers):
                 h = _body(remat, lambda p, hh: blocks.encoder_block(
-                    p, hh, cfg), lp, h)
-            enc_out = layernorm(h, params["enc_final_w"],
-                                params["enc_final_b"], cfg.norm_eps)
+                    p, hh, cfg, ctx), lp, h)
+            # one copy for every layer's K/V projection: one all-reduce of
+            # its gradient, not one per layer
+            enc_out = ctx.copy(layernorm(h, params["enc_final_w"],
+                                         params["enc_final_b"],
+                                         cfg.norm_eps), "kv_heads")
             enc_kv = []
             for lp in layers:
                 xa = lp["xattn"]
                 ek = enc_out @ xa["wk"]
                 ev = enc_out @ xa["wv"] + xa["bv"]
-                enc_kv.append((ek.reshape(b, -1, cfg.n_kv_heads, hd),
-                               ev.reshape(b, -1, cfg.n_kv_heads, hd)))
+                enc_kv.append(tuple(
+                    ctx.constrain(t.reshape(b, t.shape[1], t.shape[2] // hd,
+                                            hd),
+                                  ("batch", None, "kv_heads", None),
+                                  (None, None, cfg.n_kv_heads, None),
+                                  blocks.kv_parts(cfg)) for t in (ek, ev)))
         else:
             enc_kv = list(zip(cache["xk"].unbind(0), cache["xv"].unbind(0)))
 
         offset = cache_index if mode == "decode" else 0
-        x = embed(params["embed"], tokens)
+        x = embed(params["embed"], tokens, ctx, cfg.padded_vocab)
         x = x + sinusoidal_pos(s, cfg.d_model, offset,
                                device=x.device).to(x.dtype)[None]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -460,14 +458,15 @@ class Model:
             if mode == "train":
                 x, a = _body(remat, lambda p, hh, k_, v_: (
                     blocks.decoder_xattn_block(p, hh, {"k": k_, "v": v_},
-                                               cfg, mode=mode)[::2]),
+                                               cfg, mode=mode,
+                                               ctx=ctx)[::2]),
                     lp, x, ek, ev)
             else:
                 lc = None if cache is None else {
                     "k": cache["k"][i], "v": cache["v"][i]}
                 x, lc, a = blocks.decoder_xattn_block(
                     lp, x, {"k": ek, "v": ev}, cfg, mode=mode, cache=lc,
-                    cache_index=cache_index)
+                    cache_index=cache_index, ctx=ctx)
                 fresh.append(lc)
             aux = aux + a
         if mode == "train":

@@ -16,7 +16,9 @@ weights drawn directly (``tree_init(..., ctx)``: each full leaf drawn
 in turn from the one generator and cut to the rank's slice, so every
 rank holds the slices of the one full tree and no more than one full
 leaf at a time). A ParamDef's ``parts`` describe how its head-axis dim
-is packed (``sharding.Part``), so it is split by meaning.
+is packed (``sharding.Part``), so it is split by meaning; one marked
+``read_by_heads`` is held whole although each rank reads only its
+heads' channels of it.
 
 Logical axis vocabulary (the reference's, mapped to mesh axes by
 ``models/sharding.py``'s rules):
@@ -47,6 +49,11 @@ class ParamDef:
     scale: float = 1.0
     dtype: torch.dtype = torch.bfloat16
     parts: Optional[Tuple[Part, ...]] = None   # packing of the head dim
+    # held whole on every rank, each rank of the model axis reading only
+    # its heads' channels of the last dim (RWKV6's per-channel vectors):
+    # a rank's gradient is partial, summed over the model axis once per
+    # step (``ShardingCtx.sum_shared``)
+    read_by_heads: bool = False
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):

@@ -11,7 +11,9 @@ and issues collectives, so the context adds:
   * ``range(axis, n)`` — this rank's units of a dim of ``n`` units along
     a logical axis: contiguous, uneven where ``n`` does not divide, rank 0
     taking the largest share (28 q heads over 16 ranks: 2 each on ranks
-    0-11, 1 on ranks 12-15);
+    0-11, 1 on ranks 12-15); a head axis may have fewer units than ranks
+    (whisper-small's 12 heads over 16: one each on ranks 0-11, none on
+    ranks 12-15, whose attention is then skipped);
   * ``indices(axis, n, parts)`` — the same by meaning for a packed dim
     (``Part``): Mamba2's ``in_proj`` columns [z | x | B | C | dt] give z,
     x and dt by head and B, C whole to every rank; kv heads follow the q
@@ -21,7 +23,8 @@ and issues collectives, so the context adds:
   * ``constrain(x, axes, full)`` — asserts a local tensor has the layout
     the rules give, raising on a mismatch (with no mesh it is the
     identity, as the reference's);
-  * ``reduce`` / ``all_gather`` over a logical axis's mesh axes,
+  * ``reduce`` / ``all_gather`` / ``gather`` over a logical axis's mesh
+    axes,
     issued through ``comm`` (``torch.distributed`` by default; the dry run
     passes ``launch.dryrun.RecordedCollectives``). A collective over mesh
     axes of size 1 is not issued. Partial sums are reduced in f32 and
@@ -36,14 +39,20 @@ autograd Functions over a logical axis:
   * ``copy`` — forward the identity, backward the f32 all-reduce: a
     replicated tensor that rank-local (split) computation consumes (the
     normed input of column-parallel weights, Mamba2's B and C, the MoE's
-    gates).
+    gates);
+  * ``gather`` — forward the all-gather of the ranks' parts of a last
+    dim, backward the rank's slice of the gradient (RWKV6's channel-mix
+    gate ``r``, whose product with the replicated ``kv`` every rank then
+    computes alike).
 
-Both keep one invariant: on every rank the gradient of every replicated
+All three keep one invariant: on every rank the gradient of every replicated
 activation is the whole gradient, so the gradient of a replicated leaf
 (a norm weight, the router, B and C's columns) comes out whole and
 bitwise equal on every rank. A kv head several ranks hold (the model
 axis above the kv heads, or q heads split unevenly) gets a partial
-gradient on each holder: ``sum_shared`` adds them once per step.
+gradient on each holder, and so does a leaf held whole of which each
+rank reads only its heads' channels (RWKV6's per-channel vectors,
+``ParamDef.read_by_heads``): ``sum_shared`` adds them once per step.
 ``held_pieces`` gives how many ranks of the model axis hold each part of
 a leaf, which the global norm divides by. ``batch_local`` is the context
 of ``train/manual_dp.py``'s forward: "batch" not split, each rank's
@@ -89,6 +98,9 @@ Spec = Tuple[Any, ...]            # mesh axes per dim (a PartitionSpec)
 SPLIT_AXES = ("batch", "heads", "kv_heads", "heads2", "ff", "ff2",
               "experts", "vocab", "act_vocab")
 HELD_WHOLE = ("kv_seq",)
+# the axes a rank may hold no units of (a head-less rank skips its
+# attention, contributing zero to the row-parallel sum)
+HEAD_AXES = ("heads", "kv_heads", "heads2")
 
 
 def default_rules(multi_pod: bool = False, *,
@@ -236,7 +248,7 @@ class ShardingCtx:
         if not self._split(axis):
             return 0, n
         parts = self.size(axis)
-        if n < parts:
+        if n < parts and axis not in HEAD_AXES:
             raise NotImplementedError(
                 f"{n} units of {axis!r} over {parts} ranks: a rank would "
                 f"hold none")
@@ -288,8 +300,8 @@ class ShardingCtx:
             idx = self.indices(a, x.shape[i], parts if i == hd else None)
             if len(idx) == x.shape[i]:
                 continue
-            if idx == list(range(idx[0], idx[0] + len(idx))):
-                x = x.narrow(i, idx[0], len(idx))
+            if not idx or idx == list(range(idx[0], idx[0] + len(idx))):
+                x = x.narrow(i, idx[0] if idx else 0, len(idx))
             else:
                 x = x.index_select(i, torch.tensor(idx, device=x.device))
         return x
@@ -416,6 +428,8 @@ class ShardingCtx:
         dim, mine, total = self._holding(axes, shape, parts)
         if dim is None:
             return [(x, self.size("heads"))]
+        if not mine:                    # a rank holding none of its heads
+            return [(x, 1)]
         out, start = [], 0
         for i in range(1, len(mine) + 1):
             if i == len(mine) or total[mine[i]] != total[mine[start]]:
@@ -427,10 +441,16 @@ class ShardingCtx:
     def shared_leaves(self, defs: Sequence) -> List[Tuple[int, int,
                                                          List[int]]]:
         """The ParamDefs of ``defs`` with a kv head that several copies
-        hold (on one rank or several): (position, the kv dim, this rank's
-        indices along it), for ``sum_shared``."""
+        hold (on one rank or several), and those held whole that each rank
+        reads only by its heads' channels (``read_by_heads``): (position,
+        the kv dim or 0, this rank's indices along it), for
+        ``sum_shared``."""
         picks = []
         for i, d in enumerate(defs):
+            if d.read_by_heads:
+                if self.size("heads") > 1:
+                    picks.append((i, 0, list(range(d.shape[0]))))
+                continue
             if not any(p.kv_of for p in d.parts or ()):
                 continue
             dim, mine, total = self._holding(d.axes, d.shape, d.parts)
@@ -443,9 +463,10 @@ class ShardingCtx:
         """``grads`` (this rank's, one per ParamDef of ``defs``, in order)
         with the gradient of each kv head that several copies hold summed
         over them all (each holder's is partial: the q heads it serves),
-        written back into every copy: one f32 all-reduce over the model
-        axis of those leaves, full along their kv dim. Other leaves are
-        returned as they are."""
+        and that of each ``read_by_heads`` leaf over the ranks (each
+        rank's is its heads' channels), written back into every copy: one
+        f32 all-reduce over the model axis of those leaves, full along
+        their kv dim. Other leaves are returned as they are."""
         picks = self.shared_leaves(defs)
         if not picks:
             return grads
@@ -476,18 +497,21 @@ class ShardingCtx:
         return out
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int = -1,
-                   full: Optional[int] = None) -> List[torch.Tensor]:
+                   full: Optional[int] = None,
+                   parts: Optional[Sequence[Part]] = None
+                   ) -> List[torch.Tensor]:
         """Every rank's ``x`` along ``axis``, in rank order. ``full``: the
-        size of the dim ``dim`` split over the ranks, whose parts may
-        differ by one (each is padded to the largest for the collective,
-        then cut back); None: every rank's ``x`` has this one's shape."""
+        size of the dim ``dim`` split over the ranks (by ``parts``, as in
+        ``indices``), whose parts may differ (each is padded to the
+        largest for the collective, then cut back); None: every rank's
+        ``x`` has this one's shape."""
         n = self.size(axis)
         if n == 1:
             return [x]
         dim = dim % x.dim()
         sizes = ([x.shape[dim]] * n if full is None else
-                 [b - a for a, b in (split_range(full, n, i)
-                                     for i in range(n))])
+                 [len(self.indices(axis, full, parts, at=i))
+                  for i in range(n)])
         pad = list(x.shape)
         pad[dim] = max(sizes) - x.shape[dim]
         buf = torch.cat([x, x.new_zeros(pad)], dim) if pad[dim] else \
@@ -495,6 +519,18 @@ class ShardingCtx:
         out = [torch.empty_like(buf) for _ in range(n)]
         self._comm().all_gather(out, buf, group=self._group(axis))
         return [t.narrow(dim, 0, s) for t, s in zip(out, sizes)]
+
+    def gather(self, x: torch.Tensor, axis: str, full: int,
+               parts: Optional[Sequence[Part]] = None) -> torch.Tensor:
+        """The ranks' parts ``x`` of a last dim of ``full`` elements split
+        over ``axis`` (by ``parts``, contiguous in rank order) put
+        together: one all-gather, in ``x``'s dtype. Its gradient is the
+        rank's slice of the gradient, which every rank holds whole (the
+        result is replicated and every rank consumes it alike). ``x``
+        itself where the axis is not split."""
+        if self.size(axis) == 1:
+            return x
+        return _Gather.apply(x, self, axis, full, parts)
 
 
 def _runs(idx: Sequence[int]) -> List[Tuple[int, int, int]]:
@@ -534,6 +570,22 @@ class _Copy(torch.autograd.Function):
         return fctx.sctx._reduced(g, fctx.axis, fresh=True), None, None
 
 
+class _Gather(torch.autograd.Function):
+    """``ShardingCtx.gather``: all-gather forward, the rank's slice
+    backward."""
+
+    @staticmethod
+    def forward(fctx, x, sctx, axis, full, parts):
+        fctx.idx = sctx.indices(axis, full, parts)
+        return torch.cat(sctx.all_gather(x, axis, full=full, parts=parts),
+                         -1)
+
+    @staticmethod
+    def backward(fctx, g):
+        lo, n = fctx.idx[0] if fctx.idx else 0, len(fctx.idx)
+        return g.narrow(-1, lo, n), None, None, None, None
+
+
 def held_differently(d, ctx: ShardingCtx) -> Optional[Dict[str, Any]]:
     """Whether rank 0 holds a ParamDef ``d`` in other bytes than the
     reference's layout gives a card (its spec, each split dim padded to
@@ -551,6 +603,13 @@ def held_differently(d, ctx: ShardingCtx) -> Optional[Dict[str, Any]]:
         reasons.append("the cache's sequence (kv_seq) is held whole, "
                        "not split (ROADMAP A: kv_seq sharding)")
     for p in d.parts or ():
+        size = ctx.size(d.axes[head_dim(d.axes)])
+        if p.units and p.units < size:
+            reasons.append(f"fewer heads than ranks: ranks 0-{p.units - 1} "
+                           f"hold one whole head each, the other "
+                           f"{size - p.units} none and skip the attention "
+                           f"(the reference cuts the columns into "
+                           f"{size} even pieces of heads)")
         if p.kv_of:
             reasons.append("kv heads are held whole, as the rank's q heads "
                            "read them (the reference splits the kv "
@@ -561,7 +620,7 @@ def held_differently(d, ctx: ShardingCtx) -> Optional[Dict[str, Any]]:
                            "whole on every rank, z, x and dt split by head "
                            "(the reference splits the packed columns "
                            "contiguously)")
-        elif p.units % ctx.size(d.axes[head_dim(d.axes)]):
+        elif p.units % size:
             reasons.append("whole heads are split unevenly, rank 0 taking "
                            "the largest share (the reference pads the "
                            "columns to an even split)")

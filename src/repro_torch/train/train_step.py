@@ -115,8 +115,10 @@ def sync_grads(grads: list, model: Model, ctx: ShardingCtx) -> list:
     gradients (``tree_leaves`` order) made the whole gradient of its
     slices — summed over the data axis where "batch" is split (each rank
     holds its share of the global mean; one f32 all-reduce of every
-    leaf), then each kv head that several ranks hold summed over them
-    (``ShardingCtx.sum_shared``). Unsharded, ``grads`` as they are."""
+    leaf), then each kv head that several ranks hold summed over them,
+    and each leaf held whole that the ranks read by their heads' channels
+    (RWKV6's vectors) over the model axis (``ShardingCtx.sum_shared``).
+    Unsharded, ``grads`` as they are."""
     if ctx.size("batch") > 1:
         flat = ctx.reduce(torch.cat([g.float().reshape(-1) for g in grads]),
                           "batch")

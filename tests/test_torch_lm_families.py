@@ -335,7 +335,8 @@ def test_rwkv6_channel_mix_matches_reference():
     for cache, jcache in ((None, None),
                           ({"shift_cm": torch.from_numpy(prev)},
                            {"shift_cm": jnp.asarray(prev)})):
-        y, last = blocks.rwkv6_channel_mix(lp["cm"], xt, cache=cache)
+        y, last = blocks.rwkv6_channel_mix(lp["cm"], xt, pm.cfg,
+                                           cache=cache)
         jy, jlast = jax_blocks.rwkv6_channel_mix(jlp["cm"], xj, cache=jcache)
         _close(y, jy)
         _close(last, jlast)

@@ -38,8 +38,8 @@ from repro_torch.models.sharding import (NULL_CTX, ShardingCtx,
 
 ARCHS = ["internlm2-1.8b", "qwen2-moe-a2.7b", "qwen2-vl-7b", "rwkv6-7b",
          "whisper-small", "zamba2-1.2b"]
-TP_ARCHS = ["internlm2-1.8b", "qwen2-moe-a2.7b", "qwen2-vl-7b",
-            "zamba2-1.2b"]
+TP_ARCHS = ["internlm2-1.8b", "qwen2-moe-a2.7b", "qwen2-vl-7b", "rwkv6-7b",
+            "whisper-small", "zamba2-1.2b"]
 MESHES = [(2, 2), (16, 16)]
 AXES = ("data", "model")
 
@@ -98,11 +98,23 @@ DIFFERENT_16x16 = {
                     "cache/k", "cache/v"},
     "zamba2-1.2b": {"params/layers/in_proj", "params/layers/conv_w",
                     "cache/mamba/conv"},
+    # RWKV6's vectors are held whole, as the reference's specs replicate
+    # them; its 64 heads split evenly
+    "rwkv6-7b": set(),
+    # 12 heads over 16 ranks: rank 0 holds one whole head (64 columns),
+    # the reference's even pieces are 48 columns
+    "whisper-small": {f"params/{stack}/{attn}/{w}"
+                      for stack, attns in (("enc_layers", ("attn",)),
+                                           ("layers", ("attn", "xattn")))
+                      for attn in attns
+                      for w in ("wq", "wk", "wv", "wo", "bq", "bv")}
+    | {"cache/k", "cache/v", "cache/xk", "cache/xv"},
 }
 REASONS = {"kv_seq": "the cache's sequence (kv_seq) is held whole",
            "kv": "kv heads are held whole, as the rank's q heads read them",
            "packed": "B and C (one state shared by every head) are whole",
-           "uneven": "whole heads are split unevenly"}
+           "uneven": "whole heads are split unevenly",
+           "fewer": "fewer heads than ranks"}
 
 
 def _differences(arch, shape, kind):
@@ -134,6 +146,8 @@ def test_layout_differences_are_named_with_reasons(arch):
             want.append(REASONS["uneven"])
         if "mamba" in path or path.endswith(("in_proj", "conv_w")):
             want.append(REASONS["packed"])
+        if arch == "whisper-small":
+            want.append(REASONS["fewer"])
         for w in want:
             assert w in d["reason"], (path, d["reason"])
     small = _differences(arch, (2, 2), "decode_32k")
@@ -162,7 +176,7 @@ def _put_back(full_like, slices, defs, ctxs):
                                           tree_leaves(defs))):
             hd = head_dim(d.axes)
             idx = [torch.tensor(ctx.indices(a, n, d.parts if j == hd
-                                            else None))
+                                            else None), dtype=torch.long)
                    for j, (a, n) in enumerate(zip(d.axes, d.shape))]
             grid = torch.meshgrid(*idx, indexing="ij")
             out[i][grid] = part
@@ -193,15 +207,36 @@ def test_shard_tree_slices_give_the_full_tree_back(arch, shape):
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "whisper-small"])
 def test_shard_tree_round_trip_other_families(arch):
-    """rwkv6's and whisper's trees split as plain slices too (their
-    forward under a model axis waits: ROADMAP A)."""
+    """rwkv6's and whisper's trees split by head too, and ``init`` under
+    a split ctx draws each rank's slices (RWKV6's vectors whole on every
+    rank); with whisper-smoke's 4 heads cut to 2, ranks 2 and 3 of
+    (1, 4) hold none of them."""
+    import dataclasses
     model, params, ctxs = _rebuild(arch, (1, 2))
     slices = [shard_tree(params, model.defs, c) for c in ctxs]
     out, seen = _put_back(params, slices, model.defs, ctxs)
     for a, b, n in zip(tree_leaves(params), out, seen):
         assert torch.equal(a, b) and bool((n >= 1).all())
-    with pytest.raises(NotImplementedError):
-        model.init(torch.Generator().manual_seed(0), ctxs[0])
+    for c, want in zip(ctxs, slices):
+        got = model.init(torch.Generator().manual_seed(0), c)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                     tree_leaves(want)))
+    whole = [p for p, d in tree_paths(model.defs) if d.read_by_heads]
+    assert whole == ([f"layers/tm/{k}" for k in ("ln_x_b", "ln_x_w",
+                                                  "w_base", "w_lora_b")]
+                     if arch == "rwkv6-7b" else [])
+    if arch == "whisper-small":
+        model = Model(dataclasses.replace(model.cfg, n_heads=2,
+                                          n_kv_heads=2))
+        params = model.init(torch.Generator().manual_seed(0))
+        ctxs = [ShardingCtx(make_mesh((1, 4), AXES, rank=r),
+                            default_rules()) for r in range(4)]
+        slices = [shard_tree(params, model.defs, c) for c in ctxs]
+        out, seen = _put_back(params, slices, model.defs, ctxs)
+        for a, b in zip(tree_leaves(params), out):
+            assert torch.equal(a, b)
+        wq = [t["layers"]["xattn"]["wq"].shape[-1] for t in slices]
+        assert wq == [32, 32, 0, 0]
 
 
 @pytest.mark.parametrize("arch", TP_ARCHS)
@@ -307,10 +342,12 @@ def test_vocab_parallel_logits_and_greedy_across_padded_vocab():
 def test_dry_run_statuses_at_the_reference_mesh(arch):
     """``--cards 256 --model 16`` (the reference's 16 x 16): the dense,
     MoE, VLM and hybrid families' train_4k, prefill_32k and decode_32k
-    cells are built (rank 0's parameters, and its cache or its ZeRO shard
-    of the moments, on ``meta``), rwkv6's and whisper's cells and
-    zamba2's long_500k are not_ported with a ROADMAP reason, and the
-    reference's own rules still skip what they skip."""
+    cells of every family are built (rank 0's parameters, and its cache
+    or its ZeRO shard of the moments, on ``meta``), rwkv6's long_500k
+    too (its batch of 1 whole on each data rank, as the reference's rule
+    holds it), zamba2's long_500k is not_ported with a ROADMAP reason
+    (its K/V cache's sequence would be sharded), and the reference's own
+    rules still skip what they skip: 19 ok, 1 not_ported, 4 skipped."""
     from repro_torch.configs import SHAPE_SUITES
     from repro_torch.launch import dryrun
     cfg = get_config(arch)
@@ -320,17 +357,18 @@ def test_dry_run_statuses_at_the_reference_mesh(arch):
         if (suite.kind == "decode" and not cfg.supports_decode) or (
                 shape == "long_500k" and not cfg.subquadratic):
             want = "skipped"
-        elif arch in TP_ARCHS and shape in ("train_4k", "prefill_32k",
-                                            "decode_32k"):
-            want = "ok"
-        else:
+        elif shape == "long_500k" and arch == "zamba2-1.2b":
             want = "not_ported"
+        else:
+            want = "ok"
         assert meta["status"] == want, (shape, meta)
         if want == "not_ported":
             assert fn is None and meta["reason"].startswith("ROADMAP A")
         if want == "ok":
             assert meta["mesh"] == "16x16" and comm is not None
-            assert meta["batch_per_card"] == suite.global_batch // 16
+            assert meta["batch_per_card"] == (
+                suite.global_batch if shape == "long_500k"
+                else suite.global_batch // 16)
             assert 0 < meta["params_per_card"] < meta["params"] / 8
 
 

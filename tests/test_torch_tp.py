@@ -2,17 +2,20 @@
 against the port's unsharded model and the JAX package's sharded forward.
 
 One subprocess runs the JAX package with 4 host devices: for the f32
-smoke configs of internlm2, zamba2, qwen2-moe and qwen2-vl, its weights
-(``Model.init``, cast to f32), then ``Model.forward`` under
-``ShardingCtx`` on an Auto (data 2, model 2) mesh with the parameters
-placed by ``model.specs`` (Mamba2 with f32 decay ratios, the port's
-precision): the prefill logits and ``aux`` of a [4, 32] batch, and 4
-decode steps of seeded tokens, each step's input cache saved. The port
-then runs the same weights over (data, model) = (1, 2), (1, 4) and
-(2, 2) ranks (``models/sharding.py``; the M = 4 layouts give
-internlm2-smoke's 2 kv heads and qwen2-moe-smoke's 6 experts unevenly),
-each decode step from the reference's saved cache cut to the rank's
-part, so that every step is checked on the same inputs:
+smoke configs of all six families (internlm2, zamba2, qwen2-moe,
+qwen2-vl, rwkv6, whisper), its weights (``Model.init``, cast to f32),
+then ``Model.forward`` under ``ShardingCtx`` on an Auto (data 2, model
+2) mesh with the parameters placed by ``model.specs`` (Mamba2 and RWKV6
+with f32 decay ratios, the port's precision): the prefill logits and
+``aux`` of a [4, 32] batch (whisper's with seeded frames), and 4 decode
+steps of seeded tokens, each step's input cache saved. The port then
+runs the same weights over (data, model) = (1, 2), (1, 4) and (2, 2)
+ranks (``models/sharding.py``; the M = 4 layouts give internlm2-smoke's
+2 kv heads and qwen2-moe-smoke's 6 experts unevenly), and whisper-smoke
+cut to 2 heads (``whisper-small:2``, in both packages) over (1, 4),
+where ranks 2 and 3 hold no heads and call no attention kernel, each
+decode step from the reference's saved cache cut to the rank's part, so
+that every step is checked on the same inputs:
 
 * against the port's unsharded forward on the whole inputs at 1e-5
   (f32; only the ranks' partial sums are added in another order), each
@@ -30,12 +33,13 @@ neighbouring bf16 value, which moves the logits by up to ~1e-4 in both
 packages alike (the decode writes its token's K/V in the cache's
 dtype).
 
-Then the dry run of internlm2-smoke and zamba2-smoke prefill at
-``--cards 4 --model 2``: rank 0 of a gloo CPU run of the same step
+Then the dry run of the internlm2, zamba2, rwkv6 and whisper smoke
+prefill at ``--cards 4 --model 2``: rank 0 of a gloo CPU run of the same step
 (bf16, its collectives real) counts exactly the dry run's operations,
 bytes, aten ops, kernel calls and memory, and both issue
 ``model_axis_plan``'s collectives.
 """
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -51,21 +55,36 @@ import torch
 from repro_torch.models import build_model
 from repro_torch.models.convert import from_reference
 from repro_torch.models.param import shard_tree, tree_map
-from repro_torch.models.sharding import NULL_CTX
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.sharding import NULL_CTX, ShardingCtx, default_rules
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["internlm2-1.8b", "zamba2-1.2b", "qwen2-moe-a2.7b", "qwen2-vl-7b"]
+ARCHS = ["internlm2-1.8b", "zamba2-1.2b", "qwen2-moe-a2.7b", "qwen2-vl-7b",
+         "rwkv6-7b", "whisper-small"]
 LAYOUTS = [(1, 2), (1, 4), (2, 2)]
+# whisper-smoke cut to 2 heads (``arch:heads``): at (1, 4) ranks 2 and 3
+# hold none
+HEADLESS = ("whisper-small:2", (1, 4))
+CASES = [(arch, shape) for arch in ARCHS for shape in LAYOUTS] + [HEADLESS]
 B, P, T = 4, 32, 4
 TOL_PORT, TOL_JAX = 1e-5, 1e-4
 
 _JAX_SCRIPT = r"""
-import functools, sys
+import dataclasses, functools, sys
 import numpy as np, jax, jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from repro.models import build_model, gla
+from repro.models.model import Model
 from repro.models.sharding import ShardingCtx, default_rules
 gla.gla_chunk = functools.partial(gla.gla_chunk, ratio_dtype=jnp.float32)
+
+def model_of(arch):
+    name, _, heads = arch.partition(":")
+    jm = build_model(name, smoke=True)
+    if heads:
+        jm = Model(dataclasses.replace(jm.cfg, n_heads=int(heads),
+                                       n_kv_heads=int(heads)))
+    return jm
 out = sys.argv[1]
 B, P_, T = (int(a) for a in sys.argv[2:5])
 mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
@@ -90,7 +109,7 @@ def pad(c):
     return np.asarray(c)
 
 for arch in sys.argv[5:]:
-    jm = build_model(arch, smoke=True)
+    jm = model_of(arch)
     params = jax.tree.map(lambda a: a.astype(jnp.float32),
                           jax.jit(jm.init)(jax.random.PRNGKey(0)))
     placed = jax.tree.map(
@@ -100,12 +119,16 @@ for arch in sys.argv[5:]:
     toks = rng.integers(0, jm.cfg.vocab, (B, P_), dtype=np.int32)
     feed = rng.integers(0, jm.cfg.vocab, (B, T), dtype=np.int32)
     res = {"tokens": toks, "feed": feed}
+    pre = {"tokens": toks}
+    if jm.cfg.family == "encdec":
+        res["frames"] = pre["frames"] = rng.standard_normal(
+            (B, jm.cfg.enc_seq, jm.cfg.d_model)).astype(np.float32)
     flat(params, "params", res)
-    prefill = jax.jit(lambda p, t: jm.forward(p, {"tokens": t},
-                                              mode="prefill", ctx=ctx))
+    prefill = jax.jit(lambda p, b: jm.forward(p, b, mode="prefill",
+                                              ctx=ctx))
     decode = jax.jit(lambda p, c, t, i: jm.forward(
         p, {"tokens": t}, mode="decode", cache=c, cache_index=i, ctx=ctx))
-    logits, cache, aux = prefill(placed, toks)
+    logits, cache, aux = prefill(placed, pre)
     res["logits"], res["aux"] = np.asarray(logits[:, -1]), np.asarray(aux)
     cache = pad(cache)
     for i in range(T):
@@ -142,16 +165,34 @@ def reference(tmp_path_factory):
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     got = subprocess.run(
         [sys.executable, "-c", _JAX_SCRIPT, str(out), str(B), str(P),
-         str(T), *ARCHS], capture_output=True, text=True, env=env,
+         str(T), *ARCHS, HEADLESS[0]], capture_output=True, text=True,
+        env=env,
         timeout=600)
     assert got.returncode == 0, got.stderr[-3000:]
     return out
 
 
+def model_of(arch):
+    """The smoke model of ``arch`` ("name" or "name:heads": its q and kv
+    heads cut to ``heads``)."""
+    from repro_torch.models import Model
+    name, _, heads = arch.partition(":")
+    model = build_model(name, smoke=True)
+    if heads:
+        model = Model(dataclasses.replace(model.cfg, n_heads=int(heads),
+                                          n_kv_heads=int(heads)))
+    return model
+
+
+def archs_at(shape):
+    """The archs a layout runs."""
+    return ARCHS + ([HEADLESS[0]] if shape == HEADLESS[1] else [])
+
+
 def _load(ref_dir, arch):
     """(model, full f32 params, the reference's arrays)."""
     z = np.load(Path(ref_dir) / f"{arch}.npz")
-    model = build_model(arch, smoke=True)
+    model = model_of(arch)
     return model, from_reference(model.defs, _nest(z, "params")), z
 
 
@@ -166,8 +207,11 @@ def _steps(model, params, z, ctx):
     rows = ("batch", None)
     toks = ctx.shard(torch.from_numpy(z["tokens"]).long(), rows)
     feed = ctx.shard(torch.from_numpy(z["feed"]).long(), rows)
-    logits, cache, aux = model.forward(params, {"tokens": toks},
-                                       mode="prefill", ctx=ctx)
+    pre = {"tokens": toks}
+    if "frames" in z.files:
+        pre["frames"] = ctx.shard(torch.from_numpy(z["frames"]),
+                                  rows + (None,))
+    logits, cache, aux = model.forward(params, pre, mode="prefill", ctx=ctx)
     out = {"logits": [logits[:, -1]], "aux": [aux],
            "greedy": [greedy(model, logits[:, -1], ctx)]}
     out["logits32"] = [logits[:, -1]]
@@ -187,8 +231,8 @@ def _steps(model, params, z, ctx):
             if key == "logits":
                 out["aux"].append(a)
                 out["greedy"].append(greedy(model, lg[:, 0], ctx))
-    tok, pre = make_prefill_step(model, ctx)(params, {"tokens": toks})
-    cache = fill_cache(model.init_cache(B, P + T, "cpu", ctx), pre)
+    tok, filled = make_prefill_step(model, ctx)(params, pre)
+    cache = fill_cache(model.init_cache(B, P + T, "cpu", ctx), filled)
     decode, free = make_decode_step(model, ctx), [tok]
     for i in range(T):
         tok, _, cache = decode(params, cache, free[-1][:, None], P + i)
@@ -205,19 +249,28 @@ def _free_port() -> int:
 
 def _rank_main(rank, port, shape, ref_dir, q) -> None:
     import torch.distributed as dist
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.sharding import ShardingCtx, default_rules
     torch.set_num_threads(1)
     world = shape[0] * shape[1]
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank)
+    calls, attention = [], flash_ops.attention
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return attention(*a, **kw)
+    flash_ops.attention = counted
     try:
         mesh = make_mesh(shape, ("data", "model"))
         ctx = ShardingCtx(mesh, default_rules())
         res = {}
-        for arch in ARCHS:
+        for arch in archs_at(shape):
             model, params, z = _load(ref_dir, arch)
+            calls.clear()
             got = _steps(model, shard_tree(params, model.defs, ctx), z, ctx)
+            got["flash_calls"] = [len(calls)]
             # every rank takes part in the gathers; model rank 0 reports
             for key in ("logits", "logits32"):
                 got[key] = [model.gather_logits(lg, ctx).numpy()
@@ -226,6 +279,7 @@ def _rank_main(rank, port, shape, ref_dir, q) -> None:
                          for k, v in got.items()}
         q.put((mesh.coord("data"), mesh.coord("model"), res))
     finally:
+        flash_ops.attention = attention
         dist.destroy_process_group()
 
 
@@ -249,24 +303,29 @@ def _spawn(target, world, *args):
 
 @pytest.fixture(scope="module")
 def tp_runs(reference):
-    """{layout: {arch: each output, the data ranks' rows concatenated}},
-    one layout at a time."""
+    """{layout: {arch: each output, the data ranks' rows concatenated;
+    "flash_calls": each model rank's attention calls}}, one layout at a
+    time."""
     runs = {}
     for shape in LAYOUTS:
         got = _spawn(_rank_main, shape[0] * shape[1], shape, str(reference))
         rows = sorted(((d, res) for d, m, res in got if m == 0),
                       key=lambda x: x[0])
+        archs = archs_at(shape)
         runs[shape] = {arch: {k: [np.concatenate([r[arch][k][i]
                                                   for _, r in rows])
                                   for i in range(len(rows[0][1][arch][k]))]
                               for k in ("logits", "logits32", "greedy",
                                         "free")}
-                       for arch in ARCHS}
-        for arch in ARCHS:              # aux: equal on every rank
+                       for arch in archs}
+        for arch in archs:              # aux: equal on every rank
             auxes = {tuple(float(a) for a in res[arch]["aux"])
                      for _, _, res in got}
             assert len(auxes) == 1, (shape, arch, auxes)
             runs[shape][arch]["aux"] = list(auxes.pop())
+            runs[shape][arch]["flash_calls"] = {
+                m: int(res[arch]["flash_calls"][0]) for d, m, res in got
+                if d == 0}
     return runs
 
 
@@ -274,7 +333,7 @@ def tp_runs(reference):
 def unsharded(reference):
     """The port's unsharded run of the same steps."""
     out = {}
-    for arch in ARCHS:
+    for arch in ARCHS + [HEADLESS[0]]:
         model, params, z = _load(reference, arch)
         got = _steps(model, params, z, NULL_CTX)
         out[arch] = {k: [np.asarray(t, dtype=np.float64 if k == "aux"
@@ -289,8 +348,9 @@ def _close(got, want, tol, what):
                                atol=tol, err_msg=what)
 
 
-@pytest.mark.parametrize("shape", LAYOUTS, ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,shape", CASES,
+                         ids=lambda c: f"{c[0]}x{c[1]}" if isinstance(c, tuple)
+                         else c)
 def test_tp_serving_matches_unsharded_and_reference(arch, shape, tp_runs,
                                                     unsharded, reference):
     got, want = tp_runs[shape][arch], unsharded[arch]
@@ -310,6 +370,16 @@ def test_tp_serving_matches_unsharded_and_reference(arch, shape, tp_runs,
         np.testing.assert_array_equal(a, b)
     if arch == "qwen2-moe-a2.7b":
         assert got["aux"][0] > 0
+    calls = got["flash_calls"]
+    if model_of(arch).cfg.family == "encdec":
+        # a rank holding no heads calls no attention kernel
+        heads = [len(ShardingCtx(make_mesh(shape, ("data", "model"),
+                                           rank=m), default_rules())
+                     .indices("heads", model_of(arch).cfg.n_heads))
+                 for m in range(shape[1])]
+        assert [calls[m] > 0 for m in range(shape[1])] == [
+            h > 0 for h in heads], (calls, heads)
+        assert (0 in heads) == (arch == HEADLESS[0])
 
 
 # ------------------------------------------------------------ the dry run
@@ -348,8 +418,11 @@ def _dry_rank(rank, port, arch, q) -> None:
         params = model.init(torch.Generator().manual_seed(0), ctx)
         toks = ctx.shard(torch.from_numpy(np.random.default_rng(5).integers(
             0, model.cfg.vocab, (4, 32))), ("batch", None)).clone()
-        _, got = analyze_step(make_prefill_step(model, ctx), params,
-                              {"tokens": toks})
+        batch = {"tokens": toks}
+        if model.cfg.family == "encdec":
+            batch["frames"] = torch.randn(2, model.cfg.enc_seq,
+                                          model.cfg.d_model).bfloat16()
+        _, got = analyze_step(make_prefill_step(model, ctx), params, batch)
         q.put((rank, {k: got[k] for k in ("flops", "bytes", "ops",
                                           "kernels", "memory")},
                [(op, str(dt), n, g) for op, dt, n, g in issued]))
@@ -357,7 +430,8 @@ def _dry_rank(rank, port, arch, q) -> None:
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-1.2b", "rwkv6-7b",
+                                  "whisper-small"])
 def test_dry_run_of_a_model_axis_cell_counts_the_gloo_run(arch):
     from repro_torch.configs import ShapeSuite, get_smoke_config
     from repro_torch.launch import dryrun

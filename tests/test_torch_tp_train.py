@@ -5,37 +5,47 @@ Once per session (``shared_reference``, which
 ``tests/test_torch_manual_dp_reference.py`` shares), two subprocesses per
 arch (its gradient jobs, its manual_dp jobs) run the JAX package with 4
 host devices, for
-the f32 smoke configs of internlm2, zamba2, qwen2-moe and qwen2-vl (its
-weights from ``Model.init``, cast to f32; Mamba2 with f32 decay ratios,
-the port's precision), on Auto ("data", "model") meshes with the
-parameters placed by ``model.specs``: ``jax.value_and_grad`` of
-``make_loss_fn(jm, ShardingCtx(mesh, rules))`` on a seeded [4, 32] batch
-at (1, 2) and (2, 2), and one ``make_manual_dp_train_step`` step at the
+the f32 smoke configs of all six families (internlm2, zamba2, qwen2-moe,
+qwen2-vl, rwkv6, whisper; its weights from ``Model.init``, cast to f32,
+with RWKV6's zero-init ``w_lora_b`` drawn from a seed so that the
+decay's LoRA has a gradient; Mamba2 and RWKV6 with f32 decay ratios, the
+port's precision), and whisper-smoke cut to 2 heads (``HEADLESS``) at
+(1, 4), on Auto
+("data", "model") meshes with the parameters placed by ``model.specs``:
+``jax.value_and_grad`` of ``make_loss_fn(jm, ShardingCtx(mesh, rules))``
+on a seeded [4, 32] batch (whisper's with seeded frames) at (1, 2) and
+(2, 2), and one ``make_manual_dp_train_step`` step at the
 same two meshes from a warm optimizer state (seeded moments at step 3: a
 step from zero moments turns the rounding of near-zero gradients into
 whole learning-rate steps, g / (|g| + eps)). The port then runs the same
 weights over (data, model) = (1, 2), (1, 4) and (2, 2) ranks, every
 layout at once (the M = 4 layouts give internlm2-smoke's and
 qwen2-vl-smoke's 2 kv heads to two ranks each, and qwen2-moe-smoke's 6
-experts unevenly):
+experts unevenly), then ``HEADLESS``' four ranks, two of them with no
+heads, apart and with their own time limit:
 
 * (a) every rank's loss, aux and gradient of every leaf (``sync_grads``:
   the data axis's sum, each duplicated kv head's sum over its holders)
   equal its slice of the port's unsharded gradient, within 1e-5 x
   max(1, max |g|) per leaf;
-* (b) at (1, 2) and (2, 2), the JAX package's sharded gradient, within
-  1e-4 (the tolerance of the port's other model tests);
+* (b) at (1, 2) and (2, 2) (``HEADLESS`` at (1, 4)), the JAX package's
+  sharded gradient, within 1e-4 (the tolerance of the port's other
+  model tests);
 * (c) every element several ranks of the model axis hold (the norm
   weights, the router, ``fuse``, Mamba2's B and C columns of ``in_proj``
-  and ``conv_w``, a kv head two ranks read) has a bitwise equal gradient
-  on each of them;
-* (d) one ``manual_dp`` step at (2, 2) and (1, 2): the metrics (loss =
+  and ``conv_w``, a kv head two ranks read, RWKV6's token-shift mixes,
+  LoRA and per-channel vectors) has a bitwise equal gradient on each of
+  them (a ``copy`` placed before RWKV6's ``mu`` / ``w_lora_a`` /
+  ``mu_k`` / ``mu_r`` would leave their gradients a rank's partial sum,
+  which (a) and (b) catch);
+* (d) one ``manual_dp`` step at (2, 2) and (1, 2) (``HEADLESS`` at
+  (1, 4)): the metrics (loss =
   cross-entropy + aux, grad norm), the updated parameters and the rank's
   moments (its slice over the model axis, the data ranks' ZeRO shards
   put together) against the reference's, within 1e-5.
 
-Then (e) the dry run of the internlm2-smoke and zamba2-smoke train cells
-at ``--cards 4 --model 2`` (remat on, 2 microbatches, so that the plan's
+Then (e) the dry run of the internlm2, zamba2, rwkv6 and whisper smoke
+train cells at ``--cards 4 --model 2`` (remat on, 2 microbatches, so that the plan's
 re-forward and per-microbatch collectives show): rank 0 of a gloo CPU
 run of the same ``manual_dp`` step counts exactly the dry run's
 operations, bytes, kernel calls and memory, and both issue
@@ -58,16 +68,20 @@ from filelock import FileLock
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_model
 from repro_torch.models.param import shard_tree, tree_leaves, tree_unflatten
-from repro_torch.models.sharding import ShardingCtx, default_rules
+from repro_torch.models.sharding import NULL_CTX, ShardingCtx, default_rules
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["internlm2-1.8b", "zamba2-1.2b", "qwen2-moe-a2.7b", "qwen2-vl-7b"]
+ARCHS = ["internlm2-1.8b", "zamba2-1.2b", "qwen2-moe-a2.7b", "qwen2-vl-7b",
+         "rwkv6-7b", "whisper-small"]
 LAYOUTS = [(1, 2), (1, 4), (2, 2)]
 JAX_LAYOUTS = [(1, 2), (2, 2)]
+# whisper-smoke cut to 2 heads (``arch:heads``, in both packages): at
+# (1, 4) ranks 2 and 3 hold none; its ranks run apart, in their own time
+HEADLESS = ("whisper-small:2", (1, 4))
 B, S, WARM_STEP = 4, 32, 3
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 TOL_PORT, TOL_JAX, TOL_DP = 1e-5, 1e-4, 1e-5
-TIMEOUT_S = 300
+TIMEOUT_S, HEADLESS_TIMEOUT_S = 300, 180
 # the reference's manual_dp steps; its (data 2, model 1) job is
 # tests/test_torch_manual_dp_reference.py's, for these archs
 REF_STEPS = 2
@@ -75,10 +89,11 @@ DP_ONLY_ARCHS = ("internlm2-1.8b", "qwen2-moe-a2.7b")
 
 # argv: out file, arch, manual_dp steps, then jobs "grad:DxM" / "dp:DxM"
 JAX_SCRIPT = r"""
-import functools, sys
+import dataclasses, functools, sys
 import numpy as np, jax, jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from repro.models import build_model, gla
+from repro.models.model import Model
 from repro.models.sharding import ShardingCtx, default_rules
 from repro.optim import AdamWConfig, AdamWState
 from repro.train.manual_dp import make_manual_dp_train_step
@@ -87,18 +102,39 @@ gla.gla_chunk = functools.partial(gla.gla_chunk, ratio_dtype=jnp.float32)
 out, arch, steps = sys.argv[1], sys.argv[2], int(sys.argv[3])
 B, S, WARM = 4, 32, 3
 rules = default_rules()
-jm = build_model(arch, smoke=True)
+name, _, heads = arch.partition(":")
+jm = build_model(name, smoke=True)
+if heads:
+    jm = Model(dataclasses.replace(jm.cfg, n_heads=int(heads),
+                                   n_kv_heads=int(heads)))
 params = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)),
                       jax.jit(jm.init)(jax.random.PRNGKey(0)))
+
+def draw_lora_b(tree, rng):
+    # RWKV6's w_lora_b is zero at init: drawn, the decay's LoRA (w_lora_a,
+    # mu's decay row) gets a gradient. At std 0.1 the port's unsharded
+    # f32 gradient itself drifts from its f64 one by more than the tests'
+    # 1e-5, whatever the sharding; at 0.05 it stays well inside
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            draw_lora_b(v, rng)
+        elif k == "w_lora_b":
+            tree[k] = (rng.standard_normal(v.shape) * 0.05).astype(np.float32)
+draw_lora_b(params, np.random.default_rng(2))
 leaves, tdef = jax.tree.flatten(params)
 rng = np.random.default_rng(1)
 toks = rng.integers(0, jm.cfg.vocab, (B, S), dtype=np.int32)
 batch = {"tokens": toks, "targets": np.roll(toks, -1, 1)}
+axes = {"tokens": ("batch", None), "targets": ("batch", None)}
 mu = [(rng.standard_normal(x.shape) * 1e-3).astype(np.float32)
       for x in leaves]
 nu = [((rng.random(x.shape) + 0.5) * 1e-4).astype(np.float32)
       for x in leaves]
-res = {"tokens": toks, "targets": batch["targets"]}
+if jm.cfg.family == "encdec":
+    batch["frames"] = rng.standard_normal(
+        (B, jm.cfg.enc_seq, jm.cfg.d_model)).astype(np.float32)
+    axes["frames"] = ("batch", None, None)
+res = dict(batch)
 for name, tree in (("param", leaves), ("mu", mu), ("nu", nu)):
     for i, x in enumerate(tree):
         res[f"{name}/{i}"] = x
@@ -122,7 +158,7 @@ for job in sys.argv[4:]:
         continue
     step, _, _ = make_manual_dp_train_step(
         jm, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10), mesh,
-        rules, {"tokens": ("batch", None), "targets": ("batch", None)})
+        rules, axes)
     p = jax.tree.map(np.copy, params)
     opt = AdamWState(np.int32(WARM), tdef.unflatten([x.copy() for x in mu]),
                      tdef.unflatten([x.copy() for x in nu]))
@@ -190,15 +226,33 @@ def session_cached(tmp_path_factory, name: str, build) -> Path:
 def shared_reference(tmp_path_factory) -> Path:
     """The JAX package's run for this file and for
     ``tests/test_torch_manual_dp_reference.py``, once per session: every
-    arch's gradient and manual_dp jobs at ``JAX_LAYOUTS``, and the
+    arch's gradient and manual_dp jobs at ``jax_layouts``, and the
     ``DP_ONLY_ARCHS``' manual_dp at (data 2, model 1); ``REF_STEPS``
     steps each."""
     jobs = {arch: [f"{kind}:{d}x{m}" for kind in ("grad", "dp")
-                   for d, m in JAX_LAYOUTS]
+                   for d, m in jax_layouts(arch)]
             + (["dp:2x1"] if arch in DP_ONLY_ARCHS else [])
-            for arch in ARCHS}
+            for arch in ARCHS + [HEADLESS[0]]}
     return session_cached(tmp_path_factory, "tp_train_ref",
                           lambda out: run_reference(out, jobs, REF_STEPS))
+
+
+def jax_layouts(arch):
+    """The layouts the reference runs ``arch`` at (and the port's
+    manual_dp step)."""
+    return [HEADLESS[1]] if arch == HEADLESS[0] else JAX_LAYOUTS
+
+
+def model_of(arch):
+    """The smoke model of ``arch`` ("name" or "name:heads": its q and kv
+    heads cut to ``heads``)."""
+    from repro_torch.models import Model
+    name, _, heads = arch.partition(":")
+    model = build_model(name, smoke=True)
+    if heads:
+        model = Model(dataclasses.replace(model.cfg, n_heads=int(heads),
+                                          n_kv_heads=int(heads)))
+    return model
 
 
 def ref_tree(model, z, prefix):
@@ -222,10 +276,11 @@ def free_ports(n: int) -> list:
             s.close()
 
 
-def spawn_all(target, runs):
+def spawn_all(target, runs, timeout=TIMEOUT_S):
     """``target(rank, port, *args, queue)`` for every (world, args) of
     ``runs``, every group at once on its own port; returns each run's
-    items (one per rank, in arrival order)."""
+    items (one per rank, in arrival order), each within ``timeout``
+    seconds."""
     mp = multiprocessing.get_context("spawn")
     q = mp.Queue()
     procs = []
@@ -235,7 +290,7 @@ def spawn_all(target, runs):
     for p in procs:
         p.start()
     try:
-        got = [q.get(timeout=TIMEOUT_S) for _ in procs]
+        got = [q.get(timeout=timeout) for _ in procs]
     finally:
         for p in procs:
             p.join(60)
@@ -243,6 +298,17 @@ def spawn_all(target, runs):
                 p.kill()
     assert all(p.exitcode == 0 for p in procs)
     return got
+
+
+def rank_batch(z, ctx):
+    """The rank's rows of the reference's batch (tokens, targets and
+    whisper's frames)."""
+    out = {k: ctx.shard(torch.from_numpy(z[k]).long(), ("batch", None))
+           for k in ("tokens", "targets")}
+    if "frames" in z.files:
+        out["frames"] = ctx.shard(torch.from_numpy(z["frames"]),
+                                  ("batch", None, None))
+    return out
 
 
 def warm_state(model, params, z, ctx, mdp):
@@ -256,7 +322,7 @@ def warm_state(model, params, z, ctx, mdp):
     return state._replace(step=torch.tensor(WARM_STEP, dtype=torch.int32))
 
 
-def _rank_main(rank, port, shape, ref_dir, q) -> None:
+def _rank_main(rank, port, shape, ref_dir, archs, q) -> None:
     import torch.distributed as dist
     from repro_torch.train import manual_dp as mdp
     from repro_torch.optim import AdamWConfig
@@ -269,20 +335,18 @@ def _rank_main(rank, port, shape, ref_dir, q) -> None:
         ctx = ShardingCtx(make_mesh(shape, ("data", "model")),
                           default_rules())
         res = {}
-        for arch in ARCHS:
-            model = build_model(arch, smoke=True)
+        for arch in archs:
+            model = model_of(arch)
             z = np.load(Path(ref_dir) / f"{arch}.npz")
             full = ref_tree(model, z, "param")
-            rows = ("batch", None)
-            mb = {k: ctx.shard(torch.from_numpy(z[k]).long(), rows)
-                  for k in ("tokens", "targets")}
+            mb = rank_batch(z, ctx)
             local = shard_tree(full, model.defs, ctx)
             grads, (_, loss, aux) = loss_and_grads(
                 make_loss_fn(model, ctx), local, mb)
             grads = sync_grads(grads, model, ctx)
             out = {"loss": float(loss), "aux": float(aux),
                    "grads": [g.numpy() for g in grads]}
-            if shape in JAX_LAYOUTS:
+            if shape in jax_layouts(arch):
                 params = tree_unflatten(model.defs, [
                     t.clone() for t in tree_leaves(local)])
                 opt = warm_state(model, params, z, ctx, mdp)
@@ -305,29 +369,49 @@ def reference(tmp_path_factory):
     return shared_reference(tmp_path_factory)
 
 
-@pytest.fixture(scope="module")
-def runs(reference, tmp_path_factory):
-    """{(layout, rank): {arch: the rank's results}}, once per session."""
+def _runs(tmp_path_factory, name, layouts, archs, timeout):
+    """{(layout, rank): {arch: the rank's results}} of ``archs`` at each
+    of ``layouts``, once per session."""
     def build(out):
-        got = spawn_all(_rank_main, [(d * m, ((d, m), str(reference)))
-                                     for d, m in LAYOUTS])
+        got = spawn_all(_rank_main, [(d * m, ((d, m), str(reference), archs))
+                                     for d, m in layouts], timeout)
         with open(out / "runs.pkl", "wb") as f:
             pickle.dump({(shape, rank): res for shape, rank, res in got}, f)
 
-    with open(session_cached(tmp_path_factory, "tp_train_runs", build)
-              / "runs.pkl", "rb") as f:
+    reference = shared_reference(tmp_path_factory)
+    with open(session_cached(tmp_path_factory, name, build) / "runs.pkl",
+              "rb") as f:
         return pickle.load(f)
+
+
+@pytest.fixture(scope="module")
+def runs(reference, tmp_path_factory):
+    return _runs(tmp_path_factory, "tp_train_runs", LAYOUTS, ARCHS,
+                 TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def headless_runs(reference, tmp_path_factory):
+    """``HEADLESS``' ranks, spawned apart with their own time limit (a
+    rank with no heads that missed a collective would hang its group)."""
+    return _runs(tmp_path_factory, "tp_train_headless", [HEADLESS[1]],
+                 [HEADLESS[0]], HEADLESS_TIMEOUT_S)
+
+
+def runs_of(request, arch):
+    """The rank runs that hold ``arch``."""
+    return request.getfixturevalue(
+        "headless_runs" if arch == HEADLESS[0] else "runs")
 
 
 @pytest.fixture(scope="module")
 def unsharded(reference):
     from repro_torch.train.train_step import loss_and_grads, make_loss_fn
     out = {}
-    for arch in ARCHS:
-        model = build_model(arch, smoke=True)
+    for arch in ARCHS + [HEADLESS[0]]:
+        model = model_of(arch)
         z = np.load(Path(reference) / f"{arch}.npz")
-        batch = {k: torch.from_numpy(z[k]).long()
-                 for k in ("tokens", "targets")}
+        batch = rank_batch(z, NULL_CTX)
         grads, (_, loss, aux) = loss_and_grads(
             make_loss_fn(model), ref_tree(model, z, "param"), batch)
         out[arch] = (float(loss), float(aux), grads)
@@ -346,12 +430,20 @@ def _leaf_close(got, want, tol, what):
     assert err <= bound, f"{what}: {err} > {bound}"
 
 
-@pytest.mark.parametrize("shape", LAYOUTS, ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("arch", ARCHS)
+def _ids(cases):
+    return [f"{a}-{s[0]}x{s[1]}" for a, s in cases]
+
+
+GRAD_CASES = [(a, s) for a in ARCHS for s in LAYOUTS] + [HEADLESS]
+DP_CASES = [(a, s) for a in ARCHS for s in JAX_LAYOUTS] + [HEADLESS]
+
+
+@pytest.mark.parametrize("arch,shape", GRAD_CASES, ids=_ids(GRAD_CASES))
 def test_rank_gradients_are_slices_of_the_unsharded_gradient(
-        arch, shape, runs, unsharded, reference):
-    """(a), and (b) at the reference's two meshes."""
-    model = build_model(arch, smoke=True)
+        arch, shape, request, unsharded, reference):
+    """(a), and (b) at the reference's meshes."""
+    model = model_of(arch)
+    runs = runs_of(request, arch)
     loss, aux, want = unsharded[arch]
     z = np.load(Path(reference) / f"{arch}.npz")
     job = f"grad:{shape[0]}x{shape[1]}"
@@ -359,7 +451,7 @@ def test_rank_gradients_are_slices_of_the_unsharded_gradient(
         got, ctx = runs[(shape, rank)][arch], _ctx(shape, rank)
         assert got["loss"] == pytest.approx(loss, rel=TOL_PORT, abs=TOL_PORT)
         assert got["aux"] == pytest.approx(aux, rel=TOL_PORT, abs=TOL_PORT)
-        if shape in JAX_LAYOUTS:
+        if shape in jax_layouts(arch):
             assert got["loss"] == pytest.approx(float(z[f"{job}/loss"]),
                                                 rel=TOL_JAX, abs=TOL_JAX)
             assert got["aux"] == pytest.approx(float(z[f"{job}/aux"]),
@@ -369,7 +461,7 @@ def test_rank_gradients_are_slices_of_the_unsharded_gradient(
             what = f"{arch} {shape} rank {rank} leaf {i} {d.axes}"
             _leaf_close(g, ctx.shard(w, d.axes, d.parts).numpy(), TOL_PORT,
                         what)
-            if shape in JAX_LAYOUTS:
+            if shape in jax_layouts(arch):
                 ref = torch.from_numpy(np.array(z[f"{job}/grad/{i}"]))
                 _leaf_close(g, ctx.shard(ref, d.axes, d.parts).numpy(),
                             TOL_JAX, what + " vs JAX")
@@ -378,14 +470,17 @@ def test_rank_gradients_are_slices_of_the_unsharded_gradient(
 
 
 @pytest.mark.parametrize("shape", LAYOUTS, ids=lambda s: f"{s[0]}x{s[1]}")
-def test_elements_held_by_several_ranks_get_equal_gradients(shape, runs):
+def test_elements_held_by_several_ranks_get_equal_gradients(shape, request):
     """(c): per leaf, each global element that several ranks of one data
     group hold has bitwise the same gradient on every one of them (and
-    on every copy one rank holds)."""
+    on every copy one rank holds); at ``HEADLESS``' layout its ranks
+    too."""
     d_, m_ = shape
     held = 0
-    for arch in ARCHS:
-        model = build_model(arch, smoke=True)
+    archs = ARCHS + ([HEADLESS[0]] if shape == HEADLESS[1] else [])
+    for arch in archs:
+        model = model_of(arch)
+        runs = runs_of(request, arch)
         for data in range(d_):
             ranks = [data * m_ + j for j in range(m_)]
             for i, d in enumerate(tree_leaves(model.defs)):
@@ -409,12 +504,12 @@ def test_elements_held_by_several_ranks_get_equal_gradients(shape, runs):
     assert held > 0
 
 
-@pytest.mark.parametrize("shape", JAX_LAYOUTS, ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("arch", ARCHS)
-def test_manual_dp_step_matches_reference(arch, shape, runs, reference):
+@pytest.mark.parametrize("arch,shape", DP_CASES, ids=_ids(DP_CASES))
+def test_manual_dp_step_matches_reference(arch, shape, request, reference):
     """(d)."""
     from repro_torch.train.manual_dp import FlatLayout
-    model = build_model(arch, smoke=True)
+    model = model_of(arch)
+    runs = runs_of(request, arch)
     defs = tree_leaves(model.defs)
     z = np.load(Path(reference) / f"{arch}.npz")
     job = f"dp:{shape[0]}x{shape[1]}/0"
@@ -499,6 +594,12 @@ def _dry_rank(rank, port, arch, q) -> None:
                 with quiet():
                     dist.all_gather_into_tensor(out, inp, group=group)
 
+            def all_gather(self, out, t, group=None):
+                issued.append(("all_gather", str(t.dtype), sum(
+                    o.numel() * o.element_size() for o in out), size(group)))
+                with quiet():
+                    dist.all_gather(out, t, group=group)
+
         cfg = _train_cfg(arch)
         model = Model(cfg)
         suite = ShapeSuite("tp_train", 32, 8, "train")
@@ -509,6 +610,9 @@ def _dry_rank(rank, port, arch, q) -> None:
         toks = ctx.shard(torch.from_numpy(np.random.default_rng(5).integers(
             0, cfg.vocab, (8, 32))), ("batch", None)).clone()
         batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn(4, cfg.enc_seq,
+                                          cfg.d_model).bfloat16()
         step = mdp.make_manual_dp_train_step(model, AdamWConfig(),
                                              comm=comm, ctx=ctx)
         _, got = analyze_step(step, params, mdp.init_shard_state(
@@ -519,7 +623,8 @@ def _dry_rank(rank, port, arch, q) -> None:
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-1.2b", "rwkv6-7b",
+                                  "whisper-small"])
 def test_dry_run_of_a_model_axis_train_cell_counts_the_gloo_run(arch):
     from repro_torch.configs import ShapeSuite
     from repro_torch.launch import dryrun
