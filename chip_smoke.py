@@ -192,7 +192,22 @@ Phases, each fatal on failure (no fallback to the CPU):
    4 x 1500 frames and a 416-token prompt; rwkv6's f32 run at 8 of 32
    layers) and phase 13's training check (rwkv6 at 8 of 32 layers,
    whisper at full depth on 2 x 416 tokens; f32 cuts: rwkv6 at 2 layers,
-   whisper at full depth) for both models on two gloo ranks.
+   whisper at full depth) for both models on two gloo ranks;
+15. the K/V cache's sequence split round-robin over ranks ("kv_seq",
+   ``models/sharding.py``), under the reference cells' rules: the
+   tensor-core flash at each rank's (q heads, kv heads) of qwen2-vl-7b
+   over 8 ranks, and it and the SSD gla at zamba2-1.2b's 1 x 32,768
+   prefill, against their plain versions; then qwen2-vl-7b at full width
+   and 4 of 28 layers over (data 1, model 8) gloo ranks on the card
+   (decode_32k's rule: its 4 kv heads fewer than 8, the sequence on
+   "model", each rank holding every kv head at its positions) and
+   zamba2-1.2b at full depth over (data 2, model 1) (long_500k's rule:
+   the batch of 1 whole on each data rank, the shared attention's
+   sequence on "data"), 4 x 2048 and 1 x 32,768 prompts, ``fill_cache``
+   and 8 decode steps, in bf16 and f32, held as phase 12 holds its runs
+   (the rounding witness at 8 ranks), every rank's cache leaves the
+   layout's reckoning and the collectives of its prefill and of each
+   decode step exactly the dry run's plans.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -3017,6 +3032,46 @@ def check_dryrun(arch: str, dev, card: str, measured: dict) -> dict:
     return total
 
 
+def spawn_ranks(target, world: int, args: tuple, items: int,
+                timeout: float, what: str) -> tuple:
+    """``target(rank, port, *args, queue)`` in ``world`` processes spawned
+    on the one card (their gloo group on a free localhost port); returns
+    (the ``items`` reports they put on the queue, the seconds from spawn
+    to the last). A rank that fails, or ranks slower than ``timeout``,
+    fail the run, their processes stopped."""
+    import multiprocessing
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    mp = multiprocessing.get_context("spawn")
+    q = mp.Queue()
+    t0 = time.perf_counter()
+    procs = [mp.Process(target=target, args=(r, port, *args, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got, broken = [], None
+    while len(got) < items and broken is None:
+        try:
+            got.append(q.get(timeout=10))
+        except queue.Empty:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                broken = "a rank failed"
+            elif time.perf_counter() - t0 > timeout:
+                broken = f"the ranks took over {timeout} s"
+    seconds = time.perf_counter() - t0
+    for p in procs:
+        p.join(60 if broken is None else 5)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if broken or any(p.exitcode != 0 for p in procs):
+        fail(f"{what} on {world} ranks: {broken or 'a rank failed'} (exit "
+             f"codes {[p.exitcode for p in procs]})")
+    return got, seconds
+
+
 # ----------------------------------------------------------------- phase 12
 TP_ARCHS = ("internlm2-1.8b", "zamba2-1.2b", "qwen2-moe-a2.7b")
 TP_PATHS = {"internlm2-1.8b": "tp_internlm2", "zamba2-1.2b": "tp_zamba2",
@@ -3039,21 +3094,22 @@ def tp_prompt(model) -> int:
     return WHISPER_PROMPT if model.cfg.family == "encdec" else LM_PROMPT
 
 
-def tp_draw(model, dev, ctx=None):
+def tp_draw(model, dev, ctx=None, rows: int = LM_BATCH, prompt: int = 0):
     """Phase 9's seeded bf16 weights (this rank's slices of them under
     ``ctx``, drawn leaf by leaf) and the prefill's batch drawn after them
     from the same generator: the prompts [4, 2048] (whisper's [4, 416]
-    and its frames [4, 1500, 768], as phase 9 draws them)."""
+    and its frames [4, 1500, 768], as phase 9 draws them; ``rows`` x
+    ``prompt`` where given)."""
     import torch
     from repro_torch.models.sharding import NULL_CTX
     cfg = model.cfg
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model.init(gen, ctx or NULL_CTX)
     batch = {"tokens": torch.randint(0, cfg.vocab,
-                                     (LM_BATCH, tp_prompt(model)),
+                                     (rows, prompt or tp_prompt(model)),
                                      generator=gen, device=dev)}
     if cfg.family == "encdec":
-        batch["frames"] = torch.randn((LM_BATCH, cfg.enc_seq, cfg.d_model),
+        batch["frames"] = torch.randn((rows, cfg.enc_seq, cfg.d_model),
                                       generator=gen, device=dev).to(
                                           torch.bfloat16)
     return params, batch
@@ -3067,14 +3123,16 @@ def tp_steps(model, params, batch, feed=None, ctx=None) -> dict:
     ``ctx`` also the prefill's seconds, decode seconds and peak bytes
     over the prefill, and, where ``ctx``'s ``comm`` records them
     (``TptComm``), the collectives the prefill step issued (its greedy
-    token's all-gather included)."""
+    token's all-gather included) and those of each decode step; and the
+    shapes of the prefill's cache leaves and of the filled cache's."""
     import torch
     from repro_torch.examples.serve_lm import fill_cache
+    from repro_torch.models.param import tree_leaves
     from repro_torch.models.sharding import NULL_CTX
     from repro_torch.train.serve_step import greedy, make_decode_step
     ctx = ctx or NULL_CTX
     prompts = batch["tokens"]
-    n = prompts.shape[1]
+    rows, n = prompts.shape
     dev = prompts.device
     issued = getattr(ctx.comm, "issued", None)
     if issued is not None:
@@ -3089,16 +3147,23 @@ def tp_steps(model, params, batch, feed=None, ctx=None) -> dict:
     got, toks = [logits[:, -1]], [greedy(model, logits[:, -1], ctx)]
     if issued is not None:
         out["prefill_issued"] = list(issued)
+        out["decode_issued"] = []
     del logits
-    cache = fill_cache(model.init_cache(LM_BATCH, n + TP_DECODE, dev, ctx),
+    cache = fill_cache(model.init_cache(rows, n + TP_DECODE, dev, ctx),
                        pre)
+    out["prefill_cache"] = [tuple(t.shape) for t in tree_leaves(pre)]
+    out["cache"] = [tuple(t.shape) for t in tree_leaves(cache)]
     del pre
     decode = make_decode_step(model, ctx)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(TP_DECODE):
         tok = toks[-1] if feed is None else feed[:, i]
+        if issued is not None:
+            issued.clear()
         nxt, lg, cache = decode(params, cache, tok[:, None].long(), n + i)
+        if issued is not None:
+            out["decode_issued"].append(list(issued))
         got.append(lg)
         toks.append(nxt)
     torch.cuda.synchronize()
@@ -3111,23 +3176,30 @@ def tp_steps(model, params, batch, feed=None, ctx=None) -> dict:
 
 
 @contextlib.contextmanager
-def rounding_witness():
+def rounding_witness(pieces=None):
     """The two ranks' arithmetic at one rank: every row-parallel site
     (``wo``, the MLPs' ``w_down``, Mamba2's ``out_proj``) computed as two
     partial products over the halves of its inner dim in x's dtype (as
     each of the two ranks computes its half), summed in f32 and rounded
     once; the MoE's routed and shared sums are f32 in either case
-    (``moe_ffn``'s one ending). Yields the list of the sites it
-    computed: empty means the model no longer reached the patch."""
+    (``moe_ffn``'s one ending). ``pieces(rows, axis)``: the ranks' row
+    counts instead of the halves (``rank_pieces``). Yields the list of
+    the sites it computed: empty means the model no longer reached the
+    patch."""
     from repro_torch.models import blocks, layers
     saved = blocks.row_parallel, layers.row_parallel
     calls = []
 
     def halves(x, w, ctx, axis):
         h = w.shape[0] - w.shape[0] // 2      # rank 0 the larger share
+        sizes = pieces(w.shape[0], axis) if pieces else [h, w.shape[0] - h]
         calls.append(tuple(w.shape))
-        return ((x[..., :h].contiguous() @ w[:h]).float()
-                + (x[..., h:].contiguous() @ w[h:]).float()).to(x.dtype)
+        acc, lo = None, 0
+        for n in sizes:
+            part = (x[..., lo:lo + n].contiguous() @ w[lo:lo + n]).float()
+            acc = part if acc is None else acc + part
+            lo += n
+        return acc.to(x.dtype)
     blocks.row_parallel = layers.row_parallel = halves
     try:
         yield calls
@@ -3398,17 +3470,31 @@ def function_grads_bitwise(fn, plain, x0, go, what: str) -> None:
              f"plain version's")
 
 
-def check_local_kernels(dev, gen, train: bool = False) -> None:
+def attention_ref_by_head(q, k, v):
+    """The plain causal attention one kv head's group at a time (the
+    same function; its f32 scores of a 32,768-token sequence are 4 GiB
+    per head)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = q.shape[1] // k.shape[1]
+    return torch.cat([attention_ref(q[:, h * g:(h + 1) * g], k[:, h:h + 1],
+                                    v[:, h:h + 1])
+                      for h in range(k.shape[1])], 1)
+
+
+def check_local_kernels(dev, gen, train: bool = False, shapes=None,
+                        f32: bool = False) -> None:
     """The tensor-core flash and the SSD gla at the head counts the model
     axis gives ranks (``tp_kernel_shapes``: the two-rank runs' at M = 2,
-    and M = 4 and 16's; with ``train``, ``tp_train_shapes``), against
+    and M = 4 and 16's; with ``train``, ``tp_train_shapes``; ``shapes``
+    in their form instead, phase 15's ``kv_kernel_shapes``), against
     their plain versions (out 2e-2, gla's final state 2e-4), each call
     taken by its design; their ``work`` formulas scale with the heads
-    (the full model's count over M). With ``train`` the same shapes also
-    in f32, the dtype of phase 13's f32 cuts: the CUDA-core flash within
-    2e-5 and the serial gla within 2e-4 of their plain versions; and in
-    both dtypes the autograd Functions' input gradients, bitwise the
-    plain versions'."""
+    (the full model's count over M). With ``train`` or ``f32`` the same
+    shapes also in f32, the dtype of phases 13's and 15's f32 runs: the
+    CUDA-core flash within 2e-5 and the serial gla within 2e-4 of their
+    plain versions; with ``train``, in both dtypes, the autograd
+    Functions' input gradients, bitwise the plain versions'."""
     import torch
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention.ops import attention, mha
@@ -3417,11 +3503,11 @@ def check_local_kernels(dev, gen, train: bool = False) -> None:
     from repro_torch.kernels.gla_chunk.ops import gla, gla_fn
     from repro_torch.kernels.gla_chunk.ops import work as gla_work
     from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref, gla_ssd_ref
-    flash_shapes, gla_shapes = tp_train_shapes() if train else \
-        tp_kernel_shapes()
+    flash_shapes, gla_shapes = shapes or (
+        tp_train_shapes() if train else tp_kernel_shapes())
     grads = ("; the Function's input gradients bitwise the plain "
              "version's" if train else "")
-    for dtype in ((torch.bfloat16, torch.float32) if train
+    for dtype in ((torch.bfloat16, torch.float32) if train or f32
                   else (torch.bfloat16,)):
         name = str(dtype).split(".")[1]
         bf16 = dtype == torch.bfloat16
@@ -3436,7 +3522,8 @@ def check_local_kernels(dev, gen, train: bool = False) -> None:
             design_moved(before, after, "flash_attention", 1, label)
             design_moved(before, after, "flash_attention_tc", int(bf16),
                          label)
-            err = max_err(out, attention_ref(q, k, v), FLASH_TOL[name],
+            plain = attention_ref_by_head if s_ > 8192 else attention_ref
+            err = max_err(out, plain(q, k, v), FLASH_TOL[name],
                           f"{f_design} {label}")
             one = flash_work(q[:, :1], k[:, :1], v[:, :1])[0]
             if flash_work(q, k, v)[0] != hq * one:
@@ -3574,8 +3661,6 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
     and rank 0's device time by kind
     (``device_split``). A rank's failure fails the run. Returns rank 0's
     bf16 launches per model (its path in the kernels record)."""
-    import multiprocessing
-    import socket
     import torch
     from repro_torch.configs import ShapeSuite
     from repro_torch.launch import dryrun
@@ -3602,38 +3687,13 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
                       "them)")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    with socket.socket() as sk:
-        sk.bind(("localhost", 0))
-        port = sk.getsockname()[1]
-    mp = multiprocessing.get_context("spawn")
-    q = mp.Queue()
-    t0 = time.perf_counter()
-    procs = [mp.Process(target=tp_rank, args=(r, port, archs, refs, q))
-             for r in range(TP_RANKS)]
-    for p in procs:
-        p.start()
-    got, broken = {}, None
-    while len(got) < TP_RANKS * len(archs) and broken is None:
-        try:
-            r = q.get(timeout=10)
-            got[(r["arch"], r["rank"])] = r
-        except queue.Empty:
-            if any(p.exitcode not in (None, 0) for p in procs):
-                broken = "a rank failed"
-            elif time.perf_counter() - t0 > TP_TIMEOUT_S:
-                broken = f"the ranks took over {TP_TIMEOUT_S} s"
-    for p in procs:
-        p.join(60 if broken is None else 5)
-        if p.is_alive():
-            p.kill()
-            p.join()
-    if broken or any(p.exitcode != 0 for p in procs):
-        fail(f"serving {', '.join(archs)} on {TP_RANKS} ranks: "
-             f"{broken or 'a rank failed'} (exit codes "
-             f"{[p.exitcode for p in procs]})")
+    items, seconds = spawn_ranks(tp_rank, TP_RANKS, (archs, refs),
+                                 TP_RANKS * len(archs), TP_TIMEOUT_S,
+                                 f"serving {', '.join(archs)}")
+    got = {(r["arch"], r["rank"]): r for r in items}
     print(f"serving {', '.join(archs)}: {TP_RANKS} gloo ranks on the one "
           f"card ran "
-          f"{len(archs)} models in {time.perf_counter() - t0:.1f} s "
+          f"{len(archs)} models in {seconds:.1f} s "
           f"(spawn, imports and weights included)")
     counts = {}
     for arch in archs:
@@ -3826,11 +3886,11 @@ def tpt_unsharded(arch: str, dev, layers: int = 0) -> dict:
 
 
 class TptComm:
-    """Phase 13's and 14's collectives over gloo, each recorded as (op,
-    dtype, result bytes, group size) as it is issued; the reduce-scatter
-    and the all-gather into one tensor staged through host tensors
-    explicitly (gloo's all-reduce and list all-gather stage a CUDA tensor
-    themselves)."""
+    """Phase 13's, 14's and 15's collectives over gloo, each recorded as
+    (op, dtype, result bytes, group size) as it is issued; the
+    reduce-scatter and the all-gather into one tensor staged through host
+    tensors explicitly (gloo's all-reduce, list all-gather and
+    all-to-all take CUDA tensors themselves)."""
 
     def __init__(self):
         self.issued = []
@@ -3865,6 +3925,11 @@ class TptComm:
             o.numel() * o.element_size() for o in out),
             dist.get_world_size(group)))
         dist.all_gather(out, t, group=group)
+
+    def all_to_all_single(self, out, inp, group=None):
+        import torch.distributed as dist
+        self._rec("all_to_all_single", out, group)
+        dist.all_to_all_single(out, inp, group=group)
 
 
 def tpt_rank(rank: int, port: int, archs: tuple, f32_cuts: tuple,
@@ -4027,8 +4092,6 @@ def check_tp_train(dev, card: str, archs: tuple = TPT_ARCHS,
     lets two ranks on one card hold) and whisper-small (full depth, 2 x
     416 tokens and their frames) so, with its f32 cuts
     (``TPT14_F32``). Returns rank 0's launches per path."""
-    import multiprocessing
-    import socket
     import torch
     from repro_torch.configs import ShapeSuite
     from repro_torch.launch import dryrun
@@ -4054,41 +4117,16 @@ def check_tp_train(dev, card: str, archs: tuple = TPT_ARCHS,
               f"cell, in {time.perf_counter() - t0:.2f} s")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    with socket.socket() as sk:
-        sk.bind(("localhost", 0))
-        port = sk.getsockname()[1]
-    mp = multiprocessing.get_context("spawn")
-    q = mp.Queue()
-    t0 = time.perf_counter()
-    procs = [mp.Process(target=tpt_rank, args=(r, port, archs, f32_cuts, q))
-             for r in range(TP_RANKS)]
-    for p in procs:
-        p.start()
-    want_items = TP_RANKS * (len(archs) + len(f32_cuts))
-    got, broken = {}, None
-    while len(got) < want_items and broken is None:
-        try:
-            r = q.get(timeout=10)
-            got[(r["arch"], r["kind"], r["rank"])] = r
-        except queue.Empty:
-            if any(p.exitcode not in (None, 0) for p in procs):
-                broken = "a rank failed"
-            elif time.perf_counter() - t0 > TPT_TIMEOUT_S:
-                broken = f"the ranks took over {TPT_TIMEOUT_S} s"
-    for p in procs:
-        p.join(60 if broken is None else 5)
-        if p.is_alive():
-            p.kill()
-            p.join()
-    if broken or any(p.exitcode != 0 for p in procs):
-        names = ", ".join(a for a, _ in archs)
-        fail(f"training {names} on {TP_RANKS} ranks: "
-             f"{broken or 'a rank failed'} (exit codes "
-             f"{[p.exitcode for p in procs]})")
-    print(f"training {', '.join(a for a, _ in archs)}: {TP_RANKS} gloo "
+    names = ", ".join(a for a, _ in archs)
+    items, seconds = spawn_ranks(
+        tpt_rank, TP_RANKS, (archs, f32_cuts),
+        TP_RANKS * (len(archs) + len(f32_cuts)), TPT_TIMEOUT_S,
+        f"training {names}")
+    got = {(r["arch"], r["kind"], r["rank"]): r for r in items}
+    print(f"training {names}: {TP_RANKS} gloo "
           f"ranks on the one card trained "
           f"{len(archs)} models and {len(f32_cuts)} f32 cuts in "
-          f"{time.perf_counter() - t0:.1f} s (spawn, imports and weights "
+          f"{seconds:.1f} s (spawn, imports and weights "
           f"included)")
     counts = {}
     for arch, layers in archs:
@@ -4337,6 +4375,369 @@ def check_local_kernels_14(dev, gen) -> None:
           "output; the kernel's wrapper refuses 0 kv heads")
 
 
+# ----------------------------------------------------------------- phase 15
+# the K/V cache's sequence split round-robin over ranks ("kv_seq"): (arch,
+# its layers cut to (0: all), (data, model) ranks on the one card, rows,
+# prompt, the reference cell whose rule splits it). qwen2-vl-7b's 4 kv
+# heads are fewer than 8 ranks, so decode_32k's rule puts the sequence on
+# "model" (its kv heads whole on every rank, its 28 q heads 4 / 4 / 4 / 4
+# / 3 / 3 / 3 / 3); long_500k's rule holds zamba2-1.2b's batch of 1 whole
+# on each data rank and puts its shared attention's sequence on "data"
+KV_JOBS = (("qwen2-vl-7b", 4, (1, 8), LM_BATCH, LM_PROMPT, "decode_32k"),
+           ("zamba2-1.2b", 0, (2, 1), 1, 32768, "long_500k"))
+KV_PATHS = {"qwen2-vl-7b": "kv_qwen2vl", "zamba2-1.2b": "kv_zamba2"}
+KV_TIMEOUT_S = 600                 # one job's ranks, spawn to exit
+
+
+def kv_model(arch: str, layers: int):
+    """``arch`` at full width, its first ``layers`` layers (0: all)."""
+    import dataclasses
+    from repro_torch.models import Model, build_model
+    model = build_model(arch)
+    if layers:
+        model = Model(dataclasses.replace(model.cfg, n_layers=layers))
+    return model
+
+
+def kv_ctx(model, job, rank=None, comm=None):
+    """A rank's context of ``job``: its mesh (process-free with ``rank``)
+    under the reference cell's rules (``launch.dryrun.cell_rules``)."""
+    from repro_torch.configs import SHAPE_SUITES
+    from repro_torch.launch.dryrun import cell_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import ShardingCtx
+    _, _, shape, _, _, cell = job
+    return ShardingCtx(make_mesh(shape, ("data", "model"), rank=rank),
+                       cell_rules(model.cfg, SHAPE_SUITES[cell], shape[1]),
+                       comm=comm)
+
+
+def rank_pieces(model, m: int):
+    """``rounding_witness``'s pieces for ``m`` ranks: a row-parallel
+    weight's rows as the ranks hold them (by whole heads over "heads",
+    by rows over "ff")."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import ShardingCtx, default_rules
+    ctx = ShardingCtx(make_mesh((1, m), ("data", "model"), rank=0),
+                      default_rules())
+    hd = model.cfg.resolved_head_dim
+
+    def pieces(rows, axis):
+        unit = hd if axis == "heads" else 1
+        return [len(ctx.indices(axis, rows // unit, at=i)) * unit
+                for i in range(m)]
+    return pieces
+
+
+@contextlib.contextmanager
+def split_decode_witness(m: int, pv_f32: bool = False):
+    """A split cache's decode arithmetic at one rank: every decode step's
+    ``attend_decode`` over the unsharded cache computed in ``m``
+    round-robin pieces (piece ``r`` positions ``r, r + m, ...``, copied
+    contiguous as a rank holds them) and combined as the ranks combine
+    them: f32 logits per piece, the max over the pieces, the f32 sum of
+    their sums of exponentials in rank order, each piece's probabilities
+    rounded to the compute dtype times its V, the pieces' products summed
+    in f32 and rounded once. ``pv_f32``: each piece's product kept in
+    f32 (its bf16 factors are exact there) in place of rounded to the
+    compute dtype, which leaves the split softmax sums as the one
+    difference from the unsplit decode. Yields the list of the calls it
+    computed: empty means the model no longer reached the patch."""
+    import torch
+    from repro_torch.models import attention, blocks
+    saved = blocks.attend_decode
+    calls = []
+
+    def pieces(q, k_cache, v_cache, *, cache_len, ctx):
+        b, _, hq, d = q.shape
+        hkv = k_cache.shape[2]
+        calls.append(tuple(k_cache.shape))
+        dt = torch.promote_types(q.dtype, k_cache.dtype)
+        qg = q.reshape(b, hkv, hq // hkv, d).to(dt)
+        logits, vs = [], []
+        for r in range(m):
+            k_r = k_cache[:, r::m].contiguous().to(dt)
+            lg = torch.einsum("bhgd,bkhd->bhgk", qg, k_r).float() * d ** -0.5
+            valid = (torch.arange(k_r.shape[1], device=q.device) * m + r
+                     < cache_len)
+            logits.append(lg.masked_fill(~valid, attention.NEG_INF))
+            vs.append(v_cache[:, r::m].contiguous().to(dt))
+        top = torch.stack([lg.amax(-1, keepdim=True) for lg in logits]
+                          ).amax(0)
+        es = [torch.exp(lg - top) for lg in logits]
+        total = es[0].sum(-1, keepdim=True)
+        for e in es[1:]:
+            total = total + e.sum(-1, keepdim=True)
+        out = None
+        for e, v_r in zip(es, vs):
+            probs = (e / total).to(dt)
+            part = (torch.einsum("bhgk,bkhd->bhgd", probs.float(), v_r.float())
+                    if pv_f32 else
+                    torch.einsum("bhgk,bkhd->bhgd", probs, v_r).float())
+            out = part if out is None else out + part
+        return out.to(dt).reshape(b, 1, hq, d).to(q.dtype)
+    blocks.attend_decode = pieces
+    try:
+        yield calls
+    finally:
+        blocks.attend_decode = saved
+
+
+def kv_kernel_shapes() -> tuple:
+    """(flash, gla) in ``TP_LOCAL_FLASH`` / ``TP_LOCAL_GLA``'s form at
+    the shapes phase 15's ranks give the kernels: qwen2-vl's prefill at
+    each rank's (q heads, kv heads) of 8, zamba2's shared attention and
+    Mamba2 layers at 1 x 32,768 with every head (model axis 1)."""
+    from repro_torch.models.blocks import kv_parts, mamba_dims
+    flash, gla = [], []
+    for job in KV_JOBS:
+        arch, layers, shape, rows, prompt, _ = job
+        model = kv_model(arch, layers)
+        cfg = model.cfg
+        seen = set()
+        for m in range(shape[1]):
+            ctx = kv_ctx(model, job, rank=m)
+            hq = len(ctx.indices("heads", cfg.n_heads))
+            hkv = len(ctx.indices("kv_heads", cfg.n_kv_heads,
+                                  kv_parts(cfg)))
+            if hq and (hq, hkv) not in seen:       # a head-less rank none
+                seen.add((hq, hkv))
+                flash.append((f"{arch} prefill, rank {m} of {shape}", rows,
+                              hq, hkv, prompt, cfg.resolved_head_dim))
+        if cfg.family == "hybrid":
+            _, nh, dv, st = mamba_dims(cfg)
+            gla.append((f"{arch} prefill at {shape}", rows, prompt,
+                        nh // shape[1], st, dv))
+    return tuple(flash), tuple(gla)
+
+
+def kv_plans(model, job) -> tuple:
+    """The dry run's plans (``model_axis_plan``) of rank 0's prefill and
+    of one decode step of ``job``, as ``TptComm`` records them."""
+    from repro_torch.configs import ShapeSuite
+    from repro_torch.launch import dryrun
+    _, _, shape, rows, prompt, _ = job
+    ctx = kv_ctx(model, job, rank=0)
+    out = []
+    for suite in (ShapeSuite("kv_prefill", prompt, rows, "prefill"),
+                  ShapeSuite("kv_decode", prompt + TP_DECODE, rows,
+                             "decode")):
+        out.append([(c["op"], c["dtype"], c["result_bytes"], c["group"])
+                    for c in dryrun.model_axis_plan(model, suite, rows, ctx)])
+    return tuple(out)
+
+
+def kv_unsharded(job, dev) -> dict:
+    """The unsharded card runs phase 15 holds ``job``'s ranks against
+    (``tp_unsharded``'s): bf16 free-running; its rounding witness, fed the
+    same tokens: the ranks' arithmetic at one rank (``rounding_witness``'s
+    row-parallel pieces at the job's model axis, none at 1, and
+    ``split_decode_witness``'s decode at the cache's M pieces); the same
+    with each piece's PV product kept in f32 (``witness_f32_pv``); f32."""
+    import torch
+    arch, layers, shape, rows, prompt, _ = job
+    model = kv_model(arch, layers)
+    m_seq = kv_ctx(model, job, rank=0).size("kv_seq")
+    params, batch = tp_draw(model, dev, rows=rows, prompt=prompt)
+    out = {"prompts": batch["tokens"].cpu().numpy(),
+           "bf16": tp_steps(model, params, batch)}
+    feed = torch.from_numpy(out["bf16"]["tokens"][:, :TP_DECODE]).to(dev)
+    for key, pv_f32 in (("witness", False), ("witness_f32_pv", True)):
+        with contextlib.ExitStack() as stack:
+            sites = (stack.enter_context(rounding_witness(
+                rank_pieces(model, shape[1]))) if shape[1] > 1 else [None])
+            calls = stack.enter_context(split_decode_witness(m_seq, pv_f32))
+            out[key] = tp_steps(model, params, batch, feed)
+        if not sites or not calls:
+            fail(f"{arch}: the rounding witness reached no row-parallel "
+                 f"site ({len(sites)}) or decode ({len(calls)})")
+    f_model, params, batch = tp_f32(model, params, batch)
+    out["f32"] = tp_steps(f_model, params, batch)
+    del params, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def kv_rank(rank: int, port: int, job: tuple, ref: dict, q) -> None:
+    """One of phase 15's gloo ranks of ``job`` on the one card: its
+    slices of the seeded weights (the ranks draw in turn), the prefill and
+    decode steps fed the unsharded run's tokens in bf16, then in f32,
+    each run's launches, collectives and cache shapes. Rank (0, 0) reports
+    the logits too; every rank its peak over the bf16 prefill."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    arch, layers, shape, rows, prompt, _ = job
+    world = shape[0] * shape[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        model = kv_model(arch, layers)
+        ctx = kv_ctx(model, job, comm=TptComm())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        for r in range(world):              # one rank draws at a time
+            if r == rank:
+                params, batch = tp_draw(model, dev, ctx, rows, prompt)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        if not bool((batch["tokens"].cpu().numpy() == ref["prompts"]).all()):
+            raise RuntimeError(f"{arch}: rank {rank} drew other prompts "
+                               f"than the unsharded run")
+        out = {"rank": rank, "coord": (ctx.mesh.coord("data"),
+                                       ctx.mesh.coord("model"))}
+        for key in ("bf16", "f32"):
+            if key == "f32":
+                model, params, batch = tp_f32(model, params, batch)
+            feed = torch.from_numpy(ref[key]["tokens"]).to(dev)
+            reset_launch_counts()
+            got = tp_steps(model, params, batch, feed, ctx)
+            out[key + "_launches"] = lm_launches(launch_counts())
+            if rank != 0:                   # the logits are rank 0's to send
+                got = {k: v for k, v in got.items()
+                       if k not in ("logits", "tokens")}
+            out[key] = got
+        out["bf16"]["peak"] -= base
+        q.put(out)
+        del params, batch
+    finally:
+        dist.destroy_process_group()
+
+
+def check_kv_seq(dev, card: str) -> dict:
+    """Phase 15: for each of ``KV_JOBS`` the unsharded card runs (then
+    freed), then the job's gloo ranks on the one card fed the same
+    tokens, the cache's sequence split round-robin. Held: (a) bf16
+    logits of the prefill and every decode step within 0.02 x
+    max(|logits|, 1) of the unsharded run's, or, where the rounding
+    witness (``kv_unsharded``: the ranks' arithmetic at one rank) misses
+    that too, their mean within 1.25x the witness's; the witness with
+    f32 PV products and the ranks' distance from the witness reported;
+    f32 within 1e-3 x max(|logits|, 1); (b) every
+    rank's cache leaves (the prefill's, and the filled cache's of prompt
+    + 8 positions) of the shapes ``local_defs`` reckons: its round-robin
+    positions, its kv heads whole where the sequence shares their axis;
+    (c) the collectives every rank's prefill and each decode step issued
+    exactly the dry run's plans; (d) rank 0's launches those of one
+    prefill (no kernel in decode). Returns rank 0's launches per run
+    (bf16 and f32) by path."""
+    import torch
+    from repro_torch.models.param import local_defs, tree_leaves, tree_paths
+    counts = {}
+    for job in KV_JOBS:
+        arch, layers, shape, rows, prompt, cell = job
+        model = kv_model(arch, layers)
+        t0 = time.perf_counter()
+        ref = kv_unsharded(job, dev)
+        print(f"phase 15 {arch} ({model.cfg.n_layers} layers) unsharded "
+              f"references on the card (bf16, its rounding witness twice "
+              f"(the ranks' PV products, then f32 ones), f32: prefill "
+              f"{rows} x {prompt}, {TP_DECODE} decode steps each) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        plans = kv_plans(model, job)
+        world = shape[0] * shape[1]
+        items, seconds = spawn_ranks(kv_rank, world, (job, ref), world,
+                                     KV_TIMEOUT_S,
+                                     f"phase 15 {arch} over {shape}")
+        got = {r["rank"]: r for r in items}
+        r0 = got[0]
+        # (a) logits
+        errs = tp_errors(r0["bf16"], ref["bf16"], 0.02)
+        mean = sum(errs) / len(errs)
+        wit = tp_errors(ref["witness"], ref["bf16"], 0.02)
+        wmean = sum(wit) / len(wit)
+        if max(errs) < 1.0:
+            held = "within the bound"
+        elif max(wit) >= 1.0 and mean <= TP_WITNESS_SLACK * wmean:
+            held = (f"MISSED in bf16, as the rounding witness misses it (at "
+                    f"most {max(wit):.4f}): mean {mean:.4f}, "
+                    f"{mean / wmean:.4f}x the witness's")
+        else:
+            fail(f"{arch} over {shape} (bf16): logits per step "
+                 f"{[round(e, 4) for e in errs]} of 0.02 x max(|logits|, 1) "
+                 f"(mean {mean:.4f}); the rounding witness {max(wit):.4f} "
+                 f"(mean {wmean:.4f})")
+        pv = tp_errors(ref["witness_f32_pv"], ref["bf16"], 0.02)
+        near = tp_errors(r0["bf16"], ref["witness"], 0.02)
+        f32 = tp_errors(r0["f32"], ref["f32"], 1e-3)
+        if not max(f32) <= 1.0:
+            fail(f"{arch} over {shape} (f32): logits {max(f32):.4f} of "
+                 f"1e-3 x max(|logits|, 1)")
+        agree = float((r0["bf16"]["tokens"] == ref["bf16"]["tokens"]).mean())
+        # (b) cache shapes, (c) collectives, per rank
+        pre_plan, dec_plan = plans
+        cache_bytes = []
+        for rank in sorted(got):
+            r = got[rank]
+            ctx = kv_ctx(model, job, rank=rank)
+            for key, n in (("prefill_cache", prompt),
+                           ("cache", prompt + TP_DECODE)):
+                want = [d.shape for d in tree_leaves(local_defs(
+                    model.cache_defs(rows, n), ctx))]
+                if r["bf16"][key] != want:
+                    fail(f"{arch} rank {rank}: {key} leaves "
+                         f"{r['bf16'][key]}, the layout reckons {want}")
+            if r["bf16"]["prefill_issued"] != pre_plan or any(
+                    step != dec_plan for step in r["bf16"]["decode_issued"]):
+                fail(f"{arch} rank {rank} issued {r['bf16']['prefill_issued']}"
+                     f" in the prefill and {r['bf16']['decode_issued']} in "
+                     f"decode; the dry run's plans are {pre_plan} and "
+                     f"{dec_plan}")
+            leaves = dict(zip([p for p, _ in tree_paths(model.cache_defs(
+                rows, prompt + TP_DECODE))], r["bf16"]["cache"]))
+            kv_leaf = "shared/k" if "shared/k" in leaves else "k"
+            cache_bytes.append(
+                f"rank {r['coord']}: {kv_leaf} {leaves[kv_leaf]} = "
+                f"{math.prod(leaves[kv_leaf]) * 2} B, peak "
+                f"{r['bf16']['peak'] / 2**30:.3f} GiB")
+        # (d) launches
+        for key, bf16 in (("bf16", True), ("f32", False)):
+            want = lm_expected(model, bf16=bf16)
+            if r0[key + "_launches"] != want:
+                fail(f"{arch} rank 0 launched {r0[key + '_launches']} in "
+                     f"{key}; expected {want}")
+        counts[KV_PATHS[arch]] = r0["bf16_launches"]
+        counts[KV_PATHS[arch] + "_f32"] = r0["f32_launches"]
+        runs = [got[k]["bf16"] for k in sorted(got)]
+        print(f"phase 15 {arch} ({model.cfg.n_layers} layers) over "
+              f"(data, model) = {shape}, {cell}'s rule (the cache's "
+              f"sequence round-robin over "
+              f"{kv_ctx(model, job, rank=0).mesh_axes('kv_seq')[0]}), gloo "
+              f"ranks on the one card vs the unsharded card run [{card}]: "
+              f"bf16 logits per step {[round(e, 4) for e in errs]} of 0.02 "
+              f"x max(|logits|, 1): {held}; the rounding witness (the "
+              f"ranks' arithmetic at one rank: row-parallel sums in "
+              f"{shape[1]} pieces, the decode in "
+              f"{kv_ctx(model, job, rank=0).size('kv_seq')} round-robin "
+              f"pieces) {[round(e, 4) for e in wit]}, with "
+              f"each piece's PV product kept in f32 "
+              f"{[round(e, 4) for e in pv]}; the ranks from the witness "
+              f"{[round(e, 4) for e in near]}; greedy tokens agree "
+              f"{agree:.4f}; f32 at most {max(f32):.4f} of 1e-3 x "
+              f"max(|logits|, 1); every rank's cache the layout's "
+              f"reckoning, its prefill's {len(pre_plan)} and each decode "
+              f"step's {len(dec_plan)} collectives the dry run's plans; "
+              f"rank 0 launched {r0['bf16_launches']} (bf16), "
+              f"{r0['f32_launches']} (f32); ranks ran in {seconds:.1f} s "
+              f"(spawn, imports and weights included; rank 0 prefill "
+              f"{runs[0]['prefill_s'] * 1e3:.1f} ms, decode "
+              f"{runs[0]['decode_s'] / TP_DECODE * 1e3:.2f} ms/step, gloo: "
+              f"no tensor-parallel speedup)")
+        for line in cache_bytes:
+            print(f"phase 15 {arch} cache and peak, {line} [{card}]")
+        del ref
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return counts
+
+
 def build_model_layers(arch: str) -> int:
     from repro_torch.models import build_model
     return build_model(arch).cfg.n_layers
@@ -4490,6 +4891,14 @@ def main() -> None:
         dev, card, archs=TPT14, f32_cuts=TPT14_F32).items()})
     print(f"phase 14 (rwkv6-7b and whisper-small under the model axis) in "
           f"{time.perf_counter() - t14:.1f} s [{card}]")
+    t15 = time.perf_counter()                                  # phase 15
+    check_local_kernels(dev, torch.Generator(device=dev).manual_seed(15),
+                        shapes=kv_kernel_shapes(), f32=True)
+    tp_counts.update({path: by_design(c)
+                      for path, c in check_kv_seq(dev, card).items()})
+    print(f"phase 15 (the K/V cache's sequence split: qwen2-vl-7b over 8 "
+          f"ranks, zamba2-1.2b over 2 data ranks) in "
+          f"{time.perf_counter() - t15:.1f} s [{card}]")
     for name, t in fn_times.items():
         next(r for r in results if r["name"] == name).update(
             train_forward_ms=t["fwd_ms"], recompute_backward_ms=t["bwd_ms"],

@@ -17,9 +17,11 @@ kernels counted by their own formulas, as rank 0 of the layout.
 ``--model M`` (default 1) is the model axis beside ``--cards N``: a
 (data = N / M, model = M) mesh in its process-free form
 (``launch.mesh.make_mesh(..., rank=0)``), with the reference's rules per
-cell (``src/repro/launch/dryrun.py:84-94``: ``kv_seq`` on "model" for
-prefill and decode when the kv heads are fewer than the model axis,
-which the port holds whole: ROADMAP C). At M > 1 a cell of any family
+cell (``src/repro/launch/dryrun.py:84-94``: the K/V cache's sequence,
+``kv_seq``, on "model" for prefill and decode when the kv heads are fewer
+than the model axis, and on "data" at long_500k with the batch of 1
+whole on each data rank; the port deals it round-robin,
+``models/sharding.py``). At M > 1 a cell of any family
 traces rank 0's step with its parameters
 (``Model.abstract(ctx)``, ``local_defs``) and a ``RecordedCollectives``
 in place of ``torch.distributed``: ``make_prefill_step`` /
@@ -27,13 +29,12 @@ in place of ``torch.distributed``: ``make_prefill_step`` /
 ``make_manual_dp_train_step`` over the data axis beside the model axis
 (its ZeRO shard over data of its slices' moments, its part of the
 batch); what it issued is held against ``model_axis_plan``, and the
-cell's JSON gives each collective's bytes. ``long_500k`` at M > 1 runs
-under the reference's rule there (the batch of 1 whole on each data
-rank) where the model holds no K/V cache (rwkv6's state is fixed-size);
-a model with one (zamba2's shared attention: the reference shards
-``kv_seq`` over data), the ``fsdp`` / ``seq_parallel`` /
-``second_matmul="col"`` overrides and ``dp_mode`` other than "manual"
-report ``status: "not_ported"`` with the ROADMAP item as the reason.
+cell's JSON gives each collective's bytes (a split cache's: per
+attention layer a prefill's two all-to-alls, a decode's all-gather of
+the token's q, k and v and the log-sum-exp's three all-reduces). The
+``fsdp`` / ``seq_parallel`` / ``second_matmul="col"`` overrides and
+``dp_mode`` other than "manual" report ``status: "not_ported"`` with the
+ROADMAP item as the reason.
 
 At M = 1 the layout over ``--cards N`` is ``train/manual_dp.py``'s:
 parameters replicated, AdamW moments ZeRO-sharded N ways, the batch split
@@ -79,8 +80,6 @@ from repro_torch.train.train_step import make_train_step
 
 # the ROADMAP item each layout the port lacks waits for
 NOT_PORTED = {
-    "long_500k": "A: kv_seq sharding (the reference shards the cache's "
-                 "sequence over data at long_500k)",
     "layout": "A: fsdp / seq_parallel / second_matmul=\"col\"",
     "dp_mode": "A: dp_mode \"auto\" (GSPMD's ZeRO) has no counterpart; "
                "the port's data-parallel training is manual_dp",
@@ -90,9 +89,10 @@ NOT_PORTED = {
 class RecordedCollectives:
     """The collectives of a traced step, as rank 0: ``manual_dp``'s
     (``torch.distributed``'s signatures, recorded in ``collective_plan``'s
-    form) and the model axis's (``all_reduce`` / ``all_gather`` with a
-    ``group``: a process-free mesh's ``AxisGroup``, recorded with its axis
-    and size). Nothing moves (the tensors are ``meta``)."""
+    form) and the model axis's (``all_reduce`` / ``all_gather`` /
+    ``all_to_all_single`` with a ``group``: a process-free mesh's
+    ``AxisGroup``, recorded with its axis and size). Nothing moves (the
+    tensors are ``meta``)."""
 
     def __init__(self, plan: Optional[List[Dict]] = None):
         self.plan = plan or []      # what the step should issue
@@ -119,6 +119,9 @@ class RecordedCollectives:
     def all_gather(self, out_list, t, group=None):
         self._record("all_gather", "all-gather", out_list, group)
 
+    def all_to_all_single(self, out, inp, group=None):
+        self._record("all_to_all_single", "all-to-all", out, group)
+
 
 def cell_rules(cfg, suite: ShapeSuite, model_axis: int) -> Dict[str, Any]:
     """The reference's rules for a serving cell
@@ -134,8 +137,7 @@ def cell_rules(cfg, suite: ShapeSuite, model_axis: int) -> Dict[str, Any]:
     return rules
 
 
-def _ar(n_bytes: int, axis: str = "model", size: int = 0
-        ) -> Dict[str, Any]:
+def _ar(n_bytes: int, axis: str, size: int) -> Dict[str, Any]:
     """One f32 all-reduce of ``n_bytes`` in the plan's form."""
     return {"op": "all_reduce", "kind": "all-reduce",
             "dtype": "torch.float32", "result_bytes": n_bytes, "axis": axis,
@@ -148,10 +150,53 @@ def _ag(n_bytes: int, dtype: str, size: int) -> Dict[str, Any]:
             "result_bytes": n_bytes, "axis": "model", "group": size}
 
 
+def kv_seq_collectives(model: Model, b: int, s: int, ctx: ShardingCtx,
+                       mode: str) -> List[Dict[str, Any]]:
+    """Rank 0's collectives of one self-attention layer's cache where
+    ``ctx`` splits its sequence ("kv_seq"), on ``b`` x ``s`` tokens in
+    ``mode`` (none in training, or where the sequence is whole): a
+    prefill's all-to-all of K, then of V, over the heads' axis (none on
+    "data", where every rank keeps its own positions); a decode's
+    all-gather of the token's q, k and v packed (where the sequence
+    shares the heads' axis, in the activations' dtype), then the
+    log-sum-exp's three f32 all-reduces over the kv_seq axis (the row
+    maxima, the sums of exponentials, the output)."""
+    from repro_torch.models import blocks
+    from repro_torch.models.sharding import Part
+    m = ctx.size("kv_seq")
+    if mode == "train" or m == 1:
+        return []
+    cfg = model.cfg
+    axis = ctx.mesh_axes("kv_seq")[0]
+    shared = ctx.shares_axis("kv_seq", "heads")
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if mode == "prefill":
+        if not shared:
+            return []
+        width = max(len(o) for o in blocks.kv_owners(cfg, ctx))
+        a2a = {"op": "all_to_all_single", "kind": "all-to-all",
+               "dtype": str(blocks.KV_CACHE_DTYPE),
+               "result_bytes": m * b * -(-s // m) * width * hd
+               * blocks.KV_CACHE_DTYPE.itemsize, "axis": axis, "group": m}
+        return [a2a, a2a]
+    out = []
+    if shared:
+        dtype = model.defs["embed"].dtype
+        parts = (Part(hq * hd, hq),) + (Part(hkv * hd, hkv, kv_of=hq),) * 2
+        width = max(len(ctx.indices("heads", (hq + 2 * hkv) * hd, parts,
+                                    at=i)) for i in range(m))
+        out.append(_ag(m * b * width * dtype.itemsize, str(dtype), m))
+    else:
+        hq = len(ctx.indices("heads", hq))
+    return out + [_ar(4 * b * hq, axis, m)] * 2 + [_ar(4 * b * hq * hd,
+                                                        axis, m)]
+
+
 def layer_bodies(model: Model, b: int, s: int, ctx: ShardingCtx,
-                 decode: bool = False) -> List[Tuple[list, int, list]]:
+                 mode: str = "train") -> List[Tuple[list, int, list]]:
     """Rank 0's collectives of each piece of a step on ``b`` x ``s``
-    tokens under ``ctx``, in forward order: the embedding's all-reduce,
+    tokens under ``ctx`` in ``mode``, in forward order: the embedding's
+    all-reduce,
     and each layer body (one decoder block, one Mamba2 layer, one
     application of zamba2's shared block, one RWKV6 block, one whisper
     encoder or decoder layer), each as (the forward's, how many of them
@@ -166,11 +211,14 @@ def layer_bodies(model: Model, b: int, s: int, ctx: ShardingCtx,
     its k input, then the time mix's LoRA hidden and its r / k / v / g
     mixes; whisper's MLP input, then the cross-attention's and the self-
     attention's). Whisper's encoder layers (at ``enc_seq`` frames) come
-    first where ``decode`` is False, then its output's ``copy`` into the
-    decoder's K/V projections (one all-reduce in the backward). The MoE's
-    load balance is all-reduced where ``ctx`` splits "batch"."""
+    first outside decode, then its output's ``copy`` into the decoder's
+    K/V projections (one all-reduce in the backward). The MoE's load
+    balance is all-reduced where ``ctx`` splits "batch". Each
+    self-attention's forward starts with its split cache's collectives
+    (``kv_seq_collectives``)."""
     cfg, m = model.cfg, ctx.size("heads")
     act = 4 * b * s * cfg.d_model
+    kv = kv_seq_collectives(model, b, s, ctx, mode)
 
     def ar(n, axis="model", size=m):
         return _ar(n, axis, size)
@@ -184,7 +232,8 @@ def layer_bodies(model: Model, b: int, s: int, ctx: ShardingCtx,
                            [ar(4 * b * s), ar(4 * b * s * 2 * st),
                             ar(act)]))
             if (i + 1) % k == 0 and (i + 1) // k <= model.n_shared_apps():
-                bodies.append(([ar(act), ar(act)], 1, [ar(act), ar(act)]))
+                bodies.append((kv + [ar(act), ar(act)], 1,
+                               [ar(act), ar(act)]))
         return bodies
     if cfg.family == "ssm":
         from repro_torch.models.blocks import RWKV_LORA, rwkv6_heads
@@ -196,15 +245,15 @@ def layer_bodies(model: Model, b: int, s: int, ctx: ShardingCtx,
                 [ar(act), ar(act), ar(4 * b * s * RWKV_LORA), ar(4 * act)])
         return bodies + [body] * cfg.n_layers
     if cfg.family == "encdec":
-        layer = ([ar(act)] * 3, 2, [ar(act)] * 3)
-        if decode:
+        layer = (kv + [ar(act)] * 3, 2, [ar(act)] * 3)
+        if mode == "decode":
             return bodies + [layer] * cfg.n_layers
         enc = 4 * b * cfg.enc_seq * cfg.d_model
         return ([([ar(enc)] * 2, 1, [ar(enc)] * 2)] * cfg.n_enc_layers
                 + [([], 0, [ar(enc)])] + bodies + [layer] * cfg.n_layers)
     data = ctx.size("batch")
     for _ in range(cfg.n_layers):
-        fwd = [ar(act)]
+        fwd = kv + [ar(act)]
         if cfg.moe is not None and data > 1:
             fwd.append(ar(2 * 4 * cfg.moe.padded_experts, "data", data))
         fwd.append(ar(act))
@@ -219,11 +268,13 @@ def model_axis_plan(model: Model, suite: ShapeSuite, batch: int,
                     ctx: ShardingCtx) -> List[Dict[str, Any]]:
     """The collectives rank 0 issues in one step of ``batch`` sequences
     (its part of the batch) under ``ctx``, in order, reckoned from the
-    config (``layer_bodies``). All f32 but RWKV6's gathered gate (the
-    activations' dtype).
+    config (``layer_bodies``); none over a mesh axis of one rank
+    (``issued``). All f32 but RWKV6's gathered gate (the activations'
+    dtype).
 
     Serving: the embedding's all-reduce; per decoder block the
-    attention's and the MLP's (MoE: the load balance's over a split
+    attention's (after its split cache's, ``kv_seq_collectives``) and
+    the MLP's (MoE: the load balance's over a split
     batch, then the experts'); per Mamba2 layer its gated norm's and its
     ``out_proj``'s, and the shared block's two after each group; per
     RWKV6 block the time mix's, the channel mix's and its gate's
@@ -246,20 +297,19 @@ def model_axis_plan(model: Model, suite: ShapeSuite, batch: int,
     if suite.kind != "train":
         s = 1 if suite.kind == "decode" else suite.seq_len
         plan = []
-        for fwd, _, _ in layer_bodies(model, batch, s, ctx,
-                                      decode=suite.kind == "decode"):
+        for fwd, _, _ in layer_bodies(model, batch, s, ctx, suite.kind):
             plan += fwd
         plan.append({"op": "all_gather", "kind": "all-gather",
                      "dtype": "torch.float32",
                      "result_bytes": m * batch * 2 * 4, "axis": "model",
                      "group": m})
-        return plan
+        return issued(plan)
     n_mb = max(cfg.microbatches, 1)
     b, s = batch // n_mb, suite.seq_len
     local = ctx.batch_local()
     bodies = layer_bodies(model, b, s, local)
-    act = _ar(4 * b * s * cfg.d_model, size=m)
-    tok = _ar(4 * b * s, size=m)
+    act = _ar(4 * b * s * cfg.d_model, "model", m)
+    tok = _ar(4 * b * s, "model", m)
     step = []
     for fwd, _, _ in bodies:
         step += fwd
@@ -271,9 +321,16 @@ def model_axis_plan(model: Model, suite: ShapeSuite, batch: int,
     shared = local.shared_leaves(defs)
     if shared:
         plan.append(_ar(4 * sum(math.prod(defs[i].shape)
-                                for i, _, _ in shared), size=m))
+                                for i, _, _ in shared), "model", m))
     data = ctx.size("batch")
-    return plan + collective_plan(model.abstract(ctx), data, m)
+    return issued(plan) + collective_plan(model.abstract(ctx), data, m)
+
+
+def issued(plan: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """``plan`` without its collectives over a mesh axis of one rank,
+    which ``ShardingCtx`` does not issue (``manual_dp``'s, which it issues
+    over any data axis, are ``collective_plan``'s)."""
+    return [c for c in plan if c["group"] > 1]
 
 
 def model_param_count(abstract_params) -> int:
@@ -334,12 +391,6 @@ def build_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
         raise ValueError(f"a model axis of {model} does not divide {cards} "
                          f"cards")
     reason = _not_ported(overrides or {})
-    if reason is None and model > 1 and suite.name == "long_500k" and any(
-            "kv_seq" in d.axes for d in tree_leaves(
-                Model(cfg).cache_defs(1, 1))):
-        # a K/V cache's sequence sharded over data: rwkv6's cache is its
-        # fixed-size state, which the rule leaves as it is
-        reason = NOT_PORTED["long_500k"]
     if reason is not None:
         return None, None, {**head, "status": "not_ported",
                             "reason": f"ROADMAP {reason}"}, None
@@ -406,6 +457,7 @@ def model_axis_cell(cfg, suite: ShapeSuite, cards: int, m: int,
     model = Model(cfg)
     params = model.abstract(ctx)
     per_card = suite.global_batch // split
+    kv_seq = ctx.mesh_axes("kv_seq")
     meta = {
         **head, "status": "ok", "batch_per_card": per_card,
         "mesh": f"{data}x{m}",
@@ -417,7 +469,10 @@ def model_axis_cell(cfg, suite: ShapeSuite, cards: int, m: int,
                    f"heads read them), MLP columns, experts and vocab "
                    f"over the model axis; the batch "
                    + ("over data" if split > 1 else "whole on each data "
-                      "rank")),
+                      "rank")
+                   + (f"; the K/V cache's sequence round-robin over "
+                      f"{kv_seq[0]} (its kv heads whole where that is the "
+                      f"model axis)" if kv_seq else "")),
         "layout_differences": layout_differences(model, suite, ctx),
     }
     comm.plan = model_axis_plan(model, suite, per_card, ctx)

@@ -53,7 +53,8 @@ HBM_BW = 3.35e12                  # B/s, HBM3
 LINK_BW = 450e9                   # B/s, NVLink 4, each direction
 CARD_BYTES = 80 * 2**30           # device memory
 
-COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter")
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all")
 
 _aten = torch.ops.aten
 # ops that move no data: allocation, a host scalar, and a view whose
@@ -109,6 +110,8 @@ def _wire_multiplier(kind: str, n: int) -> float:
         return (n - 1) / n          # result is the gathered buffer
     if kind == "reduce-scatter":
         return float(n - 1)         # result is the local shard
+    if kind == "all-to-all":
+        return (n - 1) / n          # all but the piece a rank keeps
     return 1.0
 
 

@@ -16,18 +16,24 @@
                          PV, as ``models/attention.py:attend_full``).
   * ``attend_decode``  — one query step against a KV cache with a length
                          mask, plain torch (the JAX package has no kernel
-                         for it).
+                         for it); where the cache's sequence is split
+                         over ranks (``kv_seq``, round-robin) each rank
+                         attends over its positions and the ranks combine
+                         by log-sum-exp (three f32 all-reduces: the max,
+                         the sum of exponentials, the output).
 
 All paths compute the softmax in f32 and respect GQA head grouping. A
 rank of the model axis that holds no heads (``q`` with 0 heads) skips
 the attention: its output is empty (``q``'s shape) and no kernel is
-called (the kernel takes at least one kv head).
+called (the kernel takes at least one kv head). A rank that holds no heads
+but holds cache positions still takes part in a split ``attend_decode``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.sharding import NULL_CTX, ShardingCtx
 
 NEG_INF = -1e30
 
@@ -81,22 +87,45 @@ def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attend_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, *, cache_len: int) -> torch.Tensor:
-    """One decode step. q: [B, 1, Hq, d]; caches: [B, S, Hkv, d];
-    cache_len: the number of valid cache positions (includes the token
-    being decoded, whose K/V must already be written). The cache's dtype
-    is promoted to q's, as JAX's einsum promotes."""
+                  v_cache: torch.Tensor, *, cache_len: int,
+                  ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
+    """One decode step. q: [B, 1, Hq, d] (every q head the cache's kv
+    heads serve); caches: [B, T, Hkv, d]; cache_len: the number of valid
+    cache positions (includes the token being decoded, whose K/V must
+    already be written). The cache's dtype is promoted to q's, as JAX's
+    einsum promotes.
+
+    Where ``ctx`` splits the cache's sequence ("kv_seq", round-robin over
+    M ranks), the caches hold this rank's positions ``r, r + M, ...``
+    (local ``j`` is position ``j·M + r``): each rank takes the f32 logits
+    over its positions, masked by global position; the ranks all-reduce
+    their row maxima (max) and their sums of ``exp(logits − max)``; each
+    rank's probabilities, rounded to the compute dtype, multiply its V in
+    that dtype (the cache is read once, not copied to f32), and the
+    ranks' outputs are summed in f32 and rounded once. A rank with no
+    valid position contributes zeros. Unsplit (M = 1) none of the three
+    collectives is issued and the softmax is one fused call. A rank with no kv heads holds no q heads
+    either (the sequence is then not on the heads' axis, so its whole
+    kv_seq group holds none) and returns ``q``."""
     b, _, hq, d = q.shape
-    _, s, hkv, _ = k_cache.shape
-    if hq == 0:
+    _, t, hkv, _ = k_cache.shape
+    if hkv == 0:
         return q
-    scale = d ** -0.5
+    m, r = ctx.size("kv_seq"), ctx.index("kv_seq")
     dt = torch.promote_types(q.dtype, k_cache.dtype)
     qg = _group(q, hkv)[:, 0].to(dt)                        # [B, Hkv, G, d]
     logits = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.to(dt)).float()
-    logits = logits * scale
-    valid = torch.arange(s, device=q.device) < cache_len
+    logits = logits * d ** -0.5
+    valid = torch.arange(r, r + t * m, m, device=q.device) < cache_len
     logits = logits.masked_fill(~valid, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(dt)
-    out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.to(dt))
+    if m == 1:
+        probs = torch.softmax(logits, dim=-1).to(dt)
+    else:
+        top = (logits.amax(-1, keepdim=True) if t else
+               logits.new_full(logits.shape[:-1] + (1,), NEG_INF))
+        e = torch.exp(logits - ctx.reduce_max(top, "kv_seq"))
+        probs = (e / ctx.reduce(e.sum(-1, keepdim=True), "kv_seq")).to(dt)
+    out = ctx.reduce(torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.to(dt)),
+                     "kv_seq")
     return out.reshape(b, 1, hq, d).to(q.dtype)
+

@@ -39,6 +39,17 @@ channels of them (``ParamDef.read_by_heads``); its channel mix's gate
 it multiplies the replicated ``kv``. Whisper's encoder K/V cache is held
 by kv head, its 1500 frames whole.
 
+Where the layout splits the K/V cache's sequence ("kv_seq", round-robin:
+``models/sharding.py``), a prefill's attention is unchanged (the flash
+kernel on the rank's heads over the whole prompt) and only the cache it
+returns is the rank's positions (``_split_cache``: one ``all_to_all``
+per K and V where the sequence shares the heads' axis, none on "data");
+a decode step gathers the token's q, k and v over the heads' axis where
+they share it, writes its K/V on the rank that holds ``cache_index`` and
+combines the ranks' attention by log-sum-exp
+(``attention.attend_decode``). A head-less rank holds positions
+and takes part.
+
 Training under the model axis (``sharding.ShardingCtx.copy`` /
 ``reduce``): the normed input enters ``wq`` / ``wk`` / ``wv`` and the
 MLP through ``copy`` (their gradients' partial sums over the ranks'
@@ -170,16 +181,107 @@ def self_attention(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     if mode == "decode":
         if cache is None:
             raise ValueError("decode needs a cache")
-        at = slice(cache_index, cache_index + 1)
-        cache["k"][:, at] = k.to(cache["k"].dtype)
-        cache["v"][:, at] = v.to(cache["v"].dtype)
-        out = attend_decode(q, cache["k"], cache["v"],
-                            cache_len=cache_index + 1)
+        out = _decode(q, k, v, cache, cache_index, cfg, ctx)
     else:
         out = attend_prefill(q, k, v, causal=causal)
         if mode == "prefill":
-            new_cache = {"k": k.to(KV_CACHE_DTYPE), "v": v.to(KV_CACHE_DTYPE)}
+            split = ctx.size("kv_seq") > 1
+            new_cache = {n: (_split_cache(t, cfg, ctx) if split
+                             else t.to(KV_CACHE_DTYPE))
+                         for n, t in (("k", k), ("v", v))}
     return _out_proj(params, out, cfg, ctx), new_cache
+
+
+def kv_owners(cfg: ModelConfig, ctx: ShardingCtx) -> list:
+    """Per rank of the heads' axis, the (kv head, its slot in the rank's
+    K/V) of each kv head whose first holder it is: every kv head once."""
+    seen, out = set(), []
+    for i in range(ctx.size("heads")):
+        held = ctx.indices("kv_heads", cfg.n_kv_heads, kv_parts(cfg), at=i)
+        mine = [(h, held.index(h)) for h in dict.fromkeys(held)
+                if h not in seen]
+        seen.update(h for h, _ in mine)
+        out.append(mine)
+    return out
+
+
+def _split_cache(t: torch.Tensor, cfg: ModelConfig,
+                 ctx: ShardingCtx) -> torch.Tensor:
+    """A prefill's K or V [B, P, h, hd] (this rank's kv heads, every
+    position) as this rank's part of a cache whose sequence is split
+    round-robin: its positions ``r, r + M, ...`` of every kv head the
+    cache leaf holds (``ShardingCtx.leaf_axes``). On "data" (the heads on
+    another axis) every rank computed every position of its heads and
+    keeps its own. On the heads' axis one ``all_to_all`` moves each kv
+    head, from its first holder, to every rank at that rank's positions
+    (the pieces padded to the most kv heads a rank sends, and to whole
+    rounds of M positions); an all-gather and a slice would move M times
+    the bytes."""
+    t = t.to(KV_CACHE_DTYPE)
+    m, r = ctx.size("kv_seq"), ctx.index("kv_seq")
+    b, p, _, hd = t.shape
+    mine = len(range(r, p, m))
+    if not ctx.shares_axis("kv_seq", "heads"):
+        return t[:, r::m].contiguous()
+    owners = kv_owners(cfg, ctx)
+    width, rounds = max(len(o) for o in owners), -(-p // m)
+    send = t.new_zeros((b, rounds * m, width, hd))
+    for j, (_, slot) in enumerate(owners[ctx.index("heads")]):
+        send[:, :p, j] = t[:, :, slot]
+    send = send.view(b, rounds, m, width, hd).permute(2, 0, 1, 3, 4)
+    got = ctx.all_to_all(send, "kv_seq")            # [M, B, rounds, w, hd]
+    heads = {h: got[i, :, :mine, j] for i, own in enumerate(owners)
+             for j, (h, _) in enumerate(own)}
+    return torch.stack([heads[h] for h in range(cfg.n_kv_heads)], 2)
+
+
+def _decode(q, k, v, cache, cache_index: int, cfg: ModelConfig,
+            ctx: ShardingCtx) -> torch.Tensor:
+    """One decode step's attention, its K/V written into ``cache`` in
+    place. Where the cache's sequence is split round-robin over M ranks
+    ("kv_seq"; else M = 1 and the rank holds every position) and that
+    axis is the heads' too, the token's q, k and v of every rank are
+    all-gathered first (one all-gather of the three packed; the cache
+    holds every kv head and each rank attends for every q head); the rank
+    holding ``cache_index`` (``% M``) writes its K/V at local index
+    ``cache_index // M``; every rank then attends over its positions
+    (``attend_decode``), and keeps its own q heads of the output. Returns
+    [B, 1, h, hd] at this rank's q heads (none on a head-less rank, which
+    still takes part where the sequence is split)."""
+    m = ctx.size("kv_seq")
+    gathered = ctx.shares_axis("kv_seq", "heads")
+    if gathered:
+        b, hd = q.shape[0], cfg.resolved_head_dim
+        hq, hkv = cfg.n_heads, cfg.n_kv_heads
+        parts = (Part(hq * hd, hq),) + (Part(hkv * hd, hkv, kv_of=hq),) * 2
+        # reshapes take the head count: a head-less rank's are empty
+        pieces = ctx.all_gather(torch.cat([t.reshape(b, t.shape[2] * hd)
+                                           for t in (q, k, v)], -1),
+                                "heads", full=(hq + 2 * hkv) * hd,
+                                parts=parts)
+        qs, ks, vs = [], {}, {}
+        for i, piece in enumerate(pieces):
+            nq = len(ctx.indices("heads", hq, at=i))
+            held = ctx.indices("kv_heads", hkv, kv_parts(cfg), at=i)
+            qi, ki, vi = torch.split(piece, [nq * hd, len(held) * hd,
+                                             len(held) * hd], -1)
+            qs.append(qi)
+            for slot, h in enumerate(held):
+                ks.setdefault(h, ki[:, slot * hd:(slot + 1) * hd])
+                vs.setdefault(h, vi[:, slot * hd:(slot + 1) * hd])
+        q = torch.cat(qs, -1).reshape(b, 1, hq, hd)
+        k, v = (torch.stack([d[h] for h in range(hkv)], 1)[:, None]
+                for d in (ks, vs))
+    if ctx.index("kv_seq") == cache_index % m:
+        at = slice(cache_index // m, cache_index // m + 1)
+        cache["k"][:, at] = k.to(cache["k"].dtype)
+        cache["v"][:, at] = v.to(cache["v"].dtype)
+    out = attend_decode(q, cache["k"], cache["v"],
+                        cache_len=cache_index + 1, ctx=ctx)
+    if gathered:
+        q0, q1 = ctx.range("heads", cfg.n_heads)
+        out = out[:, :, q0:q1]
+    return out
 
 
 def cross_attention(params, x: torch.Tensor, enc_kv, cfg: ModelConfig,

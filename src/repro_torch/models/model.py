@@ -179,8 +179,8 @@ class Model:
         hd = cfg.resolved_head_dim
         fam = cfg.family
 
-        def kv(layers, s, h, names=("k", "v")):
-            axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+        def kv(layers, s, h, names=("k", "v"), seq_axis="kv_seq"):
+            axes = ("layers", "batch", seq_axis, "kv_heads", None)
             return {n: ParamDef((layers, batch, s, h, hd), axes,
                                 init="zeros", parts=blocks.kv_parts(cfg))
                     for n in names}
@@ -198,9 +198,10 @@ class Model:
                                       init="zeros", dtype=torch.float32),
                     "shift_tm": shift, "shift_cm": shift}
         if fam == "encdec":
-            # the self-attention K/V, and the encoder's K/V per layer
+            # the self-attention K/V, and the encoder's K/V per layer: its
+            # frames never split (``src/repro/models/model.py:152-160``)
             return {**kv(L, seq, cfg.n_kv_heads),
-                    **kv(L, cfg.enc_seq, cfg.n_kv_heads, ("xk", "xv"))}
+                    **kv(L, cfg.enc_seq, cfg.n_kv_heads, ("xk", "xv"), None)}
         d_in, nh, dv, st = blocks.mamba_dims(cfg)
         cache = {
             "mamba": {

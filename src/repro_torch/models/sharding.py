@@ -18,13 +18,23 @@ and issues collectives, so the context adds:
     (``Part``): Mamba2's ``in_proj`` columns [z | x | B | C | dt] give z,
     x and dt by head and B, C whole to every rank; kv heads follow the q
     heads (a rank holds the kv heads its q heads read, one per q head where
-    they read them unevenly);
+    they read them unevenly). The K/V cache's sequence ("kv_seq") is dealt
+    round-robin instead: rank ``r`` of ``M`` holds positions ``r, r + M,
+    r + 2M, ...`` at local index ``p // M`` (the first ``n % M`` ranks one
+    more, as ``range`` counts), so that a prefill's cache and a longer
+    preallocated one agree position for position and the decode's write
+    moves round the ranks;
+  * ``leaf_indices(axes, shape, parts)`` — this rank's indices along each
+    dim of a leaf: a leaf whose "kv_seq" shares a mesh axis with its
+    "kv_heads" holds its kv heads whole (the reference's spec drops the
+    kv heads there, fewer than the ranks; as many or more would name the
+    mesh axis twice, which raises);
   * ``shard(x, axes, parts)`` — this rank's slice of a full tensor;
   * ``constrain(x, axes, full)`` — asserts a local tensor has the layout
     the rules give, raising on a mismatch (with no mesh it is the
     identity, as the reference's);
-  * ``reduce`` / ``all_gather`` / ``gather`` over a logical axis's mesh
-    axes,
+  * ``reduce`` / ``all_gather`` / ``gather`` / ``all_to_all`` over a
+    logical axis's mesh axes,
     issued through ``comm`` (``torch.distributed`` by default; the dry run
     passes ``launch.dryrun.RecordedCollectives``). A collective over mesh
     axes of size 1 is not issued. Partial sums are reduced in f32 and
@@ -60,9 +70,11 @@ microbatch its own, as the reference's forward under ``NULL_CTX``
 inside ``shard_map``.
 
 The port honours the mesh axes of "batch", "heads", "kv_heads",
-"heads2", "ff", "ff2", "experts", "vocab" and "act_vocab" (TP, EP,
-vocab-parallel embedding and logits, and the data axis). "kv_seq" is
-held whole by design (the cache's sequence is not split: ROADMAP C);
+"heads2", "ff", "ff2", "experts", "vocab", "act_vocab" (TP, EP,
+vocab-parallel embedding and logits, and the data axis) and "kv_seq"
+(the K/V cache's sequence, round-robin over "model" where the kv heads
+are fewer than the model axis, over "data" at long_500k; a decode
+combines the ranks' positions by log-sum-exp, ``models/attention.py``);
 any other logical axis on a mesh axis of size > 1 ("embed" under FSDP,
 "seq" under sequence parallelism, "embed_out" under
 ``second_matmul="col"``) raises ``NotImplementedError``.
@@ -94,10 +106,12 @@ import torch
 
 Spec = Tuple[Any, ...]            # mesh axes per dim (a PartitionSpec)
 
-# logical axes the explicit layout splits, and the one it holds whole
+# logical axes the explicit layout splits
 SPLIT_AXES = ("batch", "heads", "kv_heads", "heads2", "ff", "ff2",
-              "experts", "vocab", "act_vocab")
-HELD_WHOLE = ("kv_seq",)
+              "experts", "vocab", "act_vocab", "kv_seq")
+# the axes dealt round-robin (rank r of M holds units r, r + M, ...; a
+# rank may hold none of a cache shorter than the ranks)
+ROUND_ROBIN = ("kv_seq",)
 # the axes a rank may hold no units of (a head-less rank skips its
 # attention, contributing zero to the row-parallel sum)
 HEAD_AXES = ("heads", "kv_heads", "heads2")
@@ -198,6 +212,20 @@ class ShardingCtx:
             size *= self._axis_sizes.get(a, 1)
         return size
 
+    def mesh_axes(self, axis: Optional[str]) -> Tuple[str, ...]:
+        """The mesh axes of size > 1 a logical axis is split over."""
+        mesh_axes = None if self.mesh is None else self.rules.get(axis)
+        if mesh_axes is None:
+            return ()
+        if isinstance(mesh_axes, str):
+            mesh_axes = (mesh_axes,)
+        return tuple(a for a in mesh_axes if self._axis_sizes.get(a, 1) > 1)
+
+    def shares_axis(self, a: Optional[str], b: Optional[str]) -> bool:
+        """Whether logical axes ``a`` and ``b`` are split over a common
+        mesh axis."""
+        return bool(set(self.mesh_axes(a)) & set(self.mesh_axes(b)))
+
     def spec_for_shape(self, axes: Sequence[Optional[str]],
                        shape: Sequence[int]) -> Spec:
         """Like ``spec`` but drops a mesh axis whenever the tensor dim is
@@ -233,7 +261,7 @@ class ShardingCtx:
     def _split(self, axis: Optional[str]) -> bool:
         """Whether this layout splits ``axis`` (raises for a mesh layout
         the port does not have)."""
-        if self.size(axis) == 1 or axis in HELD_WHOLE:
+        if self.size(axis) == 1:
             return False
         if axis not in SPLIT_AXES:
             raise NotImplementedError(
@@ -247,6 +275,9 @@ class ShardingCtx:
         those of the rank at that coordinate along ``axis`` instead)."""
         if not self._split(axis):
             return 0, n
+        if axis in ROUND_ROBIN:
+            raise ValueError(f"{axis!r} is dealt round-robin: its units are "
+                             f"no range (``indices`` gives them)")
         parts = self.size(axis)
         if n < parts and axis not in HEAD_AXES:
             raise NotImplementedError(
@@ -262,6 +293,9 @@ class ShardingCtx:
         ``range``)."""
         if not self._split(axis):
             return list(range(n))
+        if axis in ROUND_ROBIN:
+            return list(range(self.index(axis) if at is None else at, n,
+                              self.size(axis)))
         parts = parts or (Part(n, n),)
         if sum(p.width for p in parts) != n:
             raise ValueError(f"parts {parts} do not cover {n} elements")
@@ -280,14 +314,52 @@ class ShardingCtx:
             base += p.width
         return out
 
+    def leaf_axes(self, axes: Sequence[Optional[str]],
+                  shape: Sequence[Optional[int]]
+                  ) -> Tuple[Optional[str], ...]:
+        """``axes`` as this layout splits a leaf of ``shape``: "kv_heads"
+        held whole (None) where the leaf's "kv_seq" shares a mesh axis with
+        it, as the reference's ``spec_for_shape`` drops the kv heads there
+        (fewer than the ranks). Raises where they are as many as the ranks
+        or more, and where "kv_seq" shares a mesh axis with the leaf's
+        "batch" (the ranks of that axis would hold different rows and the
+        decode would combine them): the reference's spec would name the
+        mesh axis twice."""
+        if "kv_seq" in axes and "batch" in axes and \
+                self.shares_axis("kv_seq", "batch"):
+            raise ValueError(
+                f"the cache's sequence and its batch both on mesh axes "
+                f"{self.mesh_axes('kv_seq')}: the reference's spec would "
+                f"name the axis twice")
+        if "kv_seq" not in axes or "kv_heads" not in axes or \
+                not self.shares_axis("kv_seq", "kv_heads"):
+            return tuple(axes)
+        n = shape[list(axes).index("kv_heads")]
+        if n is not None and n >= self.size("kv_heads"):
+            raise ValueError(
+                f"{n} kv heads and the cache's sequence both on mesh axes "
+                f"{self.mesh_axes('kv_heads')} of {self.size('kv_heads')} "
+                f"ranks: the reference's spec would name the axis twice")
+        return tuple(None if a == "kv_heads" else a for a in axes)
+
+    def leaf_indices(self, axes: Sequence[Optional[str]],
+                     shape: Sequence[int],
+                     parts: Optional[Sequence[Part]] = None
+                     ) -> List[List[int]]:
+        """This rank's indices along each dim of a leaf of ``shape``
+        (``parts``: the packing of its head-axis dim, ``head_dim`` of the
+        ParamDef; ``leaf_axes``' kv heads whole)."""
+        hd = head_dim(axes)
+        return [self.indices(a, n, parts if i == hd else None)
+                for i, (a, n) in enumerate(zip(self.leaf_axes(axes, shape),
+                                               shape))]
+
     def local_shape(self, axes: Sequence[Optional[str]],
                     shape: Sequence[int],
                     parts: Optional[Sequence[Part]] = None) -> Tuple[int, ...]:
-        """The local shape of a full ``shape`` (``parts``: the packing of
-        its head-axis dim, ``head_dim`` of the ParamDef)."""
-        hd = head_dim(axes)
-        return tuple(len(self.indices(a, n, parts if i == hd else None))
-                     for i, (a, n) in enumerate(zip(axes, shape)))
+        """The local shape of a full ``shape`` (``parts`` as in
+        ``leaf_indices``)."""
+        return tuple(len(i) for i in self.leaf_indices(axes, shape, parts))
 
     def shard(self, x: torch.Tensor, axes: Sequence[Optional[str]],
               parts: Optional[Sequence[Part]] = None) -> torch.Tensor:
@@ -295,10 +367,10 @@ class ShardingCtx:
         split dim is a contiguous range, else a gathered copy)."""
         if len(axes) != x.dim():
             raise ValueError(f"axes {axes} for shape {tuple(x.shape)}")
-        hd = head_dim(axes)
-        for i, a in enumerate(axes):
-            idx = self.indices(a, x.shape[i], parts if i == hd else None)
-            if len(idx) == x.shape[i]:
+        for i, idx in enumerate(self.leaf_indices(axes, x.shape, parts)):
+            # (a rank's kv heads read unevenly may repeat one and count as
+            # many as the dim: 28 q heads over 8 ranks, rank 1 [0, 0, 0, 1])
+            if idx == list(range(x.shape[i])):
                 continue
             if not idx or idx == list(range(idx[0], idx[0] + len(idx))):
                 x = x.narrow(i, idx[0] if idx else 0, len(idx))
@@ -318,7 +390,7 @@ class ShardingCtx:
             raise ValueError(f"axes {axes} / full {full} for "
                              f"{tuple(x.shape)}")
         hd = head_dim(axes)
-        for i, (a, n) in enumerate(zip(axes, full)):
+        for i, (a, n) in enumerate(zip(self.leaf_axes(axes, full), full)):
             if n is None:
                 continue
             want = len(self.indices(a, n, parts if i == hd else None))
@@ -384,7 +456,7 @@ class ShardingCtx:
 
     def reduce_max(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """The elementwise max of ``x`` over the ranks of ``axis``, with no
-        gradient (the cross-entropy's shift)."""
+        gradient (the cross-entropy's shift, a split cache's row maxima)."""
         if self.size(axis) == 1:
             return x.detach()
         return self._reduced(x.detach(), axis, fresh=True, op="max")
@@ -520,6 +592,15 @@ class ShardingCtx:
         self._comm().all_gather(out, buf, group=self._group(axis))
         return [t.narrow(dim, 0, s) for t, s in zip(out, sizes)]
 
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Piece ``x[i]`` to the rank at coordinate ``i`` along ``axis``,
+        and piece ``i`` of the result from it (one ``all_to_all_single``;
+        ``x``'s leading dim is the axis's size)."""
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        self._comm().all_to_all_single(out, x.contiguous(),
+                                       group=self._group(axis))
+        return out
+
     def gather(self, x: torch.Tensor, axis: str, full: int,
                parts: Optional[Sequence[Part]] = None) -> torch.Tensor:
         """The ranks' parts ``x`` of a last dim of ``full`` elements split
@@ -599,9 +680,6 @@ def held_differently(d, ctx: ShardingCtx) -> Optional[Dict[str, Any]]:
     if mine == ref:
         return None
     reasons = []
-    if any(a in HELD_WHOLE and ctx.size(a) > 1 for a in d.axes):
-        reasons.append("the cache's sequence (kv_seq) is held whole, "
-                       "not split (ROADMAP A: kv_seq sharding)")
     for p in d.parts or ():
         size = ctx.size(d.axes[head_dim(d.axes)])
         if p.units and p.units < size:

@@ -64,7 +64,12 @@ def test_default_rules_match_reference(opts):
 @pytest.mark.parametrize("shape", MESHES, ids=str)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_specs_match_reference(arch, shape):
-    """Every parameter and cache leaf, full and smoke configs."""
+    """Every parameter and cache leaf, full and smoke configs; the cache
+    also under the reference's rules of the prefill_32k, decode_32k and
+    long_500k cells (``cell_rules``: its sequence on "model" or "data"),
+    where whisper's encoder K/V keep their frames whole."""
+    from repro_torch.configs import SHAPE_SUITES
+    from repro_torch.launch.dryrun import cell_rules
     mesh = make_mesh(shape, AXES, rank=0)
     rules = default_rules()
     for port_cfg, jax_cfg in ((get_config(arch), jax_get_config(arch)),
@@ -73,10 +78,12 @@ def test_specs_match_reference(arch, shape):
         pm, jm = Model(port_cfg), JaxModel(jax_cfg)
         pairs = [(pm.specs(rules, mesh), jm.specs(rules, _stand_in(shape)))]
         if port_cfg.supports_decode:
-            pairs.append((
-                tree_specs(pm.cache_defs(32, 64), rules, mesh),
-                jax_tree_specs(jm.cache_defs(32, 64), rules,
-                               _stand_in(shape))))
+            cells = [rules] + [cell_rules(port_cfg, SHAPE_SUITES[c], shape[1])
+                               for c in ("prefill_32k", "decode_32k",
+                                         "long_500k")]
+            pairs += [(tree_specs(pm.cache_defs(32, 64), r, mesh),
+                       jax_tree_specs(jm.cache_defs(32, 64), r,
+                                      _stand_in(shape))) for r in cells]
         for got, want in pairs:
             flat = [(p, s) for p, s in tree_paths(got)]
             assert len(flat) > 1
@@ -89,29 +96,34 @@ def test_specs_match_reference(arch, shape):
 
 # the leaves rank 0 holds otherwise than the reference's spec gives a card
 # at 16 x 16 (the reference's rules per prefill / decode cell), and why
+# (the decode cache's k / v equal the reference's bytes: its sequence is
+# split round-robin over the model axis, its kv heads whole)
 DIFFERENT_16x16 = {
-    "internlm2-1.8b": {"params/layers/attn/wk", "params/layers/attn/wv",
-                       "cache/k", "cache/v"},
+    "internlm2-1.8b": {"params/layers/attn/wk", "params/layers/attn/wv"},
     "qwen2-moe-a2.7b": set(),
     "qwen2-vl-7b": {"params/layers/attn/wq", "params/layers/attn/wk",
-                    "params/layers/attn/wv", "params/layers/attn/wo",
-                    "cache/k", "cache/v"},
+                    "params/layers/attn/wv", "params/layers/attn/wo"},
     "zamba2-1.2b": {"params/layers/in_proj", "params/layers/conv_w",
                     "cache/mamba/conv"},
     # RWKV6's vectors are held whole, as the reference's specs replicate
     # them; its 64 heads split evenly
     "rwkv6-7b": set(),
     # 12 heads over 16 ranks: rank 0 holds one whole head (64 columns),
-    # the reference's even pieces are 48 columns
+    # the reference's even pieces are 48 columns; the encoder's K/V by the
+    # kv head rank 0's q head reads, where the reference holds all 12
     "whisper-small": {f"params/{stack}/{attn}/{w}"
                       for stack, attns in (("enc_layers", ("attn",)),
                                            ("layers", ("attn", "xattn")))
                       for attn in attns
                       for w in ("wq", "wk", "wv", "wo", "bq", "bv")}
-    | {"cache/k", "cache/v", "cache/xk", "cache/xv"},
+    | {"cache/xk", "cache/xv"},
 }
-REASONS = {"kv_seq": "the cache's sequence (kv_seq) is held whole",
-           "kv": "kv heads are held whole, as the rank's q heads read them",
+# the one leaf pair a rank holds in fewer bytes than the reference's spec
+# gives a card: whisper's encoder K/V, held as the rank's q heads read
+# them (one kv head on rank 0), where the reference's spec drops the 12
+# kv heads from the 16-rank axis and holds them all
+FEWER_16x16 = {("whisper-small", "cache/xk"), ("whisper-small", "cache/xv")}
+REASONS = {"kv": "kv heads are held whole, as the rank's q heads read them",
            "packed": "B and C (one state shared by every head) are whole",
            "uneven": "whole heads are split unevenly",
            "fewer": "fewer heads than ranks"}
@@ -131,16 +143,19 @@ def _differences(arch, shape, kind):
 def test_layout_differences_are_named_with_reasons(arch):
     """At 16 x 16 (decode_32k: parameters and cache) exactly the leaves
     the rules predict differ, each with its reason and more bytes on rank
-    0 than the reference's even split (never fewer: nothing is dropped);
-    at 2 x 2 only Mamba2's packed B and C differ."""
+    0 than the reference's even split (never fewer: nothing is dropped),
+    but whisper's encoder K/V (``FEWER_16x16``); at 2 x 2 only Mamba2's
+    packed B and C differ."""
     got = _differences(arch, (16, 16), "decode_32k")
     assert set(got) == DIFFERENT_16x16[arch]
     for path, d in got.items():
-        assert d["bytes"] > d["reference_bytes"], path
+        if (arch, path) in FEWER_16x16:
+            assert d["bytes"] < d["reference_bytes"], path
+        else:
+            assert d["bytes"] > d["reference_bytes"], path
         want = []
-        if path.startswith("cache/") and arch != "zamba2-1.2b":
-            want += [REASONS["kv_seq"], REASONS["kv"]]
-        elif path.endswith(("wk", "wv")):
+        if (path.startswith("cache/") and arch != "zamba2-1.2b") or \
+                path.endswith(("wk", "wv")):
             want.append(REASONS["kv"])
         if path.endswith(("wq", "wo")):
             want.append(REASONS["uneven"])
@@ -275,6 +290,24 @@ def test_splits_kv_heads_and_mesh_coordinates():
     assert make_production_mesh(multi_pod=True, rank=0).shape == (2, 16, 16)
 
 
+def test_shard_takes_kv_heads_repeated_as_many_as_the_leaf():
+    """28 q heads and 4 kv heads over 8 ranks (qwen2-vl-7b): rank 1's q
+    heads 4-7 read kv heads [0, 0, 0, 1], one per q head, as many columns
+    as the leaf holds; ``shard`` gathers them (it took the leaf whole
+    where the indices were as many as the dim), and every rank's slice is
+    the leaf at its indices."""
+    from repro_torch.models.sharding import Part
+    parts, hd = (Part(4 * 2, 4, kv_of=28),), 2
+    full = torch.randn(3, 4 * hd)
+    axes = ("embed", "kv_heads")
+    for r in range(8):
+        ctx = ShardingCtx(make_mesh((1, 8), AXES, rank=r), default_rules())
+        idx = ctx.indices("kv_heads", 4 * hd, parts)
+        assert torch.equal(ctx.shard(full, axes, parts), full[:, idx])
+        if r == 1:
+            assert [i // hd for i in idx[::hd]] == [0, 0, 0, 1]
+
+
 def test_constrain_checks_the_local_layout():
     x = torch.zeros(2, 3, 5)
     assert NULL_CTX.constrain(x, ("batch", "seq", "act_vocab"),
@@ -340,14 +373,15 @@ def test_vocab_parallel_logits_and_greedy_across_padded_vocab():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_dry_run_statuses_at_the_reference_mesh(arch):
-    """``--cards 256 --model 16`` (the reference's 16 x 16): the dense,
-    MoE, VLM and hybrid families' train_4k, prefill_32k and decode_32k
-    cells of every family are built (rank 0's parameters, and its cache
-    or its ZeRO shard of the moments, on ``meta``), rwkv6's long_500k
-    too (its batch of 1 whole on each data rank, as the reference's rule
-    holds it), zamba2's long_500k is not_ported with a ROADMAP reason
-    (its K/V cache's sequence would be sharded), and the reference's own
-    rules still skip what they skip: 19 ok, 1 not_ported, 4 skipped."""
+    """``--cards 256 --model 16`` (the reference's 16 x 16): the
+    train_4k, prefill_32k and decode_32k cells of every family are built
+    (rank 0's parameters, and its cache or its ZeRO shard of the moments,
+    on ``meta``), and the long_500k cells of rwkv6 and zamba2 (the batch
+    of 1 whole on each data rank, as the reference's rule holds it;
+    zamba2's K/V cache's sequence round-robin over data, its step's
+    collectives its plan: the log-sum-exp's three all-reduces over the 16
+    data ranks per shared-attention application), and the reference's own
+    rules still skip what they skip: 20 ok, 0 not_ported, 4 skipped."""
     from repro_torch.configs import SHAPE_SUITES
     from repro_torch.launch import dryrun
     cfg = get_config(arch)
@@ -357,13 +391,16 @@ def test_dry_run_statuses_at_the_reference_mesh(arch):
         if (suite.kind == "decode" and not cfg.supports_decode) or (
                 shape == "long_500k" and not cfg.subquadratic):
             want = "skipped"
-        elif shape == "long_500k" and arch == "zamba2-1.2b":
-            want = "not_ported"
         else:
             want = "ok"
         assert meta["status"] == want, (shape, meta)
-        if want == "not_ported":
-            assert fn is None and meta["reason"].startswith("ROADMAP A")
+        if shape == "long_500k" and arch == "zamba2-1.2b":
+            dryrun.analyze_cell(fn, args, meta, comm)   # raises off the plan
+            on_data = [c for c in comm.issued if c["axis"] == "data"]
+            assert comm.issued == comm.plan
+            assert len(on_data) == 3 * Model(cfg).n_shared_apps()
+            assert {c["group"] for c in on_data} == {16}
+            assert "round-robin over data" in meta["layout"]
         if want == "ok":
             assert meta["mesh"] == "16x16" and comm is not None
             assert meta["batch_per_card"] == (
@@ -398,9 +435,11 @@ def test_cli_model_axis_cell(tmp_path):
     art = json.loads((tmp_path / "qwen2-vl-7b__decode_32k__256card_model16"
                                   ".json").read_text())
     colls = art["collectives"]
-    # per layer the attention's and the MLP's all-reduce, the embedding's,
-    # and the greedy token's all-gather
-    assert colls["all-reduce"]["count"] == 2 * 28 + 1
-    assert colls["all-gather"]["count"] == 1
+    # per layer the split cache's gather of the token's q, k and v and its
+    # three log-sum-exp all-reduces, the attention's and the MLP's
+    # all-reduce; the embedding's, and the greedy token's all-gather
+    assert colls["all-reduce"]["count"] == 5 * 28 + 1
+    assert colls["all-gather"]["count"] == 28 + 1
     assert colls["all-reduce"]["max_group"] == 16
     assert art["layout_differences"]["params/layers/attn/wq"]["reason"]
+    assert "cache/k" not in art["layout_differences"]

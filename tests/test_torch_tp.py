@@ -34,7 +34,10 @@ packages alike (the decode writes its token's K/V in the cache's
 dtype).
 
 Then the dry run of the internlm2, zamba2, rwkv6 and whisper smoke
-prefill at ``--cards 4 --model 2``: rank 0 of a gloo CPU run of the same step
+prefill at ``--cards 4 --model 2``, and of internlm2-smoke's decode at
+``--cards 4 --model 4`` (its 2 kv heads fewer than the model axis: the
+cache's sequence split round-robin over it, 33 positions, rank 0 writing
+the token at position 32): rank 0 of a gloo CPU run of the same step
 (bf16, its collectives real) counts exactly the dry run's operations,
 bytes, aten ops, kernel calls and memory, and both issue
 ``model_axis_plan``'s collectives.
@@ -383,16 +386,32 @@ def test_tp_serving_matches_unsharded_and_reference(arch, shape, tp_runs,
 
 
 # ------------------------------------------------------------ the dry run
-def _dry_rank(rank, port, arch, q) -> None:
-    """Rank ``rank`` of a (2, 2) gloo run of the smoke prefill cell under
-    ``analyze_step``, its collectives recorded as they are issued."""
-    import torch.distributed as dist
+# (arch, kind): the smoke prefill at (2, 2), and a decode whose cache's
+# sequence the rules split at (1, 4)
+DRY_CELLS = [(arch, "prefill") for arch in ("internlm2-1.8b", "zamba2-1.2b",
+                                            "rwkv6-7b", "whisper-small")]
+DRY_CELLS.append(("internlm2-1.8b", "decode"))
+
+
+def _dry_suite(kind):
+    """(the cell's suite, its mesh)."""
     from repro_torch.configs import ShapeSuite
+    if kind == "decode":
+        return ShapeSuite("tp_decode", 33, 4, "decode"), (1, 4)
+    return ShapeSuite("tp_prefill", 32, 4, "prefill"), (2, 2)
+
+
+def _dry_rank(rank, port, arch, kind, q) -> None:
+    """Rank ``rank`` of a gloo run of the smoke cell (``_dry_suite``)
+    under ``analyze_step``, its collectives recorded as they are
+    issued."""
+    import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.step_analysis import analyze_step
     from repro_torch.models.sharding import ShardingCtx
     from repro_torch.launch.dryrun import cell_rules
-    from repro_torch.train.serve_step import make_prefill_step
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step)
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=4, rank=rank)
@@ -400,10 +419,11 @@ def _dry_rank(rank, port, arch, q) -> None:
         issued = []
 
         class Recorded:
-            def all_reduce(self, t, group=None):
+            def all_reduce(self, t, group=None, op=None):
                 issued.append(("all_reduce", t.dtype, t.numel()
                                * t.element_size(), dist.get_world_size(group)))
-                dist.all_reduce(t, group=group)
+                dist.all_reduce(t, group=group,
+                                **({} if op is None else {"op": op}))
 
             def all_gather(self, out, t, group=None):
                 issued.append(("all_gather", t.dtype, sum(
@@ -412,12 +432,24 @@ def _dry_rank(rank, port, arch, q) -> None:
                 dist.all_gather(out, t, group=group)
 
         model = build_model(arch, smoke=True)
-        suite = ShapeSuite("tp_prefill", 32, 4, "prefill")
-        ctx = ShardingCtx(make_mesh((2, 2), ("data", "model")),
-                          cell_rules(model.cfg, suite, 2), comm=Recorded())
+        suite, shape = _dry_suite(kind)
+        ctx = ShardingCtx(make_mesh(shape, ("data", "model")),
+                          cell_rules(model.cfg, suite, shape[1]),
+                          comm=Recorded())
         params = model.init(torch.Generator().manual_seed(0), ctx)
+        rows = ("batch", None)
+        if kind == "decode":
+            cache = model.init_cache(4, suite.seq_len, "cpu", ctx)
+            token = ctx.shard(torch.from_numpy(np.random.default_rng(
+                5).integers(0, model.cfg.vocab, (4, 1))), rows).clone()
+            _, got = analyze_step(make_decode_step(model, ctx), params,
+                                  cache, token, suite.seq_len - 1)
+            q.put((rank, {k: got[k] for k in ("flops", "bytes", "ops",
+                                              "kernels", "memory")},
+                   [(op, str(dt), n, g) for op, dt, n, g in issued]))
+            return
         toks = ctx.shard(torch.from_numpy(np.random.default_rng(5).integers(
-            0, model.cfg.vocab, (4, 32))), ("batch", None)).clone()
+            0, model.cfg.vocab, (4, 32))), rows).clone()
         batch = {"tokens": toks}
         if model.cfg.family == "encdec":
             batch["frames"] = torch.randn(2, model.cfg.enc_seq,
@@ -430,20 +462,29 @@ def _dry_rank(rank, port, arch, q) -> None:
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-1.2b", "rwkv6-7b",
-                                  "whisper-small"])
-def test_dry_run_of_a_model_axis_cell_counts_the_gloo_run(arch):
-    from repro_torch.configs import ShapeSuite, get_smoke_config
+@pytest.mark.parametrize("arch,kind", DRY_CELLS,
+                         ids=[a if k == "prefill" else f"{a}-decode-kv_seq"
+                              for a, k in DRY_CELLS])
+def test_dry_run_of_a_model_axis_cell_counts_the_gloo_run(arch, kind):
+    from repro_torch.configs import get_smoke_config
     from repro_torch.launch import dryrun
-    suite = ShapeSuite("tp_prefill", 32, 4, "prefill")
-    head = {"arch": arch, "shape": suite.name, "cards": 4, "model_axis": 2}
+    suite, shape = _dry_suite(kind)
+    head = {"arch": arch, "shape": suite.name, "cards": 4,
+            "model_axis": shape[1]}
     fn, args, meta, comm = dryrun.model_axis_cell(get_smoke_config(arch),
-                                                  suite, 4, 2, head)
+                                                  suite, 4, shape[1], head)
     res = dryrun.analyze_cell(fn, args, meta, comm)   # raises off the plan
     plan = comm.plan
     assert comm.issued == plan and len(plan) > 2
-    assert meta["mesh"] == "2x2" and meta["batch_per_card"] == 2
-    got = {r: rest for r, *rest in _spawn(_dry_rank, 4, arch)}
+    assert meta["mesh"] == f"{shape[0]}x{shape[1]}"
+    assert meta["batch_per_card"] == 4 // shape[0]
+    if kind == "decode":
+        # per layer the token's gather and the log-sum-exp's three
+        # all-reduces before the attention's and the MLP's
+        assert [c["kind"] for c in plan[1:7]] == [
+            "all-gather"] + ["all-reduce"] * 5
+        assert "round-robin over model" in meta["layout"]
+    got = {r: rest for r, *rest in _spawn(_dry_rank, 4, arch, kind)}
     counts, issued = got[0]
     assert counts["flops"] == res["cost"]["flops_per_device"]
     assert counts["bytes"] == res["cost"]["bytes_per_device"]
@@ -454,5 +495,7 @@ def test_dry_run_of_a_model_axis_cell_counts_the_gloo_run(arch):
             for c in plan] == issued
     assert json.dumps(res["collectives"])         # the cell's JSON
     wire = res["collective_wire_bytes_per_device"]
-    assert wire == sum(c["result_bytes"] * (1.0 if c["op"] == "all_reduce"
-                                            else 0.5) for c in plan)
+    group = shape[1]
+    assert wire == sum(c["result_bytes"] * (
+        2 * (group - 1) / group if c["op"] == "all_reduce"
+        else (group - 1) / group) for c in plan)
