@@ -207,7 +207,26 @@ Phases, each fatal on failure (no fallback to the CPU):
    and 8 decode steps, in bf16 and f32, held as phase 12 holds its runs
    (the rounding witness at 8 ranks), every rank's cache leaves the
    layout's reckoning and the collectives of its prefill and of each
-   decode step exactly the dry run's plans.
+   decode step exactly the dry run's plans;
+16. the model axis's other two layouts of the reference's rules, on two
+   gloo ranks as phases 12-14 (their unsharded card runs kept and reused):
+   the tensor-core flash and the SSD gla at the shapes these layouts give
+   a rank (``layout_kernel_shapes``), in bf16 and f32, with the autograd
+   Functions' gradients; then ``second_matmul="col"`` serving of
+   internlm2-1.8b and whisper-small (``wo`` and ``w_down`` split by
+   output column: their input and output all-gathered), held as phase 12
+   holds its runs but within the bound with no witness (no row-parallel
+   sum is left), beside the row layout's reading, every decode step's
+   collectives too exactly the plan, each rank's column-split leaves at
+   the reference spec's bytes; then one ``manual_dp`` step under
+   ``seq_parallel`` (internlm2-1.8b and zamba2-1.2b: the residual's
+   positions over the ranks, each block's gathers and reduce-scatters)
+   and under ``col`` (internlm2-1.8b), held as phase 13 holds its steps
+   (cuts: zamba2 at 12 of 38 layers, the col step at 8 of 24), the
+   leaves both ranks hold whole with bitwise equal gradients, internlm2's
+   seq_parallel loss and grad norm reported beside phase 13's row step's
+   bit for bit, and an f32 cut of each (internlm2 at 4 layers, zamba2 at
+   6).
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -3088,6 +3107,25 @@ TP_PROFILED = {"flash_attention_tc": "flash_tc_kernel",
                "gla_chunk_rwkv6": "rwkv6_scan_kernel"}
 
 
+class Kept:
+    """What phases 12-14 keep for phase 16, whose layouts run the same
+    weights, tokens and steps: the unsharded card runs their ranks are
+    held against (``serve``: {arch: ``tp_unsharded``'s}; ``train``:
+    {(arch, layers): ``tpt_unsharded``'s}) and the row layout's readings
+    phase 16 reports beside its own (``row``)."""
+
+    def __init__(self):
+        self.serve, self.train, self.row = {}, {}, {}
+
+
+def layout_name(layout) -> str:
+    """A layout override's name in the paths and notes: "row" (the
+    default), "col" or "seq_parallel"."""
+    if not layout:
+        return "row"
+    return "seq_parallel" if layout.get("seq_parallel") else "col"
+
+
 def tp_prompt(model) -> int:
     """The prompt length of a two-rank run: whisper's 416-token decoder
     prompt, the others' 2048."""
@@ -3190,7 +3228,7 @@ def rounding_witness(pieces=None):
     saved = blocks.row_parallel, layers.row_parallel
     calls = []
 
-    def halves(x, w, ctx, axis):
+    def halves(x, w, ctx, axis, **_):
         h = w.shape[0] - w.shape[0] // 2      # rank 0 the larger share
         sizes = pieces(w.shape[0], axis) if pieces else [h, w.shape[0] - h]
         calls.append(tuple(w.shape))
@@ -3254,10 +3292,12 @@ def tp_unsharded(arch: str, dev) -> dict:
     return out
 
 
-def tp_rank(rank: int, port: int, archs: tuple, refs: dict, q) -> None:
-    """One of the two ranks of phase 12 or 14 (a spawned process on the
-    one card; gloo stages its CUDA tensors through the host): for each
-    model of ``archs``,
+def tp_rank(rank: int, port: int, archs: tuple, refs: dict, layout: dict,
+            q) -> None:
+    """One of the two ranks of phase 12, 14 or 16 (a spawned process on
+    the one card; gloo stages its CUDA tensors through the host), under
+    the ``layout`` overrides of the reference's rules (phase 16:
+    ``second_matmul="col"``): for each model of ``archs``,
     its slices of the seeded weights (the ranks draw in turn, so that one
     full leaf at a time is in flight on the card), the prefill and the
     decode steps fed the unsharded run's tokens (bf16, then f32:
@@ -3265,7 +3305,8 @@ def tp_rank(rank: int, port: int, archs: tuple, refs: dict, q) -> None:
     under ``torch.profiler`` (its times include the profiler's cost).
     Rank 0 reports them, its launches, the kernel calls' shapes and the
     profiler's kernel counts; every rank its peak memory over the bf16
-    prefill (from before its weights were drawn) and its times."""
+    prefill (from before its weights were drawn), its times and the bytes
+    it holds of each leaf whose columns are on "embed_out"."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     import torch.distributed as dist
@@ -3275,6 +3316,7 @@ def tp_rank(rank: int, port: int, archs: tuple, refs: dict, q) -> None:
     from repro_torch.kernels.gla_chunk import ops as gl
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves, tree_paths
     from repro_torch.models.sharding import ShardingCtx, default_rules
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3283,7 +3325,7 @@ def tp_rank(rank: int, port: int, archs: tuple, refs: dict, q) -> None:
                             world_size=TP_RANKS, rank=rank)
     try:
         ctx = ShardingCtx(make_mesh((1, TP_RANKS), ("data", "model")),
-                          default_rules(), comm=TptComm())
+                          default_rules(**layout), comm=TptComm())
         shapes = []
         saved = fa.mha, gl.gla
 
@@ -3316,19 +3358,28 @@ def tp_rank(rank: int, port: int, archs: tuple, refs: dict, q) -> None:
             fa.mha, gl.gla = mha, gla
             feed = torch.from_numpy(ref["bf16"]["tokens"]).to(dev)
             try:
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # phase 16 runs unprofiled: reading the profiler back
+                # costs seconds, and phase 12 / 14 time these paths
+                with (contextlib.nullcontext() if layout else
+                      profile(activities=[ProfilerActivity.CUDA])) as prof:
                     got = tp_steps(model, params, batch, feed, ctx)
             finally:
                 fa.mha, gl.gla = saved
             got["peak"] -= base
             counts = lm_launches(launch_counts())
-            spans = [(e.name, e.time_range.start, e.time_range.end)
-                     for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            spans = [] if prof is None else [
+                (e.name, e.time_range.start, e.time_range.end)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
             names = [n for n, _, _ in spans]
             out = {"rank": rank, "arch": arch, "bf16": got,
                    "launches": counts, "shapes": sorted(set(shapes)),
                    "calls": len(shapes),
+                   "pair_bytes": {
+                       path: x.numel() * x.element_size()
+                       for (path, d), x in zip(tree_paths(model.defs),
+                                               tree_leaves(params))
+                       if "embed_out" in d.axes},
                    "profiled": {k: sum(n in e for e in names)
                                 for k, n in TP_PROFILED.items()},
                    "traced": bool(names), "device": device_split(spans)}
@@ -3604,7 +3655,7 @@ def check_row_products(model, plan, dev, gen, card: str) -> str:
     n_plan = sum(c["op"] == "all_reduce" and c["result_bytes"] == act
                  for c in plan)
     if n_plan != 1 + sum(c for _, _, c in sites):      # + the embedding's
-        fail(f"{cfg.name}: {sites} are not the dry run's {n_plan - 1} "
+        fail(f"{cfg.arch}: {sites} are not the dry run's {n_plan - 1} "
              f"row-parallel all-reduces")
     new_ms = old_ms = 0.0
     notes = []
@@ -3636,7 +3687,7 @@ def tp_errors(got: dict, want: dict, bound: float) -> list:
 
 
 def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
-             row_products: bool = True) -> dict:
+             row_products: bool = True, layout=None, kept=None) -> dict:
     """Phase 12 (and phase 14, ``archs`` rwkv6-7b and whisper-small): for
     internlm2-1.8b, zamba2-1.2b and qwen2-moe-a2.7b at
     full width and depth, the unsharded card runs (then freed), then two
@@ -3659,37 +3710,72 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
     reckoning. Also, with ``row_products`` (phase 12), the row-parallel
     products against the design before them (``check_row_products``),
     and rank 0's device time by kind
-    (``device_split``). A rank's failure fails the run. Returns rank 0's
-    bf16 launches per model (its path in the kernels record)."""
+    (``device_split``). Phase 16 runs internlm2-1.8b and whisper-small so
+    under ``layout`` ``second_matmul="col"``, against phases 12's and 14's
+    unsharded runs (``kept``, a ``Kept``): its bf16 logits within the
+    bound (no
+    row-parallel sum is left to witness: each output column is one whole
+    product), beside the row layout's reading; also every decode step's
+    collectives exactly the dry run's plan, and each rank's bytes of the
+    leaves split by output column the reference's spec's. A rank's
+    failure fails the run. Returns rank 0's bf16 launches per model (its
+    path in the kernels record)."""
     import torch
     from repro_torch.configs import ShapeSuite
     from repro_torch.launch import dryrun
     from repro_torch.models import build_model
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.param import tree_paths
+    from repro_torch.models.sharding import ShardingCtx, default_rules
     gen = torch.Generator(device=dev).manual_seed(12)
+    name = layout_name(layout)
+    kept = kept or Kept()
     refs, peaks, rows = {}, {}, {}
     for arch in archs:
         t0 = time.perf_counter()
-        refs[arch] = tp_unsharded(arch, dev)
+        cached = arch in kept.serve
+        if not cached:
+            kept.serve[arch] = tp_unsharded(arch, dev)
+        refs[arch] = kept.serve[arch]
         n = tp_prompt(build_model(arch))
         print(f"{arch} unsharded references on the card (bf16, its rounding"
               f" witness, f32: prefill {LM_BATCH} x {n}, {TP_DECODE} "
-              f"decode steps each) in {time.perf_counter() - t0:.2f} s")
+              f"decode steps each) "
+              + ("kept from the row layout's phase" if cached else
+                 f"in {time.perf_counter() - t0:.2f} s"))
         suite = ShapeSuite("tp_prefill", n, LM_BATCH, "prefill")
         fn, args, meta, comm = dryrun.build_cell(
-            arch, suite.name, cards=TP_RANKS, model=TP_RANKS, suite=suite)
+            arch, suite.name, cards=TP_RANKS, model=TP_RANKS, suite=suite,
+            overrides=layout)
         peaks[arch] = dryrun.analyze_cell(fn, args, meta, comm)
         peaks[arch]["plan"] = [(c["op"], c["dtype"], c["result_bytes"],
                                 c["group"]) for c in comm.plan]
         del fn, args
+        if layout:                    # a decode step's plan, and the spec
+            model = build_model(arch)
+            ctx0 = ShardingCtx(make_mesh((1, TP_RANKS), ("data", "model"),
+                                         rank=0), default_rules(**layout))
+            step = ShapeSuite("tp_decode", n + TP_DECODE, LM_BATCH, "decode")
+            peaks[arch]["decode_plan"] = [
+                (c["op"], c["dtype"], c["result_bytes"], c["group"])
+                for c in dryrun.model_axis_plan(model, step, LM_BATCH, ctx0)]
+            peaks[arch]["spec_bytes"] = {
+                path: d.dtype.itemsize * math.prod(
+                    -(-k // ctx0._axis_size(ax))
+                    for ax, k in zip(ctx0.spec_for_shape(d.axes, d.shape),
+                                     d.shape))
+                for path, d in tree_paths(model.defs)
+                if "embed_out" in d.axes}
         rows[arch] = (check_row_products(build_model(arch), comm.plan, dev,
                                          gen, card) if row_products else
                       "row-parallel products not timed (phase 12 times "
                       "them)")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    items, seconds = spawn_ranks(tp_rank, TP_RANKS, (archs, refs),
+    items, seconds = spawn_ranks(tp_rank, TP_RANKS, (archs, refs,
+                                                     layout or {}),
                                  TP_RANKS * len(archs), TP_TIMEOUT_S,
-                                 f"serving {', '.join(archs)}")
+                                 f"serving {', '.join(archs)} ({name})")
     got = {(r["arch"], r["rank"]): r for r in items}
     print(f"serving {', '.join(archs)}: {TP_RANKS} gloo ranks on the one "
           f"card ran "
@@ -3703,7 +3789,18 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
         errs = tp_errors(r0["bf16"], ref["bf16"], 0.02)
         wit = tp_errors(ref["witness"], ref["bf16"], 0.02)
         mean, wmean = sum(errs) / len(errs), sum(wit) / len(wit)
-        if max(errs) < 1.0:
+        if layout:
+            row = kept.row.get(arch)
+            if not max(errs) < 1.0:
+                fail(f"{arch} two ranks under {name} (bf16): logits differ "
+                     f"from the unsharded run's by {max(errs):.4f} of 0.02 "
+                     f"x max(|logits|, 1) (the row layout's "
+                     f"{row and max(row)})")
+            held = (f"within the bound (mean {mean:.4f}; the row layout's "
+                    + (f"{[round(e, 4) for e in row]}, mean "
+                       f"{sum(row) / len(row):.4f}" if row else "not run")
+                    + ")")
+        elif max(errs) < 1.0:
             held = "within the bound"
         elif max(wit) >= 1.0 and mean <= TP_WITNESS_SLACK * wmean:
             held = (f"MISSED in bf16, as the model's own rounding witness "
@@ -3742,7 +3839,9 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
             fail(f"{arch} rank 0's {r0['calls']} kernel calls had shapes "
                  f"{r0['shapes']}, expected {tp_local_shapes(model)} and "
                  f"one call per launch ({r0['launches']})")
-        if r0["traced"]:
+        if layout:
+            traced = "not profiled (phases 12 and 14 profile these paths)"
+        elif r0["traced"]:
             for key, n in r0["profiled"].items():
                 if n != want[key]:
                     fail(f"{arch}: the profiler saw {n} {key} launches on "
@@ -3764,6 +3863,27 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
             fail(f"{arch} rank 0's prefill issued "
                  f"{r0['bf16']['prefill_issued']}, the dry run's plan is "
                  f"{plan}")
+        extra = ""
+        if layout:
+            step_plan = peaks[arch]["decode_plan"]
+            for k, issued in enumerate(r0["bf16"]["decode_issued"]):
+                if issued != step_plan:
+                    fail(f"{arch} rank 0's decode step {k} under {name} "
+                         f"issued {issued}, the dry run's plan is "
+                         f"{step_plan}")
+            want_bytes = peaks[arch]["spec_bytes"]
+            for rank in range(TP_RANKS):
+                if got[(arch, rank)]["pair_bytes"] != want_bytes:
+                    fail(f"{arch} rank {rank} holds "
+                         f"{got[(arch, rank)]['pair_bytes']} B of the leaves "
+                         f"split by column; the reference's spec "
+                         f"{want_bytes}")
+            extra = (f"; each of its {TP_DECODE} decode steps' "
+                     f"{len(step_plan)} collectives exactly the plan; each "
+                     f"rank's {', '.join(want_bytes)} at the reference "
+                     f"spec's bytes ({sum(want_bytes.values())} B)")
+        else:
+            kept.row[arch] = errs
         # (d) memory against the dry run's reckoning
         est = peaks[arch]["memory"]["peak_estimate_bytes"]
         for rank in range(TP_RANKS):
@@ -3778,8 +3898,8 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
             f"{r['decode_s'] / TP_DECODE * 1e3:.2f} ms/step, peak "
             f"{r['peak'] / 2**30:.3f} GiB ({r['peak'] / est - 1:+.4f})"
             for k, r in enumerate(runs))
-        print(f"{arch} on two ranks (tensor/expert-parallel, gloo) vs the "
-              f"unsharded card run [{card}]: bf16 logits per step "
+        print(f"{arch} on two ranks (tensor/expert-parallel, {name}, gloo) "
+              f"vs the unsharded card run [{card}]: bf16 logits per step "
               f"{[round(e, 4) for e in errs]} of 0.02 x max(|logits|, 1) "
               f"(the rounding witness {[round(e, 4) for e in wit]}; the "
               f"ranks from the witness at most {near:.4f}): {held}; "
@@ -3787,13 +3907,15 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
               f"{TP_DECODE + 1}){f32_note}; rank 0 launched "
               f"{r0['launches']} (prefill and {TP_DECODE} decode steps) at "
               f"shapes {r0['shapes']}; its prefill's {len(plan)} "
-              f"collectives exactly the dry run's plan; {traced}; the dry "
+              f"collectives exactly the dry run's plan{extra}; {traced}; "
+              f"the dry "
               f"run reckons "
               f"{est / 2**30:.3f} GiB per rank ({times}); {rows[arch]}. "
               f"Two ranks share "
               f"one card's SMs and gloo stages every all-reduce through the "
               f"host: these times are no tensor-parallel speedup")
-        counts[TP_PATHS[arch]] = r0["launches"]
+        counts[TP_PATHS[arch] if not layout else
+               f"{name}_{arch.split('-')[0]}"] = r0["launches"]
     return counts
 
 
@@ -3934,21 +4056,27 @@ class TptComm:
 
 def tpt_rank(rank: int, port: int, archs: tuple, f32_cuts: tuple,
              q) -> None:
-    """One of the two ranks of phase 13 or 14 (a spawned process on the
-    one card, a (1, 2) mesh over gloo). (a) For each (arch, layers) of
-    ``archs`` (phase 13: internlm2-1.8b and zamba2-1.2b at full depth)
+    """One of the two ranks of phase 13, 14 or 16 (a spawned process on
+    the one card, a (1, 2) mesh over gloo). An entry of ``archs`` or
+    ``f32_cuts`` is (arch, layers) or (arch, layers, the layout overrides
+    of the reference's rules it runs under: phase 16's). (a) For each
+    entry of ``archs`` (phase 13: internlm2-1.8b and zamba2-1.2b at full
+    depth)
     at full width in bf16 with remat: its slices of the seeded
     weights (the ranks draw in turn), zero moments, one ``manual_dp``
     step of the 2 x 2048 batch in 2 microbatches; its metrics, step
     seconds, peak memory over the step (from before its weights), the
-    kernels' launches, the collectives it issued and the gradient leaves
+    kernels' launches, the collectives it issued, the gradient leaves
     that were not finite or all zero (read from the first moment the step
-    leaves). (b) For each f32 cut of
+    leaves) and a digest of the first moment of each leaf every rank
+    holds whole (equal gradients give equal moments). (b) For each f32
+    cut of
     ``f32_cuts``: in turn, the unsharded gradient of one microbatch
     (1 x 2048) on this rank from the full weights, kept as its slices;
     then its own gradient under the model axis (``sync_grads``), each
     leaf's max |difference| over max |unsharded slice|."""
     sys.path.insert(0, str(ROOT / "src"))
+    import hashlib
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -3968,9 +4096,13 @@ def tpt_rank(rank: int, port: int, archs: tuple, f32_cuts: tuple,
                             world_size=TP_RANKS, rank=rank)
     try:
         comm = TptComm()
-        ctx = ShardingCtx(make_mesh((1, TP_RANKS), ("data", "model")),
-                          default_rules(), comm=comm)
-        for arch, layers in archs:
+        mesh = make_mesh((1, TP_RANKS), ("data", "model"))
+
+        def ctx_of(lay):
+            return ShardingCtx(mesh, default_rules(**(lay[0] if lay else {})),
+                               comm=comm)
+        for arch, layers, *lay in archs:
+            ctx, tag = ctx_of(lay), layout_name(lay and lay[0])
             model = tpt_model(arch, layers)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -3994,7 +4126,8 @@ def tpt_rank(rank: int, port: int, archs: tuple, f32_cuts: tuple,
             params, opt, met = step(params, opt, batch)
             got = {k: float(met[k]) for k in ("loss", "grad_norm")}
             torch.cuda.synchronize()
-            out = {"rank": rank, "arch": arch, "kind": "bf16", **got,
+            out = {"rank": rank, "arch": arch, "kind": "bf16", "tag": tag,
+                   **got,
                    "step_s": time.perf_counter() - t0,
                    "peak": torch.cuda.max_memory_allocated(dev) - base,
                    "launches": lm_launches(launch_counts()),
@@ -4008,12 +4141,18 @@ def tpt_rank(rank: int, port: int, archs: tuple, f32_cuts: tuple,
             out["zero"] = [i for i, m in enumerate(mus)
                            if not bool((m != 0).any())]
             out["leaves"] = len(mus)
+            defs = tree_leaves(model.defs)
+            out["whole_mu"] = {
+                i: hashlib.sha256(m.cpu().numpy().tobytes()).hexdigest()
+                for i, (m, d) in enumerate(zip(mus, defs))
+                if ctx._holding(d.axes, d.shape, d.parts)[0] is None}
             q.put(out)
             del params, opt, batch, met, step, mus
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             dist.barrier()
-        for arch, layers in f32_cuts:
+        for arch, layers, *lay in f32_cuts:
+            ctx, tag = ctx_of(lay), layout_name(lay and lay[0])
             model = tpt_model(arch, layers)
             defs = tree_leaves(model.defs)
             batch = tpt_batch(model, dev, rows=1)
@@ -4044,7 +4183,7 @@ def tpt_rank(rank: int, port: int, archs: tuple, f32_cuts: tuple,
                     / max(float(b.abs().max()), 1e-30)
                     for a, b in zip(grads, want)]
             worst = max(range(len(errs)), key=errs.__getitem__)
-            q.put({"rank": rank, "arch": arch, "kind": "f32",
+            q.put({"rank": rank, "arch": arch, "kind": "f32", "tag": tag,
                    "layers": layers, "loss": float(loss),
                    "unsharded_loss": float(loss1), "aux": float(aux),
                    "unsharded_aux": float(aux1), "worst": errs[worst],
@@ -4071,7 +4210,7 @@ def tpt_f32_expected(model) -> dict:
 
 
 def check_tp_train(dev, card: str, archs: tuple = TPT_ARCHS,
-                   f32_cuts: tuple = TPT_F32) -> dict:
+                   f32_cuts: tuple = TPT_F32, kept=None) -> dict:
     """Phase 13: training under the model axis, two gloo ranks on the one
     card. For internlm2-1.8b and
     zamba2-1.2b at full width and depth in bf16 with remat, the unsharded
@@ -4091,48 +4230,65 @@ def check_tp_train(dev, card: str, archs: tuple = TPT_ARCHS,
     layers: the depth the dry run's ``--cards 2 --model 2`` reckoning
     lets two ranks on one card hold) and whisper-small (full depth, 2 x
     416 tokens and their frames) so, with its f32 cuts
-    (``TPT14_F32``). Returns rank 0's launches per path."""
+    (``TPT14_F32``); phase 16 holds internlm2-1.8b and zamba2-1.2b under
+    ``seq_parallel`` and internlm2-1.8b under ``second_matmul="col"``
+    (``TPT16``, ``TPT16_F32``: entries with their layout) against phase
+    13's unsharded steps (``kept``, a ``Kept``), each rank's leaves held
+    whole
+    with bitwise equal gradients on both ranks, and reports the loss and
+    grad norm beside phase 13's row layout's, bit for bit. Returns rank
+    0's launches per path."""
     import torch
     from repro_torch.configs import ShapeSuite
     from repro_torch.launch import dryrun
     from repro_torch.models.param import tree_paths
+    kept = kept or Kept()
     refs, cells = {}, {}
-    for arch, layers in archs:
+    for arch, layers, *lay in archs:
         t0 = time.perf_counter()
-        refs[arch] = tpt_unsharded(arch, dev, layers)
+        layout, tag = (lay[0] if lay else {}), layout_name(lay and lay[0])
+        cached = (arch, layers) in kept.train
+        if not cached:
+            kept.train[(arch, layers)] = tpt_unsharded(arch, dev, layers)
+        refs[(arch, layers)] = kept.train[(arch, layers)]
         seq = tpt_seq(tpt_model(arch))
         suite = ShapeSuite("tp_train", seq, TPT_BATCH, "train")
         fn, args, meta, comm = dryrun.build_cell(
             arch, suite.name, cards=TP_RANKS, model=TP_RANKS, suite=suite,
-            overrides={"microbatches": TPT_MB,
+            overrides={"microbatches": TPT_MB, **layout,
                        **({"n_layers": layers} if layers else {})})
-        cells[arch] = (dryrun.analyze_cell(fn, args, meta, comm),
-                       [(c["op"], c["dtype"], c["result_bytes"], c["group"])
-                        for c in comm.plan])
+        cells[(arch, layers, tag)] = (
+            dryrun.analyze_cell(fn, args, meta, comm),
+            [(c["op"], c["dtype"], c["result_bytes"], c["group"])
+             for c in comm.plan])
         del fn, args
         print(f"{arch} unsharded train step on the card (bf16, remat, "
               f"{TPT_BATCH} x {seq} in {TPT_MB} microbatches"
               + (f", {layers} layers" if layers else "") + ") and its "
-              f"rounding witness, and the dry run's --cards 2 --model 2 "
-              f"cell, in {time.perf_counter() - t0:.2f} s")
+              f"rounding witness"
+              + (" kept from phase 13" if cached else "")
+              + f", and the dry run's --cards 2 --model 2 cell ({tag}), in "
+              f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    names = ", ".join(a for a, _ in archs)
+    names = ", ".join(f"{a[0]} ({layout_name(a[2:] and a[2])})"
+                      for a in archs)
     items, seconds = spawn_ranks(
         tpt_rank, TP_RANKS, (archs, f32_cuts),
         TP_RANKS * (len(archs) + len(f32_cuts)), TPT_TIMEOUT_S,
         f"training {names}")
-    got = {(r["arch"], r["kind"], r["rank"]): r for r in items}
+    got = {(r["arch"], r["kind"], r["rank"], r["tag"]): r for r in items}
     print(f"training {names}: {TP_RANKS} gloo "
           f"ranks on the one card trained "
           f"{len(archs)} models and {len(f32_cuts)} f32 cuts in "
           f"{seconds:.1f} s (spawn, imports and weights "
           f"included)")
     counts = {}
-    for arch, layers in archs:
-        ref, (cell, plan) = refs[arch], cells[arch]
+    for arch, layers, *lay in archs:
+        tag = layout_name(lay and lay[0])
+        ref, (cell, plan) = refs[(arch, layers)], cells[(arch, layers, tag)]
         model = tpt_model(arch, layers)
-        ranks = [got[(arch, "bf16", k)] for k in range(TP_RANKS)]
+        ranks = [got[(arch, "bf16", k, tag)] for k in range(TP_RANKS)]
         notes = []
         for key in ("loss", "grad_norm"):
             want = ref["bf16"][key]
@@ -4154,6 +4310,22 @@ def check_tp_train(dev, card: str, archs: tuple = TPT_ARCHS,
                              f"{rel:.3g}, {held})")
             notes.append(f"unsharded {key} {want:.6f}, witness "
                          f"{ref['witness'][key]:.6f} (relative {wit:.3g})")
+        row = kept.row.get(("train", arch, layers))
+        if tag == "row":
+            kept.row[("train", arch, layers)] = [
+                (r["loss"], r["grad_norm"]) for r in ranks]
+        elif row:
+            notes.append("against phase 13's row layout: " + "; ".join(
+                f"rank {k} loss {bitwise(r['loss'], rl)}, grad norm "
+                f"{bitwise(r['grad_norm'], rg)}"
+                for k, (r, (rl, rg)) in enumerate(zip(ranks, row))))
+        if ranks[0]["whole_mu"] != ranks[1]["whole_mu"]:
+            bad = [i for i in ranks[0]["whole_mu"]
+                   if ranks[0]["whole_mu"][i] != ranks[1]["whole_mu"].get(i)]
+            fail(f"{arch} ({tag}): the leaves {bad} every rank holds whole "
+                 f"got different gradients on the two ranks")
+        notes.append(f"the {len(ranks[0]['whole_mu'])} leaves both ranks "
+                     f"hold whole got bitwise equal gradients")
         # a leaf may be all zero only where the unsharded step's is too
         zero = ref["bf16"]["zero"]
         for k, r in enumerate(ranks):
@@ -4189,7 +4361,8 @@ def check_tp_train(dev, card: str, archs: tuple = TPT_ARCHS,
         cut = (f" at {layers} of {build_model_layers(arch)} layers"
                if layers else "")
         print(f"{arch}{cut} train step on two ranks (tensor-parallel, "
-              f"manual_dp over a (1, 2) mesh, gloo) vs the unsharded card "
+              f"{tag}, manual_dp over a (1, 2) mesh, gloo) vs the unsharded "
+              f"card "
               f"step [{card}]: {'; '.join(notes)}; every "
               f"{'other ' if zero else ''}gradient leaf finite "
               f"and nonzero ({r0['leaves']} per rank); rank 0 launched "
@@ -4200,10 +4373,13 @@ def check_tp_train(dev, card: str, archs: tuple = TPT_ARCHS,
               f"{ref['bf16']['step_s'] * 1e3:.1f} ms. Two ranks share one "
               f"card's SMs and gloo stages every collective through the "
               f"host: no tensor-parallel speedup")
-        counts[f"tp_train_{arch.split('-')[0]}"] = r0["launches"]
-    for arch, layers in f32_cuts:
+        short = arch.split("-")[0]
+        counts[f"tp_train_{short}" if tag == "row" else
+               f"{tag}_train_{short}"] = r0["launches"]
+    for arch, layers, *lay in f32_cuts:
+        tag = layout_name(lay and lay[0])
         model = tpt_model(arch, layers)
-        ranks = [got[(arch, "f32", k)] for k in range(TP_RANKS)]
+        ranks = [got[(arch, "f32", k, tag)] for k in range(TP_RANKS)]
         for k, r in enumerate(ranks):
             if not r["worst"] <= TPT_F32_TOL:
                 fail(f"{arch} at {layers} layers in f32, rank {k}: gradient "
@@ -4219,15 +4395,27 @@ def check_tp_train(dev, card: str, archs: tuple = TPT_ARCHS,
             fail(f"{arch} f32 rank 0 launched {r0['launches']}; expected "
                  f"{want}")
         print(f"{arch} at {layers} of {build_model_layers(arch)} "
-              f"(decoder) layers, full width, f32, on two ranks [{card}]: "
+              f"(decoder) layers, full width, f32, on two ranks ({tag}) "
+              f"[{card}]: "
               f"every gradient leaf "
               f"within 1e-4 x max |g| of the unsharded card gradient's "
               f"slice (worst {max(r['worst'] for r in ranks):.3g}, "
               f"{r0['worst_leaf']} on rank 0); loss {r0['loss']:.6f} vs "
               f"{r0['unsharded_loss']:.6f}, aux {r0['aux']:.6g} vs "
               f"{r0['unsharded_aux']:.6g}; rank 0 launched {r0['launches']}")
-        counts[f"tp_train_{arch.split('-')[0]}_f32"] = r0["launches"]
+        short = arch.split("-")[0]
+        counts[f"tp_train_{short}_f32" if tag == "row" else
+               f"{tag}_train_{short}_f32"] = r0["launches"]
     return counts
+
+
+def bitwise(got: float, want: float) -> str:
+    """Whether ``got`` is ``want`` to the bit, else by how much it
+    differs."""
+    if got == want:
+        return "bitwise equal"
+    return (f"differs by {got - want:.3g} (relative "
+            f"{abs(got - want) / abs(want):.3g})")
 
 
 # ----------------------------------------------------------------- phase 14
@@ -4738,6 +4926,55 @@ def check_kv_seq(dev, card: str) -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- phase 16
+# the model axis's other two layouts of the reference's rules: col
+# serving (internlm2: every pair's second matmul; whisper: self- and
+# cross-attention wo and the GELU w_down at 6 of 12 heads per rank), then
+# training under seq_parallel (internlm2; zamba2: Mamba2 and the shared
+# attention on a split sequence) and col (internlm2), each with an f32 cut
+COL = {"second_matmul": "col"}
+SEQ_PARALLEL = {"seq_parallel": True}
+TP16_ARCHS = ("internlm2-1.8b", "whisper-small")
+# zamba2 at 12 of 38 layers (two shared-attention applications) and
+# internlm2's col step at 8 of 24 keep the phase within 150 s: two gloo
+# ranks on one H100 took 17.7 / 32.5 s for their full-depth steps beside
+# internlm2's seq_parallel one's 37.3 s, which stays at full depth to be
+# read against phase 13's row step bit for bit
+TPT16 = (("internlm2-1.8b", 0, SEQ_PARALLEL),
+         ("zamba2-1.2b", 12, SEQ_PARALLEL), ("internlm2-1.8b", 8, COL))
+TPT16_F32 = (("internlm2-1.8b", 4, SEQ_PARALLEL),
+             ("zamba2-1.2b", 6, SEQ_PARALLEL), ("internlm2-1.8b", 4, COL))
+
+
+def layout_kernel_shapes() -> tuple:
+    """(flash, gla) in ``TP_LOCAL_FLASH`` / ``TP_LOCAL_GLA``'s form at the
+    shapes phase 16's ranks give the kernels: col serving at M = 2
+    (internlm2's prefill; whisper's causal decoder self-attention, its
+    full and cross regimes at these heads phase 14's), and training at M
+    = 2, where sequence parallelism gathers every position before each
+    attention and scan (internlm2's and zamba2's microbatch of 1 x
+    2048)."""
+    from repro_torch.models import build_model
+    from repro_torch.models.blocks import mamba_dims
+    i_cfg, w_cfg, z_cfg = (build_model(a).cfg for a in (
+        "internlm2-1.8b", "whisper-small", "zamba2-1.2b"))
+    m = TP_RANKS
+    flash = [("internlm2 col serving at M = 2", LM_BATCH, i_cfg.n_heads // m,
+              i_cfg.n_kv_heads // m, LM_PROMPT, i_cfg.resolved_head_dim),
+             ("whisper col serving at M = 2, decoder", LM_BATCH,
+              w_cfg.n_heads // m, w_cfg.n_kv_heads // m, WHISPER_PROMPT,
+              w_cfg.resolved_head_dim)]
+    gla = []
+    for cfg in (i_cfg, z_cfg):
+        label = f"{cfg.arch} training at M = 2 (gathered sequence)"
+        flash.append((label, 1, cfg.n_heads // m, cfg.n_kv_heads // m,
+                      TRAIN_SEQ, cfg.resolved_head_dim))
+    _, nh, dv, st = mamba_dims(z_cfg)
+    gla.append((f"{z_cfg.arch} training at M = 2 (gathered sequence)", 1,
+                TRAIN_SEQ, nh // m, st, dv))
+    return tuple(flash), tuple(gla)
+
+
 def build_model_layers(arch: str) -> int:
     from repro_torch.models import build_model
     return build_model(arch).cfg.n_layers
@@ -4875,20 +5112,22 @@ def main() -> None:
     check_local_kernels(dev, torch.Generator(                  # phase 12
         device=dev).manual_seed(12))
     stamp("11")
+    kept = Kept()
     tp_counts = {path: by_design(c)
-                 for path, c in check_tp(dev, card).items()}
+                 for path, c in check_tp(dev, card, kept=kept).items()}
     stamp("12")
     check_local_kernels(dev, torch.Generator(                  # phase 13
         device=dev).manual_seed(13), train=True)
-    tp_counts.update({path: by_design(c)
-                      for path, c in check_tp_train(dev, card).items()})
+    tp_counts.update({path: by_design(c) for path, c in check_tp_train(
+        dev, card, kept=kept).items()})
     stamp("13")
     t14 = time.perf_counter()                                  # phase 14
     check_local_kernels_14(dev, torch.Generator(device=dev).manual_seed(14))
     tp_counts.update({path: by_design(c) for path, c in check_tp(
-        dev, card, archs=TP14_ARCHS, row_products=False).items()})
+        dev, card, archs=TP14_ARCHS, row_products=False,
+        kept=kept).items()})
     tp_counts.update({path: by_design(c) for path, c in check_tp_train(
-        dev, card, archs=TPT14, f32_cuts=TPT14_F32).items()})
+        dev, card, archs=TPT14, f32_cuts=TPT14_F32, kept=kept).items()})
     print(f"phase 14 (rwkv6-7b and whisper-small under the model axis) in "
           f"{time.perf_counter() - t14:.1f} s [{card}]")
     t15 = time.perf_counter()                                  # phase 15
@@ -4899,6 +5138,17 @@ def main() -> None:
     print(f"phase 15 (the K/V cache's sequence split: qwen2-vl-7b over 8 "
           f"ranks, zamba2-1.2b over 2 data ranks) in "
           f"{time.perf_counter() - t15:.1f} s [{card}]")
+    t16 = time.perf_counter()                                  # phase 16
+    check_local_kernels(dev, torch.Generator(device=dev).manual_seed(16),
+                        train=True, shapes=layout_kernel_shapes())
+    tp_counts.update({path: by_design(c) for path, c in check_tp(
+        dev, card, archs=TP16_ARCHS, row_products=False, layout=COL,
+        kept=kept).items()})
+    tp_counts.update({path: by_design(c) for path, c in check_tp_train(
+        dev, card, archs=TPT16, f32_cuts=TPT16_F32, kept=kept).items()})
+    print(f"phase 16 (second_matmul=\"col\" serving and training, "
+          f"seq_parallel training) in {time.perf_counter() - t16:.1f} s "
+          f"[{card}]")
     for name, t in fn_times.items():
         next(r for r in results if r["name"] == name).update(
             train_forward_ms=t["fwd_ms"], recompute_backward_ms=t["bwd_ms"],

@@ -7,7 +7,7 @@ flops — the JAX package's ``launch/dryrun.py``.
         --shape prefill_32k [--cards N] [--model M] [--out build/dryrun] \\
         [--tag T] [--override key=value ...]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--cards N] \\
-        [--model M]
+        [--model M] [--override key=value ...]
 
 The JAX package lowers and compiles each cell against a 512-chip mesh on
 forced host devices; here the step runs once on ``meta`` tensors (no
@@ -31,10 +31,20 @@ in place of ``torch.distributed``: ``make_prefill_step`` /
 batch); what it issued is held against ``model_axis_plan``, and the
 cell's JSON gives each collective's bytes (a split cache's: per
 attention layer a prefill's two all-to-alls, a decode's all-gather of
-the token's q, k and v and the log-sum-exp's three all-reduces). The
-``fsdp`` / ``seq_parallel`` / ``second_matmul="col"`` overrides and
-``dp_mode`` other than "manual" report ``status: "not_ported"`` with the
-ROADMAP item as the reason.
+the token's q, k and v and the log-sum-exp's three all-reduces).
+
+The layout overrides are the reference CLI's (``LAYOUT_DEFAULTS``),
+applied per cell kind as its rules apply them (``cell_rules``):
+``second_matmul="col"`` on every cell (``wo`` and ``w_down`` split by
+output column, their input and output all-gathered), ``seq_parallel``
+on train cells (the residual's positions over the model axis; a
+prefill or decode cell's rules ignore it, as the reference's do), and
+``dp_mode`` ("auto", the reference's default, or "manual") on train
+cells, which run as ``manual_dp`` either way: at cards > 1 an "auto"
+cell's ``layout_differences["dp_mode"]`` names how GSPMD's step differs.
+``fsdp`` on a train cell and ``--multi-pod`` report ``status:
+"not_ported"`` with the ROADMAP item as the reason (a prefill or decode
+cell ignores ``fsdp``).
 
 At M = 1 the layout over ``--cards N`` is ``train/manual_dp.py``'s:
 parameters replicated, AdamW moments ZeRO-sharded N ways, the batch split
@@ -69,7 +79,7 @@ from repro_torch.launch.step_analysis import (CARD_BYTES, analyze_step,
                                               roofline_terms)
 from repro_torch.models.model import Model
 from repro_torch.models.param import tree_leaves, tree_paths
-from repro_torch.models.sharding import (ShardingCtx, default_rules,
+from repro_torch.models.sharding import (Part, ShardingCtx, default_rules,
                                          held_differently)
 from repro_torch.optim import AdamWConfig, abstract_state
 from repro_torch.train.manual_dp import (abstract_zero_opt_state,
@@ -80,10 +90,29 @@ from repro_torch.train.train_step import make_train_step
 
 # the ROADMAP item each layout the port lacks waits for
 NOT_PORTED = {
-    "layout": "A: fsdp / seq_parallel / second_matmul=\"col\"",
-    "dp_mode": "A: dp_mode \"auto\" (GSPMD's ZeRO) has no counterpart; "
-               "the port's data-parallel training is manual_dp",
+    "fsdp": "A11: fsdp (ZeRO-3: the parameters' input dim over data) on a "
+            "train cell",
+    "multi_pod": "A11: --multi-pod (manual_dp over (pod, data))",
 }
+# the reference CLI's layout overrides and their defaults
+# (``src/repro/launch/dryrun.py:47-50``)
+LAYOUT_DEFAULTS = {"fsdp": False, "seq_parallel": False,
+                   "second_matmul": "row", "dp_mode": "auto"}
+DP_MODES = ("auto", "manual")
+
+
+def layout_options(overrides: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """The layout overrides of a cell (``LAYOUT_DEFAULTS`` where not
+    given); raises for a value the reference does not take."""
+    got = {k: (overrides or {}).get(k, v) for k, v in LAYOUT_DEFAULTS.items()}
+    if got["second_matmul"] not in ("row", "col"):
+        raise ValueError(f"second_matmul {got['second_matmul']!r}: "
+                         f"\"row\" or \"col\"")
+    if got["dp_mode"] not in DP_MODES:
+        raise ValueError(f"dp_mode {got['dp_mode']!r}: one of {DP_MODES}")
+    got["fsdp"], got["seq_parallel"] = (bool(got["fsdp"]),
+                                        bool(got["seq_parallel"]))
+    return got
 
 
 class RecordedCollectives:
@@ -123,10 +152,19 @@ class RecordedCollectives:
         self._record("all_to_all_single", "all-to-all", out, group)
 
 
-def cell_rules(cfg, suite: ShapeSuite, model_axis: int) -> Dict[str, Any]:
-    """The reference's rules for a serving cell
-    (``src/repro/launch/dryrun.py:84-94``)."""
-    rules = default_rules()
+def cell_rules(cfg, suite: ShapeSuite, model_axis: int, *,
+               fsdp: bool = False, seq_parallel: bool = False,
+               second_matmul: str = "row", **_) -> Dict[str, Any]:
+    """The reference's rules for a cell (``src/repro/launch/dryrun.py:
+    77-94``): ``second_matmul`` for every cell, ``fsdp`` and
+    ``seq_parallel`` for train cells only (a prefill or decode cell's
+    rules ignore them), then the K/V cache's sequence for serving. Takes
+    ``layout_options``' keys (``dp_mode`` changes no rule)."""
+    if suite.kind == "train":
+        rules = default_rules(fsdp=fsdp, seq_parallel=seq_parallel,
+                              second_matmul=second_matmul)
+    else:
+        rules = default_rules(second_matmul=second_matmul)
     if suite.name == "long_500k":
         # B=1 cannot shard over data; shard the KV sequence there instead
         rules["batch"] = None
@@ -162,7 +200,6 @@ def kv_seq_collectives(model: Model, b: int, s: int, ctx: ShardingCtx,
     log-sum-exp's three f32 all-reduces over the kv_seq axis (the row
     maxima, the sums of exponentials, the output)."""
     from repro_torch.models import blocks
-    from repro_torch.models.sharding import Part
     m = ctx.size("kv_seq")
     if mode == "train" or m == 1:
         return []
@@ -192,75 +229,156 @@ def kv_seq_collectives(model: Model, b: int, s: int, ctx: ShardingCtx,
                                                         axis, m)]
 
 
+def _rs(n_bytes: int, size: int) -> Dict[str, Any]:
+    """One f32 reduce-scatter over "model" with ``n_bytes`` of results."""
+    return {"op": "reduce_scatter_tensor", "kind": "reduce-scatter",
+            "dtype": "torch.float32", "result_bytes": n_bytes,
+            "axis": "model", "group": size}
+
+
 def layer_bodies(model: Model, b: int, s: int, ctx: ShardingCtx,
-                 mode: str = "train") -> List[Tuple[list, int, list]]:
+                 mode: str = "train") -> List[Tuple[list, int, list, int]]:
     """Rank 0's collectives of each piece of a step on ``b`` x ``s``
-    tokens under ``ctx`` in ``mode``, in forward order: the embedding's
-    all-reduce,
+    tokens under ``ctx`` in ``mode``, in forward order: the embedding's,
     and each layer body (one decoder block, one Mamba2 layer, one
     application of zamba2's shared block, one RWKV6 block, one whisper
     encoder or decoder layer), each as (the forward's, how many of them
-    a remat re-forward issues again, the backward's). A re-forward
-    (``torch.utils.checkpoint``, non-reentrant) stops once it has
-    recomputed the last tensor the backward saved, so it skips each
-    body's closing row-parallel all-reduce (RWKV6's body ends on the
-    product of its gathered gate and its channel mix's sum, both of
-    which the backward saves: it reissues all three); the backward's are
-    the ``copy`` Functions' (the MoE's gates before its tokens, Mamba2's
-    norm, then B and C, then its input; RWKV6's channel-mix gate, then
-    its k input, then the time mix's LoRA hidden and its r / k / v / g
-    mixes; whisper's MLP input, then the cross-attention's and the self-
-    attention's). Whisper's encoder layers (at ``enc_seq`` frames) come
-    first outside decode, then its output's ``copy`` into the decoder's
-    K/V projections (one all-reduce in the backward). The MoE's load
-    balance is all-reduced where ``ctx`` splits "batch". Each
-    self-attention's forward starts with its split cache's collectives
-    (``kv_seq_collectives``)."""
+    a remat re-forward issues again, the backward's, how many of those
+    come before the re-forward).
+
+    A body is a chain of units (an attention, an MLP or MoE, a Mamba2
+    mixer), each: its input entering split computation (``enter``: a
+    ``copy``, whose all-reduce is the backward's, or under sequence
+    parallelism the positions' all-gather, whose reduce-scatter is; or
+    ``whole``: the all-gather alone), what it issues inside (a split
+    cache's collectives, ``kv_seq_collectives``; Mamba2's gated norm; the
+    MoE's load balance over a split batch), then its output: a
+    row-parallel sum (an f32 all-reduce, identity backward; or a
+    reduce-scatter, whose all-gather is the backward's) or, for a pair
+    under ``second_matmul="col"``, the input's all-gather (its
+    reduce-scatter the backward's) and the output columns' (slice
+    backward). The backward runs the units from the last, each its
+    output's then its input's. A re-forward (``torch.utils.checkpoint``,
+    non-reentrant) starts at the first saved tensor the backward unpacks
+    (after the closing reduce-scatter's all-gather, which saves none) and
+    stops once it has recomputed the last one, so it skips each body's
+    closing sum or output gather (RWKV6's body ends on the product of its
+    gathered gate and its channel mix's sum, both saved: it reissues
+    every one). Whisper's encoder layers (at ``enc_seq`` frames) come
+    first outside decode, then its output entering the decoder's K/V
+    projections."""
     cfg, m = model.cfg, ctx.size("heads")
-    act = 4 * b * s * cfg.d_model
+    d, dtype = cfg.d_model, model.defs["embed"].dtype
+    item = dtype.itemsize
+    sp, col = ctx.size("seq") > 1, ctx.size("embed_out") > 1
     kv = kv_seq_collectives(model, b, s, ctx, mode)
 
     def ar(n, axis="model", size=m):
         return _ar(n, axis, size)
 
-    bodies = [([ar(act)], 0, [])]                       # the embedding's
+    def piece(axis, n, parts=None):
+        """The largest part a rank holds of ``n`` units over ``axis``."""
+        return max(len(ctx.indices(axis, n, parts, at=i))
+                   for i in range(ctx.size(axis)))
+
+    def seq_ag(n, dt=dtype):
+        return _ag(m * piece("seq", n) * b * d * dt.itemsize, str(dt), m)
+
+    def seq_rs(n):
+        return _rs(4 * b * piece("seq", n) * d, m)
+
+    def enter(n):
+        """(forward, backward) of a block's input entering split
+        computation over ``n`` positions."""
+        return ([seq_ag(n)], [seq_rs(n)]) if sp else ([], [ar(4 * b * n
+                                                                * d)])
+
+    def whole(n):
+        return [seq_ag(n)] if sp else []
+
+    def out(n, dt=dtype):
+        """(forward, backward before the re-forward) of a row-parallel
+        output over ``n`` positions (``dt``: the dtype it is summed
+        from)."""
+        return ([seq_rs(n)], [seq_ag(n, dt=dt)]) if sp else (
+            [ar(4 * b * n * d)], [])
+
+    def pair(n, axis, units, parts=None):
+        """(forward, backward before the re-forward, after it) of a pair's
+        second matmul over ``n`` positions, its input split over ``axis``
+        (``units`` wide, by ``parts``)."""
+        if not col:
+            return (*out(n), [])
+        wi = piece(axis, units, parts)
+        return ([_ag(m * wi * b * n * item, str(dtype), m),
+                 _ag(m * piece("embed_out", d) * b * n * item, str(dtype),
+                     m)], [seq_ag(n)] if sp else [], [_rs(4 * b * n * wi, m)])
+
+    hd = cfg.resolved_head_dim
+    heads = (Part(cfg.n_heads * hd, cfg.n_heads),)
+
+    def attn_unit(n, cache=()):
+        e_f, e_b = enter(n)
+        p_f, p_pre, p_post = pair(n, "heads", cfg.n_heads * hd, heads)
+        return e_f + list(cache) + p_f, p_pre, p_post + e_b
+
+    def mlp_unit(n, second=True):
+        e_f, e_b = enter(n)
+        if second:
+            p_f, p_pre, p_post = pair(n, "ff", cfg.d_ff)
+        else:                          # zamba2's shared MLP: ("ff", "embed")
+            (p_f, p_pre), p_post = out(n), []
+        return e_f + p_f, p_pre, p_post + e_b
+
+    def chain(*units):
+        fwd = [c for f, _, _ in units for c in f]
+        bwd = [c for _, pre, post in reversed(units) for c in pre + post]
+        return fwd, len(fwd) - 1, bwd, len(units[-1][1])
+
+    emb_f, emb_b = out(s)
+    bodies = [(emb_f, 0, emb_b, len(emb_b))]            # the embedding's
     if cfg.family == "hybrid":
         k = cfg.shared_attn_every
         st = cfg.ssm.state_size
+        o_f, o_pre = out(s)
+        mamba = chain((whole(s) + [ar(4 * b * s)] + o_f, o_pre,
+                       [ar(4 * b * s), ar(4 * b * s * 2 * st), ar(4 * b * s
+                                                                   * d)]))
+        shared = chain(attn_unit(s, kv), mlp_unit(s, second=False))
         for i in range(cfg.n_layers):
-            bodies.append(([ar(4 * b * s), ar(act)], 1,
-                           [ar(4 * b * s), ar(4 * b * s * 2 * st),
-                            ar(act)]))
+            bodies.append(mamba)
             if (i + 1) % k == 0 and (i + 1) // k <= model.n_shared_apps():
-                bodies.append((kv + [ar(act), ar(act)], 1,
-                               [ar(act), ar(act)]))
+                bodies.append(shared)
         return bodies
     if cfg.family == "ssm":
         from repro_torch.models.blocks import RWKV_LORA, rwkv6_heads
-        dtype = model.defs["embed"].dtype
-        cols = len(ctx.indices("heads", cfg.d_model, rwkv6_heads(cfg),
-                               at=0))
-        gate = _ag(m * cols * b * s * dtype.itemsize, str(dtype), m)
-        body = ([ar(act), ar(act), gate], 3,
-                [ar(act), ar(act), ar(4 * b * s * RWKV_LORA), ar(4 * act)])
-        return bodies + [body] * cfg.n_layers
+        cols = piece("heads", cfg.d_model, rwkv6_heads(cfg))
+        gate = _ag(m * cols * b * s * item, str(dtype), m)
+        (tm_f, tm_pre), (cm_f, cm_pre) = out(s), out(s)
+        fwd = whole(s) + tm_f + whole(s) + cm_f + [gate]
+        bwd = (whole(s) + [ar(4 * b * s * d)] + cm_pre + [ar(4 * b * s * d)]
+               + tm_pre + [ar(4 * b * s * RWKV_LORA), ar(4 * 4 * b * s * d)])
+        return bodies + [(fwd, len(fwd), bwd, 0)] * cfg.n_layers
     if cfg.family == "encdec":
-        layer = (kv + [ar(act)] * 3, 2, [ar(act)] * 3)
+        layer = chain(attn_unit(s, kv), attn_unit(s), mlp_unit(s))
         if mode == "decode":
             return bodies + [layer] * cfg.n_layers
-        enc = 4 * b * cfg.enc_seq * cfg.d_model
-        return ([([ar(enc)] * 2, 1, [ar(enc)] * 2)] * cfg.n_enc_layers
-                + [([], 0, [ar(enc)])] + bodies + [layer] * cfg.n_layers)
+        n = cfg.enc_seq
+        enc = chain(attn_unit(n), mlp_unit(n))
+        o_f, o_b = enter(n)
+        return ([enc] * cfg.n_enc_layers + [(o_f, 0, o_b, 0)] + bodies
+                + [layer] * cfg.n_layers)
     data = ctx.size("batch")
     for _ in range(cfg.n_layers):
-        fwd = kv + [ar(act)]
-        if cfg.moe is not None and data > 1:
-            fwd.append(ar(2 * 4 * cfg.moe.padded_experts, "data", data))
-        fwd.append(ar(act))
-        ffn = ([ar(4 * b * s * cfg.moe.top_k), ar(act)]
-               if cfg.moe is not None else [ar(act)])
-        bwd = ffn + [ar(act)]                         # then the attention's
-        bodies.append((fwd, len(fwd) - 1, bwd))
+        if cfg.moe is not None:
+            o_f, o_pre = out(s, torch.float32)
+            lb = [ar(2 * 4 * cfg.moe.padded_experts, "data", data)] \
+                if data > 1 else []
+            ffn = (whole(s) + lb + o_f, o_pre,
+                   [ar(4 * b * s * cfg.moe.top_k), ar(4 * b * s * d)])
+        else:
+            ffn = mlp_unit(s)
+        bodies.append(chain(attn_unit(s, kv), ffn))
     return bodies
 
 
@@ -269,35 +387,38 @@ def model_axis_plan(model: Model, suite: ShapeSuite, batch: int,
     """The collectives rank 0 issues in one step of ``batch`` sequences
     (its part of the batch) under ``ctx``, in order, reckoned from the
     config (``layer_bodies``); none over a mesh axis of one rank
-    (``issued``). All f32 but RWKV6's gathered gate (the activations'
-    dtype).
+    (``issued``). Sums and reduce-scatters in f32, gathers in the
+    activations' dtype.
 
     Serving: the embedding's all-reduce; per decoder block the
     attention's (after its split cache's, ``kv_seq_collectives``) and
-    the MLP's (MoE: the load balance's over a split
-    batch, then the experts'); per Mamba2 layer its gated norm's and its
-    ``out_proj``'s, and the shared block's two after each group; per
-    RWKV6 block the time mix's, the channel mix's and its gate's
-    all-gather; whisper's two per encoder layer (prefill), then per
-    decoder layer three (self-attention, cross-attention, MLP); then the
-    greedy token's all-gather.
+    the MLP's (MoE: the load balance's over a split batch, then the
+    experts'); per Mamba2 layer its gated norm's and its ``out_proj``'s,
+    and the shared block's two after each group; per RWKV6 block the time
+    mix's, the channel mix's and its gate's all-gather; whisper's two per
+    encoder layer (prefill), then per decoder layer three
+    (self-attention, cross-attention, MLP); then the greedy token's
+    all-gather. Under ``second_matmul="col"`` each pair's all-reduce is
+    two all-gathers (its input's and its output columns').
 
     Training (``manual_dp`` over the data axis, ``batch`` split into the
     config's microbatches): per microbatch the forward's (as serving's,
-    the load balance the microbatch's own), the cross-entropy's three
-    (max, sum of exponentials, gold logit), then the backward's: the
-    logits' input's, and per piece from the last, its remat re-forward's
-    and its ``copy`` Functions' (``layer_bodies``); then once per step
-    the sum of the leaves several ranks hold a part of (each such kv
-    head's, full along its kv dim, and RWKV6's vectors held whole) and
-    ``manual_dp``'s reduce-scatter, all-reduce and all-gather
-    (``collective_plan``)."""
+    the load balance the microbatch's own; under sequence parallelism
+    each block's gathers and reduce-scatters, and the final norm's output
+    gathered), the cross-entropy's three (max, sum of exponentials, gold
+    logit), then the backward's: the logits' input's, and per piece from
+    the last, its remat re-forward's and its Functions' (``layer_bodies``);
+    then once per step the sum of the leaves several ranks hold a part of
+    (each such kv head's, full along its kv dim, RWKV6's vectors held
+    whole, and under sequence parallelism the leaves applied position by
+    position) and ``manual_dp``'s reduce-scatter, all-reduce and
+    all-gather (``collective_plan``)."""
     cfg = model.cfg
     m = ctx.size("heads")
     if suite.kind != "train":
         s = 1 if suite.kind == "decode" else suite.seq_len
         plan = []
-        for fwd, _, _ in layer_bodies(model, batch, s, ctx, suite.kind):
+        for fwd, _, _, _ in layer_bodies(model, batch, s, ctx, suite.kind):
             plan += fwd
         plan.append({"op": "all_gather", "kind": "all-gather",
                      "dtype": "torch.float32",
@@ -308,14 +429,20 @@ def model_axis_plan(model: Model, suite: ShapeSuite, batch: int,
     b, s = batch // n_mb, suite.seq_len
     local = ctx.batch_local()
     bodies = layer_bodies(model, b, s, local)
-    act = _ar(4 * b * s * cfg.d_model, "model", m)
     tok = _ar(4 * b * s, "model", m)
     step = []
-    for fwd, _, _ in bodies:
+    for fwd, _, _, _ in bodies:
         step += fwd
-    step += [tok, tok, tok, act]
-    for fwd, rerun, bwd in reversed(bodies):
-        step += (fwd[:rerun] if cfg.remat else []) + bwd
+    if ctx.size("seq") > 1:      # the final norm's positions gathered
+        piece = -(-s // m)
+        item = model.defs["embed"].dtype.itemsize
+        step += [_ag(m * piece * b * cfg.d_model * item,
+                     str(model.defs["embed"].dtype), m), tok, tok, tok,
+                 _rs(4 * b * piece * cfg.d_model, m)]
+    else:
+        step += [tok, tok, tok, _ar(4 * b * s * cfg.d_model, "model", m)]
+    for fwd, rerun, bwd, pre in reversed(bodies):
+        step += bwd[:pre] + (fwd[:rerun] if cfg.remat else []) + bwd[pre:]
     plan = step * n_mb
     defs = tree_leaves(model.defs)
     shared = local.shared_leaves(defs)
@@ -337,18 +464,37 @@ def model_param_count(abstract_params) -> int:
     return int(sum(x.numel() for x in tree_leaves(abstract_params)))
 
 
-def _not_ported(overrides: Dict[str, Any]) -> Optional[str]:
-    """The ROADMAP item a mesh override waits for, or None."""
-    for key, off in (("fsdp", False), ("seq_parallel", False),
-                     ("second_matmul", "row"), ("dp_mode", "manual")):
-        if key in overrides and overrides[key] != off:
-            return NOT_PORTED["dp_mode" if key == "dp_mode" else "layout"]
+def _not_ported(layout: Dict[str, Any], suite: ShapeSuite,
+                multi_pod: bool = False) -> Optional[str]:
+    """The ROADMAP item a cell's layout waits for, or None: ``fsdp`` on a
+    train cell (the rules of a prefill or decode cell ignore it) and the
+    multi-pod mesh."""
+    if multi_pod:
+        return NOT_PORTED["multi_pod"]
+    if layout["fsdp"] and suite.kind == "train":
+        return NOT_PORTED["fsdp"]
     return None
+
+
+def dp_mode_difference(cfg, data: int) -> Dict[str, Any]:
+    """How the port's step for the reference's default ``dp_mode="auto"``
+    (GSPMD's ZeRO step, ``src/repro/launch/dryrun.py:121-139``) differs
+    from it over a data axis of ``data`` ranks: it is ``manual_dp``."""
+    n_mb = max(cfg.microbatches, 1)
+    return {"reason": (
+        f"dp_mode \"auto\" runs as manual_dp: the gradient crosses the "
+        f"data axis once per step (one reduce-scatter of the f32 bucket), "
+        f"not once per microbatch ({n_mb} per step, as GSPMD reduces each "
+        f"microbatch's gradient to the moments' specs); the AdamW moments "
+        f"are ZeRO-sharded over the {data} data ranks as ranges of the "
+        f"flat gradient bucket, not by \"embed\" -> \"data\" specs"),
+        "gradient_crossings_per_step": 1,
+        "reference_gradient_crossings_per_step": n_mb}
 
 
 def _config(arch: str, shape: str, overrides: Optional[Dict[str, Any]]):
     overrides = dict(overrides) if overrides else {}
-    for key in ("fsdp", "seq_parallel", "second_matmul", "dp_mode"):
+    for key in LAYOUT_DEFAULTS:
         overrides.pop(key, None)
     moe_group = overrides.pop("moe_group", None)
     moe_cap = overrides.pop("moe_capacity", None)
@@ -369,12 +515,18 @@ def _config(arch: str, shape: str, overrides: Optional[Dict[str, Any]]):
 
 def build_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
                overrides: Optional[Dict[str, Any]] = None,
-               suite: Optional[ShapeSuite] = None):
+               suite: Optional[ShapeSuite] = None, multi_pod: bool = False):
     """Returns (step_fn, abstract_args, meta, comm) for one dry-run cell;
     ``suite`` replaces ``SHAPE_SUITES[shape]`` (a cell at another batch or
     length). ``comm`` records a train step's collectives at cards > 1 and
     a serving step's at model > 1 (None otherwise), and holds the step's
-    ``plan``; step_fn is None for a skipped or not-ported cell."""
+    ``plan``; step_fn is None for a skipped or not-ported cell. The
+    layout overrides (``LAYOUT_DEFAULTS``) apply per cell kind, as the
+    reference's (``cell_rules``); a train cell's ``dp_mode`` ("auto", the
+    reference's default, or "manual") runs as ``manual_dp`` either way,
+    and at cards > 1 its result names how "auto" differs
+    (``dp_mode_difference``)."""
+    layout = layout_options(overrides)
     cfg = _config(arch, shape, overrides)
     suite = suite or SHAPE_SUITES[shape]
 
@@ -390,12 +542,14 @@ def build_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
     if model < 1 or cards % model:
         raise ValueError(f"a model axis of {model} does not divide {cards} "
                          f"cards")
-    reason = _not_ported(overrides or {})
+    reason = _not_ported(layout, suite, multi_pod)
     if reason is not None:
         return None, None, {**head, "status": "not_ported",
                             "reason": f"ROADMAP {reason}"}, None
+    if suite.kind == "train":
+        head["dp_mode"] = layout["dp_mode"]
     if model > 1:
-        return model_axis_cell(cfg, suite, cards, model, head)
+        return model_axis_cell(cfg, suite, cards, model, head, layout)
     if cards < 1 or suite.global_batch % cards:
         raise ValueError(f"batch {suite.global_batch} does not split over "
                          f"{cards} cards")
@@ -421,6 +575,9 @@ def build_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
         comm = RecordedCollectives(collective_plan(params, cards))
         meta["layout"] = (f"manual_dp: parameters replicated, moments "
                           f"ZeRO-sharded over {cards} cards")
+        if layout["dp_mode"] == "auto":
+            meta["layout_differences"] = {
+                "dp_mode": dp_mode_difference(cfg, cards)}
         ctx = ShardingCtx(make_mesh((cards, 1), ("data", "model"), rank=0),
                           default_rules(), comm=comm)
         fn = make_manual_dp_train_step(model, AdamWConfig(), comm=comm,
@@ -441,15 +598,18 @@ def build_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
 
 
 def model_axis_cell(cfg, suite: ShapeSuite, cards: int, m: int,
-                    head: Dict[str, Any]):
+                    head: Dict[str, Any],
+                    layout: Optional[Dict[str, Any]] = None):
     """``build_cell``'s result for a cell of ``cfg`` on a (cards / m, m)
-    mesh, as rank 0; ``head`` starts its meta. A train cell traces rank
-    0's ``make_manual_dp_train_step`` (its slices, its ZeRO shard over
-    data of their moments, its part of the batch)."""
+    mesh, as rank 0, under the ``layout`` overrides (``layout_options``;
+    default: the reference's defaults); ``head`` starts its meta. A train
+    cell traces rank 0's ``make_manual_dp_train_step`` (its slices, its
+    ZeRO shard over data of their moments, its part of the batch)."""
+    layout = layout or layout_options(None)
     data = cards // m
     comm = RecordedCollectives()
     ctx = ShardingCtx(make_mesh((data, m), ("data", "model"), rank=0),
-                      cell_rules(cfg, suite, m), comm=comm)
+                      cell_rules(cfg, suite, m, **layout), comm=comm)
     split = ctx.size("batch")        # 1 where the rules hold the batch whole
     if suite.global_batch % split:
         raise ValueError(f"batch {suite.global_batch} does not split over "
@@ -472,9 +632,25 @@ def model_axis_cell(cfg, suite: ShapeSuite, cards: int, m: int,
                       "rank")
                    + (f"; the K/V cache's sequence round-robin over "
                       f"{kv_seq[0]} (its kv heads whole where that is the "
-                      f"model axis)" if kv_seq else "")),
+                      f"model axis)" if kv_seq else "")
+                   + ("; second_matmul col: wo's and w_down's output "
+                      "columns over the model axis, their input and "
+                      "output all-gathered" if ctx.size("embed_out") > 1
+                      else "")
+                   + ("; seq_parallel: between blocks the residual's "
+                      "positions over the model axis (a gather into each "
+                      "block's column-parallel matmuls, a reduce-scatter "
+                      "out of its row-parallel ones), the logits "
+                      "vocab-parallel after a gather of the positions (the "
+                      "reference holds their vocab whole)"
+                      if ctx.size("seq") > 1 else "")),
         "layout_differences": layout_differences(model, suite, ctx),
     }
+    if suite.kind == "train" and layout["dp_mode"] == "auto" and data > 1:
+        meta["layout_differences"]["dp_mode"] = dp_mode_difference(cfg, data)
+    if ctx.size("seq") > 1:
+        meta["layout_differences"]["logits"] = logits_difference(
+            model, per_card // max(cfg.microbatches, 1), suite.seq_len)
     comm.plan = model_axis_plan(model, suite, per_card, ctx)
     if suite.kind == "train":
         batch, _ = S.train_batch_specs(cfg, suite, per_card)
@@ -497,6 +673,24 @@ def model_axis_cell(cfg, suite: ShapeSuite, cards: int, m: int,
     meta["tokens_per_step"] = suite.global_batch
     return (make_decode_step(model, ctx), (params, cache, token, index),
             meta, comm)
+
+
+def logits_difference(model: Model, b: int, s: int) -> Dict[str, Any]:
+    """How the port's logits under sequence parallelism differ from the
+    reference's rules (``act_vocab`` -> None: the logits' vocab whole), on
+    a microbatch of ``b`` x ``s`` tokens: the port gathers the normed
+    positions (``bytes``) and keeps the vocab-parallel unembedding and
+    cross-entropy; the reference's layout gathers the vocab-split table
+    (``reference_bytes``) each step."""
+    cfg = model.cfg
+    item = model.defs["embed"].dtype.itemsize
+    return {"reason": (
+        "the logits stay vocab-parallel: the final norm's output is "
+        "gathered over the sequence and multiplied by the rank's vocab "
+        "rows (the reference's seq_parallel rules hold the logits' vocab "
+        "whole, which gathers the vocab-split table)"),
+        "bytes": b * s * cfg.d_model * item,
+        "reference_bytes": cfg.padded_vocab * cfg.d_model * item}
 
 
 def layout_differences(model: Model, suite: ShapeSuite,
@@ -563,10 +757,12 @@ def analyze_cell(fn, args, meta: Dict[str, Any], comm=None
 def run_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
              out_dir: str = "build/dryrun", tag: str = "",
              overrides: Optional[Dict[str, Any]] = None,
-             suite: Optional[ShapeSuite] = None) -> Dict[str, Any]:
+             suite: Optional[ShapeSuite] = None,
+             multi_pod: bool = False) -> Dict[str, Any]:
     t0 = time.time()
     fn, args, meta, comm = build_cell(arch, shape, cards=cards, model=model,
-                                      overrides=overrides, suite=suite)
+                                      overrides=overrides, suite=suite,
+                                      multi_pod=multi_pod)
     result = dict(meta)
     if meta["status"] == "ok":
         try:
@@ -624,21 +820,27 @@ STATUSES_OK = ("ok", "skipped", "not_ported")
 
 
 def run_matrix(cards: int = 1, out_dir: str = "build/dryrun",
-               model: int = 1) -> bool:
-    """Every arch x ``shape_cells()`` cell, one line each, then the host
-    seconds the matrix took. True when every cell is ok, skipped or not
-    ported."""
+               model: int = 1, overrides: Optional[Dict[str, Any]] = None,
+               tag: str = "", multi_pod: bool = False) -> bool:
+    """Every arch x ``shape_cells()`` cell under ``overrides`` (each
+    cell's kind takes those of the reference's rules), one line each,
+    then the statuses counted and the host seconds the matrix took. True
+    when every cell is ok, skipped or not ported."""
     from repro_torch.configs import list_archs
     t0 = time.time()
-    ok = True
+    ok, statuses = True, {}
     for arch in list_archs():
         for shape in SHAPE_SUITES:
             res = run_cell(arch, shape, cards=cards, model=model,
-                           out_dir=out_dir)
+                           out_dir=out_dir, tag=tag, overrides=overrides,
+                           multi_pod=multi_pod)
             ok &= res["status"] in STATUSES_OK
+            statuses[res["status"]] = statuses.get(res["status"], 0) + 1
             print(matrix_line(res), flush=True)
-    print(f"matrix at {cards} card(s), model axis {model}: "
-          f"{time.time() - t0:.1f} s of host time")
+    print(f"matrix at {cards} card(s), model axis {model}"
+          + (f", overrides {json.dumps(overrides)}" if overrides else "")
+          + f": {json.dumps(statuses)}, {time.time() - t0:.1f} s of host "
+          f"time")
     return ok
 
 
@@ -654,20 +856,25 @@ def main(argv=None):
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--tag", default="")
     ap.add_argument("--override", action="append", default=[],
-                    help="cfg override key=value (int/float/bool)")
+                    help="override key=JSON value: a cfg field, or a layout "
+                         "(fsdp=true, seq_parallel=true, "
+                         "second_matmul='\"col\"', dp_mode='\"manual\"')")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the reference's (pod, data, model) mesh")
     args = ap.parse_args(argv)
-    if args.all:
-        raise SystemExit(0 if run_matrix(args.cards, args.out, args.model)
-                         else 1)
-    if not (args.arch and args.shape):
-        ap.error("--arch and --shape are required without --all")
     overrides = {}
     for ov in args.override:
         k, v = ov.split("=", 1)
         overrides[k] = json.loads(v)
+    if args.all:
+        raise SystemExit(0 if run_matrix(args.cards, args.out, args.model,
+                                         overrides or None, args.tag,
+                                         args.multi_pod) else 1)
+    if not (args.arch and args.shape):
+        ap.error("--arch and --shape are required without --all")
     res = run_cell(args.arch, args.shape, cards=args.cards, model=args.model,
                    out_dir=args.out, tag=args.tag,
-                   overrides=overrides or None)
+                   overrides=overrides or None, multi_pod=args.multi_pod)
     print(json.dumps(brief(res)))
     raise SystemExit(0 if res["status"] in STATUSES_OK else 1)
 

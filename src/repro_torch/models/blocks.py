@@ -50,10 +50,28 @@ combines the ranks' attention by log-sum-exp
 (``attention.attend_decode``). A head-less rank holds positions
 and takes part.
 
+Under ``second_matmul="col"`` (the rules' "embed_out" on the model
+axis) ``wo`` and the MLPs' ``w_down`` hold every row and the rank's
+output columns (``layers.row_parallel``): the rank's heads' output is
+all-gathered, multiplied by its columns and the columns all-gathered
+(``bo`` once, after). RWKV6's ``wo`` and channel-mix ``wv``, Mamba2's
+``out_proj`` and the MoE's experts carry "heads" / "ff" / "experts" and
+"embed": they stay row-parallel, as the reference's specs hold them.
+
 Training under the model axis (``sharding.ShardingCtx.copy`` /
 ``reduce``): the normed input enters ``wq`` / ``wk`` / ``wv`` and the
 MLP through ``copy`` (their gradients' partial sums over the ranks'
 heads all-reduced), the row-parallel outputs leave through ``reduce``.
+Under sequence parallelism (the rules' "seq" on the model axis) the
+residual between blocks holds the rank's positions and each block's
+norm runs on them; ``ShardingCtx.enter`` gathers every position in
+place of the column-parallel ``copy`` (its backward a reduce-scatter),
+``ShardingCtx.leave`` reduce-scatters the row-parallel sums in place of
+``reduce``; where replicated computation reads the input before a
+``copy`` (RWKV6's token shift and mixes, Mamba2's B and C, the MoE's
+router) ``ShardingCtx.whole`` gathers it with the rank's slice as its
+gradient, and the ``copy`` stays. Recurrences, convolutions and the
+token shift see the whole sequence.
 Mamba2 computes B and C alike on every rank (replicated computation
 from the normed input, its columns of ``in_proj`` and ``conv_w`` whole),
 so under a model axis they are projected apart from the rank's z, x and
@@ -78,8 +96,8 @@ from repro_torch.models import gla, moe
 from repro_torch.models.attention import attend_decode, attend_prefill
 from repro_torch.models.layers import (apply_mrope, apply_rope, gelu_mlp,
                                        gelu_mlp_defs, groupnorm_heads,
-                                       layernorm, mlp_defs, rmsnorm,
-                                       row_parallel, swiglu_mlp)
+                                       layernorm, mlp_defs, norm_def,
+                                       rmsnorm, row_parallel, swiglu_mlp)
 from repro_torch.models.param import ParamDef
 from repro_torch.models.sharding import NULL_CTX, Part, ShardingCtx
 
@@ -118,7 +136,8 @@ def attn_defs(cfg: ModelConfig, layers: Optional[int] = None,
                               init="zeros", parts=q_heads)
         defs["bv"] = ParamDef(lead + (hkv * hd,), lax_ + ("kv_heads",),
                               init="zeros", parts=kv_heads)
-        defs["bo"] = ParamDef(lead + (d,), lax_ + ("embed",), init="zeros")
+        defs["bo"] = ParamDef(lead + (d,), lax_ + ("embed",), init="zeros",
+                              per_position=True)
     return defs
 
 
@@ -131,9 +150,9 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
                  ctx: ShardingCtx = NULL_CTX):
     """q [B, S, Hq, hd] and k, v [B, S, Hkv, hd] at this rank's head
     counts (those of its weights)."""
+    x = ctx.enter(x, "heads")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    x = ctx.copy(x, "heads")
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
@@ -159,9 +178,13 @@ def _apply_pos(q, k, cfg: ModelConfig, positions):
 
 def _out_proj(params, out: torch.Tensor, cfg: ModelConfig,
               ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
-    """Row-parallel ``wo`` over the rank's heads, all-reduced, then
-    ``bo`` once."""
-    y = row_parallel(out.flatten(2), params["wo"], ctx, "heads")
+    """``wo`` over the rank's heads (``layers.row_parallel``: row or
+    col), then ``bo`` once (on the rank's positions under sequence
+    parallelism)."""
+    hq = cfg.n_heads
+    y = row_parallel(out.flatten(2), params["wo"], ctx, "heads2",
+                     out=cfg.d_model,
+                     parts=(Part(hq * cfg.resolved_head_dim, hq),))
     if "bo" in params:
         y = y + params["bo"]
     return y
@@ -292,9 +315,10 @@ def cross_attention(params, x: torch.Tensor, enc_kv, cfg: ModelConfig,
     in decode one query against the encoder's keys. K/V held in another
     dtype than x (the bf16 cache of an f32 model) are promoted to x's, as
     JAX's einsum promotes."""
+    x = ctx.enter(x, "heads")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = ctx.copy(x, "heads") @ params["wq"]
+    q = x @ params["wq"]
     if "bq" in params:
         q = q + params["bq"]
     q = q.reshape(b, s, q.shape[-1] // hd, hd)
@@ -310,11 +334,9 @@ def cross_attention(params, x: torch.Tensor, enc_kv, cfg: ModelConfig,
 
 def decoder_block_defs(cfg: ModelConfig, layers: int):
     defs = {
-        "ln1": ParamDef((layers, cfg.d_model), ("layers", "embed"),
-                        init="ones"),
+        "ln1": norm_def((layers, cfg.d_model), ("layers", "embed")),
         "attn": attn_defs(cfg, layers),
-        "ln2": ParamDef((layers, cfg.d_model), ("layers", "embed"),
-                        init="ones"),
+        "ln2": norm_def((layers, cfg.d_model), ("layers", "embed")),
     }
     if cfg.moe is not None and cfg.moe.n_experts:
         defs["moe"] = moe.moe_defs(cfg.d_model, cfg.moe, layers)
@@ -369,8 +391,8 @@ def rwkv6_block_defs(cfg: ModelConfig, layers: int):
     la = ("layers",)
     heads = rwkv6_heads(cfg)
     return {
-        "ln1": ParamDef((L, d), la + ("embed",), init="ones"),
-        "ln2": ParamDef((L, d), la + ("embed",), init="ones"),
+        "ln1": norm_def((L, d), la + ("embed",)),
+        "ln2": norm_def((L, d), la + ("embed",)),
         "tm": {
             # token-shift interpolation coefficients for r, k, v, w, g
             "mu": ParamDef((L, 5, d), la + (None, "embed")),
@@ -413,7 +435,10 @@ def rwkv6_time_mix(p, x, cfg: ModelConfig, *, mode, cache,
     """Returns (y, new_cache): decode updates ``cache``'s state and
     ``shift_tm`` in place; prefill returns fresh ones; train None. Under
     a sharded ``ctx``: the rank's heads (``u``'s), their channels of the
-    vectors held whole, ``wo`` row-parallel."""
+    vectors held whole, ``wo`` row-parallel; under sequence parallelism
+    every position gathered first (``whole``: the token shift and the
+    mixes read them), the output reduce-scattered."""
+    x = ctx.whole(x)
     b, s, d = x.shape
     dk = d // cfg.ssm.n_ssm_heads
     h = p["u"].shape[0]                         # this rank's heads
@@ -467,7 +492,12 @@ def rwkv6_channel_mix(p, x, cfg: ModelConfig, *, cache,
     """Returns (y, x's last token: the next call's shift). Under a
     sharded ``ctx``: ``wk`` column- and ``wv``
     row-parallel over "ff" (one all-reduce of ``kv``), the gate ``r``
-    over the rank's channels, all-gathered before it multiplies ``kv``."""
+    over the rank's channels, all-gathered before it multiplies ``kv``.
+    Under sequence parallelism every position is gathered first
+    (``whole``), ``kv`` is reduce-scattered and the gathered gate cut to
+    the rank's positions (``own_positions``: the all-gather of its
+    gradient)."""
+    x = ctx.whole(x)
     prev = cache["shift_cm"] if cache is not None else None
     xs = _token_shift(x, prev)
     xk = x + (xs - x) * p["mu_k"]
@@ -477,7 +507,7 @@ def rwkv6_channel_mix(p, x, cfg: ModelConfig, *, cache,
     kv = row_parallel(k, p["wv"], ctx, "ff")
     r = torch.sigmoid((ctx.copy(xr, "heads") @ p["wr"]).float()).to(x.dtype)
     r = ctx.gather(r, "heads", cfg.d_model, rwkv6_heads(cfg))
-    return r * kv, x[:, -1]
+    return ctx.own_positions(r) * kv, x[:, -1]
 
 
 def rwkv6_block(params, x, cfg: ModelConfig, *, mode, cache=None,
@@ -521,7 +551,7 @@ def mamba2_block_defs(cfg: ModelConfig, layers: int):
     proj_out = 2 * d_in + 2 * st + nh
     heads = Part(d_in, nh)
     return {
-        "ln": ParamDef((L, d), la + ("embed",), init="ones"),
+        "ln": norm_def((L, d), la + ("embed",)),
         "in_proj": ParamDef((L, d, proj_out), la + ("embed", "heads"),
                             parts=(heads, heads, Part(st), Part(st),
                                    Part(nh, nh))),
@@ -563,12 +593,14 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 def mamba2_block(params, x, cfg: ModelConfig, *, mode, cache=None,
                  ctx: ShardingCtx = NULL_CTX):
-    b, s, d = x.shape
     d_in_full, _, hd, st = mamba_dims(cfg)
     nh = params["a_log"].shape[-1]              # this rank's heads
     d_in = nh * hd
 
-    h = rmsnorm(x, params["ln"], cfg.norm_eps)
+    # under sequence parallelism every position (the conv and the scan
+    # read them; B and C are computed alike on every rank)
+    h = ctx.whole(rmsnorm(x, params["ln"], cfg.norm_eps))
+    b, s, _ = h.shape
     if ctx.size("heads") > 1:
         # B and C from h as it is (every rank computes them alike), the
         # rank's z, x and dt through copy (their gradient is partial)
@@ -635,11 +667,11 @@ def encoder_block_defs(cfg: ModelConfig, layers: int):
     d = cfg.d_model
     la = ("layers",)
     return {
-        "ln1_w": ParamDef((layers, d), la + ("embed",), init="ones"),
-        "ln1_b": ParamDef((layers, d), la + ("embed",), init="zeros"),
+        "ln1_w": norm_def((layers, d), la + ("embed",), "ones"),
+        "ln1_b": norm_def((layers, d), la + ("embed",), "zeros"),
         "attn": attn_defs(cfg, layers, bias=True),
-        "ln2_w": ParamDef((layers, d), la + ("embed",), init="ones"),
-        "ln2_b": ParamDef((layers, d), la + ("embed",), init="zeros"),
+        "ln2_w": norm_def((layers, d), la + ("embed",), "ones"),
+        "ln2_b": norm_def((layers, d), la + ("embed",), "zeros"),
         "mlp": gelu_mlp_defs(d, cfg.d_ff, layers),
     }
 
@@ -661,14 +693,14 @@ def decoder_xattn_block_defs(cfg: ModelConfig, layers: int):
     d = cfg.d_model
     la = ("layers",)
     return {
-        "ln1_w": ParamDef((layers, d), la + ("embed",), init="ones"),
-        "ln1_b": ParamDef((layers, d), la + ("embed",), init="zeros"),
+        "ln1_w": norm_def((layers, d), la + ("embed",), "ones"),
+        "ln1_b": norm_def((layers, d), la + ("embed",), "zeros"),
         "attn": attn_defs(cfg, layers, bias=True),
-        "lnx_w": ParamDef((layers, d), la + ("embed",), init="ones"),
-        "lnx_b": ParamDef((layers, d), la + ("embed",), init="zeros"),
+        "lnx_w": norm_def((layers, d), la + ("embed",), "ones"),
+        "lnx_b": norm_def((layers, d), la + ("embed",), "zeros"),
         "xattn": attn_defs(cfg, layers, bias=True),
-        "ln2_w": ParamDef((layers, d), la + ("embed",), init="ones"),
-        "ln2_b": ParamDef((layers, d), la + ("embed",), init="zeros"),
+        "ln2_w": norm_def((layers, d), la + ("embed",), "ones"),
+        "ln2_b": norm_def((layers, d), la + ("embed",), "zeros"),
         "mlp": gelu_mlp_defs(d, cfg.d_ff, layers),
     }
 

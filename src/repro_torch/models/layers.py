@@ -5,15 +5,18 @@ the JAX package's ``models/layers.py``: norms, activations and softmaxes
 compute in f32, tensors stay in the parameters' dtype (bf16 by default).
 
 Under a sharded ``ctx`` (``models/sharding.py``) the parameters are this
-rank's slices: the MLP is column- then row-parallel (its input through
-``ctx.copy``; ``row_parallel``: its partial products through
-``ctx.reduce``, an f32 all-reduce over "ff"), the embedding and
-unembedding vocab-parallel (the embedding masks the ids outside the
-rank's rows, then reduces, so its gradient reaches the rank's own rows
-only; the unembedding returns the rank's logits columns), and
-``rmsnorm`` over a split dim reduces its sum of squares in f32, which
-the rank's split part then consumes (so its gradient is all-reduced
-back).
+rank's slices: the MLP is column-parallel (its input through
+``ctx.enter``: ``copy``, or under sequence parallelism the positions
+gathered) then ``row_parallel``: the rules' second matmul of the pair,
+row (its partial products summed by ``ctx.leave``: an f32 all-reduce
+over "ff", or a reduce-scatter over the positions) or col
+(``second_matmul="col"``: the input gathered, the rank's output columns
+all-gathered); the embedding and unembedding are vocab-parallel (the
+embedding masks the ids outside the rank's rows, then sums over the
+ranks with ``leave``, so its gradient reaches the rank's own rows only;
+the unembedding returns the rank's logits columns), and ``rmsnorm`` over
+a split dim reduces its sum of squares in f32, which the rank's split
+part then consumes (so its gradient is all-reduced back).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.param import ParamDef
-from repro_torch.models.sharding import NULL_CTX, ShardingCtx
+from repro_torch.models.sharding import NULL_CTX, PAIRED, Part, ShardingCtx
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5, *,
@@ -117,6 +120,12 @@ def sinusoidal_pos(seq: int, d_model: int, offset: int = 0,
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+def norm_def(shape, axes, init: str = "ones") -> ParamDef:
+    """A norm's gain (``init="ones"``) or bias (``"zeros"``): applied on
+    the residual position by position."""
+    return ParamDef(shape, axes, init=init, per_position=True)
+
+
 def mlp_defs(d_model: int, d_ff: int, layers: Optional[int] = None):
     lead = () if layers is None else (layers,)
     lax_ = () if layers is None else ("layers",)
@@ -128,33 +137,51 @@ def mlp_defs(d_model: int, d_ff: int, layers: Optional[int] = None):
 
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor, ctx: ShardingCtx,
-                 axis: str) -> torch.Tensor:
-    """``x @ w`` where x's last dim and w's rows are this rank's part of
-    a dim split over ``axis``: each rank's partial product in x's dtype
-    (in bf16 a tensor-core GEMM, rounded once more than the unsplit
-    product), all-reduced in f32 and rounded once to x's dtype; ``x @ w``
-    itself where ``axis`` is not split."""
-    return ctx.reduce(x @ w, axis)
+                 axis: str, *, out: int = 0,
+                 parts: Optional[Tuple[Part, ...]] = None) -> torch.Tensor:
+    """The second matmul of a pair, ``x @ w``: x's last dim is this
+    rank's part of a dim split over ``axis``'s input axis (by ``parts``),
+    ``w``'s rows are on ``axis``.
+
+    Row (the rows split): each rank's partial product in x's dtype (in
+    bf16 a tensor-core GEMM, rounded once more than the unsplit product),
+    summed in f32 and rounded once to x's dtype (``ctx.leave``: an
+    all-reduce, or under sequence parallelism a reduce-scatter that
+    leaves the rank its positions). Col (``axis`` "heads2" or "ff2" and
+    the rules' ``second_matmul="col"``: w's rows whole, its columns of
+    the ``out`` wide output on "embed_out"): x all-gathered over the
+    input axis (``gather_split``; a rank with no heads sends an empty
+    part), multiplied by the rank's columns, and the columns all-gathered
+    in x's dtype (``gather``), each output element one whole product.
+    ``x @ w`` itself where nothing is split."""
+    if axis in PAIRED and ctx.size("embed_out") > 1:
+        x = ctx.gather_split(x, PAIRED[axis], w.shape[-2], parts)
+        return ctx.own_positions(ctx.gather(x @ w, "embed_out", out))
+    return ctx.leave(x @ w, axis)
 
 
-def swiglu_mlp(params, x: torch.Tensor,
-               ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
-    x = ctx.copy(x, "ff")
+def swiglu_mlp(params, x: torch.Tensor, ctx: ShardingCtx = NULL_CTX, *,
+               down: str = "ff2") -> torch.Tensor:
+    """``down``: the rows' axis of ``w_down`` ("ff" for zamba2's shared
+    MLP, whose ``w_down`` the reference lays out as ("ff", "embed"))."""
+    d = x.shape[-1]
+    x = ctx.enter(x, "ff")
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     h = F.silu(g.float()).to(x.dtype) * u
-    return row_parallel(h, params["w_down"], ctx, "ff")
+    return row_parallel(h, params["w_down"], ctx, down, out=d)
 
 
 def gelu_mlp(params, x: torch.Tensor,
              ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
     """2-matrix GELU MLP (whisper); the tanh approximation, as
-    ``jax.nn.gelu``'s default. Column- then row-parallel over "ff", as
-    ``swiglu_mlp``."""
-    x = ctx.copy(x, "ff")
+    ``jax.nn.gelu``'s default. Column-parallel over "ff", then
+    ``row_parallel``, as ``swiglu_mlp``."""
+    d = x.shape[-1]
+    x = ctx.enter(x, "ff")
     h = x @ params["w_up"]
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return row_parallel(h, params["w_down"], ctx, "ff")
+    return row_parallel(h, params["w_down"], ctx, "ff2", out=d)
 
 
 def gelu_mlp_defs(d_model: int, d_ff: int, layers: Optional[int] = None):
@@ -171,15 +198,17 @@ def embed(table: torch.Tensor, ids: torch.Tensor,
           ctx: ShardingCtx = NULL_CTX, vocab: int = 0) -> torch.Tensor:
     """Rows ``ids`` of the table. Vocab-parallel (``table`` this rank's
     rows of ``vocab``): ids outside them give zeros, and the ranks' rows
-    are all-reduced (exact: one rank holds each id)."""
+    are summed over the ranks (exact: one rank holds each id; under
+    sequence parallelism a reduce-scatter, each rank keeping its
+    positions: ``ctx`` from ``for_seq``)."""
     if ctx.size("vocab") == 1:
-        return table[ids]
+        return ctx.own_positions(table[ids])
     v0, v1 = ctx.range("vocab", vocab)
     local = ids - v0
     hit = (local >= 0) & (local < v1 - v0)
     rows = table[local.clamp(0, v1 - v0 - 1)] * hit[..., None].to(
         table.dtype)
-    return ctx.reduce(rows, "vocab")
+    return ctx.leave(rows, "vocab")
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -47,7 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.models import blocks
-from repro_torch.models.layers import (embed, layernorm, rmsnorm,
+from repro_torch.models.layers import (embed, layernorm, norm_def, rmsnorm,
                                        sinusoidal_pos, swiglu_mlp, unembed)
 from repro_torch.models.param import (ParamDef, local_defs, tree_abstract,
                                       tree_init, tree_map, tree_specs)
@@ -111,7 +111,7 @@ class Model:
         d = {
             "embed": ParamDef((cfg.padded_vocab, cfg.d_model),
                               ("vocab", "embed"), scale=1.0),
-            "final_norm": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+            "final_norm": norm_def((cfg.d_model,), ("embed",)),
         }
         if not cfg.tie_embeddings:
             d["unembed"] = ParamDef((cfg.padded_vocab, cfg.d_model),
@@ -125,10 +125,10 @@ class Model:
             d["layers"] = blocks.mamba2_block_defs(cfg, cfg.n_layers)
             d["shared"] = {
                 "fuse": ParamDef((2 * cfg.d_model, cfg.d_model),
-                                 (None, "embed")),
-                "ln1": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+                                 (None, "embed"), per_position=True),
+                "ln1": norm_def((cfg.d_model,), ("embed",)),
                 "attn": blocks.attn_defs(cfg, None),
-                "ln2": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+                "ln2": norm_def((cfg.d_model,), ("embed",)),
                 "mlp": {
                     "w_gate": ParamDef((cfg.d_model, cfg.d_ff),
                                        ("embed", "ff")),
@@ -140,10 +140,8 @@ class Model:
             }
         else:                                                   # encdec
             d["enc_layers"] = blocks.encoder_block_defs(cfg, cfg.n_enc_layers)
-            d["enc_final_w"] = ParamDef((cfg.d_model,), ("embed",),
-                                        init="ones")
-            d["enc_final_b"] = ParamDef((cfg.d_model,), ("embed",),
-                                        init="zeros")
+            d["enc_final_w"] = norm_def((cfg.d_model,), ("embed",))
+            d["enc_final_b"] = norm_def((cfg.d_model,), ("embed",), "zeros")
             d["layers"] = blocks.decoder_xattn_block_defs(cfg, cfg.n_layers)
         return d
 
@@ -249,6 +247,10 @@ class Model:
         logits (its vocab columns; ``vocab_range`` gives which)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
+        if mode != "train" and ctx.size("seq") > 1:
+            raise ValueError(
+                f"sequence parallelism in {mode}: it is a training layout "
+                f"(the reference's rules apply it to train cells only)")
         if mode != "train":
             with torch.no_grad():
                 return self._forward(params, batch, mode=mode, cache=cache,
@@ -258,7 +260,8 @@ class Model:
 
     def vocab_range(self, ctx: ShardingCtx = NULL_CTX) -> Tuple[int, int]:
         """The vocab ids [start, stop) of this rank's logits columns."""
-        v0, v1 = ctx.range("act_vocab", self.cfg.padded_vocab)
+        v0, v1 = ctx.logits_layout().range("act_vocab",
+                                           self.cfg.padded_vocab)
         return v0, max(v0, min(v1, self.cfg.vocab))
 
     def gather_logits(self, logits: torch.Tensor,
@@ -266,6 +269,7 @@ class Model:
         """Every rank's logits columns [..., V] all-gathered into the full
         [..., vocab] (a collective: every rank of the model axis calls
         it)."""
+        ctx = ctx.logits_layout()
         if ctx.size("act_vocab") == 1:
             return logits
         v0, v1 = ctx.range("act_vocab", self.cfg.padded_vocab)
@@ -281,6 +285,7 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"]
         s = tokens.shape[1]
+        ctx = ctx.for_seq(s)
         offset = cache_index if mode == "decode" else 0
         if cfg.family == "encdec":
             x, new_cache, aux = self._encdec_stack(
@@ -297,8 +302,12 @@ class Model:
                                       positions=positions, cache=cache,
                                       cache_index=cache_index, ctx=ctx)
 
-        x = ctx.copy(rmsnorm(x, params["final_norm"], cfg.norm_eps),
-                     "act_vocab")
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        # every position (the rank's under sequence parallelism) into the
+        # rank's vocab columns
+        x = ctx.gather_split(x, "seq", s, dim=1) if ctx.size("seq") > 1 \
+            else ctx.copy(x, "act_vocab")
+        ctx = ctx.logits_layout()
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
         logits = ctx.constrain(unembed(table, x),
                                ("batch", "seq", "act_vocab"),
@@ -370,7 +379,7 @@ class Model:
                 cache=sc, cache_index=cache_index, ctx=ctx)
             z = z + a
             hh = rmsnorm(z, shared_p["ln2"], cfg.norm_eps)
-            z = z + swiglu_mlp(shared_p["mlp"], hh, ctx)
+            z = z + swiglu_mlp(shared_p["mlp"], hh, ctx, down="ff")
             return h + z, new_sc
 
         remat = self._remat(mode)
@@ -424,17 +433,20 @@ class Model:
         layers = _unstack(params["layers"], cfg.n_layers)
         if mode in ("train", "prefill"):
             frames = batch["frames"]                 # [B, enc_seq, D] stub
-            h = frames + sinusoidal_pos(frames.shape[1], cfg.d_model,
-                                        device=frames.device
-                                        ).to(frames.dtype)[None]
+            # under sequence parallelism the rank's frames
+            ectx = ctx.for_seq(frames.shape[1])
+            f0, f1 = ectx.range("seq", frames.shape[1])
+            h = frames[:, f0:f1] + sinusoidal_pos(
+                f1 - f0, cfg.d_model, f0, device=frames.device
+            ).to(frames.dtype)[None]
             for lp in _unstack(params["enc_layers"], cfg.n_enc_layers):
                 h = _body(remat, lambda p, hh: blocks.encoder_block(
-                    p, hh, cfg, ctx), lp, h)
-            # one copy for every layer's K/V projection: one all-reduce of
-            # its gradient, not one per layer
-            enc_out = ctx.copy(layernorm(h, params["enc_final_w"],
-                                         params["enc_final_b"],
-                                         cfg.norm_eps), "kv_heads")
+                    p, hh, cfg, ectx), lp, h)
+            # one copy (or gather) for every layer's K/V projection: one
+            # collective of its gradient, not one per layer
+            enc_out = ectx.enter(layernorm(h, params["enc_final_w"],
+                                           params["enc_final_b"],
+                                           cfg.norm_eps), "kv_heads")
             enc_kv = []
             for lp in layers:
                 xa = lp["xattn"]
@@ -451,7 +463,8 @@ class Model:
 
         offset = cache_index if mode == "decode" else 0
         x = embed(params["embed"], tokens, ctx, cfg.padded_vocab)
-        x = x + sinusoidal_pos(s, cfg.d_model, offset,
+        s0, s1 = ctx.range("seq", s)       # the rank's positions
+        x = x + sinusoidal_pos(s1 - s0, cfg.d_model, offset + s0,
                                device=x.device).to(x.dtype)[None]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         fresh = []

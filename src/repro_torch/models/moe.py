@@ -170,7 +170,11 @@ def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig,
     """x: [B, S, D] -> (out [B, S, D], aux_loss f32 scalar).
 
     Grouped dispatch: [G, gs, D] -> one-hot dispatch [G, gs, E, C] ->
-    expert compute [E, G, C, D] -> combine (E: this rank's experts)."""
+    expert compute [E, G, C, D] -> combine (E: this rank's experts).
+    Under sequence parallelism ``x`` holds the rank's positions: every
+    position is gathered first (``whole``; the router reads them alike on
+    every rank), and the output reduce-scattered."""
+    x = ctx.whole(x)
     b, s, d = x.shape
     e = cfg.padded_experts
     r = route(params, x, cfg)
@@ -219,6 +223,6 @@ def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig,
         hsh = F.silu((x @ sh["w_gate"]).float()).to(x.dtype) \
             * (x @ sh["w_up"])
         out = out + (hsh @ sh["w_down"]).float()
-    # the routed and shared (partial) sums in f32, all-reduced once where
-    # the experts are split, rounded once
-    return ctx.reduce(out, "experts").to(x.dtype), aux
+    # the routed and shared (partial) sums in f32, all-reduced (or
+    # reduce-scattered) once where the experts are split, rounded once
+    return ctx.leave(out, "experts").to(x.dtype), aux

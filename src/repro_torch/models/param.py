@@ -18,7 +18,9 @@ rank holds the slices of the one full tree and no more than one full
 leaf at a time). A ParamDef's ``parts`` describe how its head-axis dim
 is packed (``sharding.Part``), so it is split by meaning; one marked
 ``read_by_heads`` is held whole although each rank reads only its
-heads' channels of it.
+heads' channels of it, and one marked ``per_position`` is applied on
+the residual position by position (partial gradients under sequence
+parallelism).
 
 Logical axis vocabulary (the reference's, mapped to mesh axes by
 ``models/sharding.py``'s rules):
@@ -54,6 +56,11 @@ class ParamDef:
     # a rank's gradient is partial, summed over the model axis once per
     # step (``ShardingCtx.sum_shared``)
     read_by_heads: bool = False
+    # applied on the residual position by position (a norm's gain and
+    # bias, attention's output bias, zamba2's fuse): under sequence
+    # parallelism a rank applies it to its positions only, so its
+    # gradient is partial, summed over the model axis once per step
+    per_position: bool = False
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):

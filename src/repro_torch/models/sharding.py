@@ -33,12 +33,13 @@ and issues collectives, so the context adds:
   * ``constrain(x, axes, full)`` — asserts a local tensor has the layout
     the rules give, raising on a mismatch (with no mesh it is the
     identity, as the reference's);
-  * ``reduce`` / ``all_gather`` / ``gather`` / ``all_to_all`` over a
-    logical axis's mesh axes,
-    issued through ``comm`` (``torch.distributed`` by default; the dry run
-    passes ``launch.dryrun.RecordedCollectives``). A collective over mesh
-    axes of size 1 is not issued. Partial sums are reduced in f32 and
-    rounded once to their dtype.
+  * ``reduce`` / ``all_gather`` / ``gather`` / ``gather_split`` /
+    ``reduce_scatter`` / ``scatter`` / ``all_to_all`` over a logical
+    axis's mesh axes, issued through ``comm`` (``torch.distributed`` by
+    default; the dry run passes ``launch.dryrun.RecordedCollectives``). A
+    collective over mesh axes of size 1 is not issued. Partial sums are
+    reduced in f32 and rounded once to their dtype; parts of an uneven
+    split are padded to the largest for the collective.
 
 Training differentiates through the layout with Megatron's pair of
 autograd Functions over a logical axis:
@@ -50,19 +51,34 @@ autograd Functions over a logical axis:
     replicated tensor that rank-local (split) computation consumes (the
     normed input of column-parallel weights, Mamba2's B and C, the MoE's
     gates);
-  * ``gather`` — forward the all-gather of the ranks' parts of a last
-    dim, backward the rank's slice of the gradient (RWKV6's channel-mix
-    gate ``r``, whose product with the replicated ``kv`` every rank then
-    computes alike).
+  * ``gather`` — forward the all-gather of the ranks' parts of a dim,
+    backward the rank's slice of the gradient (RWKV6's channel-mix gate
+    ``r``, whose product with the replicated ``kv`` every rank then
+    computes alike; under sequence parallelism the positions that
+    replicated computation reads whole: ``whole``);
+  * ``gather_split`` — the same all-gather, for computation that differs
+    per rank (each multiplies it by its own columns): backward the f32
+    reduce-scatter of the ranks' partial gradients, each rank keeping
+    its part (``second_matmul="col"``'s input, sequence parallelism's
+    input of each column-parallel matmul: ``enter``);
+  * ``reduce_scatter`` — forward the f32 reduce-scatter of partial sums,
+    each rank keeping its part, backward the all-gather of the gradient
+    (sequence parallelism's row-parallel outputs: ``leave``);
+  * ``scatter`` — forward the rank's part of a tensor every rank holds
+    alike, backward the all-gather of the gradient.
 
-All three keep one invariant: on every rank the gradient of every replicated
+The Functions keep one invariant: on every rank the gradient of every replicated
 activation is the whole gradient, so the gradient of a replicated leaf
 (a norm weight, the router, B and C's columns) comes out whole and
 bitwise equal on every rank. A kv head several ranks hold (the model
 axis above the kv heads, or q heads split unevenly) gets a partial
 gradient on each holder, and so does a leaf held whole of which each
 rank reads only its heads' channels (RWKV6's per-channel vectors,
-``ParamDef.read_by_heads``): ``sum_shared`` adds them once per step.
+``ParamDef.read_by_heads``); under sequence parallelism so does each
+leaf applied on the residual position by position, of which each rank
+sees its positions only (``ParamDef.per_position``: the norms' gains and
+biases, attention's ``bo``, zamba2's ``fuse``): ``sum_shared`` adds
+them all once per step, in one all-reduce.
 ``held_pieces`` gives how many ranks of the model axis hold each part of
 a leaf, which the global norm divides by. ``batch_local`` is the context
 of ``train/manual_dp.py``'s forward: "batch" not split, each rank's
@@ -71,13 +87,20 @@ inside ``shard_map``.
 
 The port honours the mesh axes of "batch", "heads", "kv_heads",
 "heads2", "ff", "ff2", "experts", "vocab", "act_vocab" (TP, EP,
-vocab-parallel embedding and logits, and the data axis) and "kv_seq"
+vocab-parallel embedding and logits, and the data axis), "kv_seq"
 (the K/V cache's sequence, round-robin over "model" where the kv heads
 are fewer than the model axis, over "data" at long_500k; a decode
-combines the ranks' positions by log-sum-exp, ``models/attention.py``);
-any other logical axis on a mesh axis of size > 1 ("embed" under FSDP,
-"seq" under sequence parallelism, "embed_out" under
-``second_matmul="col"``) raises ``NotImplementedError``.
+combines the ranks' positions by log-sum-exp, ``models/attention.py``),
+"embed_out" (``second_matmul="col"``: the output columns of each pair's
+second matmul, ``wo`` and the MLPs' ``w_down``; ``layers.row_parallel``)
+and "seq" (sequence parallelism, in training: between blocks the
+residual holds the rank's contiguous positions, rank 0 taking the
+largest share; ``for_seq`` gives the context the full length, ``enter``
+/ ``whole`` / ``leave`` are a block's gathers and its reduce-scatter).
+Under "seq" the logits keep the vocab-parallel columns of the
+unembedding (``logits_layout``), where the reference's rules hold their
+vocab whole. Any other logical axis on a mesh axis of size > 1 ("embed"
+under FSDP) raises ``NotImplementedError``.
 
 Default rule table (single pod, mesh ("data", "model")):
     batch      -> data            DP: batch / business-key partitions
@@ -108,7 +131,9 @@ Spec = Tuple[Any, ...]            # mesh axes per dim (a PartitionSpec)
 
 # logical axes the explicit layout splits
 SPLIT_AXES = ("batch", "heads", "kv_heads", "heads2", "ff", "ff2",
-              "experts", "vocab", "act_vocab", "kv_seq")
+              "experts", "vocab", "act_vocab", "kv_seq", "embed_out", "seq")
+# the row axis of a pair's second matmul -> the axis of its input's columns
+PAIRED = {"heads2": "heads", "ff2": "ff"}
 # the axes dealt round-robin (rank r of M holds units r, r + M, ...; a
 # rank may hold none of a cache shorter than the ranks)
 ROUND_ROBIN = ("kv_seq",)
@@ -188,6 +213,7 @@ class ShardingCtx:
     mesh: Any = None
     rules: Dict[str, Any] = dataclasses.field(default_factory=default_rules)
     comm: Any = None              # collectives; None: torch.distributed
+    seq: int = 0                  # the positions "seq" splits (``for_seq``)
 
     # ------------------------------------------------ the reference's specs
     def spec(self, axes: Sequence[Optional[str]]) -> Spec:
@@ -467,6 +493,73 @@ class ShardingCtx:
         return dataclasses.replace(self, rules={**self.rules,
                                                 "batch": None})
 
+    # ------------------------------------------- sequence parallelism
+    def for_seq(self, n: int) -> "ShardingCtx":
+        """This layout for a forward over ``n`` positions: where it splits
+        "seq", a context holding the full length (the parts of an uneven
+        split differ, and the collectives pad them); else itself. The
+        sequence must share its mesh axis with the heads': a block's
+        gathers and reduce-scatter replace its collectives over them."""
+        if self.size("seq") == 1 or self.seq == n:
+            return self
+        if not self.shares_axis("seq", "heads"):
+            raise NotImplementedError(
+                f"the sequence on {self.rules['seq']!r}, the heads on "
+                f"{self.rules.get('heads')!r}: sequence parallelism runs on "
+                f"the heads' mesh axis")
+        return dataclasses.replace(self, seq=n)
+
+    def enter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """A block's normed input ``x`` as computation split over ``axis``
+        consumes it (each rank multiplies it by its own columns):
+        ``copy``, or where the layout splits "seq" (``x`` the rank's
+        positions) every position gathered (``gather_split``: the
+        reduce-scatter of the ranks' partial gradients)."""
+        if self.size("seq") > 1:
+            return self.gather_split(x, "seq", self.seq, dim=1)
+        return self.copy(x, axis)
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` over every position: where the layout splits "seq", the
+        ranks' positions all-gathered with the rank's slice as the
+        gradient (``gather``: what reads it is computed alike on every
+        rank before a ``copy``, as the MoE's router, Mamba2's B and C,
+        RWKV6's token shift); else ``x``."""
+        if self.size("seq") > 1:
+            return self.gather(x, "seq", self.seq, dim=1)
+        return x
+
+    def leave(self, y: torch.Tensor, axis: str) -> torch.Tensor:
+        """The ranks' partial sums ``y`` over ``axis`` summed: ``reduce``,
+        or where the layout splits "seq", ``reduce_scatter`` over it (each
+        rank keeps its positions; where ``axis`` is not split, the
+        positions of a whole ``y``)."""
+        if self.size("seq") == 1:
+            return self.reduce(y, axis)
+        if self.size(axis) == 1:
+            return self.own_positions(y)
+        return self.reduce_scatter(y, "seq", self.seq, dim=1)
+
+    def own_positions(self, y: torch.Tensor) -> torch.Tensor:
+        """The rank's positions of ``y`` (every position, alike on every
+        rank) where the layout splits "seq" (``scatter``); else ``y``."""
+        if self.size("seq") == 1:
+            return y
+        return self.scatter(y, "seq", self.seq, dim=1)
+
+    def logits_layout(self) -> "ShardingCtx":
+        """The layout of the logits: this one, except where it splits
+        "seq" and holds the logits' vocab whole ("act_vocab" -> None, the
+        reference's rules under sequence parallelism): the port keeps the
+        unembedding's vocab-parallel columns ("act_vocab" on "vocab"'s
+        mesh axes) after gathering the sequence, so no rank gathers the
+        vocab-split table."""
+        if self.size("seq") == 1 or \
+                self.rules.get("act_vocab") == self.rules.get("vocab"):
+            return self
+        return dataclasses.replace(self, rules={
+            **self.rules, "act_vocab": self.rules.get("vocab")})
+
     # ------------------------------------------------- leaves held twice
     def _holding(self, axes: Sequence[Optional[str]], shape: Sequence[int],
                  parts: Optional[Sequence[Part]] = None):
@@ -513,13 +606,18 @@ class ShardingCtx:
     def shared_leaves(self, defs: Sequence) -> List[Tuple[int, int,
                                                          List[int]]]:
         """The ParamDefs of ``defs`` with a kv head that several copies
-        hold (on one rank or several), and those held whole that each rank
-        reads only by its heads' channels (``read_by_heads``): (position,
-        the kv dim or 0, this rank's indices along it), for
-        ``sum_shared``."""
+        hold (on one rank or several), those held whole that each rank
+        reads only by its heads' channels (``read_by_heads``) and, where
+        the layout splits "seq", those each rank applies to its positions
+        only (``per_position``): (position, the kv dim or 0, this rank's
+        indices along it), for ``sum_shared``."""
         picks = []
+        seq = self.size("seq") > 1
+        if seq and not self.shares_axis("seq", "heads"):
+            raise NotImplementedError("sequence parallelism off the heads' "
+                                      "mesh axis")
         for i, d in enumerate(defs):
-            if d.read_by_heads:
+            if d.read_by_heads or (seq and d.per_position):
                 if self.size("heads") > 1:
                     picks.append((i, 0, list(range(d.shape[0]))))
                 continue
@@ -536,7 +634,9 @@ class ShardingCtx:
         with the gradient of each kv head that several copies hold summed
         over them all (each holder's is partial: the q heads it serves),
         and that of each ``read_by_heads`` leaf over the ranks (each
-        rank's is its heads' channels), written back into every copy: one
+        rank's is its heads' channels), and under sequence parallelism
+        each ``per_position`` leaf's (each rank's is its positions'),
+        written back into every copy: one
         f32 all-reduce over the model axis of those leaves, full along
         their kv dim. Other leaves are returned as they are."""
         picks = self.shared_leaves(defs)
@@ -602,16 +702,74 @@ class ShardingCtx:
         return out
 
     def gather(self, x: torch.Tensor, axis: str, full: int,
-               parts: Optional[Sequence[Part]] = None) -> torch.Tensor:
-        """The ranks' parts ``x`` of a last dim of ``full`` elements split
-        over ``axis`` (by ``parts``, contiguous in rank order) put
-        together: one all-gather, in ``x``'s dtype. Its gradient is the
-        rank's slice of the gradient, which every rank holds whole (the
-        result is replicated and every rank consumes it alike). ``x``
-        itself where the axis is not split."""
+               parts: Optional[Sequence[Part]] = None,
+               dim: int = -1) -> torch.Tensor:
+        """The ranks' parts ``x`` of a dim ``dim`` (the last by default)
+        of ``full`` elements split over ``axis`` (by ``parts``, contiguous
+        in rank order) put together: one all-gather, in ``x``'s dtype. Its
+        gradient is the rank's slice of the gradient, which every rank
+        holds whole (the result is replicated and every rank consumes it
+        alike). ``x`` itself where the axis is not split."""
         if self.size(axis) == 1:
             return x
-        return _Gather.apply(x, self, axis, full, parts)
+        return _Gather.apply(x, self, axis, full, parts, dim)
+
+    def gather_split(self, x: torch.Tensor, axis: str, full: int,
+                     parts: Optional[Sequence[Part]] = None,
+                     dim: int = -1) -> torch.Tensor:
+        """``gather``'s all-gather, for computation that differs per rank
+        (each multiplies the result by its own columns): its gradient is
+        the sum of the ranks' partial gradients, of which each rank keeps
+        its part (one f32 reduce-scatter, rounded once to ``x``'s dtype).
+        ``x`` itself where the axis is not split."""
+        if self.size(axis) == 1:
+            return x
+        return _GatherSplit.apply(x, self, axis, full, parts, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str, full: int,
+                       dim: int = -1) -> torch.Tensor:
+        """The sum over the ranks of ``axis`` of their ``x`` (a dim
+        ``dim`` of ``full`` elements, whole on every rank), of which each
+        rank keeps its part: one f32 reduce-scatter (the parts padded to
+        the largest), rounded once to ``x``'s dtype. Its gradient is the
+        all-gather of the ranks' parts of the gradient. ``x`` itself where
+        the axis is not split."""
+        if self.size(axis) == 1:
+            return x
+        return _ReduceScatter.apply(x, self, axis, full, dim)
+
+    def scatter(self, x: torch.Tensor, axis: str, full: int,
+                dim: int = -1) -> torch.Tensor:
+        """The rank's part of a dim ``dim`` of ``full`` elements of ``x``,
+        which every rank holds alike; its gradient is the all-gather of
+        the ranks' parts of the gradient. ``x`` itself where the axis is
+        not split."""
+        if self.size(axis) == 1:
+            return x
+        return _Scatter.apply(x, self, axis, full, dim)
+
+    def _reduce_scattered(self, x: torch.Tensor, axis: str, full: int,
+                          dim: int, parts: Optional[Sequence[Part]] = None
+                          ) -> torch.Tensor:
+        """``reduce_scatter``'s value: the ranks' parts of ``x``'s dim
+        ``dim`` laid out one after another along a new leading dim in f32,
+        each padded to the largest, reduce-scattered, the padding cut."""
+        n = self.size(axis)
+        dim = dim % x.dim()
+        sizes = [len(self.indices(axis, full, parts, at=i)) for i in range(n)]
+        shape = list(x.shape)
+        shape[dim] = max(sizes)
+        buf = x.new_zeros([n] + shape, dtype=torch.float32)
+        at = 0
+        for i, size in enumerate(sizes):
+            buf[i].narrow(dim, 0, size).copy_(x.narrow(dim, at, size))
+            at += size
+        # flat: a reduce-scatter splits the leading dim of its input
+        out = buf.new_empty(math.prod(shape))
+        self._comm().reduce_scatter_tensor(out, buf.view(-1),
+                                           group=self._group(axis))
+        return out.view(shape).narrow(dim, 0, sizes[self.index(axis)]).to(
+            x.dtype)
 
 
 def _runs(idx: Sequence[int]) -> List[Tuple[int, int, int]]:
@@ -656,15 +814,62 @@ class _Gather(torch.autograd.Function):
     backward."""
 
     @staticmethod
-    def forward(fctx, x, sctx, axis, full, parts):
-        fctx.idx = sctx.indices(axis, full, parts)
-        return torch.cat(sctx.all_gather(x, axis, full=full, parts=parts),
-                         -1)
+    def forward(fctx, x, sctx, axis, full, parts, dim):
+        fctx.idx, fctx.dim = sctx.indices(axis, full, parts), dim
+        return torch.cat(sctx.all_gather(x, axis, dim, full, parts), dim)
 
     @staticmethod
     def backward(fctx, g):
         lo, n = fctx.idx[0] if fctx.idx else 0, len(fctx.idx)
-        return g.narrow(-1, lo, n), None, None, None, None
+        return g.narrow(fctx.dim, lo, n), None, None, None, None, None
+
+
+class _GatherSplit(torch.autograd.Function):
+    """``ShardingCtx.gather_split``: all-gather forward, the f32
+    reduce-scatter of the gradient backward."""
+
+    @staticmethod
+    def forward(fctx, x, sctx, axis, full, parts, dim):
+        fctx.args = (sctx, axis, full, dim, parts)
+        return torch.cat(sctx.all_gather(x, axis, dim, full, parts), dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return (fctx.args[0]._reduce_scattered(g, *fctx.args[1:]),
+                None, None, None, None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """``ShardingCtx.reduce_scatter``: the f32 reduce-scatter forward, the
+    all-gather of the gradient backward."""
+
+    @staticmethod
+    def forward(fctx, x, sctx, axis, full, dim):
+        fctx.args = (sctx, axis, full, dim)
+        return sctx._reduce_scattered(x, axis, full, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        sctx, axis, full, dim = fctx.args
+        return (torch.cat(sctx.all_gather(g, axis, dim, full), dim),
+                None, None, None, None)
+
+
+class _Scatter(torch.autograd.Function):
+    """``ShardingCtx.scatter``: the rank's part forward, the all-gather of
+    the gradient backward."""
+
+    @staticmethod
+    def forward(fctx, x, sctx, axis, full, dim):
+        fctx.args = (sctx, axis, full, dim)
+        lo, hi = sctx.range(axis, full)
+        return x.narrow(dim, lo, hi - lo).clone()
+
+    @staticmethod
+    def backward(fctx, g):
+        sctx, axis, full, dim = fctx.args
+        return (torch.cat(sctx.all_gather(g, axis, dim, full), dim),
+                None, None, None, None)
 
 
 def held_differently(d, ctx: ShardingCtx) -> Optional[Dict[str, Any]]:

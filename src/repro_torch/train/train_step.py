@@ -42,7 +42,10 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     ids from ``start`` on (``Model.vocab_range``), and the max, the sum
     of exponentials and the gold logit are reduced over "act_vocab" in
     f32 (the max without a gradient: the result does not depend on it);
-    over a split "batch" the mean is the global batch's."""
+    over a split "batch" the mean is the global batch's. Under sequence
+    parallelism the logits cover every position, vocab-parallel all the
+    same (``ShardingCtx.logits_layout``)."""
+    ctx = ctx.logits_layout()
     if ctx.size("act_vocab") == 1 and ctx.size("batch") == 1:
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
@@ -116,9 +119,12 @@ def sync_grads(grads: list, model: Model, ctx: ShardingCtx) -> list:
     slices — summed over the data axis where "batch" is split (each rank
     holds its share of the global mean; one f32 all-reduce of every
     leaf), then each kv head that several ranks hold summed over them,
-    and each leaf held whole that the ranks read by their heads' channels
-    (RWKV6's vectors) over the model axis (``ShardingCtx.sum_shared``).
-    Unsharded, ``grads`` as they are."""
+    each leaf held whole that the ranks read by their heads' channels
+    (RWKV6's vectors) and, under sequence parallelism, each leaf the
+    ranks apply to their own positions (the norms, ``bo``, zamba2's
+    ``fuse``: ``ParamDef.per_position``) over the model axis, in one
+    all-reduce (``ShardingCtx.sum_shared``). Unsharded, ``grads`` as they
+    are."""
     if ctx.size("batch") > 1:
         flat = ctx.reduce(torch.cat([g.float().reshape(-1) for g in grads]),
                           "batch")

@@ -17,9 +17,13 @@
   the live-bytes tracker on a hand-made sequence; the kernels' work
   formulas at ``PERF.md``'s bound rows; the collectives a traced
   ``manual_dp`` step issues against ``collective_plan``; the CLI (one
-  full-width cell, a skipped one, an override whose mesh layout the port
-  lacks: "not_ported") with ``jax`` blocked; the MoE load-balance term
-  bitwise the old ``bincount`` form's.
+  full-width cell, a skipped one, ``fsdp``, whose mesh layout the port
+  lacks: "not_ported") with ``jax`` blocked, and the reference CLI's
+  other layout overrides on a train cell ("ok"; ``dp_mode="auto"``, the
+  reference's default, with the default cell's counts and its difference
+  from GSPMD's step named) and on a prefill cell (its rules ignore
+  ``seq_parallel`` and ``fsdp``); the MoE load-balance term bitwise the
+  old ``bincount`` form's.
 """
 import json
 import math
@@ -307,24 +311,77 @@ def test_cli_full_width_cell(tmp_path):
         assert key in art
 
 
-def test_cli_skips_and_refuses(tmp_path):
-    out = _cli("--arch", "whisper-small", "--shape", "long_500k", "--out",
-               str(tmp_path), tmp_path=tmp_path)
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert json.loads(out.stdout.strip().splitlines()[-1])["status"] == \
-        "skipped"
-    for key, value in (("fsdp", True), ("seq_parallel", True),
-                       ("dp_mode", "auto"), ("second_matmul", "col")):
+# the CLI's cells under the reference CLI's layout overrides: a skipped
+# cell, then internlm2 train_4k at 4 cards under each override, and a
+# prefill cell, whose rules ignore seq_parallel and fsdp
+CLI_CASES = ["skipped", "fsdp", "seq_parallel", "second_matmul_col",
+             "dp_mode_auto", "dp_mode_manual", "prefill_seq_parallel"]
+
+
+def _analyzed(overrides, **kw):
+    fn, args, meta, comm = dryrun.build_cell("internlm2-1.8b", "train_4k",
+                                             overrides=overrides, **kw)
+    assert meta["status"] == "ok", meta
+    return meta, dryrun.analyze_cell(fn, args, meta, comm)
+
+
+@pytest.mark.parametrize("case", CLI_CASES)
+def test_cli_skips_and_refuses(case, tmp_path):
+    if case == "skipped":
+        out = _cli("--arch", "whisper-small", "--shape", "long_500k",
+                   "--out", str(tmp_path), tmp_path=tmp_path)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert json.loads(out.stdout.strip().splitlines()[-1])[
+            "status"] == "skipped"
+    elif case == "fsdp":
         fn, _, meta, _ = dryrun.build_cell("internlm2-1.8b", "train_4k",
-                                           overrides={key: value})
+                                           overrides={"fsdp": True})
         assert fn is None and meta["status"] == "not_ported"
-        assert meta["reason"].startswith("ROADMAP A")
-    out = _cli("--arch", "internlm2-1.8b", "--shape", "train_4k",
-               "--override", "fsdp=true", "--out", str(tmp_path),
-               tmp_path=tmp_path)
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert json.loads(out.stdout.strip().splitlines()[-1])["status"] == \
-        "not_ported"
+        assert meta["reason"].startswith("ROADMAP A11")
+        out = _cli("--arch", "internlm2-1.8b", "--shape", "train_4k",
+                   "--override", "fsdp=true", "--out", str(tmp_path),
+                   tmp_path=tmp_path)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert json.loads(out.stdout.strip().splitlines()[-1])[
+            "status"] == "not_ported"
+    elif case in ("seq_parallel", "second_matmul_col"):
+        key, value = (("seq_parallel", True) if case == "seq_parallel"
+                      else ("second_matmul", "col"))
+        fn, _, meta, _ = dryrun.build_cell("internlm2-1.8b", "train_4k",
+                                           cards=4, overrides={key: value})
+        assert fn is not None and meta["status"] == "ok"
+        assert meta["dp_mode"] == "auto"
+    elif case == "dp_mode_auto":
+        # the reference's default: manual_dp's counts, the difference named
+        meta, got = _analyzed({"dp_mode": "auto"}, cards=4)
+        default_meta, want = _analyzed(None, cards=4)
+        got.pop("trace_s"), want.pop("trace_s")
+        assert got == want
+        assert meta["dp_mode"] == default_meta["dp_mode"] == "auto"
+        diff = meta["layout_differences"]["dp_mode"]
+        assert diff == default_meta["layout_differences"]["dp_mode"]
+        assert "once per step" in diff["reason"]
+        assert "flat gradient bucket" in diff["reason"]
+        assert diff["reference_gradient_crossings_per_step"] == \
+            max(meta["microbatches"], 1)
+    elif case == "dp_mode_manual":
+        fn, _, meta, _ = dryrun.build_cell("internlm2-1.8b", "train_4k",
+                                           cards=4,
+                                           overrides={"dp_mode": "manual"})
+        assert fn is not None and meta["dp_mode"] == "manual"
+        assert "layout_differences" not in meta
+    else:
+        from repro_torch.launch.dryrun import cell_rules
+        from repro_torch.configs import get_config
+        cfg, suite = get_config("internlm2-1.8b"), SHAPE_SUITES["prefill_32k"]
+        assert cell_rules(cfg, suite, 16, seq_parallel=True, fsdp=True) == \
+            cell_rules(cfg, suite, 16)
+        for over in ({"seq_parallel": True}, {"fsdp": True}):
+            fn, _, meta, _ = dryrun.build_cell(
+                "internlm2-1.8b", "prefill_32k", cards=32, model=16,
+                overrides=over)
+            assert fn is not None and meta["status"] == "ok"
+            assert "seq_parallel" not in meta["layout"]
 
 
 def test_moe_top1_count_is_bincount_and_aux_unchanged():

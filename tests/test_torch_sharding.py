@@ -64,23 +64,28 @@ def test_default_rules_match_reference(opts):
 @pytest.mark.parametrize("shape", MESHES, ids=str)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_specs_match_reference(arch, shape):
-    """Every parameter and cache leaf, full and smoke configs; the cache
+    """Every parameter and cache leaf, full and smoke configs, under the
+    default, ``second_matmul="col"`` and ``seq_parallel`` rules; the cache
     also under the reference's rules of the prefill_32k, decode_32k and
-    long_500k cells (``cell_rules``: its sequence on "model" or "data"),
-    where whisper's encoder K/V keep their frames whole."""
+    long_500k cells (``cell_rules``: its sequence on "model" or "data",
+    with each layout override), where whisper's encoder K/V keep their
+    frames whole."""
     from repro_torch.configs import SHAPE_SUITES
     from repro_torch.launch.dryrun import cell_rules
     mesh = make_mesh(shape, AXES, rank=0)
-    rules = default_rules()
+    layouts = ({}, {"second_matmul": "col"}, {"seq_parallel": True})
     for port_cfg, jax_cfg in ((get_config(arch), jax_get_config(arch)),
                               (get_smoke_config(arch),
                                jax_smoke_config(arch))):
         pm, jm = Model(port_cfg), JaxModel(jax_cfg)
-        pairs = [(pm.specs(rules, mesh), jm.specs(rules, _stand_in(shape)))]
+        pairs = [(pm.specs(default_rules(**kw), mesh),
+                  jm.specs(jax_default_rules(**kw), _stand_in(shape)))
+                 for kw in layouts]
         if port_cfg.supports_decode:
-            cells = [rules] + [cell_rules(port_cfg, SHAPE_SUITES[c], shape[1])
-                               for c in ("prefill_32k", "decode_32k",
-                                         "long_500k")]
+            cells = [default_rules()] + [
+                cell_rules(port_cfg, SHAPE_SUITES[c], shape[1], **kw)
+                for c in ("prefill_32k", "decode_32k", "long_500k")
+                for kw in layouts]
             pairs += [(tree_specs(pm.cache_defs(32, 64), r, mesh),
                        jax_tree_specs(jm.cache_defs(32, 64), r,
                                       _stand_in(shape))) for r in cells]
