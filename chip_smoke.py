@@ -147,7 +147,9 @@ Phases, each fatal on failure (no fallback to the CPU):
    roofline bound over phase 9's / 10c's measured time at most 1.05. The
    (arch x shape) matrix runs from the CLI (``--all``), not here;
 12. the model axis: internlm2-1.8b, zamba2-1.2b and qwen2-moe-a2.7b at
-   full width and depth, seeded bf16 weights, prefill 4 x 2048 and 8
+   full width (at 8 of 24, 12 of 38 and 8 of 24 layers,
+   ``TP_SERVE_LAYERS``: room for phase 17),
+   seeded bf16 weights, prefill 4 x 2048 and 8
    decode steps, first unsharded on the card (then freed), then on two
    ranks (spawned processes on the one card, gloo staging the CUDA
    tensors through the host; ``models/sharding.py``: heads, kv heads, MLP
@@ -171,7 +173,8 @@ Phases, each fatal on failure (no fallback to the CPU):
    half the heads of internlm2, qwen2-moe, qwen2-vl and zamba2) within
    2e-2 of their plain versions, their autograd Functions' gradients
    bitwise the plain versions'; then internlm2-1.8b and zamba2-1.2b at
-   full width and depth, seeded bf16 weights, remat, one step of 2 x
+   full width (at 4 of 24 and 12 of 38 layers, to make room for phase
+   17), seeded bf16 weights, remat, one step of 2 x
    2048 in 2 microbatches: unsharded on the card (and under the rounding
    witness; then freed), then one ``manual_dp`` step on two gloo ranks
    over a (1, 2) mesh: each rank's loss and grad norm within 1e-2 of the
@@ -189,8 +192,8 @@ Phases, each fatal on failure (no fallback to the CPU):
    full, causal and cross regimes and at its training microbatch of 1,
    against their plain versions, and a rank holding
    no heads launching nothing; then phase 12's serving check (whisper:
-   4 x 1500 frames and a 416-token prompt; rwkv6's f32 run at 8 of 32
-   layers) and phase 13's training check (rwkv6 at 8 of 32 layers,
+   4 x 1500 frames and a 416-token prompt; rwkv6 at 8 of 32 layers, its
+   f32 run too) and phase 13's training check (rwkv6 at 4 of 32 layers,
    whisper at full depth on 2 x 416 tokens; f32 cuts: rwkv6 at 2 layers,
    whisper at full depth) for both models on two gloo ranks;
 15. the K/V cache's sequence split round-robin over ranks ("kv_seq",
@@ -201,7 +204,8 @@ Phases, each fatal on failure (no fallback to the CPU):
    and 4 of 28 layers over (data 1, model 8) gloo ranks on the card
    (decode_32k's rule: its 4 kv heads fewer than 8, the sequence on
    "model", each rank holding every kv head at its positions) and
-   zamba2-1.2b at full depth over (data 2, model 1) (long_500k's rule:
+   zamba2-1.2b at 12 of 38 layers over (data 2, model 1) (long_500k's
+   rule:
    the batch of 1 whole on each data rank, the shared attention's
    sequence on "data"), 4 x 2048 and 1 x 32,768 prompts, ``fill_cache``
    and 8 decode steps, in bf16 and f32, held as phase 12 holds its runs
@@ -213,7 +217,8 @@ Phases, each fatal on failure (no fallback to the CPU):
    the tensor-core flash and the SSD gla at the shapes these layouts give
    a rank (``layout_kernel_shapes``), in bf16 and f32, with the autograd
    Functions' gradients; then ``second_matmul="col"`` serving of
-   internlm2-1.8b and whisper-small (``wo`` and ``w_down`` split by
+   internlm2-1.8b (at phase 12's 8 layers) and whisper-small (``wo`` and
+   ``w_down`` split by
    output column: their input and output all-gathered), held as phase 12
    holds its runs but within the bound with no witness (no row-parallel
    sum is left), beside the row layout's reading, every decode step's
@@ -222,11 +227,36 @@ Phases, each fatal on failure (no fallback to the CPU):
    ``seq_parallel`` (internlm2-1.8b and zamba2-1.2b: the residual's
    positions over the ranks, each block's gathers and reduce-scatters)
    and under ``col`` (internlm2-1.8b), held as phase 13 holds its steps
-   (cuts: zamba2 at 12 of 38 layers, the col step at 8 of 24), the
+   (cuts: zamba2 at 12 of 38 layers, internlm2 at 4 of 24 in both
+   layouts, phase 13's depths), the
    leaves both ranks hold whole with bitwise equal gradients, internlm2's
    seq_parallel loss and grad norm reported beside phase 13's row step's
    bit for bit, and an f32 cut of each (internlm2 at 4 layers, zamba2 at
-   6).
+   6);
+17. the data axis's last two layouts on four gloo ranks (no kernel of
+   its own: the kernels see phase 13's shapes): (a) fsdp (ZeRO-3, each
+   parameter's "embed" dim over "data", gathered per block and use,
+   reduce-scattered in f32 in the backward) over (data 2, model 2),
+   internlm2-1.8b at full depth and zamba2-1.2b at 12 of 38 layers, bf16,
+   remat, one ``manual_dp`` step of 4 x 2048 (2 microbatches of 1 x 2048
+   per data rank) unsplit, then with fsdp on the same ranks from the same
+   state: the loss bitwise, the grad norm within 1e-5 relative, every
+   updated leaf within one bf16 ulp of the unsplit step's part (from
+   warm moments; a leaf several pieces read, zamba2's shared block, in
+   ulps of its largest element: the unsplit step sums its applications'
+   bf16 gradients in bf16), an f32 cut of each (internlm2 at 4 layers,
+   zamba2 at 6; 2 x 2048, one microbatch per data rank) with its gradient
+   shards (the first moment of a step from zero moments) within 1e-6 x
+   their max, rank 0's collectives exactly the dry run's ``--cards 4
+   --model 2 --override fsdp=true`` plan, each rank's peak within 15% of
+   its reckoning beside the unsplit step's, the same launches; (b) the
+   multi-pod mesh (pod 2, data 2, model 1), internlm2-1.8b at 8 of 24
+   layers, 4 x 2048 (one microbatch of 1 x 2048 per data rank), without
+   fsdp and
+   with it, held against the same ranks as (data 4, model 1): the loss
+   bitwise, the grad norm within 1e-5 relative, each step's collectives
+   its ``--multi-pod`` plan. The dry run's cells are traced while the
+   ranks run.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -3052,11 +3082,12 @@ def check_dryrun(arch: str, dev, card: str, measured: dict) -> dict:
 
 
 def spawn_ranks(target, world: int, args: tuple, items: int,
-                timeout: float, what: str) -> tuple:
+                timeout: float, what: str, meanwhile=None) -> tuple:
     """``target(rank, port, *args, queue)`` in ``world`` processes spawned
     on the one card (their gloo group on a free localhost port); returns
     (the ``items`` reports they put on the queue, the seconds from spawn
-    to the last). A rank that fails, or ranks slower than ``timeout``,
+    to the last). ``meanwhile()``, where given, runs here once the ranks
+    have started. A rank that fails, or ranks slower than ``timeout``,
     fail the run, their processes stopped."""
     import multiprocessing
     import socket
@@ -3070,6 +3101,8 @@ def spawn_ranks(target, world: int, args: tuple, items: int,
              for r in range(world)]
     for p in procs:
         p.start()
+    if meanwhile is not None:
+        meanwhile()
     got, broken = [], None
     while len(got) < items and broken is None:
         try:
@@ -3105,6 +3138,24 @@ TP_WITNESS_SLACK = 1.25
 TP_PROFILED = {"flash_attention_tc": "flash_tc_kernel",
                "gla_chunk_ssd": "ssd_scan_kernel",
                "gla_chunk_rwkv6": "rwkv6_scan_kernel"}
+
+
+# the two-rank serving runs' depths (phases 12, 14 and 16; full width):
+# cut to make room for phase 17 within the script's time (their
+# full-depth runs took 83.0 / 58.9 / 49.0 s of two gloo ranks on one
+# H100); whisper-small stays whole
+TP_SERVE_LAYERS = {"internlm2-1.8b": 8, "zamba2-1.2b": 12,
+                   "qwen2-moe-a2.7b": 8, "rwkv6-7b": 8}
+
+
+def tp_model(arch: str):
+    """The full-width model of a two-rank serving run, at
+    ``TP_SERVE_LAYERS``' depth."""
+    import dataclasses
+    from repro_torch.models import Model, build_model
+    model = build_model(arch)
+    n = TP_SERVE_LAYERS.get(arch)
+    return Model(dataclasses.replace(model.cfg, n_layers=n)) if n else model
 
 
 class Kept:
@@ -3274,8 +3325,7 @@ def tp_unsharded(arch: str, dev) -> dict:
     its rounding witness fed the same tokens, then the same in f32
     (``tp_f32``). Frees the model before it returns."""
     import torch
-    from repro_torch.models import build_model
-    model = build_model(arch)
+    model = tp_model(arch)
     params, batch = tp_draw(model, dev)
     out = {"prompts": batch["tokens"].cpu().numpy(),
            "bf16": tp_steps(model, params, batch)}
@@ -3315,7 +3365,6 @@ def tp_rank(rank: int, port: int, archs: tuple, refs: dict, layout: dict,
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.gla_chunk import ops as gl
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import build_model
     from repro_torch.models.param import tree_leaves, tree_paths
     from repro_torch.models.sharding import ShardingCtx, default_rules
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3339,7 +3388,7 @@ def tp_rank(rank: int, port: int, archs: tuple, refs: dict, layout: dict,
 
         for arch in archs:
             ref = refs[arch]
-            model = build_model(arch)
+            model = tp_model(arch)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             base = torch.cuda.memory_allocated(dev)
@@ -3723,7 +3772,6 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
     import torch
     from repro_torch.configs import ShapeSuite
     from repro_torch.launch import dryrun
-    from repro_torch.models import build_model
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.param import tree_paths
     from repro_torch.models.sharding import ShardingCtx, default_rules
@@ -3737,7 +3785,7 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
         if not cached:
             kept.serve[arch] = tp_unsharded(arch, dev)
         refs[arch] = kept.serve[arch]
-        n = tp_prompt(build_model(arch))
+        n = tp_prompt(tp_model(arch))
         print(f"{arch} unsharded references on the card (bf16, its rounding"
               f" witness, f32: prefill {LM_BATCH} x {n}, {TP_DECODE} "
               f"decode steps each) "
@@ -3746,13 +3794,14 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
         suite = ShapeSuite("tp_prefill", n, LM_BATCH, "prefill")
         fn, args, meta, comm = dryrun.build_cell(
             arch, suite.name, cards=TP_RANKS, model=TP_RANKS, suite=suite,
-            overrides=layout)
+            overrides={**(layout or {}),
+                       "n_layers": tp_model(arch).cfg.n_layers})
         peaks[arch] = dryrun.analyze_cell(fn, args, meta, comm)
         peaks[arch]["plan"] = [(c["op"], c["dtype"], c["result_bytes"],
                                 c["group"]) for c in comm.plan]
         del fn, args
         if layout:                    # a decode step's plan, and the spec
-            model = build_model(arch)
+            model = tp_model(arch)
             ctx0 = ShardingCtx(make_mesh((1, TP_RANKS), ("data", "model"),
                                          rank=0), default_rules(**layout))
             step = ShapeSuite("tp_decode", n + TP_DECODE, LM_BATCH, "decode")
@@ -3766,7 +3815,7 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
                                      d.shape))
                 for path, d in tree_paths(model.defs)
                 if "embed_out" in d.axes}
-        rows[arch] = (check_row_products(build_model(arch), comm.plan, dev,
+        rows[arch] = (check_row_products(tp_model(arch), comm.plan, dev,
                                          gen, card) if row_products else
                       "row-parallel products not timed (phase 12 times "
                       "them)")
@@ -3784,7 +3833,7 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
     counts = {}
     for arch in archs:
         ref, r0 = refs[arch], got[(arch, 0)]
-        model = build_model(arch)
+        model = tp_model(arch)
         # (a) bf16, against the bound or the model's rounding witness
         errs = tp_errors(r0["bf16"], ref["bf16"], 0.02)
         wit = tp_errors(ref["witness"], ref["bf16"], 0.02)
@@ -3920,8 +3969,12 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
 
 
 # ----------------------------------------------------------------- phase 13
-# (arch, layers; 0: full depth)
-TPT_ARCHS = (("internlm2-1.8b", 0), ("zamba2-1.2b", 0))
+# (arch, layers; 0: full depth). internlm2 at 4 of 24 layers and zamba2
+# at 12 of 38 (two shared-attention applications) make room for phase
+# 17 within the script's time: two gloo ranks on one H100 took 22.7 /
+# 11.9 s for the full-depth steps and 17.8 s for internlm2 at 8 layers,
+# and phase 17 trains internlm2 at full depth
+TPT_ARCHS = (("internlm2-1.8b", 4), ("zamba2-1.2b", 12))
 # the families' training local shapes (``tp_train_shapes``)
 TPT_SHAPE_ARCHS = ("internlm2-1.8b", "qwen2-moe-a2.7b", "qwen2-vl-7b",
                    "zamba2-1.2b")
@@ -4035,9 +4088,10 @@ class TptComm:
         out.copy_(host)
 
     def all_gather_into_tensor(self, out, inp, group=None):
+        import torch
         import torch.distributed as dist
         self._rec("all_gather_into_tensor", out, group)
-        host = out.cpu()
+        host = torch.empty(out.shape, dtype=out.dtype)
         dist.all_gather_into_tensor(host, inp.cpu(), group=group)
         out.copy_(host)
 
@@ -4424,12 +4478,11 @@ TP14_ARCHS = ("rwkv6-7b", "whisper-small")
 # its 32 layers (30 GB) would not leave room for the unsharded run's
 # activations beside two ranks' slices
 TP_RWKV6_F32_LAYERS = 8
-# rwkv6's bf16 train step at 8 of 32 layers: the dry run's --cards 2
-# --model 2 reckoning of the step is 25.67 GiB per rank at 8 layers,
-# 36.01 at 12 (two ranks on the one card: 51.3 / 72.0 GiB of its 80 GB,
-# beside two CUDA contexts and gloo's host-staged buffers), and the
-# unsharded step the ranks are held against 39.0 GiB at 8 layers
-TPT14_RWKV6_LAYERS = 8
+# rwkv6's bf16 train step at 4 of 32 layers (the dry run's --cards 2
+# --model 2 reckoning is 25.67 GiB per rank at 8 layers, 36.01 at 12,
+# two ranks on the one card), cut to make room for phase 17: two gloo
+# ranks on one H100 took 28.2 s for the 8-layer step
+TPT14_RWKV6_LAYERS = 4
 TPT14 = (("rwkv6-7b", TPT14_RWKV6_LAYERS), ("whisper-small", 0))
 TPT14_F32 = (("rwkv6-7b", 2), ("whisper-small", 12))
 # the local head counts of M = 2, 4 and 16: rwkv6-7b's 64 heads,
@@ -4571,8 +4624,10 @@ def check_local_kernels_14(dev, gen) -> None:
 # "model" (its kv heads whole on every rank, its 28 q heads 4 / 4 / 4 / 4
 # / 3 / 3 / 3 / 3); long_500k's rule holds zamba2-1.2b's batch of 1 whole
 # on each data rank and puts its shared attention's sequence on "data"
+# (zamba2 at 12 of 38 layers, two shared-attention applications: room
+# for phase 17)
 KV_JOBS = (("qwen2-vl-7b", 4, (1, 8), LM_BATCH, LM_PROMPT, "decode_32k"),
-           ("zamba2-1.2b", 0, (2, 1), 1, 32768, "long_500k"))
+           ("zamba2-1.2b", 12, (2, 1), 1, 32768, "long_500k"))
 KV_PATHS = {"qwen2-vl-7b": "kv_qwen2vl", "zamba2-1.2b": "kv_zamba2"}
 KV_TIMEOUT_S = 600                 # one job's ranks, spawn to exit
 
@@ -4936,12 +4991,12 @@ COL = {"second_matmul": "col"}
 SEQ_PARALLEL = {"seq_parallel": True}
 TP16_ARCHS = ("internlm2-1.8b", "whisper-small")
 # zamba2 at 12 of 38 layers (two shared-attention applications) and
-# internlm2's col step at 8 of 24 keep the phase within 150 s: two gloo
-# ranks on one H100 took 17.7 / 32.5 s for their full-depth steps beside
-# internlm2's seq_parallel one's 37.3 s, which stays at full depth to be
-# read against phase 13's row step bit for bit
-TPT16 = (("internlm2-1.8b", 0, SEQ_PARALLEL),
-         ("zamba2-1.2b", 12, SEQ_PARALLEL), ("internlm2-1.8b", 8, COL))
+# internlm2 at 4 of 24 (both layouts), phase 13's depths: the
+# seq_parallel step is read against phase 13's row step bit for bit, and
+# phase 13's unsharded card steps serve both (two gloo ranks on one H100
+# took 17.7 / 32.5 / 37.3 s for the full-depth steps)
+TPT16 = (("internlm2-1.8b", 4, SEQ_PARALLEL),
+         ("zamba2-1.2b", 12, SEQ_PARALLEL), ("internlm2-1.8b", 4, COL))
 TPT16_F32 = (("internlm2-1.8b", 4, SEQ_PARALLEL),
              ("zamba2-1.2b", 6, SEQ_PARALLEL), ("internlm2-1.8b", 4, COL))
 
@@ -4973,6 +5028,426 @@ def layout_kernel_shapes() -> tuple:
     gla.append((f"{z_cfg.arch} training at M = 2 (gathered sequence)", 1,
                 TRAIN_SEQ, nh // m, st, dv))
     return tuple(flash), tuple(gla)
+
+
+# ----------------------------------------------------------------- phase 17
+# the data axis's last two layouts: fsdp (ZeRO-3, "embed" over "data")
+# over a (data 2, model 2) mesh and the multi-pod mesh (pod 2, data 2,
+# model 1), four gloo ranks on the one card. A job: (arch, layers, mesh
+# shape, fsdp, f32); its steps run one after another on the same ranks
+FS_RANKS = 4
+FS_MESH, POD_MESH, FLAT_MESH = (2, 2), (2, 2, 1), (4, 1)
+# the steps' rows of 2048 tokens, one microbatch of 1 x 2048 per row a
+# data rank holds: (a) 4 (2 microbatches per data rank), its f32 cuts 2
+# and (b) 4 (one each; fsdp's gathers and reduce-scatters are issued per
+# microbatch, and four ranks' gloo collectives bound the phase's time)
+FS_BATCH, FS_F32_BATCH, POD_BATCH = 4, 2, 4
+FS_ARCHS = (("internlm2-1.8b", 0), ("zamba2-1.2b", 12))
+FS_F32 = (("internlm2-1.8b", 4), ("zamba2-1.2b", 6))
+POD_ARCH, POD_LAYERS = "internlm2-1.8b", 8
+FS_REL = 1e-5                      # bf16 grad norm, fsdp vs unsplit
+FS_F32_TOL = 1e-6                  # f32 gradient shards, x max |g|
+FS_TIMEOUT_S = 600
+
+
+def fs_jobs() -> list:
+    """Phase 17's steps in order, each (arch, layers, mesh shape, fsdp,
+    f32, rows): per arch the unsplit step, then the fsdp step from the
+    same weights and batch; then the f32 cuts alike; then the multi-pod
+    steps beside the same ranks as one data axis."""
+    jobs = []
+    for arch, layers in FS_ARCHS:
+        jobs += [(arch, layers, FS_MESH, f, False, FS_BATCH)
+                 for f in (False, True)]
+    for arch, layers in FS_F32:
+        jobs += [(arch, layers, FS_MESH, f, True, FS_F32_BATCH)
+                 for f in (False, True)]
+    jobs += [(POD_ARCH, POD_LAYERS, mesh, f, False, POD_BATCH)
+             for mesh, f in ((POD_MESH, False), (POD_MESH, True),
+                             (FLAT_MESH, False))]
+    return jobs
+
+
+def fs_job_name(job) -> str:
+    arch, layers, mesh, fsdp, f32, _ = job
+    return (f"{arch}{f' at {layers} layers' if layers else ''} over "
+            f"{'x'.join(map(str, mesh))}{' fsdp' if fsdp else ''}"
+            f"{' f32' if f32 else ''}")
+
+
+def fs_model(job):
+    """A job's model: full width, its depth, one microbatch of 1 x 2048
+    per row a data rank holds."""
+    import dataclasses
+    from repro_torch.models import Model
+    arch, layers, mesh, _, _, rows = job
+    model = tpt_model(arch, layers)
+    mb = rows // math.prod(mesh[:-1])
+    return Model(dataclasses.replace(model.cfg, microbatches=mb))
+
+
+def fs_cell(job):
+    """The dry run's cell of a job's step (``--cards 4 --model M``,
+    ``--override fsdp=true``, ``--multi-pod``) at its batch: (the
+    analysis, the plan as the ranks record it)."""
+    from repro_torch.configs import ShapeSuite
+    from repro_torch.launch import dryrun
+    arch, layers, mesh, fsdp, _, rows = job
+    suite = ShapeSuite("fs_train", TRAIN_SEQ, rows, "train")
+    fn, args, meta, comm = dryrun.build_cell(
+        arch, suite.name, cards=FS_RANKS, model=mesh[-1], suite=suite,
+        multi_pod=len(mesh) == 3,
+        overrides={"microbatches": fs_model(job).cfg.microbatches,
+                   "fsdp": fsdp,
+                   **({"n_layers": layers} if layers else {})})
+    res = dryrun.analyze_cell(fn, args, meta, comm)
+    return res, [(c["op"], c["dtype"], c["result_bytes"], c["group"])
+                 for c in comm.plan]
+
+
+def fs_rank(rank: int, port: int, jobs: list, q) -> None:
+    """One of phase 17's four ranks (a spawned process on the one card,
+    gloo). Per job, in turn: its slices of the seeded weights (the ranks
+    draw one at a time; f32 jobs cast them), zero moments, one
+    ``manual_dp`` step of its rows in 2 microbatches; its metrics, step
+    seconds, peak memory over the step (from before its weights), the
+    kernels' launches and the collectives it issued. The unsplit step's
+    updated leaves are kept (on the host) and the fsdp step's that follows
+    is held against them: per leaf the largest distance in bf16 ulps of
+    the unsplit value (bf16), or the largest difference of the first
+    moment over the unsplit one's largest (f32: from zero moments the
+    first moment is (1 - b1) x the clipped gradient), both in the rank's
+    part of the "embed" dim; the bucket's shards of the moment are
+    all-gathered over the data axis to be compared."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.models.sharding import ShardingCtx, default_rules
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import manual_dp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=FS_RANKS, rank=rank)
+    try:
+        comm = TptComm()
+        meshes = {m: make_mesh(m, ("pod", "data", "model")[-len(m):])
+                  for m in (FS_MESH, POD_MESH, FLAT_MESH)}
+        kept = None
+        for job in jobs:
+            t_job = time.perf_counter()
+            arch, layers, shape, fsdp, f32, rows = job
+            mesh = meshes[shape]
+            ctx = ShardingCtx(mesh, default_rules(len(shape) == 3,
+                                                  fsdp=fsdp), comm=comm)
+            model = fs_model(job)
+            defs = tree_leaves(model.defs)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            for r in range(FS_RANKS):       # one rank draws at a time
+                if r == rank:
+                    params = model.init(
+                        torch.Generator(device=dev).manual_seed(0), ctx)
+                    if f32:
+                        params = tree_map(lambda t: t.float(), params)
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            opt = manual_dp.init_shard_state(params, ctx=ctx, model=model)
+            if shape == FS_MESH and not f32:
+                fs_warm(opt, params, model, ctx)
+            batch = fs_rows(model, dev, rows)
+            if f32:
+                batch = {k: t.float() if t.is_floating_point() else t
+                         for k, t in batch.items()}
+            batch = {k: ctx.shard(t, ("batch",) + (None,) * (t.dim() - 1))
+                     for k, t in batch.items()}
+            step = manual_dp.make_manual_dp_train_step(
+                model, AdamWConfig(), comm=comm, ctx=ctx)
+            comm.issued.clear()
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            got = {k: float(met[k]) for k in ("loss", "grad_norm")}
+            torch.cuda.synchronize()
+            out = {"rank": rank, "job": job, **got,
+                   "step_s": time.perf_counter() - t0,
+                   "peak": torch.cuda.max_memory_allocated(dev) - base,
+                   "launches": lm_launches(launch_counts()),
+                   "issued": list(comm.issued)}
+            leaves = tree_leaves(params)
+            split = manual_dp.split_leaves(model, ctx)
+            lay = manual_dp.StepLayout(leaves, split, ctx.size("batch"),
+                                       ctx.index("batch"))
+            if shape != FS_MESH:          # (b): held against (data 4)
+                held = None
+            elif f32:
+                # the first moment per leaf: the bucket's shards
+                # all-gathered over the data axis, the fsdp leaves' own
+                main, z3 = lay.moments(opt.mu)
+                parts = [torch.empty_like(main) for _ in range(
+                    ctx.size("batch"))]
+                dist.all_gather(parts, main, group=mesh.group("data"))
+                bucket = torch.cat(parts)
+                whole = manual_dp.FlatLayout(
+                    [leaves[i] for i in lay.main_idx], 1, 0)
+                mine = [None] * len(leaves)
+                for i, v in zip(lay.main_idx, whole.views(bucket)):
+                    mine[i] = v.view(leaves[i].shape)
+                if lay.zero3 is not None:
+                    for i, v in zip(lay.zero3_idx, lay.zero3.views(z3)):
+                        mine[i] = v.view(leaves[i].shape)
+                held = [m.clone() for m in mine]
+            else:
+                held = [x.clone() for x in leaves]
+            if held is None:
+                pass
+            elif not fsdp:
+                kept = held
+            else:
+                # (leaf, its worst, where) of the leaves one piece reads
+                # once (0) and of those read more than once (1): zamba2's
+                # shared block, applied twice, whose gradient the unsplit
+                # step sums over the applications in bf16 (autograd into
+                # the bf16 leaf), the fsdp step in f32
+                worst = [(0.0, None), (0.0, None)]
+                reread = fs_reread(model)
+                for i, (d, a, b) in enumerate(zip(defs, held, kept)):
+                    dim = ctx.embed_dim(d.axes, d.shape)
+                    if dim is not None:
+                        lo, hi = ctx.range("embed", d.shape[dim])
+                        b = b.narrow(dim, lo, hi - lo)
+                    if f32:
+                        err = float((a - b).abs().max()) / max(
+                            float(b.abs().max()), 1e-30)
+                    elif i in reread:  # in ulps of the leaf's largest
+                        _, e = torch.frexp(b.float().abs().max())
+                        one = torch.ones_like(e, dtype=torch.float32)
+                        err = float((a.float() - b.float()).abs().max()
+                                    / torch.ldexp(one, e - 8))
+                    else:               # in ulps of each element
+                        top = torch.maximum(a.float().abs(),
+                                            b.float().abs())
+                        _, e = torch.frexp(top)
+                        ulp = torch.ldexp(torch.ones_like(top), e - 8)
+                        err = float(((a.float() - b.float()).abs()
+                                     / ulp).max())
+                    k = int(i in reread and not f32)
+                    if err >= worst[k][0]:
+                        worst[k] = (err, f"{d.axes} #{i}")
+                out.update(worst=worst[0][0], worst_leaf=worst[0][1],
+                           reread_worst=worst[1][0],
+                           reread_leaf=worst[1][1], reread=len(reread),
+                           split=sum(split), leaves=len(leaves))
+                kept = None
+            out["job_s"] = time.perf_counter() - t_job
+            q.put(out)
+            del params, opt, batch, met, step, leaves, held
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def fs_reread(model) -> set:
+    """The leaves (``tree_leaves`` positions) that several pieces of a
+    forward read: zamba2's shared block where it is applied more than
+    once, a tied embedding table."""
+    from repro_torch.models.param import tree_paths
+    return {i for i, (path, _) in enumerate(tree_paths(model.defs))
+            if (path.startswith("shared/") and model.n_shared_apps() > 1)
+            or (path == "embed" and model.cfg.tie_embeddings)}
+
+
+def fs_warm(opt, params, model, ctx) -> None:
+    """Warm moments for a bf16 step of phase 17, elementwise functions of
+    the rank's parameters (so the unsplit and the fsdp layouts hold the
+    same values wherever each holds them): mu = 1e-3 x p, nu = 1e-4 x p^2
+    + 1e-6, step 3. From zero moments one step moves each element by
+    about lr x sign(g), so a gradient summed in another order (zamba2's
+    shared block, read twice: the unsplit step adds its applications'
+    bf16 gradients in bf16, the fsdp step in f32) would move near-zero
+    gradients by whole learning-rate steps."""
+    import torch
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.train import manual_dp
+    leaves = tree_leaves(params)
+    lay = manual_dp.StepLayout(leaves, manual_dp.split_leaves(model, ctx),
+                               ctx.size("batch"), ctx.index("batch"))
+    mu, nu = lay.moments(opt.mu), lay.moments(opt.nu)
+    for k, (flat, idx) in enumerate(((lay.main, lay.main_idx),
+                                     (lay.zero3, lay.zero3_idx))):
+        for j, a, b, o in (flat.segments() if flat is not None else ()):
+            x = leaves[idx[j]].reshape(-1)[a:b].float()
+            mu[k][o:o + b - a].copy_(x).mul_(1e-3)
+            nu[k][o:o + b - a].copy_(x).square_().mul_(1e-4).add_(1e-6)
+    opt.step.fill_(3)
+
+
+def fs_rows(model, dev, rows: int) -> dict:
+    """``rows`` seeded sequences of 2048 tokens and their next tokens."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(17)
+    toks = torch.randint(0, model.cfg.vocab, (rows, TRAIN_SEQ),
+                         generator=gen, device=dev)
+    return {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+
+
+def check_fsdp_multi_pod(card: str) -> dict:
+    """Phase 17: four gloo ranks on the one card run ``fs_jobs``, while
+    the dry run's cells of their bf16 steps are traced here. Held: (a)
+    fsdp over (data 2, model 2), internlm2-1.8b at full depth and
+    zamba2-1.2b at 12 of 38 layers in bf16 with remat, against the
+    unsplit ``manual_dp`` step on the same ranks from the same state: the
+    loss bitwise, the grad norm within 1e-5 relative, every updated leaf
+    within one bf16 ulp of the unsplit step's part (both from the warm
+    moments of ``fs_warm``; a leaf several pieces read in ulps of its
+    largest element, ``fs_reread``); the f32 cuts (internlm2 at 4
+    layers, zamba2 at 6; 2 x 2048): every gradient leaf (the first
+    moment) within 1e-6 x its max; rank 0's collectives exactly the dry
+    run's ``--cards 4 --model 2 --override fsdp=true`` plan (and the
+    unsplit step's its own), each rank's peak within 15% of its cell's
+    reckoning (printed beside the unsplit step's), rank 0's
+    flash_attention_tc / gla_ssd launches those of the unsplit step. (b)
+    The multi-pod mesh (pod 2, data 2, model 1), internlm2-1.8b at 8 of
+    24 layers, without fsdp and with it, against the same ranks as (data
+    4, model 1): the loss bitwise (reported), the grad norm within 1e-5
+    relative, each step's collectives its ``--multi-pod`` plan. Returns
+    rank 0's launches per path."""
+    import torch
+    jobs = fs_jobs()
+    cells = {}
+
+    def trace():
+        for job in jobs:
+            if not job[4]:
+                cells[job] = fs_cell(job)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    items, seconds = spawn_ranks(fs_rank, FS_RANKS, (jobs,),
+                                 FS_RANKS * len(jobs), FS_TIMEOUT_S,
+                                 "phase 17 (fsdp, multi-pod)",
+                                 meanwhile=trace)
+    got = {(tuple(r["job"]), r["rank"]): r for r in items}
+    print(f"phase 17: {FS_RANKS} gloo ranks on the one card ran "
+          f"{len(jobs)} steps in {seconds:.1f} s (spawn, imports and "
+          f"weights included), the dry run's {len(cells)} cells traced "
+          f"meanwhile")
+    counts = {}
+    for k, job in enumerate(jobs):
+        arch, layers, shape, fsdp, f32, rows = job
+        ranks = [got[(tuple(job), r)] for r in range(FS_RANKS)]
+        r0, name = ranks[0], fs_job_name(job)
+        if len({(r["loss"], r["grad_norm"]) for r in ranks}) != 1:
+            fail(f"{name}: the ranks' metrics differ: "
+                 f"{[(r['loss'], r['grad_norm']) for r in ranks]}")
+        notes = [f"loss {r0['loss']:.6f}, grad norm {r0['grad_norm']:.6f}"]
+        if not f32:
+            cell, plan = cells[job]
+            if r0["issued"] != plan:
+                fail(f"{name}: rank 0 issued {len(r0['issued'])} "
+                     f"collectives, not the dry run's plan of {len(plan)}")
+            est = cell["memory"]["peak_estimate_bytes"]
+            for i, r in enumerate(ranks):
+                if not abs(est - r["peak"]) <= PEAK_TOL * r["peak"]:
+                    fail(f"{name} rank {i}: peak {r['peak']} B over the "
+                         f"step, the dry run's reckoning {est} B: not "
+                         f"within {PEAK_TOL:.0%}")
+            notes.append(
+                f"{len(plan)} collectives exactly the dry run's plan "
+                f"({sum(c[2] for c in plan) / 2**20:.2f} MiB of results)")
+            notes.append("peaks " + ", ".join(
+                f"{r['peak'] / 2**30:.3f}" for r in ranks)
+                + f" GiB, the dry run {est / 2**30:.3f} GiB ("
+                + ", ".join(f"{r['peak'] / est - 1:+.4f}" for r in ranks)
+                + ")")
+        notes.append("step " + ", ".join(f"{r['step_s'] * 1e3:.1f}"
+                                         for r in ranks)
+                     + f" ms (the job, weights to checks, "
+                     f"{r0['job_s']:.1f} s on rank 0)")
+        if fsdp and shape == FS_MESH:
+            plain = jobs[k - 1]
+            want = [got[(tuple(plain), r)] for r in range(FS_RANKS)]
+            for i, (r, w) in enumerate(zip(ranks, want)):
+                if r["loss"] != w["loss"]:
+                    fail(f"{name} rank {i}: loss {r['loss']} vs the "
+                         f"unsplit step's {w['loss']}: not bitwise")
+                rel = abs(r["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                if not rel <= FS_REL:
+                    fail(f"{name} rank {i}: grad norm {r['grad_norm']} vs "
+                         f"{w['grad_norm']} (relative {rel:.3g})")
+                bound = FS_F32_TOL if f32 else 1.0
+                if not r["worst"] <= bound:
+                    fail(f"{name} rank {i}: leaf {r['worst_leaf']} "
+                         + (f"{r['worst']:.3g} x max |g|" if f32 else
+                            f"{r['worst']:.3g} bf16 ulps")
+                         + " from the unsplit step's")
+                if not r["reread_worst"] <= 1.0:
+                    fail(f"{name} rank {i}: leaf {r['reread_leaf']} (read "
+                         f"by several pieces) {r['reread_worst']:.3g} bf16 "
+                         f"ulps of its largest element from the unsplit "
+                         f"step's")
+            if r0["launches"] != want[0]["launches"]:
+                fail(f"{name}: rank 0 launched {r0['launches']}, the "
+                     f"unsplit step {want[0]['launches']}")
+            worst = max(r["worst"] for r in ranks)
+            notes.append(
+                f"vs the unsplit step on the same ranks: loss bitwise, "
+                f"grad norm relative {max(abs(r['grad_norm'] - w['grad_norm']) / w['grad_norm'] for r, w in zip(ranks, want)):.3g}, "
+                + (f"every first moment within {worst:.3g} x its max"
+                   if f32 else f"every updated leaf within {worst:.3g} "
+                   f"bf16 ulps")
+                + f" ({r0['split']} of {r0['leaves']} leaves split over "
+                f"data; worst {r0['worst_leaf']} on rank 0)"
+                + (f"; the {r0['reread']} leaves several pieces read (the "
+                   f"unsplit step sums their gradient over the pieces in "
+                   f"bf16, fsdp in f32) within "
+                   f"{max(r['reread_worst'] for r in ranks):.3g} bf16 ulps "
+                   f"of each leaf's largest element ({r0['reread_leaf']})"
+                   if r0["reread"] and not f32 else "")
+                + "; unsplit peaks "
+                + ", ".join(f"{w['peak'] / 2**30:.3f}" for w in want)
+                + f" GiB; launches {r0['launches']} both")
+        if shape == FLAT_MESH:
+            for pj in (jobs[k - 2], jobs[k - 1]):
+                pod = [got[(tuple(pj), r)] for r in range(FS_RANKS)]
+                for i, (r, w) in enumerate(zip(pod, ranks)):
+                    if r["loss"] != w["loss"]:
+                        fail(f"{fs_job_name(pj)} rank {i}: loss "
+                             f"{r['loss']} vs (data 4)'s {w['loss']}: not "
+                             f"bitwise")
+                    rel = abs(r["grad_norm"] - w["grad_norm"]) / \
+                        w["grad_norm"]
+                    if not rel <= FS_REL:
+                        fail(f"{fs_job_name(pj)} rank {i}: grad norm "
+                             f"{r['grad_norm']} vs (data 4)'s "
+                             f"{w['grad_norm']} (relative {rel:.3g})")
+                notes.append(
+                    f"{fs_job_name(pj)}: loss {bitwise(pod[0]['loss'], r0['loss'])}, "
+                    f"grad norm relative "
+                    f"{abs(pod[0]['grad_norm'] - r0['grad_norm']) / r0['grad_norm']:.3g}")
+        if not f32:
+            want = train_expected(fs_model(job))
+            if r0["launches"] != want:
+                fail(f"{name}: rank 0 launched {r0['launches']}; expected "
+                     f"{want}")
+        print(f"phase 17 {name} [{card}]: " + "; ".join(notes))
+        short = arch.split("-")[0]
+        path = ("fsdp" if fsdp else "dp") + ("_pod" if len(shape) == 3
+                                             else "") + "_train_" + short
+        counts[path + ("_f32" if f32 else "")
+               + ("_flat" if shape == FLAT_MESH else "")] = r0["launches"]
+    return counts
 
 
 def build_model_layers(arch: str) -> int:
@@ -5148,6 +5623,12 @@ def main() -> None:
         dev, card, archs=TPT16, f32_cuts=TPT16_F32, kept=kept).items()})
     print(f"phase 16 (second_matmul=\"col\" serving and training, "
           f"seq_parallel training) in {time.perf_counter() - t16:.1f} s "
+          f"[{card}]")
+    t17 = time.perf_counter()                                  # phase 17
+    tp_counts.update({path: by_design(c) for path, c in
+                      check_fsdp_multi_pod(card).items()})
+    print(f"phase 17 (fsdp over (data 2, model 2), the multi-pod mesh "
+          f"(pod 2, data 2, model 1)) in {time.perf_counter() - t17:.1f} s "
           f"[{card}]")
     for name, t in fn_times.items():
         next(r for r in results if r["name"] == name).update(

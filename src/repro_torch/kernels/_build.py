@@ -201,6 +201,31 @@ def recompute_grads(plain, saved, needs_grad, grad_outputs) -> list:
     return grads
 
 
+def recompute_scratch(key, plain, saved, needs_grad, grad_outputs) -> int:
+    """The bytes ``recompute_grads(plain, saved, ...)`` holds at its peak
+    beyond the gradients it returns (the plain version's activations and
+    its backward's temporaries), measured once per ``key`` (the call's
+    shapes and flags) and ``COUNTER`` by running it on ``meta`` copies
+    under a ``StepCounter`` of its own: the scratch a backward's counted
+    call reckons, the same on every device."""
+    def meta(t):
+        return None if t is None else torch.empty_like(t, device="meta")
+
+    cache = COUNTER.recompute_scratch
+    if key not in cache:
+        from repro_torch.launch.step_analysis import StepCounter
+        counter = StepCounter()
+        with COUNTER.inside_kernel(), counter:
+            grads = recompute_grads(plain, [meta(t) for t in saved],
+                                    needs_grad,
+                                    [meta(g) for g in grad_outputs])
+        counter.close()
+        out = sum(g.numel() * g.element_size() for g in grads
+                  if g is not None)
+        cache[key] = max(counter.peak - out, 0)
+    return cache[key]
+
+
 def raise_on(err: int, op: str) -> None:
     """Raise on the non-zero ``cudaError_t`` a launch function returned."""
     if err:

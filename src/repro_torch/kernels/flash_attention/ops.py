@@ -207,21 +207,29 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, grad_out):
         saved = ctx.saved_tensors
 
+        def plain(q, k, v):
+            return attention_ref(q, k, v, causal=ctx.causal,
+                                 scale=ctx.scale)
+
         def run():
             if grad_out.device.type == "meta":
                 grads = [torch.empty_like(t) if n else None
                          for t, n in zip(saved, ctx.needs_input_grad)]
             else:
-                grads = recompute_grads(
-                    lambda q, k, v: attention_ref(
-                        q, k, v, causal=ctx.causal, scale=ctx.scale),
-                    saved, ctx.needs_input_grad, (grad_out,))
+                grads = recompute_grads(plain, saved, ctx.needs_input_grad,
+                                        (grad_out,))
             return [like(t, g) for t, g in zip(saved, grads)]
 
         if _build.COUNTER is not None:
+            # the recompute's activations and temporaries, live during the
+            # call on every device (on meta nothing runs)
+            key = ("flash", ctx.causal, ctx.scale, ctx.needs_input_grad,
+                   *((t.shape, t.dtype) for t in saved))
             grads = _build.counted_call(
                 "flash_attention_backward", run,
-                lambda grads: backward_work(*saved))
+                lambda grads: backward_work(*saved),
+                _build.recompute_scratch(key, plain, saved,
+                                         ctx.needs_input_grad, (grad_out,)))
         else:
             grads = run()
         return (*grads, None, None)

@@ -310,23 +310,33 @@ class GlaChunkFn(torch.autograd.Function):
         saved = ctx.saved_tensors          # unpacked once (checkpointing)
         q, k, v, log_w, u, _ = saved
 
+        plain = plain_for(q, k, v, log_w, u, ctx.inclusive, ctx.chunk)
+
         def run():
             if q.device.type == "meta":
                 grads = [torch.empty_like(t) if t is not None and n
                          else None
                          for t, n in zip(saved, ctx.needs_input_grad)]
             else:
-                grads = recompute_grads(
-                    plain_for(q, k, v, log_w, u, ctx.inclusive, ctx.chunk),
-                    saved, ctx.needs_input_grad, (grad_out, grad_final))
+                grads = recompute_grads(plain, saved, ctx.needs_input_grad,
+                                        (grad_out, grad_final))
             return [None if t is None else like(t, g)
                     for t, g in zip(saved, grads)]
 
         if _build.COUNTER is not None:
+            # the recompute's activations and temporaries, live during the
+            # call on every device (on meta nothing runs)
+            key = ("gla", ctx.inclusive, ctx.chunk, ctx.needs_input_grad,
+                   grad_final is None,
+                   *(None if t is None else (t.shape, t.dtype)
+                     for t in saved))
             grads = _build.counted_call(
                 "gla_chunk_backward", run,
                 lambda grads: backward_work(*saved, inclusive=ctx.inclusive,
-                                            chunk=ctx.chunk))
+                                            chunk=ctx.chunk),
+                _build.recompute_scratch(key, plain, saved,
+                                         ctx.needs_input_grad,
+                                         (grad_out, grad_final)))
         else:
             grads = run()
         return (*grads, None, None)

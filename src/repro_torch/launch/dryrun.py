@@ -42,9 +42,14 @@ prefill or decode cell's rules ignore it, as the reference's do), and
 ``dp_mode`` ("auto", the reference's default, or "manual") on train
 cells, which run as ``manual_dp`` either way: at cards > 1 an "auto"
 cell's ``layout_differences["dp_mode"]`` names how GSPMD's step differs.
-``fsdp`` on a train cell and ``--multi-pod`` report ``status:
-"not_ported"`` with the ROADMAP item as the reason (a prefill or decode
-cell ignores ``fsdp``).
+``fsdp`` on a train cell (a prefill or decode cell's rules ignore it)
+splits each parameter's "embed" dim over "data" (ZeRO-3: gathered per
+block and use, again in a remat re-forward, the f32 gradient
+reduce-scattered in the backward). ``--multi-pod`` makes the mesh (pod
+2, data N / 2M, model M) with the batch over ("pod", "data") for every
+cell (``manual_dp`` reduce-scatters over "pod", then "data", and gathers
+back over "data", then "pod"); at 512 / 16 the cell's mesh reads
+"pod2x16x16", the reference's.
 
 At M = 1 the layout over ``--cards N`` is ``train/manual_dp.py``'s:
 parameters replicated, AdamW moments ZeRO-sharded N ways, the batch split
@@ -56,7 +61,7 @@ each card serves its part of the batch, with no collective.
 
 Exit code 0 and a JSON artifact per cell for "ok", "skipped" (decode for
 archs without a decoder, long_500k for quadratic attention, as the JAX
-package's rules skip them) and "not_ported" cells. Overrides as in the
+package's rules skip them) cells. Overrides as in the
 JAX CLI: ``microbatches``, ``moe_group``, ``moe_capacity`` and any config
 field; 20B+ models get 16 microbatches at train_4k. The numbers are
 reckonings from counted work, not measurements.
@@ -84,16 +89,11 @@ from repro_torch.models.sharding import (Part, ShardingCtx, default_rules,
 from repro_torch.optim import AdamWConfig, abstract_state
 from repro_torch.train.manual_dp import (abstract_zero_opt_state,
                                          collective_plan,
-                                         make_manual_dp_train_step)
+                                         make_manual_dp_train_step,
+                                         split_leaves)
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 from repro_torch.train.train_step import make_train_step
 
-# the ROADMAP item each layout the port lacks waits for
-NOT_PORTED = {
-    "fsdp": "A11: fsdp (ZeRO-3: the parameters' input dim over data) on a "
-            "train cell",
-    "multi_pod": "A11: --multi-pod (manual_dp over (pod, data))",
-}
 # the reference CLI's layout overrides and their defaults
 # (``src/repro/launch/dryrun.py:47-50``)
 LAYOUT_DEFAULTS = {"fsdp": False, "seq_parallel": False,
@@ -153,18 +153,21 @@ class RecordedCollectives:
 
 
 def cell_rules(cfg, suite: ShapeSuite, model_axis: int, *,
-               fsdp: bool = False, seq_parallel: bool = False,
-               second_matmul: str = "row", **_) -> Dict[str, Any]:
+               multi_pod: bool = False, fsdp: bool = False,
+               seq_parallel: bool = False, second_matmul: str = "row",
+               **_) -> Dict[str, Any]:
     """The reference's rules for a cell (``src/repro/launch/dryrun.py:
-    77-94``): ``second_matmul`` for every cell, ``fsdp`` and
-    ``seq_parallel`` for train cells only (a prefill or decode cell's
-    rules ignore them), then the K/V cache's sequence for serving. Takes
-    ``layout_options``' keys (``dp_mode`` changes no rule)."""
+    77-94``): the multi-pod batch ("pod", "data") and ``second_matmul``
+    for every cell, ``fsdp`` and ``seq_parallel`` for train cells only (a
+    prefill or decode cell's rules ignore them), then the K/V cache's
+    sequence for serving. Takes ``layout_options``' keys (``dp_mode``
+    changes no rule)."""
     if suite.kind == "train":
-        rules = default_rules(fsdp=fsdp, seq_parallel=seq_parallel,
+        rules = default_rules(multi_pod, fsdp=fsdp,
+                              seq_parallel=seq_parallel,
                               second_matmul=second_matmul)
     else:
-        rules = default_rules(second_matmul=second_matmul)
+        rules = default_rules(multi_pod, second_matmul=second_matmul)
     if suite.name == "long_500k":
         # B=1 cannot shard over data; shard the KV sequence there instead
         rules["batch"] = None
@@ -236,6 +239,23 @@ def _rs(n_bytes: int, size: int) -> Dict[str, Any]:
             "axis": "model", "group": size}
 
 
+def param_gathers(ctx: ShardingCtx, defs) -> Tuple[list, list]:
+    """(the forward's, the backward's) collectives of
+    ``ShardingCtx.gather_params`` over a piece's ParamDefs under fsdp:
+    per ``param_packs`` one all-gather in the leaves' dtype, and in the
+    backward one f32 reduce-scatter, the last pack's first (none where
+    the layout splits no "embed")."""
+    packs = ctx.param_packs(defs)
+    axis = "+".join(ctx.mesh_axes("embed"))
+    ag = [{"op": "all_gather_into_tensor", "kind": "all-gather",
+           "dtype": str(p.dtype), "result_bytes": p.n * max(p.sizes)
+           * p.dtype.itemsize, "axis": axis, "group": p.n} for p in packs]
+    rs = [{"op": "reduce_scatter_tensor", "kind": "reduce-scatter",
+           "dtype": "torch.float32", "result_bytes": 4 * max(p.sizes),
+           "axis": axis, "group": p.n} for p in reversed(packs)]
+    return ag, rs
+
+
 def layer_bodies(model: Model, b: int, s: int, ctx: ShardingCtx,
                  mode: str = "train") -> List[Tuple[list, int, list, int]]:
     """Rank 0's collectives of each piece of a step on ``b`` x ``s``
@@ -266,7 +286,13 @@ def layer_bodies(model: Model, b: int, s: int, ctx: ShardingCtx,
     gathered gate and its channel mix's sum, both saved: it reissues
     every one). Whisper's encoder layers (at ``enc_seq`` frames) come
     first outside decode, then its output entering the decoder's K/V
-    projections."""
+    projections.
+
+    Under fsdp each piece gathers its parameters first (``param_gathers``
+    of its ``Model.pieces``: re-issued by a remat re-forward) and its
+    backward ends on their reduce-scatters; whisper's cross-attention
+    ``wk`` / ``wv`` are gathered layer by layer before the decoder, in a
+    piece of their own."""
     cfg, m = model.cfg, ctx.size("heads")
     d, dtype = cfg.d_model, model.defs["embed"].dtype
     item = dtype.itemsize
@@ -335,16 +361,26 @@ def layer_bodies(model: Model, b: int, s: int, ctx: ShardingCtx,
         bwd = [c for _, pre, post in reversed(units) for c in pre + post]
         return fwd, len(fwd) - 1, bwd, len(units[-1][1])
 
+    def gathering(body, piece, remat=True):
+        """``body`` with its piece's fsdp gathers first (re-issued by a
+        remat re-forward where ``remat``) and their reduce-scatters
+        last."""
+        ag, rs = param_gathers(ctx, model.pieces[piece])
+        fwd, rerun, bwd, pre = body
+        return ag + fwd, rerun + (len(ag) if remat else 0), bwd + rs, pre
+
     emb_f, emb_b = out(s)
-    bodies = [(emb_f, 0, emb_b, len(emb_b))]            # the embedding's
+    bodies = [gathering((emb_f, 0, emb_b, len(emb_b)), "embed",
+                        remat=False)]                   # the embedding's
     if cfg.family == "hybrid":
         k = cfg.shared_attn_every
         st = cfg.ssm.state_size
         o_f, o_pre = out(s)
-        mamba = chain((whole(s) + [ar(4 * b * s)] + o_f, o_pre,
-                       [ar(4 * b * s), ar(4 * b * s * 2 * st), ar(4 * b * s
-                                                                   * d)]))
-        shared = chain(attn_unit(s, kv), mlp_unit(s, second=False))
+        mamba = gathering(chain((whole(s) + [ar(4 * b * s)] + o_f, o_pre,
+                                 [ar(4 * b * s), ar(4 * b * s * 2 * st),
+                                  ar(4 * b * s * d)])), "layers")
+        shared = gathering(chain(attn_unit(s, kv),
+                                 mlp_unit(s, second=False)), "shared")
         for i in range(cfg.n_layers):
             bodies.append(mamba)
             if (i + 1) % k == 0 and (i + 1) // k <= model.n_shared_apps():
@@ -358,27 +394,33 @@ def layer_bodies(model: Model, b: int, s: int, ctx: ShardingCtx,
         fwd = whole(s) + tm_f + whole(s) + cm_f + [gate]
         bwd = (whole(s) + [ar(4 * b * s * d)] + cm_pre + [ar(4 * b * s * d)]
                + tm_pre + [ar(4 * b * s * RWKV_LORA), ar(4 * 4 * b * s * d)])
-        return bodies + [(fwd, len(fwd), bwd, 0)] * cfg.n_layers
+        return bodies + [gathering((fwd, len(fwd), bwd, 0),
+                                   "layers")] * cfg.n_layers
     if cfg.family == "encdec":
-        layer = chain(attn_unit(s, kv), attn_unit(s), mlp_unit(s))
+        layer = gathering(chain(attn_unit(s, kv), attn_unit(s),
+                                mlp_unit(s)), "layers")
         if mode == "decode":
             return bodies + [layer] * cfg.n_layers
         n = cfg.enc_seq
-        enc = chain(attn_unit(n), mlp_unit(n))
+        enc = gathering(chain(attn_unit(n), mlp_unit(n)), "enc_layers")
         o_f, o_b = enter(n)
-        return ([enc] * cfg.n_enc_layers + [(o_f, 0, o_b, 0)] + bodies
-                + [layer] * cfg.n_layers)
+        xg, xr = param_gathers(ctx, model.pieces["xattn_kv"])
+        xkv = (xg * cfg.n_layers, 0, xr * cfg.n_layers, 0)
+        return ([enc] * cfg.n_enc_layers
+                + [gathering((o_f, 0, o_b, 0), "enc_final", remat=False),
+                   xkv] + bodies + [layer] * cfg.n_layers)
     data = ctx.size("batch")
     for _ in range(cfg.n_layers):
         if cfg.moe is not None:
             o_f, o_pre = out(s, torch.float32)
-            lb = [ar(2 * 4 * cfg.moe.padded_experts, "data", data)] \
+            lb = [ar(2 * 4 * cfg.moe.padded_experts,
+                     "+".join(ctx.mesh_axes("batch")), data)] \
                 if data > 1 else []
             ffn = (whole(s) + lb + o_f, o_pre,
                    [ar(4 * b * s * cfg.moe.top_k), ar(4 * b * s * d)])
         else:
             ffn = mlp_unit(s)
-        bodies.append(chain(attn_unit(s, kv), ffn))
+        bodies.append(gathering(chain(attn_unit(s, kv), ffn), "layers"))
     return bodies
 
 
@@ -430,27 +472,33 @@ def model_axis_plan(model: Model, suite: ShapeSuite, batch: int,
     local = ctx.batch_local()
     bodies = layer_bodies(model, b, s, local)
     tok = _ar(4 * b * s, "model", m)
+    head_ag, head_rs = param_gathers(local, model.pieces["head"])
     step = []
     for fwd, _, _, _ in bodies:
         step += fwd
     if ctx.size("seq") > 1:      # the final norm's positions gathered
         piece = -(-s // m)
         item = model.defs["embed"].dtype.itemsize
-        step += [_ag(m * piece * b * cfg.d_model * item,
-                     str(model.defs["embed"].dtype), m), tok, tok, tok,
-                 _rs(4 * b * piece * cfg.d_model, m)]
+        step += head_ag + [_ag(m * piece * b * cfg.d_model * item,
+                               str(model.defs["embed"].dtype), m), tok, tok,
+                           tok, _rs(4 * b * piece * cfg.d_model, m)]
     else:
-        step += [tok, tok, tok, _ar(4 * b * s * cfg.d_model, "model", m)]
+        step += head_ag + [tok, tok, tok, _ar(4 * b * s * cfg.d_model,
+                                              "model", m)]
+    step += head_rs
     for fwd, rerun, bwd, pre in reversed(bodies):
         step += bwd[:pre] + (fwd[:rerun] if cfg.remat else []) + bwd[pre:]
     plan = step * n_mb
     defs = tree_leaves(model.defs)
     shared = local.shared_leaves(defs)
     if shared:
-        plan.append(_ar(4 * sum(math.prod(defs[i].shape)
-                                for i, _, _ in shared), "model", m))
-    data = ctx.size("batch")
-    return issued(plan) + collective_plan(model.abstract(ctx), data, m)
+        plan.append(_ar(4 * sum(math.prod(local.shared_shape(defs[i], dim,
+                                                             mine))
+                                for i, dim, mine in shared), "model", m))
+    sizes = dict(zip(ctx.mesh.axis_names, ctx.mesh.shape))
+    return issued(plan) + collective_plan(
+        model.abstract(ctx), sizes["data"], m, sizes.get("pod", 1),
+        split_leaves(model, ctx))
 
 
 def issued(plan: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
@@ -464,24 +512,14 @@ def model_param_count(abstract_params) -> int:
     return int(sum(x.numel() for x in tree_leaves(abstract_params)))
 
 
-def _not_ported(layout: Dict[str, Any], suite: ShapeSuite,
-                multi_pod: bool = False) -> Optional[str]:
-    """The ROADMAP item a cell's layout waits for, or None: ``fsdp`` on a
-    train cell (the rules of a prefill or decode cell ignore it) and the
-    multi-pod mesh."""
-    if multi_pod:
-        return NOT_PORTED["multi_pod"]
-    if layout["fsdp"] and suite.kind == "train":
-        return NOT_PORTED["fsdp"]
-    return None
-
-
-def dp_mode_difference(cfg, data: int) -> Dict[str, Any]:
+def dp_mode_difference(cfg, data: int, fsdp: bool = False
+                       ) -> Dict[str, Any]:
     """How the port's step for the reference's default ``dp_mode="auto"``
     (GSPMD's ZeRO step, ``src/repro/launch/dryrun.py:121-139``) differs
-    from it over a data axis of ``data`` ranks: it is ``manual_dp``."""
+    from it over the data axes' ``data`` ranks: it is ``manual_dp`` (under
+    ``fsdp`` with its ZeRO-3 leaves)."""
     n_mb = max(cfg.microbatches, 1)
-    return {"reason": (
+    out = {"reason": (
         f"dp_mode \"auto\" runs as manual_dp: the gradient crosses the "
         f"data axis once per step (one reduce-scatter of the f32 bucket), "
         f"not once per microbatch ({n_mb} per step, as GSPMD reduces each "
@@ -490,6 +528,22 @@ def dp_mode_difference(cfg, data: int) -> Dict[str, Any]:
         f"flat gradient bucket, not by \"embed\" -> \"data\" specs"),
         "gradient_crossings_per_step": 1,
         "reference_gradient_crossings_per_step": n_mb}
+    if fsdp:
+        out["reason"] += (
+            "; fsdp (ZeRO-3): each piece (a block, an application of "
+            "zamba2's shared block, the embedding, the final norm and "
+            "unembedding) all-gathers its \"embed\"-split leaves once per "
+            "use, in one collective per dtype, again in its remat "
+            "re-forward, and reduce-scatters their f32 gradient in its "
+            "backward into the step's f32 shard accumulator (GSPMD gathers "
+            "each parameter where its partitioner places the gather and "
+            "reduces its gradient to the shard per microbatch); the shard "
+            "leaves' moments are the rank's \"data\" shard (on a multi-pod "
+            "mesh its piece over \"pod\", as the reference's moments on "
+            "(\"pod\", \"data\")) as a flat range, the other leaves' the "
+            "bucket's ranges")
+        out["gradient_crossings_per_step"] = n_mb
+    return out
 
 
 def _config(arch: str, shape: str, overrides: Optional[Dict[str, Any]]):
@@ -539,17 +593,16 @@ def build_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
     if suite.name == "long_500k" and not cfg.subquadratic:
         return None, None, {**head, "status": "skipped",
                             "reason": "quadratic attention at 500k"}, None
-    if model < 1 or cards % model:
-        raise ValueError(f"a model axis of {model} does not divide {cards} "
-                         f"cards")
-    reason = _not_ported(layout, suite, multi_pod)
-    if reason is not None:
-        return None, None, {**head, "status": "not_ported",
-                            "reason": f"ROADMAP {reason}"}, None
+    if model < 1 or cards % (model * (2 if multi_pod else 1)):
+        raise ValueError(f"a model axis of {model}"
+                         + (" and a pod axis of 2" if multi_pod else "")
+                         + f" do not divide {cards} cards")
     if suite.kind == "train":
         head["dp_mode"] = layout["dp_mode"]
-    if model > 1:
-        return model_axis_cell(cfg, suite, cards, model, head, layout)
+    fsdp = layout["fsdp"] and suite.kind == "train" and cards > model
+    if model > 1 or multi_pod or fsdp:
+        return model_axis_cell(cfg, suite, cards, model, head, layout,
+                               multi_pod)
     if cards < 1 or suite.global_batch % cards:
         raise ValueError(f"batch {suite.global_batch} does not split over "
                          f"{cards} cards")
@@ -599,37 +652,48 @@ def build_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
 
 def model_axis_cell(cfg, suite: ShapeSuite, cards: int, m: int,
                     head: Dict[str, Any],
-                    layout: Optional[Dict[str, Any]] = None):
+                    layout: Optional[Dict[str, Any]] = None,
+                    multi_pod: bool = False):
     """``build_cell``'s result for a cell of ``cfg`` on a (cards / m, m)
-    mesh, as rank 0, under the ``layout`` overrides (``layout_options``;
-    default: the reference's defaults); ``head`` starts its meta. A train
-    cell traces rank 0's ``make_manual_dp_train_step`` (its slices, its
-    ZeRO shard over data of their moments, its part of the batch)."""
+    mesh (``multi_pod``: a (2, cards / 2m, m) mesh over ("pod", "data",
+    "model")), as rank 0, under the ``layout`` overrides
+    (``layout_options``; default: the reference's defaults); ``head``
+    starts its meta. A train cell traces rank 0's
+    ``make_manual_dp_train_step`` (its slices, its ZeRO shard over the
+    data axes of their moments, its part of the batch)."""
     layout = layout or layout_options(None)
-    data = cards // m
+    pod = 2 if multi_pod else 1
+    data = cards // (m * pod)
     comm = RecordedCollectives()
-    ctx = ShardingCtx(make_mesh((data, m), ("data", "model"), rank=0),
-                      cell_rules(cfg, suite, m, **layout), comm=comm)
+    shape, axes = ((pod, data, m), ("pod", "data", "model")) if multi_pod \
+        else ((data, m), ("data", "model"))
+    ctx = ShardingCtx(make_mesh(shape, axes, rank=0),
+                      cell_rules(cfg, suite, m, multi_pod=multi_pod,
+                                 **layout), comm=comm)
     split = ctx.size("batch")        # 1 where the rules hold the batch whole
     if suite.global_batch % split:
         raise ValueError(f"batch {suite.global_batch} does not split over "
-                         f"a data axis of {data}")
+                         f"data axes of {split}")
     model = Model(cfg)
     params = model.abstract(ctx)
     per_card = suite.global_batch // split
     kv_seq = ctx.mesh_axes("kv_seq")
     meta = {
         **head, "status": "ok", "batch_per_card": per_card,
-        "mesh": f"{data}x{m}",
+        "mesh": ("pod2x" if multi_pod else "") + f"{data}x{m}",
         "params": model_param_count(model.abstract()),
         "params_per_card": model_param_count(params),
         "active_params": cfg.active_param_count(),
         "kind": suite.kind,
-        "layout": (f"data {data} x model {m}: heads, kv heads (as the q "
+        "layout": ((f"pod {pod} x " if multi_pod else "")
+                   + f"data {data} x model {m}: heads, kv heads (as the q "
                    f"heads read them), MLP columns, experts and vocab "
                    f"over the model axis; the batch "
-                   + ("over data" if split > 1 else "whole on each data "
-                      "rank")
+                   + (("over (pod, data)" if multi_pod else "over data")
+                      if split > 1 else "whole on each data rank")
+                   + ("; fsdp (ZeRO-3): each leaf's \"embed\" dim over "
+                      "data, gathered per block and use"
+                      if ctx.size("embed") > 1 else "")
                    + (f"; the K/V cache's sequence round-robin over "
                       f"{kv_seq[0]} (its kv heads whole where that is the "
                       f"model axis)" if kv_seq else "")
@@ -646,8 +710,10 @@ def model_axis_cell(cfg, suite: ShapeSuite, cards: int, m: int,
                       if ctx.size("seq") > 1 else "")),
         "layout_differences": layout_differences(model, suite, ctx),
     }
-    if suite.kind == "train" and layout["dp_mode"] == "auto" and data > 1:
-        meta["layout_differences"]["dp_mode"] = dp_mode_difference(cfg, data)
+    if suite.kind == "train" and layout["dp_mode"] == "auto" and \
+            data * pod > 1:
+        meta["layout_differences"]["dp_mode"] = dp_mode_difference(
+            cfg, data * pod, ctx.size("embed") > 1)
     if ctx.size("seq") > 1:
         meta["layout_differences"]["logits"] = logits_difference(
             model, per_card // max(cfg.microbatches, 1), suite.seq_len)
@@ -656,13 +722,15 @@ def model_axis_cell(cfg, suite: ShapeSuite, cards: int, m: int,
         batch, _ = S.train_batch_specs(cfg, suite, per_card)
         meta["tokens_per_step"] = suite.global_batch * suite.seq_len
         meta["microbatches"] = cfg.microbatches
-        meta["layout"] = (f"manual_dp over data {data}, moments ZeRO-"
-                          f"sharded over it, beside model {m}: "
-                          + meta["layout"].split(": ", 1)[1])
+        meta["layout"] = ((f"manual_dp over (pod {pod}, data {data})"
+                           if multi_pod else f"manual_dp over data {data}")
+                          + f", moments ZeRO-sharded over it, beside model "
+                          f"{m}: " + meta["layout"].split(": ", 1)[1])
         fn = make_manual_dp_train_step(model, AdamWConfig(), comm=comm,
                                        ctx=ctx)
-        return fn, (params, abstract_zero_opt_state(params, data),
-                    batch), meta, comm
+        opt = abstract_zero_opt_state(params, data, pod,
+                                      split_leaves(model, ctx))
+        return fn, (params, opt, batch), meta, comm
     if suite.kind == "prefill":
         batch, _ = S.train_batch_specs(cfg, suite, per_card)
         batch.pop("targets")
@@ -773,15 +841,17 @@ def run_cell(arch: str, shape: str, *, cards: int = 1, model: int = 1,
             result["traceback"] = traceback.format_exc()[-4000:]
         result["total_s"] = round(time.time() - t0, 2)
     if out_dir:
-        _write(out_dir, arch, shape, cards, result, tag, model)
+        _write(out_dir, arch, shape, cards, result, tag, model, multi_pod)
     return result
 
 
-def _write(out_dir, arch, shape, cards, result, tag="", model=1):
+def _write(out_dir, arch, shape, cards, result, tag="", model=1,
+           multi_pod=False):
     os.makedirs(out_dir, exist_ok=True)
     safe_arch = arch.replace(".", "p").replace("/", "_")
-    suffix = (f"_model{model}" if model > 1 else "") + (f"_{tag}" if tag
-                                                         else "")
+    suffix = ((f"_model{model}" if model > 1 else "")
+              + ("_multipod" if multi_pod else "")
+              + (f"_{tag}" if tag else ""))
     path = os.path.join(out_dir,
                         f"{safe_arch}__{shape}__{cards}card{suffix}.json")
     with open(path, "w") as f:
@@ -816,7 +886,7 @@ def matrix_line(res: Dict[str, Any]) -> str:
             f"traced in {res['trace_s']} s")
 
 
-STATUSES_OK = ("ok", "skipped", "not_ported")
+STATUSES_OK = ("ok", "skipped")
 
 
 def run_matrix(cards: int = 1, out_dir: str = "build/dryrun",
@@ -825,7 +895,7 @@ def run_matrix(cards: int = 1, out_dir: str = "build/dryrun",
     """Every arch x ``shape_cells()`` cell under ``overrides`` (each
     cell's kind takes those of the reference's rules), one line each,
     then the statuses counted and the host seconds the matrix took. True
-    when every cell is ok, skipped or not ported."""
+    when every cell is ok or skipped."""
     from repro_torch.configs import list_archs
     t0 = time.time()
     ok, statuses = True, {}
@@ -838,6 +908,7 @@ def run_matrix(cards: int = 1, out_dir: str = "build/dryrun",
             statuses[res["status"]] = statuses.get(res["status"], 0) + 1
             print(matrix_line(res), flush=True)
     print(f"matrix at {cards} card(s), model axis {model}"
+          + (", multi-pod" if multi_pod else "")
           + (f", overrides {json.dumps(overrides)}" if overrides else "")
           + f": {json.dumps(statuses)}, {time.time() - t0:.1f} s of host "
           f"time")

@@ -1,11 +1,13 @@
 """Meshes (the JAX package's ``launch/mesh.py``): the model's
-("data", "model") mesh (``make_mesh``, ``make_production_mesh``) and the
-sharded serving plane's (``make_shard_mesh``, ``mesh_devices``).
+("data", "model") or multi-pod ("pod", "data", "model") mesh
+(``make_mesh``, ``make_production_mesh``) and the sharded serving
+plane's (``make_shard_mesh``, ``mesh_devices``).
 
 A model mesh (``Mesh``) holds the axis names, their sizes, this rank's
 coordinates (row-major: on ("data", "model") the ranks of one model
 group are consecutive) and one process group per axis for the rank's
-group along it, made with ``torch.distributed.new_group`` once the
+group along it (and one per run of consecutive axes short of the whole
+mesh, such as "pod+data", the multi-pod batch's), made with ``torch.distributed.new_group`` once the
 default group is initialized (gloo or NCCL; the caller gives
 ``init_process_group`` its address, world size and rank). Its
 process-free form (``rank=`` given, no groups) is what the dry run traces
@@ -99,8 +101,12 @@ class Mesh:
         return self.coords[axis]
 
     def group(self, axis: str):
+        """The rank's group along ``axis``, or along consecutive axes
+        together named "a+b" (the multi-pod batch's "pod+data")."""
         if self.groups is None:
-            return AxisGroup(axis, self.shape[self.axis_names.index(axis)])
+            return AxisGroup(axis, math.prod(
+                self.shape[self.axis_names.index(a)]
+                for a in axis.split("+")))
         return self.groups[axis]
 
     def world_group(self):
@@ -118,17 +124,23 @@ class Mesh:
                 f"{self.rank}{'' if self.groups else ', process-free'})")
 
 
-def _axis_ranks(shape: Tuple[int, ...], axis: int) -> list:
-    """Every group of ranks along ``axis`` (row-major rank order), in a
-    fixed order: each rank must create every group, in the same order."""
-    others = [range(n) for i, n in enumerate(shape) if i != axis]
+def _axis_ranks(shape: Tuple[int, ...], axis: int, stop: int = 0) -> list:
+    """Every group of ranks along ``axis`` (through axis ``stop - 1``
+    where ``stop`` is given: consecutive axes together; row-major rank
+    order), in a fixed order: each rank must create every group, in the
+    same order."""
+    stop = stop or axis + 1
+    others = [range(n) for i, n in enumerate(shape)
+              if not axis <= i < stop]
     strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
     groups = []
     for rest in itertools.product(*others):
         coord = list(rest)
-        coord.insert(axis, 0)
+        for i in range(axis, stop):
+            coord.insert(i, 0)
         base = sum(c * s for c, s in zip(coord, strides))
-        groups.append([base + j * strides[axis] for j in range(shape[axis])])
+        groups.append([base + j * strides[stop - 1]
+                       for j in range(math.prod(shape[axis:stop]))])
     return groups
 
 
@@ -151,11 +163,16 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
                          f"the process group has {dist.get_world_size()}")
     me = dist.get_rank()
     groups = {}
-    for i, name in enumerate(axes):
-        for ranks in _axis_ranks(shape, i):
+    # one group per axis, then per run of consecutive axes short of the
+    # whole mesh (the multi-pod batch's "pod+data")
+    runs = [(i, i + 1) for i in range(len(axes))] + [
+        (i, j) for i in range(len(axes)) for j in range(i + 2, len(axes) + 1)
+        if j - i < len(axes)]
+    for i, j in runs:
+        for ranks in _axis_ranks(shape, i, j):
             g = dist.new_group(ranks)
             if me in ranks:
-                groups[name] = g
+                groups["+".join(axes[i:j])] = g
     return Mesh(shape, axes, me, groups)
 
 

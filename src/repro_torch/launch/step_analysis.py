@@ -152,6 +152,9 @@ class StepCounter(TorchDispatchMode):
         self._held: Dict[int, int] = {}
         self._finalizers: List[weakref.finalize] = []
         self._lock = threading.Lock()
+        # an LM kernel backward's recompute scratch per call shape
+        # (``kernels._build.recompute_scratch``)
+        self.recompute_scratch: Dict[tuple, int] = {}
 
     # ------------------------------------------------------------ memory
     def track(self, t: torch.Tensor, n_bytes: Optional[int] = None) -> None:

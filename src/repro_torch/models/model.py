@@ -35,9 +35,20 @@ context's ``reduce`` / ``copy`` / ``gather`` Functions, and
 columns as they are). Whisper's encoder runs under the model axis too,
 and its output enters the decoder layers' K/V projections through one
 ``copy``.
+
+Under fsdp (training: "embed" over the data axis) the parameters are
+the rank's parts of their input dims, and each piece of the forward
+(``pieces``: a block, an application of zamba2's shared block, the
+embedding, the final norm with the unembedding, whisper's encoder blocks,
+its final norm and its cross-attention K/V weights) gathers its own
+inside the function a block's checkpoint runs (``gathered``), so a remat
+re-forward gathers again and the gathered copy lives for the block only.
+Prefill and decode under fsdp raise, as the reference's rules apply it
+to train cells only.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, Optional, Tuple
 
@@ -87,6 +98,12 @@ def _positions_for(cfg: ModelConfig, s: int, offset: int,
     if cfg.pos_scheme == "rope":
         return pos[None]
     return None
+
+
+def _unlayered(defs):
+    """The per-layer ParamDefs of a stacked [L, ...] tree of them."""
+    return tree_map(lambda d: dataclasses.replace(
+        d, shape=d.shape[1:], axes=d.axes[1:]), defs)
 
 
 def _stack(caches):
@@ -144,6 +161,41 @@ class Model:
             d["enc_final_b"] = norm_def((cfg.d_model,), ("embed",), "zeros")
             d["layers"] = blocks.decoder_xattn_block_defs(cfg, cfg.n_layers)
         return d
+
+    # ------------------------------------------------------------ pieces
+    @functools.cached_property
+    def pieces(self) -> Dict[str, Any]:
+        """The ParamDefs (full, per layer for a stack) of each piece of
+        the forward that reads its parameters together, the unit of
+        ``ShardingCtx.gather_params`` (fsdp): "embed" (the lookup's
+        table), "head" (the final norm and the unembedding's table, tied
+        or not), "layers" (one block; whisper's without its cross
+        attention's ``wk`` / ``wv``, read for every layer before the
+        decoder, "xattn_kv"), "shared" (zamba2's shared block, per
+        application), "enc_layers" and "enc_final" (whisper's encoder)."""
+        cfg, d = self.cfg, self.defs
+        table = "embed" if cfg.tie_embeddings else "unembed"
+        out = {"embed": {"embed": d["embed"]},
+               "head": {"final_norm": d["final_norm"], table: d[table]},
+               "layers": _unlayered(d["layers"])}
+        if "shared" in d:
+            out["shared"] = d["shared"]
+        if cfg.family == "encdec":
+            out["enc_layers"] = _unlayered(d["enc_layers"])
+            out["enc_final"] = {k: d[k] for k in ("enc_final_w",
+                                                  "enc_final_b")}
+            xattn = out["layers"]["xattn"]
+            out["xattn_kv"] = {"xattn": {k: xattn[k] for k in ("wk",
+                                                              "wv")}}
+            out["layers"] = {**out["layers"], "xattn": {
+                k: v for k, v in xattn.items() if k not in ("wk", "wv")}}
+        return out
+
+    def gathered(self, params, piece: str, ctx: ShardingCtx):
+        """``params`` (a piece's tree, or the model's for "embed", "head"
+        and "enc_final") with the piece's leaves that the layout splits
+        over "embed" gathered (``ShardingCtx.gather_params``)."""
+        return ctx.gather_params(params, self.pieces[piece])
 
     # -------------------------------------------------------------- params
     def init(self, generator: torch.Generator,
@@ -247,10 +299,11 @@ class Model:
         logits (its vocab columns; ``vocab_range`` gives which)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
-        if mode != "train" and ctx.size("seq") > 1:
+        if mode != "train" and (ctx.size("seq") > 1
+                                or ctx.size("embed") > 1):
             raise ValueError(
-                f"sequence parallelism in {mode}: it is a training layout "
-                f"(the reference's rules apply it to train cells only)")
+                f"sequence parallelism or fsdp in {mode}: training layouts "
+                f"(the reference's rules apply them to train cells only)")
         if mode != "train":
             with torch.no_grad():
                 return self._forward(params, batch, mode=mode, cache=cache,
@@ -292,7 +345,8 @@ class Model:
                 params, batch, mode=mode, cache=cache,
                 cache_index=cache_index, ctx=ctx)
         else:
-            x = embed(params["embed"], tokens, ctx, cfg.padded_vocab)
+            x = embed(self.gathered(params, "embed", ctx)["embed"], tokens,
+                      ctx, cfg.padded_vocab)
             positions = batch.get("positions")
             if positions is None:
                 positions = _positions_for(cfg, s, offset, tokens.device)
@@ -302,13 +356,14 @@ class Model:
                                       positions=positions, cache=cache,
                                       cache_index=cache_index, ctx=ctx)
 
-        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        head = self.gathered(params, "head", ctx)
+        x = rmsnorm(x, head["final_norm"], cfg.norm_eps)
         # every position (the rank's under sequence parallelism) into the
         # rank's vocab columns
         x = ctx.gather_split(x, "seq", s, dim=1) if ctx.size("seq") > 1 \
             else ctx.copy(x, "act_vocab")
         ctx = ctx.logits_layout()
-        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        table = head["embed"] if cfg.tie_embeddings else head["unembed"]
         logits = ctx.constrain(unembed(table, x),
                                ("batch", "seq", "act_vocab"),
                                (None, None, cfg.padded_vocab))
@@ -330,13 +385,17 @@ class Model:
         per-layer cache in prefill mode (stacked here) and the updated
         cache in decode mode."""
         cfg = self.cfg
+        # each block gathers its fsdp leaves itself: under remat its
+        # re-forward gathers them again and the gathered copy is freed
+        # after the block
         if cfg.family == "ssm":
             def block(p, h, c=None):
-                return blocks.rwkv6_block(p, h, cfg, mode=mode, cache=c,
-                                          ctx=ctx)
+                return blocks.rwkv6_block(self.gathered(p, "layers", ctx), h,
+                                          cfg, mode=mode, cache=c, ctx=ctx)
         else:
             def block(p, h, c=None):
-                return blocks.decoder_block(p, h, cfg, mode=mode,
+                return blocks.decoder_block(self.gathered(p, "layers", ctx),
+                                            h, cfg, mode=mode,
                                             positions=positions, cache=c,
                                             cache_index=cache_index, ctx=ctx)
         remat = self._remat(mode)
@@ -372,14 +431,16 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def apply_shared(h, sc):
-            z = torch.cat([h, x0], dim=-1) @ shared_p["fuse"]
-            hh = rmsnorm(z, shared_p["ln1"], cfg.norm_eps)
+            # gathered in each application (fsdp), whose gradients sum
+            sp = self.gathered(shared_p, "shared", ctx)
+            z = torch.cat([h, x0], dim=-1) @ sp["fuse"]
+            hh = rmsnorm(z, sp["ln1"], cfg.norm_eps)
             a, new_sc = blocks.self_attention(
-                shared_p["attn"], hh, cfg, mode=mode, positions=positions,
+                sp["attn"], hh, cfg, mode=mode, positions=positions,
                 cache=sc, cache_index=cache_index, ctx=ctx)
             z = z + a
-            hh = rmsnorm(z, shared_p["ln2"], cfg.norm_eps)
-            z = z + swiglu_mlp(shared_p["mlp"], hh, ctx, down="ff")
+            hh = rmsnorm(z, sp["ln2"], cfg.norm_eps)
+            z = z + swiglu_mlp(sp["mlp"], hh, ctx, down="ff")
             return h + z, new_sc
 
         remat = self._remat(mode)
@@ -391,12 +452,13 @@ class Model:
                 # the shared block's parameters enter every application,
                 # so their gradient sums over the applications
                 x = _body(remat, lambda p, h: blocks.mamba2_block(
-                    p, h, cfg, mode=mode, ctx=ctx)[0], lp, x)
+                    self.gathered(p, "layers", ctx), h, cfg, mode=mode,
+                    ctx=ctx)[0], lp, x)
                 if shared_after:
                     x = _body(remat, lambda h: apply_shared(h, None)[0], x)
                 continue
             x, lc, _ = blocks.mamba2_block(
-                lp, x, cfg, mode=mode,
+                self.gathered(lp, "layers", ctx), x, cfg, mode=mode,
                 cache=None if m_cache is None else _layer(m_cache, i),
                 ctx=ctx)
             m_fresh.append(lc)
@@ -441,15 +503,18 @@ class Model:
             ).to(frames.dtype)[None]
             for lp in _unstack(params["enc_layers"], cfg.n_enc_layers):
                 h = _body(remat, lambda p, hh: blocks.encoder_block(
-                    p, hh, cfg, ectx), lp, h)
+                    self.gathered(p, "enc_layers", ctx), hh, cfg, ectx),
+                    lp, h)
             # one copy (or gather) for every layer's K/V projection: one
             # collective of its gradient, not one per layer
-            enc_out = ectx.enter(layernorm(h, params["enc_final_w"],
-                                           params["enc_final_b"],
+            fin = self.gathered(params, "enc_final", ctx)
+            enc_out = ectx.enter(layernorm(h, fin["enc_final_w"],
+                                           fin["enc_final_b"],
                                            cfg.norm_eps), "kv_heads")
             enc_kv = []
             for lp in layers:
-                xa = lp["xattn"]
+                xa = {**lp["xattn"],
+                      **self.gathered(lp, "xattn_kv", ctx)["xattn"]}
                 ek = enc_out @ xa["wk"]
                 ev = enc_out @ xa["wv"] + xa["bv"]
                 enc_kv.append(tuple(
@@ -462,7 +527,8 @@ class Model:
             enc_kv = list(zip(cache["xk"].unbind(0), cache["xv"].unbind(0)))
 
         offset = cache_index if mode == "decode" else 0
-        x = embed(params["embed"], tokens, ctx, cfg.padded_vocab)
+        x = embed(self.gathered(params, "embed", ctx)["embed"], tokens, ctx,
+                  cfg.padded_vocab)
         s0, s1 = ctx.range("seq", s)       # the rank's positions
         x = x + sinusoidal_pos(s1 - s0, cfg.d_model, offset + s0,
                                device=x.device).to(x.dtype)[None]
@@ -471,15 +537,16 @@ class Model:
         for i, (lp, (ek, ev)) in enumerate(zip(layers, enc_kv)):
             if mode == "train":
                 x, a = _body(remat, lambda p, hh, k_, v_: (
-                    blocks.decoder_xattn_block(p, hh, {"k": k_, "v": v_},
-                                               cfg, mode=mode,
-                                               ctx=ctx)[::2]),
+                    blocks.decoder_xattn_block(
+                        self.gathered(p, "layers", ctx), hh,
+                        {"k": k_, "v": v_}, cfg, mode=mode, ctx=ctx)[::2]),
                     lp, x, ek, ev)
             else:
                 lc = None if cache is None else {
                     "k": cache["k"][i], "v": cache["v"][i]}
                 x, lc, a = blocks.decoder_xattn_block(
-                    lp, x, {"k": ek, "v": ev}, cfg, mode=mode, cache=lc,
+                    self.gathered(lp, "layers", ctx), x, {"k": ek, "v": ev},
+                    cfg, mode=mode, cache=lc,
                     cache_index=cache_index, ctx=ctx)
                 fresh.append(lc)
             aux = aux + a

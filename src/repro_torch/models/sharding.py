@@ -80,10 +80,11 @@ sees its positions only (``ParamDef.per_position``: the norms' gains and
 biases, attention's ``bo``, zamba2's ``fuse``): ``sum_shared`` adds
 them all once per step, in one all-reduce.
 ``held_pieces`` gives how many ranks of the model axis hold each part of
-a leaf, which the global norm divides by. ``batch_local`` is the context
-of ``train/manual_dp.py``'s forward: "batch" not split, each rank's
-microbatch its own, as the reference's forward under ``NULL_CTX``
-inside ``shard_map``.
+a leaf, which the global norm divides by (a leaf split over data under
+fsdp is partitioned there: each element counts on its one data rank).
+``batch_local`` is the context of ``train/manual_dp.py``'s forward:
+"batch" not split, each rank's microbatch its own, as the reference's
+forward under ``NULL_CTX`` inside ``shard_map``.
 
 The port honours the mesh axes of "batch", "heads", "kv_heads",
 "heads2", "ff", "ff2", "experts", "vocab", "act_vocab" (TP, EP,
@@ -99,8 +100,16 @@ largest share; ``for_seq`` gives the context the full length, ``enter``
 / ``whole`` / ``leave`` are a block's gathers and its reduce-scatter).
 Under "seq" the logits keep the vocab-parallel columns of the
 unembedding (``logits_layout``), where the reference's rules hold their
-vocab whole. Any other logical axis on a mesh axis of size > 1 ("embed"
-under FSDP) raises ``NotImplementedError``.
+vocab whole. "embed" (fsdp, training): each parameter's input dim over
+"data" beside its model-axis slice (``embed_dim``; held whole where the
+dim is smaller than the axis, as the reference's spec drops it); the
+model puts a piece's leaves together with ``gather_params`` (per dtype
+one all-gather; backward one f32 reduce-scatter, its result never
+rounded to the parameters' dtype: a ``ParamShard``'s f32 stand-in takes
+it). On the multi-pod mesh "batch" is ("pod", "data"): a rank's rows are
+``pod x data + data_index``'s, its collectives over the mesh's "pod+data"
+group. Any other logical axis on a mesh axis of size > 1 raises
+``NotImplementedError``.
 
 Default rule table (single pod, mesh ("data", "model")):
     batch      -> data            DP: batch / business-key partitions
@@ -131,7 +140,8 @@ Spec = Tuple[Any, ...]            # mesh axes per dim (a PartitionSpec)
 
 # logical axes the explicit layout splits
 SPLIT_AXES = ("batch", "heads", "kv_heads", "heads2", "ff", "ff2",
-              "experts", "vocab", "act_vocab", "kv_seq", "embed_out", "seq")
+              "experts", "vocab", "act_vocab", "kv_seq", "embed_out", "seq",
+              "embed")
 # the row axis of a pair's second matmul -> the axis of its input's columns
 PAIRED = {"heads2": "heads", "ff2": "ff"}
 # the axes dealt round-robin (rank r of M holds units r, r + M, ...; a
@@ -350,7 +360,12 @@ class ShardingCtx:
         or more, and where "kv_seq" shares a mesh axis with the leaf's
         "batch" (the ranks of that axis would hold different rows and the
         decode would combine them): the reference's spec would name the
-        mesh axis twice."""
+        mesh axis twice. "embed" (fsdp) is held whole where the dim is
+        smaller than its mesh axes (the reference's ``spec_for_shape``)."""
+        if "embed" in axes and self.size("embed") > 1:
+            axes = tuple(None if a == "embed" and n is not None
+                         and n < self.size("embed") else a
+                         for a, n in zip(axes, shape))
         if "kv_seq" in axes and "batch" in axes and \
                 self.shares_axis("kv_seq", "batch"):
             raise ValueError(
@@ -434,13 +449,9 @@ class ShardingCtx:
         return dist
 
     def _group(self, axis: str):
-        mesh_axes = self.rules.get(axis)
-        if isinstance(mesh_axes, tuple):
-            if len(mesh_axes) != 1:
-                raise NotImplementedError(
-                    f"a collective over mesh axes {mesh_axes}")
-            mesh_axes = mesh_axes[0]
-        return self.mesh.group(mesh_axes)
+        """The group of this rank along a logical axis's mesh axes of size
+        > 1 (several: the mesh's group of them together, "pod+data")."""
+        return self.mesh.group("+".join(self.mesh_axes(axis)))
 
     def _reduced(self, x: torch.Tensor, axis: str, *, fresh: bool = False,
                  op: str = "sum") -> torch.Tensor:
@@ -492,6 +503,125 @@ class ShardingCtx:
         (``manual_dp``'s forward)."""
         return dataclasses.replace(self, rules={**self.rules,
                                                 "batch": None})
+
+    # ---------------------------------------------- fsdp (ZeRO-3) leaves
+    def embed_dim(self, axes: Sequence[Optional[str]],
+                  shape: Sequence[int]) -> Optional[int]:
+        """The dim of a parameter leaf of ``shape`` that "embed" splits
+        over the data axis (fsdp), or None: the rule holds it whole, its
+        mesh axes are of size 1, or the dim is smaller than them."""
+        if self.size("embed") == 1:
+            return None
+        for i, a in enumerate(self.leaf_axes(axes, shape)):
+            if a == "embed":
+                return i
+        return None
+
+    def param_packs(self, defs) -> List["Pack"]:
+        """The gathers of a tree of ParamDefs (full shapes; nested dicts):
+        its leaves that "embed" splits, in ``tree_leaves`` order, one
+        ``Pack`` per dtype (in order of first appearance), each moved by
+        one collective. Empty where the layout splits no "embed"."""
+        if self.size("embed") == 1:
+            return []
+        cache = self.__dict__.setdefault("_packs_cache", {})
+        if id(defs) in cache and cache[id(defs)][0] is defs:
+            return cache[id(defs)][1]
+        n = self.size("embed")
+        packs: Dict[torch.dtype, Pack] = {}
+        for path, d in _def_paths(defs):
+            dim = self.embed_dim(d.axes, d.shape)
+            if dim is None:
+                continue
+            pack = packs.setdefault(d.dtype, Pack(d.dtype, n, [], [0] * n))
+            # the rank's data group shares its model-axis slice
+            local = list(self.local_shape(d.axes, d.shape, d.parts))
+            shapes = []
+            for r in range(n):
+                lo, hi = self.range("embed", d.shape[dim], at=r)
+                shapes.append(tuple(local[:dim] + [hi - lo]
+                                    + local[dim + 1:]))
+            offsets = list(pack.sizes)
+            for r in range(n):
+                pack.sizes[r] += math.prod(shapes[r])
+            pack.leaves.append(PackLeaf(path, dim, shapes, offsets))
+        cache[id(defs)] = (defs, list(packs.values()))
+        return cache[id(defs)][1]
+
+    def gather_params(self, tree, defs):
+        """``tree`` (a layer's or a piece's parameters, nested dicts) with
+        every leaf of ``defs`` (its ParamDefs, full shapes; ``tree`` may
+        hold more keys, left as they are) that "embed" splits put
+        together over the data axis: per ``param_packs`` one all-gather
+        in the leaves' dtype, the ranks' parts concatenated along the
+        dim. Its backward (where a graph is recorded) is one f32
+        reduce-scatter of the ranks' partial gradients, each rank keeping
+        its part in f32, never rounded to the parameters' dtype: a leaf
+        held as a ``ParamShard`` gets it through its f32 stand-in. ``tree``
+        itself where the layout splits no "embed"."""
+        packs = self.param_packs(defs)
+        if not packs:
+            return tree
+        out = _copy_dicts(tree)
+        for pack in packs:
+            held = [_at(tree, leaf.path) for leaf in pack.leaves]
+            values = [h.value if isinstance(h, ParamShard) else h
+                      for h in held]
+            inputs = [h.grad if isinstance(h, ParamShard) else h
+                      for h in held]
+            if torch.is_grad_enabled() and any(x.requires_grad
+                                               for x in inputs):
+                full = _GatherParams.apply(self, pack, values, *inputs)
+            else:
+                full = self._gathered_pack(values, pack)
+            for leaf, x in zip(pack.leaves, full):
+                _set(out, leaf.path, x)
+        return out
+
+    def _gathered_pack(self, values, pack) -> List[torch.Tensor]:
+        """One all-gather of a ``Pack``'s leaves (this rank's parts,
+        ``values``) laid out flat one after another, each rank's padded to
+        the largest; every leaf's parts concatenated along its dim."""
+        width = max(pack.sizes)
+        me = self.index("embed")
+        buf = values[0].new_zeros(width)    # the values' dtype
+        for leaf, v in zip(pack.leaves, values):
+            o = leaf.offsets[me]
+            buf[o:o + v.numel()].copy_(v.reshape(-1))
+        out = buf.new_empty(pack.n * width)
+        self._comm().all_gather_into_tensor(out, buf,
+                                            group=self._group("embed"))
+        full = []
+        for leaf in pack.leaves:
+            parts = [out[r * width + o:r * width + o + math.prod(shape)]
+                     .view(shape) for r, (o, shape) in
+                     enumerate(zip(leaf.offsets, leaf.shapes))]
+            full.append(torch.cat(parts, leaf.dim))
+        return full
+
+    def _scattered_pack(self, grads, pack) -> List[torch.Tensor]:
+        """The f32 reduce-scatter of the ranks' gradients of a ``Pack``'s
+        gathered leaves (None: zero), laid out as ``_gathered_pack`` sends
+        them: this rank's part of each leaf's summed gradient, in f32."""
+        width = max(pack.sizes)
+        g0 = next(g for g in grads if g is not None)
+        buf = g0.new_zeros(pack.n * width, dtype=torch.float32)
+        for leaf, g in zip(pack.leaves, grads):
+            if g is None:
+                continue
+            at = 0
+            for r, (o, shape) in enumerate(zip(leaf.offsets, leaf.shapes)):
+                n = shape[leaf.dim]
+                buf[r * width + o:r * width + o + math.prod(shape)].view(
+                    shape).copy_(g.narrow(leaf.dim, at, n))
+                at += n
+        out = buf.new_empty(width)
+        self._comm().reduce_scatter_tensor(out, buf,
+                                           group=self._group("embed"))
+        me = self.index("embed")
+        return [out[leaf.offsets[me]:leaf.offsets[me]
+                    + math.prod(leaf.shapes[me])].view(leaf.shapes[me])
+                for leaf in pack.leaves]
 
     # ------------------------------------------- sequence parallelism
     def for_seq(self, n: int) -> "ShardingCtx":
@@ -568,7 +698,9 @@ class ShardingCtx:
         model = self.rules.get("heads")
         hd = head_dim(axes)
         for i, (a, n) in enumerate(zip(axes, shape)):
-            if not self._split(a):
+            # "embed" (fsdp) partitions a leaf over the data axis: each
+            # element held by one data rank, counted once there
+            if a == "embed" or not self._split(a):
                 continue
             if self.rules.get(a) != model:
                 raise NotImplementedError(
@@ -618,8 +750,9 @@ class ShardingCtx:
                                       "mesh axis")
         for i, d in enumerate(defs):
             if d.read_by_heads or (seq and d.per_position):
-                if self.size("heads") > 1:
-                    picks.append((i, 0, list(range(d.shape[0]))))
+                if self.size("heads") > 1:      # the rank's dim 0, whole
+                    n = self.local_shape(d.axes, d.shape, d.parts)[0]
+                    picks.append((i, 0, list(range(n))))
                 continue
             if not any(p.kv_of for p in d.parts or ()):
                 continue
@@ -627,6 +760,15 @@ class ShardingCtx:
             if dim is not None and max(total.values()) > 1:
                 picks.append((i, dim, mine))
         return picks
+
+    def shared_shape(self, d, dim: int, mine: Sequence[int]) -> List[int]:
+        """The shape a ``shared_leaves`` pick of ParamDef ``d`` has in
+        ``sum_shared``'s buffer: the rank's local shape, full along the kv
+        dim ``dim`` (a leaf held whole: the rank's own, ``mine``)."""
+        shape = list(self.local_shape(d.axes, d.shape, d.parts))
+        shape[dim] = d.shape[dim] if any(p.kv_of for p in d.parts or ()) \
+            else len(mine)
+        return shape
 
     def sum_shared(self, grads: List[torch.Tensor], defs: Sequence
                    ) -> List[torch.Tensor]:
@@ -642,11 +784,8 @@ class ShardingCtx:
         picks = self.shared_leaves(defs)
         if not picks:
             return grads
-        shapes = []
-        for i, dim, _ in picks:
-            shape = list(grads[i].shape)
-            shape[dim] = defs[i].shape[dim]
-            shapes.append(shape)
+        shapes = [self.shared_shape(defs[i], dim, mine)
+                  for i, dim, mine in picks]
         flat = torch.zeros(sum(math.prod(s) for s in shapes),
                            dtype=torch.float32,
                            device=grads[picks[0][0]].device)
@@ -772,6 +911,81 @@ class ShardingCtx:
             x.dtype)
 
 
+class ParamShard:
+    """A parameter leaf held as this rank's part of its "embed" dim
+    (fsdp) where a step takes its gradient: ``value``, the part, and
+    ``grad``, an f32 stand-in of its shape (zero strides: no memory) that
+    autograd differentiates, so that the gradient the gather's
+    reduce-scatter leaves stays f32. ``unbind`` and indexing act on both,
+    as on a stacked [L, ...] leaf."""
+    __slots__ = ("value", "grad")
+
+    def __init__(self, value: torch.Tensor, grad: torch.Tensor):
+        self.value, self.grad = value, grad
+
+    @classmethod
+    def of(cls, value: torch.Tensor) -> "ParamShard":
+        """``value`` (detached) with a fresh stand-in that requires grad."""
+        stand_in = torch.zeros((), dtype=torch.float32, device=value.device)
+        return cls(value.detach(),
+                   stand_in.expand(value.shape).requires_grad_())
+
+    def unbind(self, dim: int = 0) -> List["ParamShard"]:
+        return [ParamShard(v, g) for v, g in zip(self.value.unbind(dim),
+                                                 self.grad.unbind(dim))]
+
+    def __getitem__(self, i) -> "ParamShard":
+        return ParamShard(self.value[i], self.grad[i])
+
+
+@dataclasses.dataclass(frozen=True)
+class PackLeaf:
+    """A leaf of a ``Pack``: its path in the tree ("a/b"), the dim "embed"
+    splits, every rank's shape of it and its offset in every rank's flat
+    part of the pack."""
+    path: str
+    dim: int
+    shapes: List[Tuple[int, ...]]
+    offsets: List[int]
+
+
+@dataclasses.dataclass
+class Pack:
+    """The leaves one parameter gather moves, all of ``dtype``, over ``n``
+    ranks; ``sizes``: each rank's elements of them."""
+    dtype: torch.dtype
+    n: int
+    leaves: List[PackLeaf]
+    sizes: List[int]
+
+
+def _def_paths(defs, prefix: str = ""):
+    """(path, ParamDef) of a tree of ParamDefs, in ``tree_leaves`` order."""
+    if isinstance(defs, dict):
+        return [x for k in sorted(defs)
+                for x in _def_paths(defs[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], defs)]
+
+
+def _copy_dicts(tree):
+    if isinstance(tree, dict):
+        return {k: _copy_dicts(v) for k, v in tree.items()}
+    return tree
+
+
+def _at(tree, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _set(tree, path: str, x) -> None:
+    *head, last = path.split("/")
+    for k in head:
+        tree = tree[k]
+    tree[last] = x
+
+
 def _runs(idx: Sequence[int]) -> List[Tuple[int, int, int]]:
     """Local indices ``idx`` (global index per local position) as runs
     (local start, global start, length) of consecutive indices."""
@@ -837,6 +1051,23 @@ class _GatherSplit(torch.autograd.Function):
     def backward(fctx, g):
         return (fctx.args[0]._reduce_scattered(g, *fctx.args[1:]),
                 None, None, None, None, None)
+
+
+class _GatherParams(torch.autograd.Function):
+    """``ShardingCtx.gather_params``' Function for one ``Pack``: the
+    all-gather of its leaves forward (from ``values``; the differentiable
+    inputs are their stand-ins, or the parts themselves), the f32
+    reduce-scatter of their gradients backward."""
+
+    @staticmethod
+    def forward(fctx, sctx, pack, values, *inputs):
+        fctx.sctx, fctx.pack = sctx, pack
+        return tuple(sctx._gathered_pack(values, pack))
+
+    @staticmethod
+    def backward(fctx, *grads):
+        return (None, None, None,
+                *fctx.sctx._scattered_pack(grads, fctx.pack))
 
 
 class _ReduceScatter(torch.autograd.Function):

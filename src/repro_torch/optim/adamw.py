@@ -13,7 +13,10 @@ global norm counts every element of the global parameter once: each
 rank's sum of squares weights an element by 1 / the number of ranks of
 the model axis that hold it (``ShardingCtx.held_pieces``: a leaf held
 whole by all of them, a kv head by each rank that reads it), and the
-sums are all-reduced over the model axis.
+sums are all-reduced over the model axis. A leaf fsdp splits over the
+data axis is weighed by its model-axis holders only (each element lies
+on one data rank); ``train/manual_dp.py`` updates its shard in place
+with ``update_leaf`` and moments of the shard's size.
 """
 from __future__ import annotations
 
@@ -83,25 +86,44 @@ def abstract_state(abstract_params) -> AdamWState:
 def held_weight(leaf: torch.Tensor, d, ctx: ShardingCtx):
     """1 / the number of ranks of the model axis holding each element of
     ``leaf`` (this rank's slice of ParamDef ``d``; ``held_pieces``): a
-    number where one count holds for the whole leaf, else a flat f32
-    tensor of the leaf's size."""
+    number where one count holds for the whole leaf, else (the f32 weight
+    of each index along the dim the pieces cut, the elements after that
+    dim per index), which ``held_square_sum`` tiles chunk by chunk (no
+    weight of the leaf's size: a shard of the data axis may hold all of a
+    leaf, and every rank's peak should be rank 0's)."""
     pieces = ctx.held_pieces(leaf, d.axes, d.shape, d.parts)
     if len(pieces) == 1:
         return 1.0 / pieces[0][1]
     dim = next(k for k, (a, b) in enumerate(zip(pieces[0][0].shape,
                                                  leaf.shape)) if a != b)
-    return torch.cat([torch.full(p.shape, 1.0 / n, dtype=torch.float32,
-                                 device=leaf.device) for p, n in pieces],
-                     dim).reshape(-1)
+    per = torch.cat([torch.full((p.shape[dim],), 1.0 / n,
+                                dtype=torch.float32, device=leaf.device)
+                     for p, n in pieces])
+    return per, math.prod(leaf.shape[dim + 1:])
 
 
-def held_square_sum(g: torch.Tensor, w) -> torch.Tensor:
+# elements per chunk of a leaf's flat range that ``held_square_sum`` and
+# ``manual_dp``'s update take at a time: bounded f32 temporaries
+CHUNK = 1 << 22
+
+
+def held_square_sum(g: torch.Tensor, w, start: int = 0) -> torch.Tensor:
     """The f32 sum of squares of the flat ``g``, each element weighted by
-    its ``held_weight`` ``w`` (a number, or a tensor of ``g``'s size)."""
+    its ``held_weight`` ``w`` (``g``: the leaf's flat elements from
+    ``start`` on, as ``manual_dp``'s shard holds a range of a leaf)."""
     g = g.reshape(-1).to(torch.float32)
-    if isinstance(w, torch.Tensor):
-        return torch.dot(g * w, g)
-    return torch.dot(g, g) * w
+    if not isinstance(w, tuple):
+        return torch.dot(g, g) * w
+    per, inner = w
+    row = per.repeat_interleave(inner)        # one run of the cut dim
+    out = torch.zeros((), dtype=torch.float32, device=g.device)
+    for c0 in range(0, g.numel(), CHUNK):
+        part = g[c0:c0 + CHUNK]
+        at = (start + c0) % row.numel()
+        reps = -(-(at + part.numel()) // row.numel())
+        out = out + torch.dot(part * row.repeat(reps)[at:at + part.numel()],
+                              part)
+    return out
 
 
 def global_norm(tree, ctx: ShardingCtx = NULL_CTX, defs=None

@@ -31,6 +31,24 @@ kv head that several ranks hold has its gradient summed over them
 shard over data of the rank's slice over the model axis: the counterpart
 of the reference's ``scatter_dims`` / ``merge_specs``.
 
+Under fsdp (``ctx`` splits "embed" over "data": ZeRO-3) the step has
+two kinds of leaves (``StepLayout``): those held whole over data go
+through the bucket as above; the data-split leaves' gradients arrive per
+microbatch, reduce-scattered over "data" in f32 by the model's parameter
+gathers (``ShardingCtx.gather_params``), into a flat f32 accumulator of
+the rank's shards, and AdamW updates the shards in place with moments of
+their size (no gather follows: the parameters stay split).
+
+On the multi-pod mesh ("pod", "data", "model") the data axes are
+("pod", "data"): the bucket is reduce-scattered over "pod", then
+"data", so a rank's shard is number ``pod x data + data_index`` (the
+reference's), the mean divides by pod x data, and the updated shard is
+all-gathered over "data", then "pod". With fsdp there too, the
+parameters stay on "data" and the moments on ("pod", "data"), as the
+reference's rules hold them: once per step the accumulator is
+reduce-scattered over "pod", AdamW runs on the 1 / (pod x data) piece,
+and the piece is all-gathered over "pod" into the data shard.
+
 NCCL on cards, gloo on the CPU (the tests). ``collective_plan`` states
 the step's collectives, their sizes, axes and group sizes; the step
 issues them through a ``Collectives`` (``torch.distributed``), and the
@@ -39,16 +57,17 @@ holds what it issued against the plan.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.models.model import Model
-from repro_torch.models.param import tree_leaves
-from repro_torch.models.sharding import NULL_CTX, ShardingCtx
+from repro_torch.models.param import tree_leaves, tree_unflatten
+from repro_torch.models.sharding import NULL_CTX, ParamShard, ShardingCtx
 from repro_torch.optim import AdamWConfig, AdamWState
-from repro_torch.optim.adamw import (held_square_sum, held_weight,
+from repro_torch.optim.adamw import (CHUNK, held_square_sum, held_weight,
                                     step_scalars, update_leaf)
 from repro_torch.train.train_step import (_split_microbatches,
                                           loss_and_grads, make_loss_fn)
@@ -58,8 +77,8 @@ class FlatLayout:
     """Where each parameter leaf lies in the flat bucket, and this rank's
     shard of it."""
 
-    def __init__(self, params, world: int, rank: int):
-        leaves = tree_leaves(params)
+    def __init__(self, params, world: int, rank: int, device=None):
+        leaves = params if isinstance(params, list) else tree_leaves(params)
         self.sizes = [p.numel() for p in leaves]
         self.n = sum(self.sizes)
         self.padded = -(-self.n // world) * world
@@ -69,7 +88,7 @@ class FlatLayout:
         # the gathered parameters travel in their own dtype where all
         # share one, else in f32 (which holds any of them exactly)
         self.dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
-        self.device = leaves[0].device
+        self.device = leaves[0].device if leaves else device
 
     def flat(self, leaves, dtype) -> torch.Tensor:
         """The leaves concatenated into one padded bucket of ``dtype``."""
@@ -98,31 +117,104 @@ class FlatLayout:
         return out
 
 
-def collective_plan(params, world: int, model: int = 1
-                    ) -> List[Dict[str, Any]]:
+def collective_plan(params, world: int, model: int = 1, pod: int = 1,
+                    split: Sequence[bool] = ()) -> List[Dict[str, Any]]:
     """The collectives one step issues over a data axis of ``world``
-    ranks (beside a model axis of ``model``; ``params``: a rank's), in
+    ranks (beside a model axis of ``model``, under a "pod" axis of
+    ``pod`` where it is > 1, the multi-pod mesh; ``params``: a rank's,
+    ``split``: per leaf whether fsdp holds it split over "data"), in
     order, each as {"op": the ``torch.distributed`` call, "kind",
     "dtype", "result_bytes": the tensor it leaves on a rank, "axis" and
-    "group": the mesh axes it runs over and their ranks}: one
-    reduce-scatter of the f32 gradient bucket over data (its result one
-    rank's shard), one all-reduce of two f32 scalars over every rank (the
-    loss and the shard's squared norm), one all-gather of the updated
-    shards over data in the parameters' dtype (its result the whole
-    bucket). The kv heads' sum before them is ``model_axis_plan``'s."""
-    lay = FlatLayout(params, world, 0)
-    gathered = lay.dtype.itemsize * lay.padded
-    data = {"axis": "data", "group": world}
-    every = {"axis": "+".join(a for a, n in (("data", world),
-                                             ("model", model)) if n > 1)
-             or "data", "group": world * model}
-    return [{"op": "reduce_scatter_tensor", "kind": "reduce-scatter",
-             "dtype": str(torch.float32), "result_bytes": 4 * lay.shard,
-             **data},
-            {"op": "all_reduce", "kind": "all-reduce",
-             "dtype": str(torch.float32), "result_bytes": 8, **every},
-            {"op": "all_gather_into_tensor", "kind": "all-gather",
-             "dtype": str(lay.dtype), "result_bytes": gathered, **data}]
+    "group": the mesh axes it runs over and their ranks}: the f32 bucket
+    of the leaves held whole over data reduce-scattered over "pod", then
+    "data" (its result one rank's shard); the fsdp leaves' f32 shard
+    accumulators reduce-scattered over "pod" (multi-pod only); one
+    all-reduce of two f32 scalars over every rank (the loss and the
+    shards' squared norm); the updated bucket shards all-gathered over
+    "data", then "pod", in the parameters' dtype (its result the whole
+    bucket), and the fsdp leaves' pieces over "pod". The kv heads' sum
+    before them is ``model_axis_plan``'s, and so are the fsdp leaves'
+    gathers and reduce-scatters."""
+    lay = StepLayout(tree_leaves(params), split, world * pod, 0, pod)
+    axes = [("pod", pod)] if pod > 1 else []
+    axes.append(("data", world))
+    sizes = [n for _, n in axes]
+    every = {"axis": "+".join(a for a, n in axes + [("model", model)]
+                              if n > 1) or "data",
+             "group": math.prod(sizes) * model}
+    out, left = [], lay.main.padded
+    for a, n in axes:
+        left //= n
+        out.append({"op": "reduce_scatter_tensor", "kind": "reduce-scatter",
+                    "dtype": str(torch.float32), "result_bytes": 4 * left,
+                    "axis": a, "group": n})
+    if lay.zero3 is not None and pod > 1:
+        out.append({"op": "reduce_scatter_tensor", "kind": "reduce-scatter",
+                    "dtype": str(torch.float32),
+                    "result_bytes": 4 * lay.zero3.shard, "axis": "pod",
+                    "group": pod})
+    out.append({"op": "all_reduce", "kind": "all-reduce",
+                "dtype": str(torch.float32), "result_bytes": 8, **every})
+    item = lay.main.dtype.itemsize
+    for a, n in reversed(axes):
+        left *= n
+        out.append({"op": "all_gather_into_tensor", "kind": "all-gather",
+                    "dtype": str(lay.main.dtype), "result_bytes": item * left,
+                    "axis": a, "group": n})
+    if lay.zero3 is not None and pod > 1:
+        out.append({"op": "all_gather_into_tensor", "kind": "all-gather",
+                    "dtype": str(lay.zero3.dtype),
+                    "result_bytes": lay.zero3.dtype.itemsize
+                    * lay.zero3.padded, "axis": "pod", "group": pod})
+    return out
+
+
+class StepLayout:
+    """The two kinds of leaves of a step: those held whole over the data
+    axes go through one flat bucket (``main``: a ``FlatLayout`` over
+    every data rank, pod-major), those fsdp holds split over "data"
+    (``split``) through a flat f32 accumulator of their shards
+    (``zero3``: a ``FlatLayout`` over "pod", whose shard is the whole
+    accumulator without one; None where no leaf is split). The moments
+    are one flat f32 tensor of ``size``: the bucket's shard, then the
+    accumulator's."""
+
+    def __init__(self, leaves, split: Sequence[bool], world: int, rank: int,
+                 pod: int = 1):
+        split = list(split) or [False] * len(leaves)
+        self.split = split
+        self.main_idx = [i for i, s in enumerate(split) if not s]
+        self.zero3_idx = [i for i, s in enumerate(split) if s]
+        per_pod = world // pod
+        self.main = FlatLayout([leaves[i] for i in self.main_idx], world,
+                               rank, device=leaves[0].device)
+        self.zero3 = FlatLayout([leaves[i] for i in self.zero3_idx], pod,
+                                rank // per_pod) if self.zero3_idx else None
+        self.size = self.main.shard + (self.zero3.shard if self.zero3
+                                       else 0)
+
+    def moments(self, flat: torch.Tensor):
+        """(the bucket's part, the accumulator's part) of a moment."""
+        return flat[:self.main.shard], flat[self.main.shard:]
+
+    def shard_of(self, leaves) -> torch.Tensor:
+        """This rank's flat moment (``size`` elements, f32) of per-leaf
+        tensors of the rank's parameter shapes (``ctx.shard`` of a full
+        moment tree): what ``init_shard_state`` gives zeros of."""
+        out = [self.main.mine(self.main.flat([leaves[i] for i in
+                                              self.main_idx],
+                                             torch.float32))]
+        if self.zero3 is not None:
+            out.append(self.zero3.mine(self.zero3.flat(
+                [leaves[i] for i in self.zero3_idx], torch.float32)))
+        return torch.cat(out)
+
+
+def split_leaves(model: Model, ctx: ShardingCtx) -> List[bool]:
+    """Per leaf (``tree_leaves`` order) whether the layout holds it split
+    over the data axis ("embed" under fsdp)."""
+    return [ctx.embed_dim(d.axes, d.shape) is not None
+            for d in tree_leaves(model.defs)]
 
 
 class Collectives:
@@ -147,37 +239,64 @@ class Collectives:
         dist.all_gather(out_list, t, group=group)
 
 
-def _groups(group, ctx: ShardingCtx) -> Tuple[Any, Any, int, int]:
-    """(the data group, the group of every rank, the data axis's size,
-    this rank's place on it): a mesh's under a sharded ``ctx``, else
-    ``group`` for both (the world where None)."""
+def _groups(group, ctx: ShardingCtx):
+    """(the data axes as [(name, group, size, this rank's coordinate)],
+    outermost first: "pod" on a multi-pod mesh, then "data"; the group of
+    every rank; the data ranks in all; this rank's place among them,
+    pod-major): a mesh's under a sharded ``ctx``, else ``group`` (the
+    world where None)."""
     if ctx.mesh is not None:
         mesh = ctx.mesh
-        return (mesh.group("data"), mesh.world_group(),
-                mesh.shape[mesh.axis_names.index("data")],
-                mesh.coord("data"))
-    return group, group, dist.get_world_size(group), dist.get_rank(group)
+        axes = [(a, mesh.group(a), mesh.shape[mesh.axis_names.index(a)],
+                 mesh.coord(a)) for a in ("pod", "data")
+                if a in mesh.axis_names]
+    else:
+        axes = [("data", group, dist.get_world_size(group),
+                 dist.get_rank(group))]
+    world, rank = 1, 0
+    for _, _, n, c in axes:
+        world, rank = world * n, rank * n + c
+    every = ctx.mesh.world_group() if ctx.mesh is not None else group
+    return axes, every, world, rank
 
 
-def init_shard_state(params, group=None,
-                     ctx: ShardingCtx = NULL_CTX) -> AdamWState:
-    """Step 0 and zero f32 moments for this rank's shard (of its slices'
-    bucket under a model axis)."""
-    _, _, world, rank = _groups(group, ctx)
-    lay = FlatLayout(params, world, rank)
-    z = lambda: torch.zeros(lay.shard, dtype=torch.float32,
-                            device=lay.device)
-    return AdamWState(torch.zeros((), dtype=torch.int32, device=lay.device),
-                      z(), z())
+def _pod(axes) -> int:
+    return next((n for a, _, n, _ in axes if a == "pod"), 1)
 
 
-def abstract_zero_opt_state(params, world: int) -> AdamWState:
+def init_shard_state(params, group=None, ctx: ShardingCtx = NULL_CTX,
+                     model: Optional[Model] = None) -> AdamWState:
+    """Step 0 and zero f32 moments for this rank's shards (of its slices'
+    bucket under a model axis; and of its fsdp accumulator, for which the
+    ``model`` must be given)."""
+    axes, _, world, rank = _groups(group, ctx)
+    leaves = tree_leaves(params)
+    lay = StepLayout(leaves, _split_of(model, ctx, leaves), world, rank,
+                     _pod(axes))
+    z = lambda: torch.zeros(lay.size, dtype=torch.float32,
+                            device=leaves[0].device)
+    return AdamWState(torch.zeros((), dtype=torch.int32,
+                                  device=leaves[0].device), z(), z())
+
+
+def _split_of(model, ctx: ShardingCtx, leaves) -> List[bool]:
+    if ctx.size("embed") == 1:
+        return [False] * len(leaves)
+    if model is None:
+        raise ValueError("fsdp: the moments' layout needs the model (its "
+                         "leaves split over \"data\")")
+    return split_leaves(model, ctx)
+
+
+def abstract_zero_opt_state(params, world: int, pod: int = 1,
+                            split: Sequence[bool] = ()) -> AdamWState:
     """``init_shard_state``'s shapes and dtypes on ``meta`` (the JAX
     package's ``train/manual_dp.py:abstract_zero_opt_state``): the step
-    and one rank's f32 moment shards of the flat bucket (``params``: a
-    rank's, ``world``: the data axis's size)."""
-    lay = FlatLayout(params, world, 0)
-    z = lambda: torch.empty(lay.shard, dtype=torch.float32, device="meta")
+    and one rank's f32 moment shards (``params``: a rank's, ``world``:
+    the "data" axis's size, ``pod``: the "pod" axis's, ``split``: the
+    fsdp leaves, as ``collective_plan``)."""
+    lay = StepLayout(tree_leaves(params), split, world * pod, 0, pod)
+    z = lambda: torch.empty(lay.size, dtype=torch.float32, device="meta")
     return AdamWState(torch.empty((), dtype=torch.int32, device="meta"),
                       z(), z())
 
@@ -189,28 +308,43 @@ def make_manual_dp_train_step(model: Model, opt_cfg: AdamWConfig,
     metrics)``: ``batch`` is this rank's part of the global batch,
     ``shard_state`` this rank's ZeRO shard (``init_shard_state``). The
     parameters (replicated over data; under a sharded ``ctx`` the rank's
-    slices) are updated in place on every rank. Metrics: the loss
-    (cross-entropy + aux) and the global grad norm, each the same on
-    every rank, and the learning rate. ``comm`` (default
-    ``Collectives()``) issues the collectives of ``collective_plan``; it
-    has their three methods (a ``group=`` each)."""
+    slices, under fsdp its parts of the "embed" dims) are updated in
+    place on every rank. Metrics: the loss (cross-entropy + aux) and the
+    global grad norm, each the same on every rank, and the learning rate.
+    ``comm`` (default ``Collectives()``) issues the collectives of
+    ``collective_plan``; it has their three methods (a ``group=`` each)."""
     cfg = model.cfg
     loss_fn = make_loss_fn(model, ctx.batch_local())
     comm = Collectives() if comm is None else comm
-    data_group, every, world, rank = _groups(group, ctx)
+    axes, every, world, rank = _groups(group, ctx)
+    pod = _pod(axes)
+    pod_group = next((g for a, g, _, _ in axes if a == "pod"), None)
     defs = tree_leaves(model.defs)
 
     def step(params, opt: AdamWState, batch: Dict[str, torch.Tensor]
              ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
         leaves = tree_leaves(params)
-        lay = FlatLayout(params, world, rank)
+        lay = StepLayout(leaves, _split_of(model, ctx, leaves), world, rank,
+                         pod)
+        main, zero3 = lay.main, lay.zero3
+        dev = leaves[0].device
         n_mb = max(cfg.microbatches, 1)
-        bucket = torch.zeros(lay.padded, dtype=torch.float32,
-                             device=lay.device)
-        views = [v.view(x.shape) for v, x in zip(lay.views(bucket), leaves)]
-        loss_sum = torch.zeros((), dtype=torch.float32, device=lay.device)
+        bucket = torch.zeros(main.padded, dtype=torch.float32, device=dev)
+        views = [None] * len(leaves)
+        for i, v in zip(lay.main_idx, main.views(bucket)):
+            views[i] = v.view(leaves[i].shape)
+        if zero3 is not None:
+            # the fsdp leaves' gradients arrive reduce-scattered over
+            # "data" in f32, once per microbatch (the gathers' backward)
+            acc = torch.zeros(zero3.padded, dtype=torch.float32, device=dev)
+            for i, v in zip(lay.zero3_idx, zero3.views(acc)):
+                views[i] = v.view(leaves[i].shape)
+        live = tree_unflatten(params, [
+            ParamShard.of(x) if s else x.detach().requires_grad_()
+            for x, s in zip(leaves, lay.split)])
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for mb in _split_microbatches(batch, n_mb):
-            grads, (total, _, _) = loss_and_grads(loss_fn, params, mb)
+            grads, (total, _, _) = loss_and_grads(loss_fn, params, mb, live)
             for view, g in zip(views, grads):
                 view.add_(g.to(torch.float32))
             loss_sum += total
@@ -219,46 +353,92 @@ def make_manual_dp_train_step(model: Model, opt_cfg: AdamWConfig,
         for view, got in zip(views, ctx.sum_shared(views, defs)):
             if got is not view:
                 view.copy_(got)
+        # ---- the one reduction: ZeRO reduce-scatter over each data axis
+        # in turn ("pod", then "data"), then the mean
         bucket.div_(n_mb)
-        # ---- the one reduction: ZeRO reduce-scatter, then the mean
-        g = torch.empty(lay.shard, dtype=torch.float32, device=lay.device)
-        comm.reduce_scatter_tensor(g, bucket, group=data_group)
+        g = bucket
+        for _, grp, n, _ in axes:
+            out = torch.empty(g.numel() // n, dtype=torch.float32,
+                              device=dev)
+            comm.reduce_scatter_tensor(out, g, group=grp)
+            g = out
         g.div_(world)
-        del bucket, views
-        # loss and the global norm: the shards partition the bucket; under
-        # a model axis each element weighs 1 / its holders, and the loss
-        # (every model rank's alike) 1 / the model axis's size. Leaf by
-        # leaf: no temporary of the shard's size
+        del bucket, views, live
+        gz = None
+        if zero3 is not None:
+            acc.div_(n_mb)
+            gz = acc
+            if pod > 1:       # the moments' 1 / (pod x data) piece
+                gz = torch.empty(zero3.shard, dtype=torch.float32,
+                                 device=dev)
+                comm.reduce_scatter_tensor(gz, acc, group=pod_group)
+                del acc
+            gz.div_(world)
+        # loss and the global norm: the shards partition the bucket and
+        # the accumulators; under a model axis each element weighs 1 /
+        # its holders, and the loss (every model rank's alike) 1 / the
+        # model axis's size. Leaf by leaf: no temporary of a shard's size
         m = ctx.size("heads")
-        segs = lay.segments()
-        sq = torch.zeros((), dtype=torch.float32, device=lay.device)
-        for i, a, b, o in segs:
-            w = held_weight(leaves[i], defs[i], ctx)
-            sq = sq + held_square_sum(
-                g[o:o + b - a], w[a:b] if isinstance(w, torch.Tensor) else w)
+        parts = [(main, lay.main_idx, g)]
+        if zero3 is not None:
+            parts.append((zero3, lay.zero3_idx, gz))
+        sq = torch.zeros((), dtype=torch.float32, device=dev)
+        for flat, idx, grad in parts:
+            for j, a, b, o in flat.segments():
+                i = idx[j]
+                sq = sq + held_square_sum(
+                    grad[o:o + b - a], held_weight(leaves[i], defs[i], ctx),
+                    a)
         scalars = torch.stack([loss_sum / (n_mb * m), sq])
         comm.all_reduce(scalars, group=every)
         loss, gnorm = scalars[0] / world, torch.sqrt(scalars[1])
         scale = torch.clamp(opt_cfg.clip_norm / (gnorm + 1e-9), max=1.0)
         new_step = opt.step + 1
         lr, b1c, b2c = step_scalars(opt_cfg, new_step)
-        # ---- AdamW on this rank's shard, leaf by leaf, written into the
-        # buffer the gather sends; decay on matrices only
-        send = torch.zeros(lay.shard, dtype=lay.dtype, device=lay.device)
-        for i, a, b, o in segs:
-            part = send[o:o + b - a]
-            part.copy_(leaves[i].reshape(-1)[a:b])
-            update_leaf(opt_cfg, part, g[o:o + b - a], opt.mu[o:o + b - a],
-                        opt.nu[o:o + b - a], scale=scale, lr=lr, b1c=b1c,
-                        b2c=b2c, decay=leaves[i].dim() >= 2)
-        del g
-        # ---- the one gather of the updated shard
-        full = torch.empty(lay.padded, dtype=lay.dtype, device=lay.device)
-        comm.all_gather_into_tensor(full, send, group=data_group)
-        del send
-        with torch.no_grad():
-            for x, view in zip(leaves, lay.views(full)):
-                x.copy_(view.reshape(x.shape))
+        # ---- AdamW on this rank's shards, leaf by leaf; decay on
+        # matrices only
+        mu, nu = lay.moments(opt.mu), lay.moments(opt.nu)
+        for k, (flat, idx, grad) in enumerate(parts):
+            in_place = flat is zero3 and pod == 1
+            send = None if in_place else torch.zeros(
+                flat.shard, dtype=flat.dtype, device=dev)
+            for j, a, b, o in flat.segments():
+                x = leaves[idx[j]]
+                if in_place:         # the fsdp shard itself (the whole
+                    # leaf: the accumulator is the segments' one shard)
+                    part = x.view(-1) if x.is_contiguous() else \
+                        x.reshape(-1)
+                else:
+                    part = send[o:o + b - a]
+                    part.copy_(x.reshape(-1)[a:b])
+                # in chunks: the update's f32 temporaries stay bounded
+                # whichever leaves a rank's shard holds whole
+                for c in range(0, b - a, CHUNK):
+                    e = min(c + CHUNK, b - a)
+                    update_leaf(opt_cfg, part[c:e], grad[o + c:o + e],
+                                mu[k][o + c:o + e], nu[k][o + c:o + e],
+                                scale=scale, lr=lr, b1c=b1c, b2c=b2c,
+                                decay=x.dim() >= 2)
+                if in_place and not x.is_contiguous():
+                    with torch.no_grad():
+                        x.copy_(part.view(x.shape))
+            if in_place:
+                continue
+            # ---- the updated shard gathered back: over "data", then
+            # "pod" (the fsdp pieces over "pod" alone)
+            gather = reversed(axes) if flat is main else \
+                [(None, pod_group, pod, None)]
+            for _, grp, n, _ in gather:
+                full = torch.empty(send.numel() * n, dtype=flat.dtype,
+                                   device=dev)
+                comm.all_gather_into_tensor(full, send, group=grp)
+                send = full
+            with torch.no_grad():
+                for j, view in enumerate(flat.views(send)):
+                    x = leaves[idx[j]]
+                    x.copy_(view.reshape(x.shape))
+            del send
+        del g, gz
         return params, AdamWState(new_step, opt.mu, opt.nu), \
             {"loss": loss, "grad_norm": gnorm, "lr": lr}
 

@@ -20,7 +20,7 @@ slices (the data axis's sum where "batch" is split; each duplicated kv
 head's sum over its holders), and the optimizer's global norm counts
 every element of the global parameter once. The reference's
 ``grad_specs`` (GSPMD's ZeRO over data) has no counterpart: the port's
-data-parallel step is ``train/manual_dp.py``.
+data-parallel step is ``train/manual_dp.py``, which also runs fsdp.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.models.model import Model
 from repro_torch.models.param import tree_leaves, tree_map, tree_unflatten
-from repro_torch.models.sharding import NULL_CTX, ShardingCtx
+from repro_torch.models.sharding import NULL_CTX, ParamShard, ShardingCtx
 from repro_torch.optim import AdamWConfig, AdamWState, apply_updates
 
 
@@ -93,16 +93,21 @@ def make_loss_fn(model: Model, ctx: ShardingCtx = NULL_CTX) -> Callable:
     return loss_fn
 
 
-def loss_and_grads(loss_fn: Callable, params, mb
+def loss_and_grads(loss_fn: Callable, params, mb, live=None
                    ) -> Tuple[list, Tuple[torch.Tensor, ...]]:
     """The gradient of ``loss_fn``'s total at ``params`` (one leaf per
     parameter, in ``tree_leaves`` order, in the parameters' dtypes) and
     (the total, the loss without aux, aux), detached. ``params`` is not
-    modified: the forward runs on detached aliases that require grad."""
-    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    modified: the forward runs on detached aliases that require grad, or
+    on ``live`` (``params`` as the forward reads them: a ``ParamShard``
+    leaf's gradient is its f32 stand-in's)."""
+    if live is None:
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
         total, (loss, aux) = loss_fn(live, mb)
-        grads = torch.autograd.grad(total, tree_leaves(live))
+        grads = torch.autograd.grad(total, [
+            x.grad if isinstance(x, ParamShard) else x
+            for x in tree_leaves(live)])
     return list(grads), (total.detach(), loss.detach(), aux.detach())
 
 
@@ -141,6 +146,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     int8 error feedback. ``ctx``: the layout (this rank's params, moments
     and batch rows; gradients synced once per step by ``sync_grads``)."""
     cfg = model.cfg
+    if ctx.size("embed") > 1:
+        raise NotImplementedError(
+            "fsdp (\"embed\" over the data axis) trains under "
+            "train/manual_dp.py's step")
     loss_fn = make_loss_fn(model, ctx)
 
     def train_step(params, opt_state: AdamWState,

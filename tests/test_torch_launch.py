@@ -17,9 +17,10 @@
   the live-bytes tracker on a hand-made sequence; the kernels' work
   formulas at ``PERF.md``'s bound rows; the collectives a traced
   ``manual_dp`` step issues against ``collective_plan``; the CLI (one
-  full-width cell, a skipped one, ``fsdp``, whose mesh layout the port
-  lacks: "not_ported") with ``jax`` blocked, and the reference CLI's
-  other layout overrides on a train cell ("ok"; ``dp_mode="auto"``, the
+  full-width cell, a skipped one, ``fsdp`` and ``--multi-pod``: "ok")
+  with ``jax`` blocked, and the reference CLI's layout overrides on a
+  train cell ("ok"; ``fsdp``'s ZeRO-3 and the multi-pod mesh named in
+  the cell's layout; ``dp_mode="auto"``, the
   reference's default, with the default cell's counts and its difference
   from GSPMD's step named) and on a prefill cell (its rules ignore
   ``seq_parallel`` and ``fsdp``); the MoE load-balance term bitwise the
@@ -228,6 +229,57 @@ def test_live_bytes_tracker_peak(device):
     assert got["ops"] == 6
 
 
+@pytest.mark.parametrize("kernel", ["flash", "gla"])
+def test_backward_reckons_the_plain_recompute(kernel):
+    """An LM kernel's autograd backward recomputes its plain version and
+    that version's gradient: on ``meta`` nothing runs, so the dry run
+    reckons the recompute's activations and temporaries as the call's
+    scratch (``_build.recompute_scratch``): the traced step's peak holds
+    them beside the live tensors, at least the plain backward's own
+    peak above its gradients (a step that allocated only the gradients
+    there missed the SSD recompute's 772 MB on the card)."""
+    from repro_torch.kernels._build import recompute_grads
+    from repro_torch.launch.step_analysis import StepCounter
+
+    def m(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if kernel == "flash":
+        args = [m(1, 4, 256, 64).requires_grad_() for _ in range(3)]
+
+        def step(q, k, v):
+            return flash_ops.attention(q, k, v, causal=True).sum()
+
+        def plain(q, k, v):
+            return flash_ops.attention_ref(q, k, v, causal=True)
+        outs = (m(1, 4, 256, 64),)
+    else:
+        args = [m(1, 256, 4, 64).requires_grad_() for _ in range(3)] + [
+            (-m(1, 256, 4, 64)).requires_grad_()]
+
+        def step(q, k, v, log_w):
+            return gla_ops.gla_fn(q, k, v, log_w, inclusive=True)[0].sum()
+
+        plain = gla_ops.plain_for(*args, None, True)
+        outs = (m(1, 256, 4, 64), None)
+
+    def fwd_bwd(*xs):
+        return torch.autograd.grad(step(*xs), xs)
+
+    _, got = analyze_step(fwd_bwd, *args)
+    counter = StepCounter()
+    with counter:
+        saved = [x.detach() for x in args] + (
+            [None, None] if kernel == "gla" else [])
+        grads = recompute_grads(plain, saved, [True] * len(args) + (
+            [False, False] if kernel == "gla" else []), outs)
+    counter.close()
+    held = sum(g.numel() * g.element_size() for g in grads if g is not None)
+    assert counter.peak - held > 0
+    assert got["memory"]["peak_estimate_bytes"] >= got["memory"][
+        "argument_size_in_bytes"] + counter.peak - held
+
+
 def _bound_ms(flops, n_bytes) -> float:
     return max(n_bytes / step_analysis.HBM_BW,
                flops / step_analysis.PEAK_FLOPS_BF16) * 1e3
@@ -312,10 +364,12 @@ def test_cli_full_width_cell(tmp_path):
 
 
 # the CLI's cells under the reference CLI's layout overrides: a skipped
-# cell, then internlm2 train_4k at 4 cards under each override, and a
-# prefill cell, whose rules ignore seq_parallel and fsdp
+# cell, then internlm2 train_4k at 4 cards under each override and on the
+# multi-pod mesh, and a prefill cell, whose rules ignore seq_parallel and
+# fsdp
 CLI_CASES = ["skipped", "fsdp", "seq_parallel", "second_matmul_col",
-             "dp_mode_auto", "dp_mode_manual", "prefill_seq_parallel"]
+             "dp_mode_auto", "dp_mode_manual", "prefill_seq_parallel",
+             "multi_pod"]
 
 
 def _analyzed(overrides, **kw):
@@ -334,16 +388,37 @@ def test_cli_skips_and_refuses(case, tmp_path):
         assert json.loads(out.stdout.strip().splitlines()[-1])[
             "status"] == "skipped"
     elif case == "fsdp":
+        # ZeRO-3 over the 4 data ranks: the layout's record and how it
+        # differs from GSPMD's
         fn, _, meta, _ = dryrun.build_cell("internlm2-1.8b", "train_4k",
-                                           overrides={"fsdp": True})
-        assert fn is None and meta["status"] == "not_ported"
-        assert meta["reason"].startswith("ROADMAP A11")
-        out = _cli("--arch", "internlm2-1.8b", "--shape", "train_4k",
-                   "--override", "fsdp=true", "--out", str(tmp_path),
-                   tmp_path=tmp_path)
+                                           cards=4, overrides={"fsdp": True})
+        assert fn is not None and meta["status"] == "ok"
+        assert "fsdp (ZeRO-3)" in meta["layout"] and meta["mesh"] == "4x1"
+        assert "ZeRO-3" in meta["layout_differences"]["dp_mode"]["reason"]
+        out = _cli("--arch", "internlm2-1.8b", "--shape", "decode_32k",
+                   "--cards", "4", "--override", "fsdp=true", "--out",
+                   str(tmp_path), tmp_path=tmp_path)
         assert out.returncode == 0, out.stderr[-2000:]
         assert json.loads(out.stdout.strip().splitlines()[-1])[
-            "status"] == "not_ported"
+            "status"] == "ok"
+    elif case == "multi_pod":
+        fn, _, meta, _ = dryrun.build_cell("internlm2-1.8b", "train_4k",
+                                           cards=4, multi_pod=True)
+        assert fn is not None and meta["status"] == "ok"
+        assert meta["mesh"] == "pod2x2x1"
+        assert meta["layout"].startswith("manual_dp over (pod 2, data 2)")
+        with pytest.raises(ValueError):          # no pod axis of 2 in 2
+            dryrun.build_cell("internlm2-1.8b", "train_4k", cards=2,
+                              model=2, multi_pod=True)
+        out = _cli("--arch", "internlm2-1.8b", "--shape", "decode_32k",
+                   "--cards", "4", "--multi-pod", "--out", str(tmp_path),
+                   tmp_path=tmp_path)
+        assert out.returncode == 0, out.stderr[-2000:]
+        last = json.loads(out.stdout.strip().splitlines()[-1])
+        assert last["status"] == "ok"
+        art = json.loads((tmp_path / "internlm2-1p8b__decode_32k__4card_"
+                                      "multipod.json").read_text())
+        assert art["mesh"] == "pod2x2x1"
     elif case in ("seq_parallel", "second_matmul_col"):
         key, value = (("seq_parallel", True) if case == "seq_parallel"
                       else ("second_matmul", "col"))

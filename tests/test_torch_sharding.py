@@ -40,12 +40,14 @@ ARCHS = ["internlm2-1.8b", "qwen2-moe-a2.7b", "qwen2-vl-7b", "rwkv6-7b",
          "whisper-small", "zamba2-1.2b"]
 TP_ARCHS = ["internlm2-1.8b", "qwen2-moe-a2.7b", "qwen2-vl-7b", "rwkv6-7b",
             "whisper-small", "zamba2-1.2b"]
-MESHES = [(2, 2), (16, 16)]
+MESHES = [(2, 2), (16, 16), (2, 16, 16)]
 AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
 
 
 def _stand_in(shape):
-    return types.SimpleNamespace(axis_names=AXES, devices=np.empty(shape))
+    return types.SimpleNamespace(axis_names=POD_AXES[-len(shape):],
+                                 devices=np.empty(shape))
 
 
 OPTIONS = list(itertools.product((False, True), (False, True), (False, True),
@@ -65,25 +67,29 @@ def test_default_rules_match_reference(opts):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_specs_match_reference(arch, shape):
     """Every parameter and cache leaf, full and smoke configs, under the
-    default, ``second_matmul="col"`` and ``seq_parallel`` rules; the cache
-    also under the reference's rules of the prefill_32k, decode_32k and
-    long_500k cells (``cell_rules``: its sequence on "model" or "data",
-    with each layout override), where whisper's encoder K/V keep their
-    frames whole."""
+    default, ``second_matmul="col"``, ``seq_parallel`` and ``fsdp`` rules
+    (on the (pod, data, model) mesh the multi-pod rules: the batch on
+    ("pod", "data")); the cache also under the reference's rules of the
+    prefill_32k, decode_32k and long_500k cells (``cell_rules``: its
+    sequence on "model" or "data", with each layout override), where
+    whisper's encoder K/V keep their frames whole."""
     from repro_torch.configs import SHAPE_SUITES
     from repro_torch.launch.dryrun import cell_rules
-    mesh = make_mesh(shape, AXES, rank=0)
-    layouts = ({}, {"second_matmul": "col"}, {"seq_parallel": True})
+    pods = len(shape) == 3
+    mesh = make_mesh(shape, POD_AXES[-len(shape):], rank=0)
+    layouts = ({}, {"second_matmul": "col"}, {"seq_parallel": True},
+               {"fsdp": True})
     for port_cfg, jax_cfg in ((get_config(arch), jax_get_config(arch)),
                               (get_smoke_config(arch),
                                jax_smoke_config(arch))):
         pm, jm = Model(port_cfg), JaxModel(jax_cfg)
-        pairs = [(pm.specs(default_rules(**kw), mesh),
-                  jm.specs(jax_default_rules(**kw), _stand_in(shape)))
+        pairs = [(pm.specs(default_rules(pods, **kw), mesh),
+                  jm.specs(jax_default_rules(pods, **kw), _stand_in(shape)))
                  for kw in layouts]
         if port_cfg.supports_decode:
-            cells = [default_rules()] + [
-                cell_rules(port_cfg, SHAPE_SUITES[c], shape[1], **kw)
+            cells = [default_rules(pods)] + [
+                cell_rules(port_cfg, SHAPE_SUITES[c], shape[-1],
+                           multi_pod=pods, **kw)
                 for c in ("prefill_32k", "decode_32k", "long_500k")
                 for kw in layouts]
             pairs += [(tree_specs(pm.cache_defs(32, 64), r, mesh),
@@ -323,10 +329,19 @@ def test_constrain_checks_the_local_layout():
         ctx.constrain(x, ("batch", "seq", "act_vocab"), (None, None, 9))
     assert ctx.constrain(x[..., :4], ("batch", "seq", "act_vocab"),
                          (None, None, 9)) is not None
+    # fsdp: rank 0 holds the first half of the "embed" rows, the
+    # reference spec's shard (("data", None) at data 2)
     fsdp = ShardingCtx(make_mesh((2, 2), AXES, rank=0),
                        default_rules(fsdp=True))
+    full = torch.arange(16.0).view(4, 4)
+    assert fsdp.spec_for_shape(("embed", None), (4, 4)) == ("data", None)
+    assert torch.equal(fsdp.shard(full, ("embed", None)), full[:2])
+    # an axis the port still does not split ("ff_expert", which no rule
+    # of the reference puts on a mesh axis) raises
+    other = ShardingCtx(make_mesh((2, 2), AXES, rank=0),
+                        {**default_rules(), "ff_expert": "data"})
     with pytest.raises(NotImplementedError):
-        fsdp.shard(torch.zeros(4, 4), ("embed", None))
+        other.shard(torch.zeros(4, 4), ("ff_expert", None))
 
 
 class _Capture:

@@ -88,6 +88,8 @@ REF_STEPS = 2
 DP_ONLY_ARCHS = ("internlm2-1.8b", "qwen2-moe-a2.7b")
 
 # argv: out file, arch, manual_dp steps, then jobs "grad:DxM" / "dp:DxM"
+# / "fsdp:DxM" (the reference's default dp_mode="auto" step under the
+# fsdp rules) / "mp:PxDxM" (manual_dp with multi_pod=True)
 JAX_SCRIPT = r"""
 import dataclasses, functools, sys
 import numpy as np, jax, jax.numpy as jnp
@@ -97,7 +99,7 @@ from repro.models.model import Model
 from repro.models.sharding import ShardingCtx, default_rules
 from repro.optim import AdamWConfig, AdamWState
 from repro.train.manual_dp import make_manual_dp_train_step
-from repro.train.train_step import make_loss_fn
+from repro.train.train_step import make_loss_fn, make_train_step
 gla.gla_chunk = functools.partial(gla.gla_chunk, ratio_dtype=jnp.float32)
 out, arch, steps = sys.argv[1], sys.argv[2], int(sys.argv[3])
 B, S, WARM = 4, 32, 3
@@ -138,11 +140,14 @@ res = dict(batch)
 for name, tree in (("param", leaves), ("mu", mu), ("nu", nu)):
     for i, x in enumerate(tree):
         res[f"{name}/{i}"] = x
+opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
 for job in sys.argv[4:]:
     kind, shape = job.split(":")
-    d, m = (int(n) for n in shape.split("x"))
-    mesh = Mesh(np.array(jax.devices()[:d * m]).reshape(d, m),
-                ("data", "model"))
+    dims = [int(n) for n in shape.split("x")]
+    names = ("pod", "data", "model")[-len(dims):]
+    mesh = Mesh(np.array(jax.devices()[:int(np.prod(dims))]).reshape(dims),
+                names)
+    rules = default_rules(kind == "mp", fsdp=kind == "fsdp")
     if kind == "grad":
         ctx = ShardingCtx(mesh, rules)
         placed = jax.tree.map(
@@ -156,9 +161,24 @@ for job in sys.argv[4:]:
         for i, x in enumerate(jax.tree.leaves(g)):
             res[f"{job}/grad/{i}"] = np.asarray(x)
         continue
-    step, _, _ = make_manual_dp_train_step(
-        jm, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10), mesh,
-        rules, axes)
+    if kind == "fsdp":
+        # the reference's dry run's train cell (src/repro/launch/
+        # dryrun.py:121-139): moments and gradients on embed -> data
+        named = lambda t: jax.tree.map(lambda s: NamedSharding(mesh, s), t,
+                                       is_leaf=lambda x: isinstance(x, P))
+        zero = dict(rules, embed="data")
+        mspecs, pspecs = jm.specs(zero, mesh), jm.specs(rules, mesh)
+        opt_sh = AdamWState(NamedSharding(mesh, P()), named(mspecs),
+                            named(mspecs))
+        bsh = {k: NamedSharding(mesh, P("data", *([None] * (v.ndim - 1))))
+               for k, v in batch.items()}
+        step = jax.jit(make_train_step(jm, opt_cfg, ShardingCtx(mesh, rules),
+                                       grad_specs=mspecs),
+                       in_shardings=(named(pspecs), opt_sh, bsh),
+                       out_shardings=(named(pspecs), opt_sh, None))
+    else:
+        step, _, _ = make_manual_dp_train_step(
+            jm, opt_cfg, mesh, rules, axes, multi_pod=kind == "mp")
     p = jax.tree.map(np.copy, params)
     opt = AdamWState(np.int32(WARM), tdef.unflatten([x.copy() for x in mu]),
                      tdef.unflatten([x.copy() for x in nu]))
@@ -182,8 +202,11 @@ def run_reference(out: Path, jobs, steps: int) -> None:
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=4 "
                          "--xla_backend_optimization_level=0")
-    parts = {(arch, kind): [j for j in arch_jobs if j.startswith(kind)]
-             for arch, arch_jobs in jobs.items() for kind in ("grad", "dp")}
+    kinds = sorted({j.split(":")[0] for arch_jobs in jobs.values()
+                    for j in arch_jobs})
+    parts = {(arch, kind): [j for j in arch_jobs
+                            if j.split(":")[0] == kind]
+             for arch, arch_jobs in jobs.items() for kind in kinds}
     parts = {key: part for key, part in parts.items() if part}
     procs = [subprocess.Popen(
         [sys.executable, "-c", JAX_SCRIPT, str(out / f"{arch}.{kind}.npz"),
@@ -200,7 +223,7 @@ def run_reference(out: Path, jobs, steps: int) -> None:
                 p.kill()
     for arch in jobs:
         merged = {}
-        for kind in ("grad", "dp"):
+        for kind in kinds:
             if (arch, kind) in parts:
                 with np.load(out / f"{arch}.{kind}.npz") as z:
                     merged.update({k: z[k] for k in z.files})
@@ -547,10 +570,14 @@ def _train_cfg(arch):
                                microbatches=2)
 
 
-def _dry_rank(rank, port, arch, q) -> None:
+def _dry_rank(rank, port, arch, *rest) -> None:
     """Rank ``rank`` of a (2, 2) gloo run of the smoke train cell's
     ``manual_dp`` step under ``analyze_step``, its collectives recorded
-    as they are issued."""
+    as they are issued. ``rest``: the queue, after it optionally the
+    layout (the mesh's shape, the reference's layout overrides; a shape
+    of three: the multi-pod mesh)."""
+    *layout, q = rest
+    shape, overrides = layout[0] if layout else ((2, 2), {})
     import torch.distributed as dist
     from repro_torch.configs import ShapeSuite
     from repro_torch.kernels import _build
@@ -563,6 +590,7 @@ def _dry_rank(rank, port, arch, q) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=4, rank=rank)
     try:
+        axes = ("pod", "data", "model")[-len(shape):]
         issued = []
 
         def size(group):
@@ -604,19 +632,21 @@ def _dry_rank(rank, port, arch, q) -> None:
         model = Model(cfg)
         suite = ShapeSuite("tp_train", 32, 8, "train")
         comm = Recorded()
-        ctx = ShardingCtx(make_mesh((2, 2), ("data", "model")),
-                          cell_rules(cfg, suite, 2), comm=comm)
+        ctx = ShardingCtx(make_mesh(shape, axes),
+                          cell_rules(cfg, suite, shape[-1],
+                                     multi_pod=len(shape) == 3,
+                                     **overrides), comm=comm)
         params = model.init(torch.Generator().manual_seed(0), ctx)
         toks = ctx.shard(torch.from_numpy(np.random.default_rng(5).integers(
             0, cfg.vocab, (8, 32))), ("batch", None)).clone()
         batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
         if cfg.family == "encdec":
-            batch["frames"] = torch.randn(4, cfg.enc_seq,
+            batch["frames"] = torch.randn(toks.shape[0], cfg.enc_seq,
                                           cfg.d_model).bfloat16()
         step = mdp.make_manual_dp_train_step(model, AdamWConfig(),
                                              comm=comm, ctx=ctx)
         _, got = analyze_step(step, params, mdp.init_shard_state(
-            params, ctx=ctx), batch)
+            params, ctx=ctx, model=model), batch)
         q.put((rank, {k: got[k] for k in ("flops", "bytes", "ops",
                                           "kernels", "memory")}, issued))
     finally:
