@@ -120,38 +120,57 @@ Phases, each fatal on failure (no fallback to the CPU):
    at a near tie of the router left out and counted) with the kernels
    against their plain versions on the card, final recurrent states
    included, and the consistency once more in f32;
-10. training: (a) the LM kernels' autograd Functions at the training
-   shapes (internlm2's attention, zamba2's Mamba2; bf16): the forward
-   within the kernels' bounds, every input gradient bitwise autograd's
+10. training: (a) the LM kernels' autograd Functions at the six
+   families' training shapes (a microbatch of 1: internlm2's, qwen2-vl's
+   GQA group 7 [1, 28 / 4, 2048, 128] and qwen2-moe's [1, 16, 2048, 128]
+   causal attention, whisper's full [1, 12, 1500, 64], causal [1, 12,
+   416, 64] and cross (416 queries, 1500 keys) attention, zamba2's
+   Mamba2 and rwkv6's RWKV6 regime [1, 2048, 64, 64] with the bonus u;
+   bf16): the forward within the kernels' bounds on the design the
+   model takes, every input gradient (u's too) bitwise autograd's
    through the plain version (the backward recomputes it), the kernel
    forward and the recompute backward timed; (b) one ``make_train_step``
-   of the f32 smoke configs, card against CPU within 1e-4; (c)
-   internlm2-1.8b and zamba2-1.2b at full width and depth, seeded bf16
-   weights, batch 8 x 2048 tokens in 8 microbatches, remat on, 3 steps:
-   every gradient leaf finite and not all zero, the loss finite, the LM
-   kernels' launches per step checked (two per layer and microbatch:
-   the forward, then its recompute), step ms, train tokens/s, 6·N·tokens
-   per step time over the bf16 dense peak, peak memory; (d)
+   of the six families' f32 smoke configs, card against CPU within 1e-4;
+   (c) batch 8 x 2048 tokens in 8 microbatches, remat on, seeded bf16
+   weights, at full width, one path for the six families (``run_train``):
+   internlm2-1.8b and zamba2-1.2b whole, 3 steps, then rwkv6-7b at 15 of
+   32 layers, qwen2-vl-7b at 12 of 28, qwen2-moe-a2.7b at 5 of 24
+   (``TRAIN_CUTS``: the deepest whose dry-run peak is at most 70 GiB) and
+   whisper-small whole (12 + 12 layers, 8 x 416 tokens, 1500 frames
+   each), 2 steps; the first step counted and held against the dry run
+   (phase 11's checks), the others timed: every gradient leaf finite and
+   not all zero (qwen2-moe: every routed expert's slice of every layer,
+   the 4 padded experts' exactly zero), the loss finite, the LM kernels'
+   launches per step checked (two per attention / gla call and
+   microbatch: the forward, then its recompute), step ms, train
+   tokens/s, 6·N·tokens per step time over the bf16 dense peak (N: the
+   active parameters), peak memory, the recompute backwards' share at
+   (a)'s times (the room for the four cuts made by phases 12-16's
+   two-rank jobs sharing one pool of ranks, ``RankPool``, spawned once,
+   and phase 11's traces moved off the main process); (d)
    ``examples.train_lm`` (ETL-fed) for 30 steps: the loss falls,
    transform_kpi launched, its checkpoint restores bitwise; (e)
    ``manual_dp`` over NCCL at world size 1 against ``make_train_step``;
    (f) ``examples.quickstart`` on the card against its CPU run;
 11. the dry run held against the card (``launch.dryrun``,
-   ``launch.step_analysis``): for internlm2-1.8b and zamba2-1.2b, phase
-   9's prefill (4 x 2048) and phase 10c's train step (8 x 2048, 8
-   microbatches, remat) traced on ``meta`` tensors, then run once on the
-   card under ``analyze_step`` with seeded weights (the flash_attention_tc
-   and gla_ssd launches counted): (a) operations, bytes, aten ops and
-   kernel calls equal, exactly; (b) the dry run's peak estimate within
-   15% of the card's ``max_memory_allocated`` over the step; (c) its
-   roofline bound over phase 9's / 10c's measured time at most 1.05. The
-   (arch x shape) matrix runs from the CLI (``--all``), not here;
+   ``launch.step_analysis``), its ``meta`` traces run in a spawned CPU
+   process started before phase 9 (the six train steps first, the
+   prefills last; the times it finished each are printed): phase 10c's
+   first step of each of the six families, and for internlm2-1.8b and
+   zamba2-1.2b phase 9's prefill (4 x 2048), run once more on the card
+   under ``analyze_step`` with seeded weights: (a) operations, bytes,
+   aten ops and kernel calls equal, exactly; (b) the dry run's peak
+   estimate within 15% of the card's ``max_memory_allocated`` over the
+   step; (c) its roofline bound over phase 10c's / 9's measured time at
+   most 1.05. The (arch x shape) matrix runs from the CLI (``--all``),
+   not here;
 12. the model axis: internlm2-1.8b, zamba2-1.2b and qwen2-moe-a2.7b at
    full width (at 8 of 24, 12 of 38 and 8 of 24 layers,
    ``TP_SERVE_LAYERS``: room for phase 17),
    seeded bf16 weights, prefill 4 x 2048 and 8
    decode steps, first unsharded on the card (then freed), then on two
-   ranks (spawned processes on the one card, gloo staging the CUDA
+   ranks (processes on the one card, spawned once for phases 12-16's
+   two-rank jobs, each job its own gloo group, gloo staging the CUDA
    tensors through the host; ``models/sharding.py``: heads, kv heads, MLP
    columns, experts and vocab over a (1, 2) mesh) fed the same tokens:
    every step's logits within 0.02 x max(|logits|, 1) of the unsharded
@@ -263,6 +282,7 @@ The line before the last is a JSON ``kernels`` record; the last line is
 the JAX package.
 """
 import contextlib
+import functools
 import json
 import math
 import queue
@@ -295,6 +315,14 @@ OFF_PATH = ("hash_join_pair", "segment_kpi")
 COMPLEX_PATH = "complex_join8"
 
 
+# The whole run has to end inside 1,200 s, the kernels' build included.
+# It took ~460 s with phases 1-11, then 630-1000 s as the model and data
+# axes' phases 12-17 came (each spawn of ranks ~8 s of imports and a CUDA
+# context). Phases 12-16's two-rank jobs now share one pool of ranks,
+# phase 11's meta traces run in a process of their own while the card
+# works, and phase 10c's first step is also phase 11's train check (no
+# second training run): that pays for phase 10c's four other families,
+# 753-961 s (PERF.md, section 5, keeps the per-phase times).
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -2607,9 +2635,29 @@ def run_lm(arch: str, dev, card: str):
 
 # ----------------------------------------------------------------- phase 10
 TRAIN_ARCHS = ("internlm2-1.8b", "zamba2-1.2b")
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 3
+# the four other families, trained at full width with the same batch,
+# microbatches and remat, each at the deepest depth whose dry-run peak is
+# at most TRAIN_CUT_GIB: room under the card's 80 GiB for phase 11's 15%
+# (None: whole; tests/test_torch_train_cells.py holds each cut against
+# the dry run, the cut + 1 above the limit)
+TRAIN_CUTS = {"rwkv6-7b": 15, "qwen2-vl-7b": 12, "qwen2-moe-a2.7b": 5,
+              "whisper-small": None}
+TRAIN_CUT_GIB = 70
+LORA_B_STD = 0.05                  # rwkv6's w_lora_b (run_train)
+# each trained model's path in the kernels record
+TRAIN_PATHS = {arch: path.replace("lm_", "train_")
+               for arch, path in LM_PATHS.items()}
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+# steps of a phase 10c cell: the first counted, the others timed
+# (internlm2 and zamba2 whole: the median of two; a cut: one)
+TRAIN_STEPS, CUT_STEPS = 3, 2
 TRAIN_LM_STEPS = 30
 SMOKE_TOL = 1e-4
+# phase 10b's families that start from warm moments: from zero moments a
+# step moves each element by about lr x sign(g), and rwkv6-smoke has
+# near-zero gradients whose sign the card's order of summation flips
+# (three leaves 5.9e-4 apart on an H100, the loss within 4.8e-7)
+SMOKE_WARM = ("rwkv6-7b",)
 
 
 def backward_ms(run, reps: int = 3) -> float:
@@ -2631,68 +2679,117 @@ def backward_ms(run, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def check_function_grads(dev, gen, card) -> dict:
-    """Phase 10a: ``FlashAttentionFn`` and ``GlaChunkFn`` against autograd
-    through their plain versions at the training shapes (internlm2's
-    attention, q [1, 16, 2048, 128] and k/v [1, 8, 2048, 128] bf16 causal;
-    zamba2's Mamba2, [1, 2048, 64, 64] bf16 with an f32 decay): the
-    forward within the kernels' bounds, every input gradient bitwise the
-    plain version's (the backward recomputes it); the kernel forward, the
-    Function's forward + backward and the recompute backward alone timed.
-    Returns {name: times}."""
+# phase 10a's attention regimes at a training microbatch of 1: (regime,
+# arch, query length, key length, causal); whisper's cross-attention
+# reads the encoder's 1500 frames
+TRAIN_FLASH = (("internlm2", "internlm2-1.8b", TRAIN_SEQ, TRAIN_SEQ, True),
+               ("qwen2-vl", "qwen2-vl-7b", TRAIN_SEQ, TRAIN_SEQ, True),
+               ("qwen2-moe", "qwen2-moe-a2.7b", TRAIN_SEQ, TRAIN_SEQ, True),
+               ("whisper full", "whisper-small", 1500, 1500, False),
+               ("whisper causal", "whisper-small", WHISPER_PROMPT,
+                WHISPER_PROMPT, True),
+               ("whisper cross", "whisper-small", WHISPER_PROMPT, 1500,
+                False))
+# the first regime of each kernel keeps the record's flat train keys
+TRAIN_FN_MAIN = {"flash_attention_tc": "internlm2",
+                 "gla_chunk_ssd": "zamba2", "gla_chunk_rwkv6": "rwkv6"}
+
+
+def function_cases(dev, gen) -> list:
+    """Phase 10a's cases: (regime, kernel, inputs, output gradient, the
+    inputs as the model hands them over, the Function, its plain version,
+    the bare kernel call, tolerance) at the training shapes of a
+    microbatch of 1: every attention regime of ``TRAIN_FLASH`` (bf16 [1,
+    S, H, D] activations read as [1, H, S, D]), zamba2's Mamba2 ([1, 2048,
+    64, 64] bf16, q and k shared by the heads, an f32 decay per (token,
+    head)) and rwkv6's RWKV6 regime ([1, 2048, 64, 64] bf16 r, k, v, the
+    f32 per-channel decay and bonus u as phase 8 draws them)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.gla_chunk import ops as gl
-    from repro_torch.kernels.gla_chunk.ref import gla_ssd_ref
+    from repro_torch.kernels.gla_chunk.ref import gla_chunk_ref, gla_ssd_ref
     from repro_torch.models import build_model
-    out = {}
-    cfg = build_model("internlm2-1.8b").cfg
-    hd = cfg.resolved_head_dim
-    base = [lm_rand((1, TRAIN_SEQ, h, hd), dev, torch.bfloat16, gen)
-            for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
-    go = lm_rand((1, cfg.n_heads, TRAIN_SEQ, hd), dev, torch.bfloat16, gen)
-    mz = build_model("zamba2-1.2b").cfg
-    h, dk = mz.ssm.n_ssm_heads, mz.ssm.state_size
-    dv = mz.ssm.expand * mz.d_model // h
-    gbase = [lm_rand((1, TRAIN_SEQ, 1, dk), dev, torch.bfloat16, gen),
-             lm_rand((1, TRAIN_SEQ, 1, dk), dev, torch.bfloat16, gen),
-             lm_rand((1, TRAIN_SEQ, h, dv), dev, torch.bfloat16, gen),
-             -torch.exp(lm_rand((1, TRAIN_SEQ, h, 1), dev, torch.float32,
-                                gen))]
-    ggo = lm_rand((1, TRAIN_SEQ, h, dv), dev, torch.bfloat16, gen)
+    bf16 = torch.bfloat16
+    tol = FLASH_TOL["bfloat16"]
+    cases = []
 
     def flash_args(x):
         return tuple(t.transpose(1, 2) for t in x)
 
-    def gla_args(x):
+    for regime, arch, sq, skv, causal in TRAIN_FLASH:
+        cfg = build_model(arch).cfg
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        x0 = [lm_rand((1, n, h, d), dev, bf16, gen)
+              for n, h in ((sq, hq), (skv, hkv), (skv, hkv))]
+        go = lm_rand((1, hq, sq, d), dev, bf16, gen)
+        cases.append((regime, "flash_attention_tc", x0, go, flash_args,
+                      functools.partial(fa.attention, causal=causal),
+                      functools.partial(attention_ref, causal=causal),
+                      functools.partial(fa.mha, causal=causal), tol))
+    mz = build_model("zamba2-1.2b").cfg
+    h, dk = mz.ssm.n_ssm_heads, mz.ssm.state_size
+    dv = mz.ssm.expand * mz.d_model // h
+    x0 = [lm_rand((1, TRAIN_SEQ, 1, dk), dev, bf16, gen),
+          lm_rand((1, TRAIN_SEQ, 1, dk), dev, bf16, gen),
+          lm_rand((1, TRAIN_SEQ, h, dv), dev, bf16, gen),
+          -torch.exp(lm_rand((1, TRAIN_SEQ, h, 1), dev, torch.float32, gen))]
+
+    def ssd_args(x):
         s = TRAIN_SEQ
         return (x[0].expand(1, s, h, dk), x[1].expand(1, s, h, dk), x[2],
                 x[3].expand(1, s, h, dk))
 
-    cases = (("flash_attention_tc", base, go, flash_args,
-              lambda *a: fa.attention(*a, causal=True),
-              lambda *a: attention_ref(*a, causal=True),
-              lambda *a: fa.mha(*a, causal=True), FLASH_TOL["bfloat16"]),
-             ("gla_chunk_ssd", gbase, ggo, gla_args,
-              lambda *a: gl.gla_fn(*a, inclusive=True)[0],
-              lambda *a: gla_ssd_ref(*a)[0],
-              lambda *a: gl.gla(*a, inclusive=True)[0],
-              FLASH_TOL["bfloat16"]))
-    for name, x0, g, args, fn, plain, kernel, tol in cases:
+    cases.append(("zamba2", "gla_chunk_ssd", x0,
+                  lm_rand((1, TRAIN_SEQ, h, dv), dev, bf16, gen), ssd_args,
+                  lambda *a: gl.gla_fn(*a, inclusive=True)[0],
+                  lambda *a: gla_ssd_ref(*a)[0],
+                  lambda *a: gl.gla(*a, inclusive=True)[0], tol))
+    mr = build_model("rwkv6-7b").cfg
+    h = mr.ssm.n_ssm_heads
+    dk = mr.d_model // h
+    cases.append(("rwkv6", "gla_chunk_rwkv6",
+                  list(rwkv6_gla_inputs(1, TRAIN_SEQ, h, dk, dev, gen)),
+                  lm_rand((1, TRAIN_SEQ, h, dk), dev, bf16, gen), tuple,
+                  lambda *a: gl.gla_fn(*a, inclusive=False)[0],
+                  lambda *a: gla_chunk_ref(*a, inclusive=False)[0],
+                  lambda *a: gl.gla(*a, inclusive=False)[0], tol))
+    return cases
+
+
+def check_function_grads(dev, gen, card) -> dict:
+    """Phase 10a: ``FlashAttentionFn`` and ``GlaChunkFn`` against autograd
+    through their plain versions at the six families' training shapes
+    (``function_cases``: internlm2's, qwen2-vl's (GQA group 7) and
+    qwen2-moe's causal attention, whisper's full, causal and cross
+    attention, zamba2's Mamba2 and rwkv6's RWKV6 regime, bonus ``u``
+    included): the forward within the kernels' bounds on the design the
+    model's call takes, every input gradient bitwise the plain version's
+    (the backward recomputes it); the kernel forward, the Function's
+    forward + backward and the recompute backward alone timed. Returns
+    {regime: times and the kernel's name}."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    out = {}
+    for (regime, name, x0, g, args, fn, plain, kernel,
+         tol) in function_cases(dev, gen):
         leaves = {}
         outs = {}
         for side, f in (("fn", fn), ("plain", plain)):
             x = [t.clone().requires_grad_() for t in x0]
+            before = launch_counts()
             outs[side] = f(*args(x))
+            if side == "fn":
+                design_moved(before, launch_counts(), name, 1,
+                             f"{regime} {name} Function forward")
             leaves[side] = torch.autograd.grad(outs[side], x, g)
         torch.cuda.synchronize()
         err = max_err(outs["fn"].detach(), outs["plain"].detach(), tol,
-                      f"{name} Function forward")
+                      f"{regime} {name} Function forward")
         if not all(a.dtype == b.dtype and bool(torch.equal(a, b))
                    for a, b in zip(leaves["fn"], leaves["plain"])):
-            fail(f"{name}: the Function's input gradients differ from the "
-                 f"plain version's")
+            fail(f"{regime} {name}: the Function's input gradients differ "
+                 f"from the plain version's")
         del outs, leaves
         x = [t.clone().requires_grad_() for t in x0]
         with torch.no_grad():
@@ -2704,41 +2801,60 @@ def check_function_grads(dev, gen, card) -> dict:
         del y
         plain_ms = backward_ms(lambda: torch.autograd.grad(
             plain(*args(x)), x, g))
-        out[name] = {"fwd_ms": fwd_ms, "fn_ms": fn_ms, "bwd_ms": bwd_ms,
-                     "plain_fwd_bwd_ms": plain_ms, "max_abs_err": err}
-        print(f"{name} Function at the training shape: forward within {tol}"
-              f" of the plain version (max abs err {err:.3g}), every input "
+        out[regime] = {"kernel": name, "fwd_ms": fwd_ms, "fn_ms": fn_ms,
+                       "bwd_ms": bwd_ms, "plain_fwd_bwd_ms": plain_ms,
+                       "max_abs_err": err,
+                       "shapes": [list(t.shape) for t in args(x0)]}
+        print(f"{name} Function at {regime}'s training shape "
+              f"{[list(t.shape) for t in args(x0)]}: forward within {tol} "
+              f"of the plain version (max abs err {err:.3g}), every input "
               f"gradient bitwise the plain version's; kernel forward "
               f"{fwd_ms:.4f} ms (device, CUDA graph), the Function's forward"
               f" + backward {fn_ms:.4f} ms, its recompute backward alone "
               f"{bwd_ms:.4f} ms, the plain version's forward + backward "
               f"{plain_ms:.4f} ms (CUDA events) [{card}]")
+        del x
         torch.cuda.empty_cache()
     return out
 
 
 def smoke_train_parity(dev, card) -> None:
-    """Phase 10b: one ``make_train_step`` of the f32 smoke configs on the
-    card against the CPU: loss, grad norm and updated parameters within
-    1e-4."""
+    """Phase 10b: one ``make_train_step`` of the six families' f32 smoke
+    configs on the card against the CPU (whisper with seeded frames),
+    from zero moments (``SMOKE_WARM``'s from warm ones, elementwise
+    functions of the parameters): loss, grad norm and updated parameters
+    within 1e-4."""
     import numpy as np
     import torch
     from repro_torch.models import build_model
     from repro_torch.models.param import tree_leaves, tree_map
-    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.optim import AdamWConfig, AdamWState, init_state
     from repro_torch.train.train_step import make_train_step
-    for arch in TRAIN_ARCHS:
+
+    def warm(p):
+        return AdamWState(
+            step=torch.full((), 3, dtype=torch.int32,
+                            device=tree_leaves(p)[0].device),
+            mu=tree_map(lambda t: t.float() * 1e-3, p),
+            nu=tree_map(lambda t: t.float().square() * 1e-4 + 1e-6, p))
+
+    for arch in LM_ARCHS:
+        moments = warm if arch in SMOKE_WARM else init_state
         model = build_model(arch, smoke=True)
+        cfg = model.cfg
         params = tree_map(lambda t: t.float(),
                           model.init(torch.Generator().manual_seed(0)))
-        toks = torch.from_numpy(np.random.default_rng(2).integers(
-            0, model.cfg.vocab, (4, 64)))
+        rng = np.random.default_rng(2)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64)))
         batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (4, cfg.enc_seq, cfg.d_model), dtype=np.float32))
         step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1,
                                                   total_steps=10))
         gp = tree_map(lambda t: t.to(dev, copy=True), params)
-        cp, _, cm = step(params, init_state(params), batch)   # in place
-        gp, _, gm = step(gp, init_state(gp),
+        cp, _, cm = step(params, moments(params), batch)   # in place
+        gp, _, gm = step(gp, moments(gp),
                          {k: v.to(dev) for k, v in batch.items()})
         errs = {k: abs(float(gm[k]) - float(cm[k])) for k in
                 ("loss", "grad_norm")}
@@ -2748,9 +2864,10 @@ def smoke_train_parity(dev, card) -> None:
         if not all(e <= SMOKE_TOL for e in errs.values()):
             fail(f"{arch}-smoke train step on the card differs from the "
                  f"CPU's: {errs}")
-        print(f"{arch}-smoke f32 train step, card vs CPU: loss "
+        print(f"{arch}-smoke f32 train step, card vs CPU, from "
+              f"{'warm' if arch in SMOKE_WARM else 'zero'} moments: loss "
               f"{float(gm['loss']):.6f}, max abs differences {errs} (tol "
-              f"{SMOKE_TOL})")
+              f"{SMOKE_TOL}) [{card}]")
 
 
 def train_layers(model):
@@ -2782,42 +2899,155 @@ def train_expected(model) -> dict:
             "gla_chunk_rwkv6": 2 * n_mb * n_gla if ssm else 0}
 
 
-def run_train(arch: str, dev, card: str, fn_times: dict):
-    """Phase 10c: the full-width, full-depth model (seeded bf16 weights on
-    the card) takes ``TRAIN_STEPS`` steps of batch 8 x 2048 tokens in the
-    config's 8 microbatches with remat on. Every gradient leaf must be
-    finite and not all zero (read through the train step's
-    ``compress_fn`` hook, which returns them unchanged); the loss finite.
-    Prints step ms (median of steps 2..), train tokens/s, 6·N·tokens per
-    step time over the bf16 dense peak, peak memory and the LM kernels'
-    launches per step, and the share of a step the recompute backwards of
-    the LM kernels take at phase 10a's times (one backward per attention /
-    Mamba2 layer per microbatch). Returns the kernel launches of the
-    run and the median step seconds."""
+def recompute_step_ms(model, fn_times: dict) -> float:
+    """The LM kernels' recompute backwards of one train step at phase
+    10a's times: one backward per attention and gla call per microbatch,
+    each at its family's regime (zamba2's shared attention at
+    internlm2's, the one flash Function timed at a dense shape)."""
+    cfg = model.cfg
+    L = cfg.n_layers
+
+    def bwd(regime):
+        return fn_times[regime]["bwd_ms"]
+
+    per_mb = {"dense": lambda: L * bwd("internlm2"),
+              "hybrid": lambda: (model.n_shared_apps() * bwd("internlm2")
+                                 + L * bwd("zamba2")),
+              "ssm": lambda: L * bwd("rwkv6"),
+              "moe": lambda: L * bwd("qwen2-moe"),
+              "vlm": lambda: L * bwd("qwen2-vl"),
+              "encdec": lambda: (cfg.n_enc_layers * bwd("whisper full")
+                                 + L * (bwd("whisper causal")
+                                        + bwd("whisper cross")))}
+    return cfg.microbatches * per_mb[cfg.family]()
+
+
+def active_params(model) -> int:
+    """Parameters a token runs through: all of them, but for a MoE only
+    its top-k routed experts of each layer (the shared experts, the
+    router, attention, embedding and head included; the padded experts
+    out)."""
+    from repro_torch.models.param import count_params
+    cfg = model.cfg
+    n = count_params(model.defs)
+    if cfg.moe is not None:
+        moe = cfg.moe
+        n -= (cfg.n_layers * (moe.padded_experts - moe.top_k) * 3
+              * cfg.d_model * moe.d_ff_expert)
+    return n
+
+
+def train_cell_model(arch: str):
+    """A phase 10c cell's full-width model, at its ``TRAIN_CUTS`` cut
+    where it has one."""
+    import dataclasses
+    from repro_torch.models import Model, build_model
+    cfg = build_model(arch).cfg
+    if TRAIN_CUTS.get(arch):
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_CUTS[arch])
+    return Model(cfg)
+
+
+def train_cell_batch(model, dev, gen) -> dict:
+    """A cell's seeded batch as the dry run lays it out
+    (``launch.specs.train_batch_specs``): tokens and targets [8, 2048]
+    (whisper [8, 416] and its frames [8, 1500, 768] bf16; qwen2-vl its
+    text M-RoPE positions [8, 2048, 3])."""
     import torch
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import build_model
-    from repro_torch.models.param import count_params, tree_leaves
+    cfg = model.cfg
+    seq = tpt_seq(model)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, seq), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (TRAIN_BATCH, cfg.enc_seq, cfg.d_model), generator=gen,
+            device=dev).to(torch.bfloat16)
+    if cfg.pos_scheme == "mrope":
+        batch["positions"] = torch.arange(
+            seq, dtype=torch.int32, device=dev)[None, :, None].expand(
+                TRAIN_BATCH, seq, 3).contiguous()
+    return batch
+
+
+def expert_grads(model, grads) -> tuple:
+    """A MoE's expert leaves (and its router's columns): the (layer,
+    routed expert) slices whose gradient is all zero, and the padded
+    experts' slices that are not (their gradient is zero by
+    construction: routing masks them)."""
+    from repro_torch.models.param import tree_leaves, tree_paths
+    n = model.cfg.moe.n_experts
+    dead, live = [], []
+    for (path, d), g in zip(tree_paths(model.defs), tree_leaves(grads)):
+        if "experts" in d.axes:                  # [L, E, ...]
+            got = g[:, :n].ne(0).flatten(2).any(-1)
+            pad = bool(g[:, n:].ne(0).any())
+        elif path[-1] == "router":               # [L, D, E]
+            got = g[..., :n].ne(0).any(1)
+            pad = bool(g[..., n:].ne(0).any())
+        else:
+            continue
+        dead += [(path, int(i), int(j)) for i, j in (~got).nonzero()]
+        if pad:
+            live.append(path)
+    return dead, live
+
+
+def run_train(arch: str, dev, card: str, fn_times: dict, dry: dict,
+              steps: int) -> dict:
+    """Phase 10c for one family, with its phase 11 check: the full-width
+    model, whole or at its ``TRAIN_CUTS`` cut (seeded bf16 weights drawn
+    on the card; rwkv6's zero-init ``w_lora_b`` drawn at std
+    ``LORA_B_STD``, as the CPU tests draw it, so that the decay LoRA's
+    ``w_lora_a`` has a gradient), batch 8 x 2048 (whisper 8 x 416 with
+    1500 frames each) in the config's 8 microbatches with remat on,
+    ``steps`` steps. The first runs under ``analyze_step`` with a
+    ``compress_fn`` hook reading every gradient leaf (its reads outside
+    the count): each leaf finite and not all zero, and for qwen2-moe each
+    routed expert's slice of each layer (and router column) nonzero, the
+    4 padded experts' exactly zero; held against the dry run's trace of
+    the same cell (``dry``, traced meanwhile in the spawned
+    ``trace_cells``): (a) operations, bytes, aten ops and kernel calls
+    equal, (b) its peak within 15% of the card's over the step. The
+    others are timed, their median the step time: (c) the dry run's bound
+    over it at most 1.05; step ms, train tokens/s, 6·N·tokens over the
+    bf16 dense peak (N the active parameters), the recompute backwards'
+    share at phase 10a's times of the family's regimes. Every step's loss
+    finite and its launches ``train_expected``'s. Returns the launches of
+    all the steps."""
+    import torch
+    from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.models.param import tree_leaves
     from repro_torch.optim import AdamWConfig, init_state
     from repro_torch.train.train_step import make_train_step
-    model = build_model(arch)
+    model = train_cell_model(arch)
     cfg = model.cfg
     if not cfg.remat or cfg.microbatches != 8:
         fail(f"{arch}: expected remat on and 8 microbatches")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model.init(gen)
+    if cfg.family == "ssm":
+        lora_b = params["layers"]["tm"]["w_lora_b"]
+        lora_b.copy_(torch.randn(lora_b.shape, generator=gen, device=dev)
+                     * LORA_B_STD)
     opt = init_state(params)
-    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
-                         generator=gen, device=dev)
-    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
-    n_params = count_params(model.defs)
-    bad = []
+    batch = train_cell_batch(model, dev, gen)
+    bad, experts = [], None
 
     def inspect(grads):
-        for i, g in enumerate(tree_leaves(grads)):
-            if not bool(torch.isfinite(g).all()) or not bool(
-                    (g != 0).any()):
-                bad.append(i)
+        with (_build.COUNTER.inside_kernel() if _build.COUNTER is not None
+              else contextlib.nullcontext()):
+            for i, g in enumerate(tree_leaves(grads)):
+                if not bool(torch.isfinite(g).all()) or not bool(
+                        (g != 0).any()):
+                    bad.append(i)
+            nonlocal experts
+            if cfg.moe is not None:
+                experts = expert_grads(model, grads)
         return grads
 
     checked = make_train_step(model, AdamWConfig(), compress_fn=inspect)
@@ -2825,49 +3055,65 @@ def run_train(arch: str, dev, card: str, fn_times: dict):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
-    times, losses, counts = [], [], []
-    for i in range(TRAIN_STEPS):
-        before = launch_counts()
+    t0 = time.perf_counter()
+    (params, opt, met), got = analyze_step(checked, params, opt, batch)
+    losses = [float(met["loss"])]
+    times = [time.perf_counter() - t0]
+    step_peak = torch.cuda.max_memory_allocated(dev) - base
+    counts = [lm_launches(launch_counts())]
+    for _ in range(steps - 1):
+        reset_launch_counts()
         t0 = time.perf_counter()
-        params, opt, met = (checked if i == 0 else plain)(params, opt, batch)
-        loss = float(met["loss"])             # syncs
+        params, opt, met = plain(params, opt, batch)
+        losses.append(float(met["loss"]))         # syncs
         times.append(time.perf_counter() - t0)
-        losses.append(loss)
-        after = launch_counts()
-        counts.append({k: after[k] - before[k] for k in LM_KEYS})
-    total = launch_counts()
+        counts.append(lm_launches(launch_counts()))
     peak = torch.cuda.max_memory_allocated(dev)
+    n_leaves = len(tree_leaves(params))
+    del params, opt, batch, met
+    torch.cuda.empty_cache()
     if bad:
         fail(f"{arch}: gradient leaves {bad} are not finite or all zero")
+    if experts is not None and (experts[0] or experts[1]):
+        fail(f"{arch}: routed expert slices with no gradient {experts[0]}; "
+             f"padded experts with one in {experts[1]}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"{arch}: train loss not finite: {losses}")
-    n_mb = cfg.microbatches
-    n_attn, n_gla = train_layers(model)
     want = train_expected(model)
     if any(c != want for c in counts):
         fail(f"{arch}: train steps launched {counts}, expected {want} each")
     step_s = statistics.median(times[1:])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    recompute_ms = n_mb * (n_attn * fn_times["flash_attention_tc"]["bwd_ms"]
-                           + n_gla * fn_times["gla_chunk_ssd"]["bwd_ms"])
-    share = 6 * n_params * tokens / step_s / BF16_FLOP_PER_S
-    print(f"{arch} train [{card}]: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters (bf16, f32 "
-          f"moments), batch {TRAIN_BATCH} x {TRAIN_SEQ} in {n_mb} "
-          f"microbatches, remat on; {len(bad)} of "
-          f"{len(tree_leaves(params))} gradient leaves non-finite or all "
-          f"zero; losses {[round(x, 4) for x in losses]}; step ms "
-          f"{[round(t * 1e3, 3) for t in times]} (median of steps 2-"
-          f"{TRAIN_STEPS}: {step_s * 1e3:.3f} ms) = {tokens / step_s:.1f} "
-          f"train tokens/s; 6·N·tokens / step time over the bf16 dense "
-          f"peak (989 TFLOP/s) = {share:.4f}; peak memory "
-          f"{peak / 2**30:.2f} GiB; launches per step "
-          f"{counts[-1]}; the LM kernels' recompute backwards at phase 10a's"
-          f" times {recompute_ms:.3f} ms = {recompute_ms / (step_s * 1e3):.4f}"
-          f" of a step")
-    del params, opt, batch
-    torch.cuda.empty_cache()
-    return {k: total[k] for k in total}, step_s
+    timed = ("the second" if steps == 2
+             else f"the median of steps 2-{steps}")
+    seq = tpt_seq(model)
+    tokens = TRAIN_BATCH * seq
+    n_active = active_params(model)
+    share = 6 * n_active * tokens / step_s / BF16_FLOP_PER_S
+    recompute_ms = recompute_step_ms(model, fn_times)
+    cut = (f"{cfg.n_layers} of {build_model_layers(arch)} layers"
+           if TRAIN_CUTS.get(arch) else f"whole ({cfg.n_layers} layers)")
+    moe = ("; every routed expert's slice of every layer (and router "
+           "column) with a gradient, the padded experts' exactly zero"
+           if cfg.moe is not None else "")
+    print(f"{arch} train [{card}]: {cut}"
+          + (f" + {cfg.n_enc_layers} encoder layers over {cfg.enc_seq} "
+             f"frames" if cfg.n_enc_layers else "")
+          + f", d_model {cfg.d_model}, batch {TRAIN_BATCH} x {seq} in "
+          f"{cfg.microbatches} microbatches, remat on; 0 of {n_leaves} "
+          f"gradient leaves non-finite or all zero{moe}; losses "
+          f"{[round(x, 4) for x in losses]}; step ms "
+          f"{[round(t * 1e3, 3) for t in times]} (the first counted under "
+          f"analyze_step; {timed} {step_s * 1e3:.3f} ms) = "
+          f"{tokens / step_s:.1f} train tokens/s; N = "
+          f"{n_active / 1e9:.4f} B {'active ' if cfg.moe is not None else ''}"
+          f"parameters, 6·N·tokens / step time over the bf16 dense peak "
+          f"(989 TFLOP/s) = {share:.4f}; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches per step {counts[-1]}; the LM kernels' recompute "
+          f"backwards at phase 10a's times {recompute_ms:.3f} ms = "
+          f"{recompute_ms / (step_s * 1e3):.4f} of a step")
+    hold_dry(arch, "train", dry, got, step_peak, step_s, counts[0], want,
+             card, TRAIN_BATCH, seq)
+    return {k: sum(c[k] for c in counts) for k in LM_KEYS}
 
 
 def run_train_lm(card: str) -> dict:
@@ -2982,146 +3228,291 @@ PEAK_TOL = 0.15                    # the dry run's peak vs the card's
 SHARE_MAX = 1.05                   # bound / measured above this: impossible
 
 
-def check_dryrun(arch: str, dev, card: str, measured: dict) -> dict:
-    """Phase 11 for one model: phase 9's prefill (4 x 2048) and phase
-    10c's train step (8 x 2048, 8 microbatches, remat), each traced by the
-    dry run on ``meta`` tensors (``launch.dryrun``, timed) and run once on
-    the card under ``launch.step_analysis.analyze_step`` (untimed: the
-    counting adds host work), with fresh seeded weights. (a) the card
-    run's operations, bytes, aten ops and kernel calls equal the dry
-    run's exactly; (b) the dry run's peak estimate is within 15% of the
-    card's ``max_memory_allocated`` over the step (counted from
-    ``reset_peak_memory_stats``, less what was allocated before the
-    weights were drawn); (c) the dry run's roofline bound over phase 9's /
-    10c's measured time is at most 1.05. The LM kernels' launches of each
-    card run are checked (the bf16 designs). Returns the launches."""
-    import torch
+def dry_cells() -> list:
+    """The cells phase 11's checks hold against the card, as (kind, arch,
+    batch, sequence, layers or None), in the order they are needed: the
+    six families' train steps (phase 10c, ``run_train``), then
+    internlm2's and zamba2's prefills (``check_dryrun``)."""
+    cells = [("train", arch, TRAIN_BATCH,
+              WHISPER_PROMPT if arch == "whisper-small" else TRAIN_SEQ,
+              TRAIN_CUTS.get(arch)) for arch in (*TRAIN_ARCHS, *TRAIN_CUTS)]
+    return cells + [("prefill", arch, LM_BATCH, LM_PROMPT, None)
+                    for arch in TRAIN_ARCHS]
+
+
+def trace_cells(cells: list, q) -> None:
+    """A spawned CPU process (it touches no card): each of ``cells``
+    (``dry_cells``) built by the dry run (``launch.dryrun.build_cell`` at
+    the cell's batch, sequence and depth) and traced on ``meta`` tensors
+    (``analyze_cell``); puts ((kind, arch), what phase 11 reads and the
+    wall-clock time it finished) on ``q`` as each finishes."""
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import ShapeSuite
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import dryrun
-    from repro_torch.launch.step_analysis import analyze_step
-    from repro_torch.models import build_model
-    from repro_torch.optim import AdamWConfig, init_state
-    from repro_torch.train.serve_step import make_prefill_step
-    from repro_torch.train.train_step import make_train_step
-    model = build_model(arch)
-    cfg = model.cfg
-    cells = (("prefill", LM_BATCH, LM_PROMPT, measured["prefill_s"],
-              lm_expected(model)),
-             ("train", TRAIN_BATCH, TRAIN_SEQ, measured["step_s"],
-              train_expected(model)))
-    total = {k: 0 for k in LM_KEYS}
-    for kind, batch_n, seq, measured_s, want in cells:
+    for kind, arch, batch_n, seq, layers in cells:
         suite = ShapeSuite(f"phase_{kind}", seq, batch_n, kind)
-        fn, args, meta, comm = dryrun.build_cell(arch, suite.name,
-                                                 suite=suite)
+        fn, args, meta, comm = dryrun.build_cell(
+            arch, suite.name, suite=suite,
+            overrides={"n_layers": layers} if layers else None)
         t0 = time.perf_counter()
         dry = dryrun.analyze_cell(fn, args, meta, comm)
-        trace_s = time.perf_counter() - t0
-        del fn, args
-        torch.cuda.synchronize()
+        q.put(((kind, arch), {
+            "cost": dry["cost"], "kernels": dry["kernels"],
+            "memory": dry["memory"], "roofline": dry["roofline"],
+            "trace_s": time.perf_counter() - t0, "done_at": time.time()}))
+
+
+class Tracer:
+    """``trace_cells`` in a spawned process, started before phase 9 so
+    that its host work runs while the card works; ``get`` waits for a
+    cell's result, ``close`` prints when each cell finished, in seconds
+    of the script since ``wall0`` (its start on the wall clock): the
+    host-timed windows before the last overlapped the tracing."""
+
+    def __init__(self, wall0: float):
+        import multiprocessing
+        mp = multiprocessing.get_context("spawn")
+        self.cells = dry_cells()
+        self.q = mp.Queue()
+        self.done = {}
+        self.t0 = time.perf_counter()
+        self.wall0 = wall0
+        self.proc = mp.Process(target=trace_cells, args=(self.cells, self.q),
+                               daemon=True)
+        self.proc.start()
+
+    def get(self, kind: str, arch: str, timeout: float = 600) -> dict:
+        while (kind, arch) not in self.done:
+            try:
+                key, res = self.q.get(timeout=10)
+                self.done[key] = res
+            except queue.Empty:
+                if self.proc.exitcode not in (None, 0):
+                    fail(f"the dry run's tracer exited with "
+                         f"{self.proc.exitcode}")
+                if time.perf_counter() - self.t0 > timeout:
+                    self.proc.kill()
+                    fail(f"the dry run's tracer took over {timeout} s")
+        return self.done[(kind, arch)]
+
+    def close(self, card: str) -> None:
+        self.proc.join(60)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        done = {f"{kind} {arch}": round(r["done_at"] - self.wall0, 1)
+                for (kind, arch), r in self.done.items()}
+        print(f"the dry run's tracer (one CPU process) finished its cells at"
+              f" {done} s of the script, the last at {max(done.values())} s "
+              f"[{card}]")
+
+
+def hold_dry(arch: str, kind: str, dry: dict, got: dict, peak: int,
+             measured_s: float, counts: dict, want: dict, card: str,
+             batch_n: int, seq: int) -> None:
+    """Phase 11's three checks of one cell: (a) the card run's operations,
+    bytes, aten ops and kernel calls (``analyze_step``'s ``got``) equal the
+    dry run's; (b) the dry run's peak estimate within 15% of the card's
+    ``peak`` over the step; (c) its roofline bound over the measured
+    ``measured_s`` at most 1.05; and the run's LM launches ``want``."""
+    if counts != want:
+        fail(f"{arch} {kind} under analyze_step launched {counts}, "
+             f"expected {want}")
+    cost = dry["cost"]
+    same = (got["flops"] == cost["flops_per_device"]
+            and got["bytes"] == cost["bytes_per_device"]
+            and got["ops"] == cost["ops"]
+            and got["kernels"] == dry["kernels"])
+    if not same:
+        fail(f"{arch} {kind}: the card run counted {got['flops']} "
+             f"operations, {got['bytes']} B, {got['ops']} ops, kernels "
+             f"{got['kernels']}; the dry run {cost}, {dry['kernels']}")
+    est = dry["memory"]["peak_estimate_bytes"]
+    if not abs(est - peak) <= PEAK_TOL * peak:
+        fail(f"{arch} {kind}: the dry run's peak estimate {est} B is not "
+             f"within {PEAK_TOL:.0%} of the card's {peak} B")
+    roof = dry["roofline"]
+    share = roof["bound_s"] / measured_s
+    if not share <= SHARE_MAX:
+        fail(f"{arch} {kind}: roofline bound {roof['bound_s']} s over "
+             f"the measured {measured_s} s = {share} > {SHARE_MAX}: an "
+             f"impossible reading")
+    print(f"{arch} dry run of the {kind} [{batch_n} x {seq}] held "
+          f"against the card [{card}]: traced on meta in "
+          f"{dry['trace_s']:.2f} s (host, in a spawned process while the "
+          f"card worked); (a) operations {got['flops']} and bytes "
+          f"{got['bytes']} ({got['ops']} ops, kernels "
+          f"{ {k: v['calls'] for k, v in got['kernels'].items()} }) "
+          f"equal on the card and on meta; (b) peak estimate "
+          f"{est / 2**30:.3f} GiB vs the card's max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB ({est / peak - 1:+.4f}); (c) roofline "
+          f"bound {roof['bound_s'] * 1e3:.3f} ms ({roof['dominant']}: "
+          f"compute {roof['t_compute_s'] * 1e3:.3f}, memory "
+          f"{roof['t_memory_s'] * 1e3:.3f} ms) over the measured "
+          f"{measured_s * 1e3:.3f} ms = {share:.4f}; launches {counts}")
+
+
+def check_dryrun(arch: str, dev, card: str, prefill_s: float,
+                 tracer: Tracer) -> dict:
+    """Phase 11 for phase 9's prefill (4 x 2048) of one model (phase 10c
+    holds the train steps, ``run_train``): traced by the dry run on
+    ``meta`` tensors (``tracer``, while phase 9 ran) and run once on the
+    card under ``launch.step_analysis.analyze_step`` (untimed: the
+    counting adds host work), with fresh seeded weights, held by
+    ``hold_dry``: the card's peak counted from ``reset_peak_memory_stats``,
+    less what was allocated before the weights were drawn; the bound over
+    phase 9's measured ``prefill_s``. Returns the launches."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.models import build_model
+    from repro_torch.train.serve_step import make_prefill_step
+    model = build_model(arch)
+    dry = tracer.get("prefill", arch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    toks = torch.randint(0, model.cfg.vocab, (LM_BATCH, LM_PROMPT),
+                         generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    out, got = analyze_step(make_prefill_step(model), params,
+                            {"tokens": toks})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    counts = lm_launches(launch_counts())
+    del out, params, toks
+    torch.cuda.empty_cache()
+    hold_dry(arch, "prefill", dry, got, peak, prefill_s, counts,
+             lm_expected(model), card, LM_BATCH, LM_PROMPT)
+    return counts
+
+
+JOB_DONE = "job done"               # a pool rank's last word on a job
+
+
+def pool_rank(rank: int, jobs, q) -> None:
+    """A rank of a ``RankPool``: takes (target, port, args) jobs off its
+    queue in turn, runs ``target(rank, port, *args, q)``, gives its card
+    memory back to the main process and says ``JOB_DONE``, until a
+    None."""
+    import gc
+    import torch
+    while True:
+        job = jobs.get()
+        if job is None:
+            return
+        target, port, args = job
+        target(rank, port, *args, q)
+        gc.collect()
         torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated(dev)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        params = model.init(gen)
-        toks = torch.randint(0, cfg.vocab, (batch_n, seq), generator=gen,
-                             device=dev)
-        if kind == "prefill":
-            step, card_args = make_prefill_step(model), (params,
-                                                         {"tokens": toks})
-        else:
-            step = make_train_step(model, AdamWConfig())
-            card_args = (params, init_state(params),
-                         {"tokens": toks, "targets": torch.roll(toks, -1, 1)})
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_launch_counts()
-        out, got = analyze_step(step, *card_args)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated(dev) - base
-        counts = lm_launches(launch_counts())
-        del out, card_args, params, toks
-        torch.cuda.empty_cache()
-        if counts != want:
-            fail(f"{arch} {kind} under analyze_step launched {counts}, "
-                 f"expected {want}")
-        for k in LM_KEYS:
-            total[k] += counts[k]
-        cost = dry["cost"]
-        same = (got["flops"] == cost["flops_per_device"]
-                and got["bytes"] == cost["bytes_per_device"]
-                and got["ops"] == cost["ops"]
-                and got["kernels"] == dry["kernels"])
-        if not same:
-            fail(f"{arch} {kind}: the card run counted {got['flops']} "
-                 f"operations, {got['bytes']} B, {got['ops']} ops, kernels "
-                 f"{got['kernels']}; the dry run {cost}, {dry['kernels']}")
-        est = dry["memory"]["peak_estimate_bytes"]
-        if not abs(est - peak) <= PEAK_TOL * peak:
-            fail(f"{arch} {kind}: the dry run's peak estimate {est} B is not "
-                 f"within {PEAK_TOL:.0%} of the card's {peak} B")
-        roof = dry["roofline"]
-        share = roof["bound_s"] / measured_s
-        if not share <= SHARE_MAX:
-            fail(f"{arch} {kind}: roofline bound {roof['bound_s']} s over "
-                 f"the measured {measured_s} s = {share} > {SHARE_MAX}: an "
-                 f"impossible reading")
-        print(f"{arch} dry run of the {kind} [{batch_n} x {seq}] held "
-              f"against the card [{card}]: traced on meta in {trace_s:.2f} "
-              f"s (host); (a) operations {got['flops']} and bytes "
-              f"{got['bytes']} ({got['ops']} ops, kernels "
-              f"{ {k: v['calls'] for k, v in got['kernels'].items()} }) "
-              f"equal on the card and on meta; (b) peak estimate "
-              f"{est / 2**30:.3f} GiB vs the card's max_memory_allocated "
-              f"{peak / 2**30:.3f} GiB ({est / peak - 1:+.4f}); (c) roofline "
-              f"bound {roof['bound_s'] * 1e3:.3f} ms ({roof['dominant']}: "
-              f"compute {roof['t_compute_s'] * 1e3:.3f}, memory "
-              f"{roof['t_memory_s'] * 1e3:.3f} ms) over the measured "
-              f"{measured_s * 1e3:.3f} ms = {share:.4f}; launches {counts}")
-    return total
+        q.put(JOB_DONE)
+
+
+class RankPool:
+    """``world`` processes spawned once on the one card (``pool_rank``),
+    which take the phases' jobs in turn: each ``run`` is one job of every
+    rank, a gloo group on a free localhost port of its own. The spawn,
+    the imports and a CUDA context cost each process ~8 s once, not once
+    per job. The processes are daemons: they end with this one."""
+
+    def __init__(self, world: int):
+        import multiprocessing
+        mp = multiprocessing.get_context("spawn")
+        self.world = world
+        self.q = mp.Queue()
+        self.jobs = [mp.Queue() for _ in range(world)]
+        self.procs = [mp.Process(target=pool_rank, args=(r, self.jobs[r],
+                                                         self.q), daemon=True)
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, target, args: tuple, items: int, timeout: float,
+            what: str, meanwhile=None) -> tuple:
+        """Every rank runs ``target(rank, port, *args, queue)``; returns
+        (the ``items`` reports they put on the queue, the seconds from
+        the job's start to the last rank's end of it, its memory given
+        back). ``meanwhile()``, where given, runs
+        here once the job has started. A rank that fails, or a job slower
+        than ``timeout``, fails the run, the processes stopped."""
+        import socket
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        t0 = time.perf_counter()
+        for jobs in self.jobs:
+            jobs.put((target, port, args))
+        if meanwhile is not None:
+            meanwhile()
+        got, done, broken = [], 0, None
+        while (len(got) < items or done < self.world) and broken is None:
+            try:
+                item = self.q.get(timeout=10)
+                if item == JOB_DONE:
+                    done += 1
+                else:
+                    got.append(item)
+            except queue.Empty:
+                if any(p.exitcode is not None for p in self.procs):
+                    broken = "a rank failed"
+                elif time.perf_counter() - t0 > timeout:
+                    broken = f"the ranks took over {timeout} s"
+        seconds = time.perf_counter() - t0
+        if broken:
+            codes = [p.exitcode for p in self.procs]
+            self.close(wait=0)
+            fail(f"{what} on {self.world} ranks: {broken} (exit codes "
+                 f"{codes})")
+        return got, seconds
+
+    def close(self, wait: float = 60) -> None:
+        """Ends the processes (``wait`` seconds each to finish their
+        job), killing any still alive."""
+        for jobs, p in zip(self.jobs, self.procs):
+            if p.is_alive():
+                jobs.put(None)
+        for p in self.procs:
+            p.join(wait)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode not in (0, -9) for p in self.procs) and wait:
+            fail(f"a rank of a pool of {self.world} exited with "
+                 f"{[p.exitcode for p in self.procs]}")
+
+
+POOLS = {}                         # TP_RANKS -> the shared RankPool
+# what a shared pool's job time holds: its ranks' spawn only in the first
+POOL_NOTE = ("imports and weights included; the two-rank pool's spawn in "
+             "its first job, phase 12's")
+SPAWN_NOTE = "spawn, imports and weights included"
 
 
 def spawn_ranks(target, world: int, args: tuple, items: int,
                 timeout: float, what: str, meanwhile=None) -> tuple:
-    """``target(rank, port, *args, queue)`` in ``world`` processes spawned
-    on the one card (their gloo group on a free localhost port); returns
-    (the ``items`` reports they put on the queue, the seconds from spawn
-    to the last). ``meanwhile()``, where given, runs here once the ranks
-    have started. A rank that fails, or ranks slower than ``timeout``,
-    fail the run, their processes stopped."""
-    import multiprocessing
-    import socket
-    with socket.socket() as sk:
-        sk.bind(("localhost", 0))
-        port = sk.getsockname()[1]
-    mp = multiprocessing.get_context("spawn")
-    q = mp.Queue()
-    t0 = time.perf_counter()
-    procs = [mp.Process(target=target, args=(r, port, *args, q))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    if meanwhile is not None:
-        meanwhile()
-    got, broken = [], None
-    while len(got) < items and broken is None:
-        try:
-            got.append(q.get(timeout=10))
-        except queue.Empty:
-            if any(p.exitcode not in (None, 0) for p in procs):
-                broken = "a rank failed"
-            elif time.perf_counter() - t0 > timeout:
-                broken = f"the ranks took over {timeout} s"
-    seconds = time.perf_counter() - t0
-    for p in procs:
-        p.join(60 if broken is None else 5)
-        if p.is_alive():
-            p.kill()
-            p.join()
-    if broken or any(p.exitcode != 0 for p in procs):
-        fail(f"{what} on {world} ranks: {broken or 'a rank failed'} (exit "
-             f"codes {[p.exitcode for p in procs]})")
-    return got, seconds
+    """``target(rank, port, *args, queue)`` in ``world`` processes on the
+    one card (``RankPool.run``): a world of ``TP_RANKS`` in the pool that
+    phases 12-16 share (spawned at its first job, ended by
+    ``close_pools``), any other in a pool of its own, ended after the
+    job."""
+    if world == TP_RANKS:
+        if world not in POOLS:
+            POOLS[world] = RankPool(world)
+        return POOLS[world].run(target, args, items, timeout, what,
+                                meanwhile)
+    pool = RankPool(world)
+    got = pool.run(target, args, items, timeout, what, meanwhile)
+    pool.close()
+    return got
+
+
+def close_pools() -> None:
+    while POOLS:
+        POOLS.popitem()[1].close()
 
 
 # ----------------------------------------------------------------- phase 12
@@ -3829,7 +4220,7 @@ def check_tp(dev, card: str, archs: tuple = TP_ARCHS,
     print(f"serving {', '.join(archs)}: {TP_RANKS} gloo ranks on the one "
           f"card ran "
           f"{len(archs)} models in {seconds:.1f} s "
-          f"(spawn, imports and weights included)")
+          f"({POOL_NOTE})")
     counts = {}
     for arch in archs:
         ref, r0 = refs[arch], got[(arch, 0)]
@@ -4335,8 +4726,7 @@ def check_tp_train(dev, card: str, archs: tuple = TPT_ARCHS,
     print(f"training {names}: {TP_RANKS} gloo "
           f"ranks on the one card trained "
           f"{len(archs)} models and {len(f32_cuts)} f32 cuts in "
-          f"{seconds:.1f} s (spawn, imports and weights "
-          f"included)")
+          f"{seconds:.1f} s ({POOL_NOTE})")
     counts = {}
     for arch, layers, *lay in archs:
         tag = layout_name(lay and lay[0])
@@ -4969,8 +5359,8 @@ def check_kv_seq(dev, card: str) -> dict:
               f"step's {len(dec_plan)} collectives the dry run's plans; "
               f"rank 0 launched {r0['bf16_launches']} (bf16), "
               f"{r0['f32_launches']} (f32); ranks ran in {seconds:.1f} s "
-              f"(spawn, imports and weights included; rank 0 prefill "
-              f"{runs[0]['prefill_s'] * 1e3:.1f} ms, decode "
+              f"({POOL_NOTE if world == TP_RANKS else SPAWN_NOTE}; rank 0 "
+              f"prefill {runs[0]['prefill_s'] * 1e3:.1f} ms, decode "
               f"{runs[0]['decode_s'] / TP_DECODE * 1e3:.2f} ms/step, gloo: "
               f"no tensor-parallel speedup)")
         for line in cache_bytes:
@@ -5456,7 +5846,7 @@ def build_model_layers(arch: str) -> int:
 
 
 def main() -> None:
-    t_start = time.perf_counter()
+    t_start, wall0 = time.perf_counter(), time.time()
     card = phase_card()
     import numpy as np
     import torch
@@ -5556,21 +5946,21 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)           # phase 8
     results += check_flash(dev, gen, card) + check_gla(dev, gen, card)
     stamp("8")
-    lm_counts, f32_counts, measured = {}, {}, {}               # phase 9
+    tracer = Tracer(wall0)        # phase 11's meta traces, meanwhile
+    lm_counts, f32_counts, prefill_s = {}, {}, {}              # phase 9
     for arch in LM_ARCHS:
         path = LM_PATHS[arch]
-        serve_counts, f32, prefill_s = run_lm(arch, dev, card)
+        serve_counts, f32, prefill_s[arch] = run_lm(arch, dev, card)
         lm_counts[path] = by_design(serve_counts)
         f32_counts[path + "_f32_prefill"] = by_design(f32)
-        measured[arch] = {"prefill_s": prefill_s}
     stamp("9")
     fn_times = check_function_grads(dev, gen, card)            # phase 10
     smoke_train_parity(dev, card)
-    train_counts = {}
-    for arch in TRAIN_ARCHS:
-        counts, measured[arch]["step_s"] = run_train(arch, dev, card,
-                                                     fn_times)
-        train_counts["train_" + arch.split("-")[0]] = by_design(counts)
+    train_counts = {}                                          # and 11
+    for arch in (*TRAIN_ARCHS, *TRAIN_CUTS):
+        train_counts[TRAIN_PATHS[arch]] = by_design(run_train(
+            arch, dev, card, fn_times, tracer.get("train", arch),
+            TRAIN_STEPS if arch in TRAIN_ARCHS else CUT_STEPS))
     lm_run = run_train_lm(card)
     train_counts["train_lm"] = {**lm_run, **by_design(lm_run)}
     check_manual_dp(dev, card)
@@ -5578,7 +5968,8 @@ def main() -> None:
     stamp("10")
     for arch in TRAIN_ARCHS:                                   # phase 11
         train_counts["dryrun_" + arch.split("-")[0]] = by_design(
-            check_dryrun(arch, dev, card, measured[arch]))
+            check_dryrun(arch, dev, card, prefill_s[arch], tracer))
+    tracer.close(card)
     print("the dry run's (arch x shape) matrix at one card runs from the "
           "CLI (python -m repro_torch.launch.dryrun --all), not here: its "
           "six train cells trace for longer than the 60 s of host time "
@@ -5624,17 +6015,23 @@ def main() -> None:
     print(f"phase 16 (second_matmul=\"col\" serving and training, "
           f"seq_parallel training) in {time.perf_counter() - t16:.1f} s "
           f"[{card}]")
+    close_pools()                 # the two-rank pool's last job was 16's
     t17 = time.perf_counter()                                  # phase 17
     tp_counts.update({path: by_design(c) for path, c in
                       check_fsdp_multi_pod(card).items()})
     print(f"phase 17 (fsdp over (data 2, model 2), the multi-pod mesh "
           f"(pod 2, data 2, model 1)) in {time.perf_counter() - t17:.1f} s "
           f"[{card}]")
-    for name, t in fn_times.items():
-        next(r for r in results if r["name"] == name).update(
-            train_forward_ms=t["fwd_ms"], recompute_backward_ms=t["bwd_ms"],
-            function_fwd_bwd_ms=t["fn_ms"],
-            plain_fwd_bwd_ms=t["plain_fwd_bwd_ms"])
+    for regime, t in fn_times.items():
+        r = next(r for r in results if r["name"] == t["kernel"])
+        times = {"train_forward_ms": t["fwd_ms"],
+                 "recompute_backward_ms": t["bwd_ms"],
+                 "function_fwd_bwd_ms": t["fn_ms"],
+                 "plain_fwd_bwd_ms": t["plain_fwd_bwd_ms"]}
+        if TRAIN_FN_MAIN[t["kernel"]] == regime:
+            r.update(times)
+        r.setdefault("train_regimes", {})[regime] = {
+            **times, "shapes": t["shapes"], "max_abs_err": t["max_abs_err"]}
 
     src = "src/repro_torch/kernels/segment_kpi/csrc/segment_kpi.cu"
     fused = "src/repro_torch/kernels/segment_kpi/csrc/transform_kpi.cu"
@@ -5701,6 +6098,13 @@ def main() -> None:
                     lm_counts[p][name] <= 0 for p in (
                         "lm_qwen2moe", "lm_qwen2vl", "lm_whisper")):
                 fail("flash_attention_tc missing on a serve path")
+            # the training cells each design must take
+            need = {"flash_attention_tc": ("train_qwen2vl",
+                                           "train_qwen2moe",
+                                           "train_whisper"),
+                    "gla_chunk_rwkv6": ("train_rwkv6",)}.get(name, ())
+            if any(train_counts[p][name] <= 0 for p in need):
+                fail(f"{name} missing on a training path: {train_counts}")
             # the bf16 two-rank paths each design must take
             need = {"flash_attention_tc": ("internlm2", "zamba2", "qwen2moe",
                                            "whisper"),
@@ -5725,7 +6129,8 @@ def main() -> None:
                             "shape", "scratch_bytes", "cluster_facts_ms",
                             "batch_ms", "dashboard", "dashboard_4_shards",
                             "train_forward_ms", "recompute_backward_ms",
-                            "function_fwd_bwd_ms", "plain_fwd_bwd_ms")
+                            "function_fwd_bwd_ms", "plain_fwd_bwd_ms",
+                            "train_regimes")
                            if key in r}})
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s, "
           f"the kernels' build included [{card}]")

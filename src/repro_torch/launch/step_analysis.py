@@ -41,7 +41,8 @@ from collections import defaultdict
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import _build
@@ -184,10 +185,14 @@ class StepCounter(TorchDispatchMode):
     # ----------------------------------------------------------- kernels
     @contextlib.contextmanager
     def inside_kernel(self):
-        """Ops dispatched inside are neither counted nor tracked."""
+        """Ops dispatched inside are neither counted nor tracked: they run
+        with the dispatch modes set aside, so that a plain version's
+        thousands of ops (a kernel backward's recompute) cost no Python
+        dispatch each."""
         self.depth += 1
         try:
-            yield
+            with _disable_current_modes():
+                yield
         finally:
             self.depth -= 1
 

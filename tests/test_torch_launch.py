@@ -280,6 +280,38 @@ def test_backward_reckons_the_plain_recompute(kernel):
         "argument_size_in_bytes"] + counter.peak - held
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_ops_inside_a_kernel_call_skip_the_counter(device, monkeypatch):
+    """A kernel call's own ops (the plain version the CPU runs, a
+    backward's recompute: rwkv6's gla loops over its chunks) run with the
+    dispatch modes set aside: none reaches the counter's dispatch, which
+    costs the card's counted step a Python call per op; the call counts
+    as the kernel's formula all the same."""
+    from repro_torch.launch.step_analysis import StepCounter
+    seen = []
+    dispatch = StepCounter.__torch_dispatch__
+
+    def spy(self, func, types, args=(), kwargs=None):
+        seen.append(self.depth)
+        return dispatch(self, func, types, args, kwargs)
+
+    monkeypatch.setattr(StepCounter, "__torch_dispatch__", spy)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 128, 2, 16), generator=gen).to(device)
+               .requires_grad_() for _ in range(3))
+    log_w = (-torch.rand((1, 128, 2, 16), generator=gen)).to(
+        device).requires_grad_()
+
+    def fwd_bwd(*xs):
+        out = gla_ops.gla_fn(*xs, inclusive=False)[0]
+        return torch.autograd.grad(out.sum(), xs)
+
+    _, got = analyze_step(fwd_bwd, q, k, v, log_w)
+    assert seen and not any(seen)
+    assert {name: r["calls"] for name, r in got["kernels"].items()} == {
+        "gla_chunk": 1, "gla_chunk_backward": 1}
+
+
 def _bound_ms(flops, n_bytes) -> float:
     return max(n_bytes / step_analysis.HBM_BW,
                flops / step_analysis.PEAK_FLOPS_BF16) * 1e3
